@@ -1,0 +1,88 @@
+"""Vanilla I²R-Net (``interformer_pureMulti``), eval path.
+
+Port of ``i2rnet_tpu/models/pure_multi.py``: HRNet-W48-S trunk, a 1x1
+reduce, the conv position embedding, one inter-human transformer encoder over
+all persons' tokens of an image, one deconv block applied twice (shared
+weights, faithful to the reference quirk), a 1x1 heatmap head, and padded
+persons' heatmaps zeroed. The state-dict names are the original PyTorch
+repo's, so ``convert_state_dict(model.state_dict(), "interformer_pureMulti")``
+gives the JAX variable tree.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from i2rnet_tpu_torch.models.encoder import TransformerEncoder, flatten_person_tokens
+from i2rnet_tpu_torch.models.hrnet import HRNetTrunk
+from i2rnet_tpu_torch.models.layers import Conv2d, DeconvBlock
+from i2rnet_tpu_torch.models.position import PositionEmbeddingImage
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class PureMultiInterFormer(HRNetTrunk):
+    """``forward(images [B,N,H,W,3], pos_masks [B,N,H,W,1], person_valid [B,N])
+    -> heatmaps [B, N, K, hh, hw]`` (float32), as the JAX model's ``"multi"``.
+
+    ``global_encoder.use_kernels`` routes the encoder through Kernels A and B
+    (True) or their plain versions; ``compute_dtype`` is the activation dtype
+    (``TPU.COMPUTE_DTYPE``)."""
+
+    def __init__(self, extra: Dict, num_joints: int = 17, d_model: int = 96,
+                 dim_feedforward: int = 192, n_head: int = 1, encoder_layers: int = 6,
+                 trans_size=(16, 12), multi_pos_mode: str = "conv",
+                 final_conv_kernel: int = 1, use_kernels: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(extra)
+        self.trans_size = tuple(trans_size)
+        self.d_model = d_model
+        self.compute_dtype = compute_dtype
+        self.reduce = Conv2d(self.trunk_channels[-1], d_model, 1, bias=False)
+        self.position_embedding = PositionEmbeddingImage(trans_size, d_model, multi_pos_mode)
+        self.global_encoder = TransformerEncoder(encoder_layers, d_model, n_head,
+                                                 dim_feedforward, use_kernels)
+        filters = extra["NUM_DECONV_FILTERS"][0]
+        self.deconv_layers = DeconvBlock(d_model, filters, extra["NUM_DECONV_KERNELS"][0],
+                                         bias=extra.get("DECONV_WITH_BIAS", False))
+        self.final_layer = Conv2d(filters, num_joints, final_conv_kernel, 1,
+                                  final_conv_kernel // 2)
+
+    def forward(self, images, pos_masks, person_valid):
+        b, n, h, w, _ = images.shape
+        th, tw = self.trans_size
+        dt = self.compute_dtype
+        x = images.reshape(b * n, h, w, 3).permute(0, 3, 1, 2).to(dt)
+        feat = self.reduce(self.forward_trunk(x)[-1])            # [B*N, C, th, tw]
+        tokens = feat.permute(0, 2, 3, 1).reshape(b, n * th * tw, self.d_model)
+        pos = flatten_person_tokens(self.position_embedding(pos_masks.to(dt)))
+        key_pad = (~person_valid).repeat_interleave(th * tw, dim=1)
+        out = self.global_encoder(tokens, key_pad, pos.to(tokens.dtype))
+        out = out.reshape(b * n, th, tw, self.d_model).permute(0, 3, 1, 2)
+        out = self.deconv_layers(self.deconv_layers(out))
+        heat = self.final_layer(out)
+        heat = heat.reshape(b, n, *heat.shape[1:])
+        heat = heat * person_valid[:, :, None, None, None].to(heat.dtype)
+        return heat.float()
+
+
+def build_pure_multi(cfg: Dict, use_kernels=None, device=None) -> PureMultiInterFormer:
+    """The model from a port config (``presets``), in eval mode. ``use_kernels``
+    defaults to ``cfg["DEVICE"]["USE_KERNELS"]`` (``TPU.USE_PALLAS_ATTENTION``)."""
+    m = cfg["MODEL"]
+    if m["NAME"] != "interformer_pureMulti":
+        raise ValueError(f"model {m['NAME']!r} is not ported")
+    if not m.get("USE_MULTI_POS", True):
+        raise NotImplementedError("MODEL.USE_MULTI_POS=false is not ported")
+    dev = cfg["DEVICE"]
+    model = PureMultiInterFormer(
+        extra=m["EXTRA"], num_joints=m["NUM_JOINTS"], d_model=m["DIM_MODEL"],
+        dim_feedforward=m["DIM_FEEDFORWARD"], n_head=m["N_HEAD"],
+        encoder_layers=m["ENCODER_LAYERS"], trans_size=tuple(m["TRANS_SIZE"]),
+        multi_pos_mode=m["MULTI_POS_EMBEDDING"],
+        final_conv_kernel=m["EXTRA"].get("FINAL_CONV_KERNEL", 1),
+        use_kernels=dev["USE_KERNELS"] if use_kernels is None else use_kernels,
+        compute_dtype=DTYPES[dev["COMPUTE_DTYPE"]])
+    return model.to(device).eval()

@@ -1,0 +1,92 @@
+"""Kernel A: masked multi-head self-attention (eval forward).
+
+Replaces ``i2rnet_tpu/ops/pallas/mhsa.py::masked_mhsa_pallas``; the kernel is
+``csrc/mhsa.cu``. :func:`masked_mhsa_torch` is its plain PyTorch version, with
+the same numerics: the scale multiplies ``q`` in f32 before ``q . K^T``, padded
+keys get the additive ``-1e30``, softmax and the ``. V`` accumulation run in
+f32, and the output is cast to the input dtype.
+
+Inputs are batch-first ``[B, S, C]`` with ``key_padding_mask`` ``[B, S]``
+(True = padded key, the torch convention). A row whose keys are all padded
+averages V uniformly over its S keys (finite), as ``masked_mhsa_xla`` does.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from i2rnet_tpu_torch.ops.cuda import build
+
+NEG_INF = -1e30
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def masked_mhsa_torch(q, k, v, num_heads: int,
+                      key_padding_mask: Optional[torch.Tensor] = None):
+    """Plain PyTorch masked MHSA on projected q/k/v ``[B, S, C]``."""
+    b, s, c = q.shape
+    h = num_heads
+    d = c // h
+    scale = 1.0 / (d ** 0.5)
+
+    def heads(x):
+        return x.reshape(b, s, h, d).transpose(1, 2).float()
+
+    logits = torch.matmul(heads(q) * scale, heads(k).transpose(-1, -2))
+    if key_padding_mask is not None:
+        logits = logits.masked_fill(key_padding_mask[:, None, None, :], NEG_INF)
+    weights = torch.softmax(logits, dim=-1)
+    out = torch.matmul(weights, heads(v)).to(q.dtype)
+    return out.transpose(1, 2).reshape(b, s, c)
+
+
+def masked_mhsa_fused(q, k, v, num_heads: int,
+                      key_padding_mask: Optional[torch.Tensor] = None):
+    """Masked MHSA through the CUDA kernel.
+
+    CPU tensors take :func:`masked_mhsa_torch`; CUDA tensors launch the kernel
+    or raise. Heads are folded into the batch (``[B*H, S, d]``, a view when
+    H = 1); the head dim may be anything up to 128 and S any length.
+    """
+    if q.device.type == "cpu":
+        return masked_mhsa_torch(q, k, v, num_heads, key_padding_mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"masked_mhsa_fused: unsupported device {q.device}")
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v must share a [B, S, C] shape, got "
+                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q/k/v must all be float32 or bfloat16, got "
+                         f"{q.dtype} {k.dtype} {v.dtype}")
+    b, s, c = q.shape
+    h = int(num_heads)
+    if h < 1 or c % h != 0 or c // h > 128:
+        raise ValueError(f"C={c} must split into {h} heads of dim <= 128")
+    if b * h > 65535:
+        raise ValueError(f"B*heads={b * h} exceeds the kernel grid")
+    d = c // h
+    mask = None
+    if key_padding_mask is not None:
+        if key_padding_mask.shape != (b, s) or key_padding_mask.dtype != torch.bool:
+            raise ValueError(f"key_padding_mask must be bool [B, S] = {(b, s)}, got "
+                             f"{key_padding_mask.dtype} {tuple(key_padding_mask.shape)}")
+        mask = key_padding_mask.to(q.device).contiguous()
+
+    def fold(x):
+        return x.reshape(b, s, h, d).transpose(1, 2).reshape(b * h, s, d).contiguous()
+
+    qf, kf, vf = fold(q), fold(k), fold(v)
+    out = torch.empty_like(qf)
+    err = build.library().i2r_mhsa_fwd(
+        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(),
+        b * h, s, d, h, 1.0 / (d ** 0.5), _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "masked_mhsa kernel")
+    masked_mhsa_fused.launches += 1
+    return out.reshape(b, h, s, d).transpose(1, 2).reshape(b, s, c)
+
+
+masked_mhsa_fused.launches = 0
