@@ -1,1 +1,1 @@
-"""Model modules of the port (eval path)."""
+"""Model modules of the port."""

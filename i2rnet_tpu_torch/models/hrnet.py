@@ -1,6 +1,8 @@
-"""HRNet multi-resolution trunk (stem + parallel stages), eval path.
+"""HRNet multi-resolution trunk (stem + parallel stages).
 
-Port of ``i2rnet_tpu/models/hrnet.py``. The modules carry the original
+Port of ``i2rnet_tpu/models/hrnet.py``. In training its BNs normalise over the
+valid persons of the batch (``MaskedBatchNorm.person_mask``, set by the owning
+model), as the JAX ``HRNetTrunk(x, flat_valid, train)``. The modules carry the original
 PyTorch repo's flat names (``conv1``, ``layer1``, ``transition1``,
 ``stage2.0.branches.0.0.conv1``, ``stage2.0.fuse_layers.1.0.0.0``...): the
 model that owns a trunk subclasses :class:`HRNetTrunk`, as the reference's

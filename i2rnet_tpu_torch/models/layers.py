@@ -1,10 +1,11 @@
-"""Core building blocks (PyTorch, NCHW), eval path.
+"""Core building blocks (PyTorch, NCHW).
 
 Port of ``i2rnet_tpu/models/layers.py``. Module and parameter names are the
 original PyTorch repo's (``conv1``/``bn1``/``downsample.0``...), so its state
 dicts load as they are and ``convert/torch_import.py`` maps them to the JAX
 tree. Parameters stay float32; convolutions and linears cast them to the
-activation dtype at use, as flax's ``dtype=`` does.
+activation dtype at use, as flax's ``dtype=`` does. :func:`conv_init_` is the
+JAX package's ``conv_init`` (N(0, 0.001), reference ``init_weights``).
 """
 
 from __future__ import annotations
@@ -30,19 +31,61 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), b)
 
 
+CONV_INIT_STD = 0.001
+
+
+def conv_init_(weight, generator=None):
+    """``conv_init`` of the JAX package: N(0, 0.001) in place."""
+    return nn.init.normal_(weight, 0.0, CONV_INIT_STD, generator=generator)
+
+
 class MaskedBatchNorm(nn.BatchNorm2d):
-    """BatchNorm over NCHW, eval mode: running statistics folded into one
-    multiply-add in the activation dtype (the [C]-sized math stays f32), as
-    ``layers.py:82-85`` does. The masked batch statistics of training are not
-    ported yet (ROADMAP queue 1, item 1)."""
+    """BatchNorm over NCHW whose training statistics count valid persons only
+    (``layers.py:34-85``).
+
+    Eval: the running statistics. Training: the batch mean and the biased
+    variance over the samples whose ``person_mask`` entry is True (a ``[N]``
+    bool tensor over the batch axis, broadcast over H and W; all samples when
+    it is None), the count ``max(sum(mask) * H * W, 1)``; the running
+    statistics move with torch's momentum 0.1, the variance unbiased by
+    ``cnt / max(cnt - 1, 1)``. Either way the statistics fold into one
+    multiply-add in the activation dtype with the [C]-sized math in f32, and
+    in training the gradients flow through the batch statistics.
+
+    The model that owns the BNs sets ``person_mask`` on each of them before a
+    training forward and clears it after, so the state-dict names stay the
+    reference's (``PureMultiInterFormer.forward``).
+    """
+
+    person_mask = None
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm training statistics are not ported (ROADMAP queue 1, item 1)")
-        k = torch.rsqrt(self.running_var + self.eps) * self.weight
-        b = self.bias - self.running_mean * k
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            mean, var = self._batch_stats(x)
+        k = torch.rsqrt(var + self.eps) * self.weight
+        b = self.bias - mean * k
         return x * k.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
+
+    def _batch_stats(self, x):
+        xf = x.float()
+        h, w = x.shape[2], x.shape[3]
+        if self.person_mask is None:
+            cnt = torch.tensor(float(x.shape[0] * h * w), device=x.device)
+            mean = xf.mean((0, 2, 3))
+            var = ((xf - mean[:, None, None]) ** 2).mean((0, 2, 3))
+        else:
+            m = self.person_mask.to(x.device, torch.float32)[:, None, None, None]
+            cnt = torch.clamp(m.sum() * (h * w), min=1.0)
+            mean = (xf * m).sum((0, 2, 3)) / cnt
+            var = (((xf - mean[:, None, None]) ** 2) * m).sum((0, 2, 3)) / cnt
+        with torch.no_grad():
+            unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
+            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+            self.num_batches_tracked.add_(1)
+        return mean, var
 
 
 class ConvBN(nn.Sequential):

@@ -1,9 +1,11 @@
-"""Position embedding from each person's box-mask image (eval path).
+"""Position embedding from each person's box-mask image.
 
 Port of ``i2rnet_tpu/models/position.py::PositionEmbeddingImage``, mode
 ``conv`` (the recipe's ``MODEL.MULTI_POS_EMBEDDING``): two stride-2 ConvBNs
 (1 -> 64 -> d_model) then 3x3/2 max pools down to the token grid (reference
-``position_embedding.py:24-32, 98-109``).
+``position_embedding.py:24-32, 98-109``). In training its BNs normalise over
+the valid persons (``MaskedBatchNorm.person_mask``, set by the owning model,
+the JAX ``person_valid`` argument).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Vanilla I²R-Net (``interformer_pureMulti``), eval path.
+"""Vanilla I²R-Net (``interformer_pureMulti``).
 
 Port of ``i2rnet_tpu/models/pure_multi.py``: HRNet-W48-S trunk, a 1x1
 reduce, the conv position embedding, one inter-human transformer encoder over
@@ -6,18 +6,21 @@ all persons' tokens of an image, one deconv block applied twice (shared
 weights, faithful to the reference quirk), a 1x1 heatmap head, and padded
 persons' heatmaps zeroed. The state-dict names are the original PyTorch
 repo's, so ``convert_state_dict(model.state_dict(), "interformer_pureMulti")``
-gives the JAX variable tree.
+gives the JAX variable tree. :func:`init_weights` is the JAX package's
+initialisation (convs N(0, 0.001), encoder Xavier-uniform, BN/LN 1 and 0).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+from torch import nn
 
-from i2rnet_tpu_torch.models.encoder import TransformerEncoder, flatten_person_tokens
+from i2rnet_tpu_torch.models.encoder import (SelfAttention, TransformerEncoder,
+                                             flatten_person_tokens)
 from i2rnet_tpu_torch.models.hrnet import HRNetTrunk
-from i2rnet_tpu_torch.models.layers import Conv2d, DeconvBlock
+from i2rnet_tpu_torch.models.layers import Conv2d, DeconvBlock, MaskedBatchNorm, conv_init_
 from i2rnet_tpu_torch.models.position import PositionEmbeddingImage
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -27,9 +30,15 @@ class PureMultiInterFormer(HRNetTrunk):
     """``forward(images [B,N,H,W,3], pos_masks [B,N,H,W,1], person_valid [B,N])
     -> heatmaps [B, N, K, hh, hw]`` (float32), as the JAX model's ``"multi"``.
 
-    ``global_encoder.use_kernels`` routes the encoder through Kernels A and B
-    (True) or their plain versions; ``compute_dtype`` is the activation dtype
-    (``TPU.COMPUTE_DTYPE``)."""
+    ``global_encoder.use_kernels`` routes the encoder through the kernels
+    (eval A and B, training C and D) or their plain versions;
+    ``compute_dtype`` is the activation dtype (``TPU.COMPUTE_DTYPE``).
+
+    ``train=True`` is the JAX ``train=True``: the modules run in training
+    mode for this call (restored after), every BatchNorm normalises over the
+    valid persons (``person_valid`` set as each BN's ``person_mask`` for the
+    call: trunk, position embedding and both applications of the deconv
+    block), and the encoder's dropout is keyed by ``dropout_seed``."""
 
     def __init__(self, extra: Dict, num_joints: int = 17, d_model: int = 96,
                  dim_feedforward: int = 192, n_head: int = 1, encoder_layers: int = 6,
@@ -50,7 +59,23 @@ class PureMultiInterFormer(HRNetTrunk):
         self.final_layer = Conv2d(filters, num_joints, final_conv_kernel, 1,
                                   final_conv_kernel // 2)
 
-    def forward(self, images, pos_masks, person_valid):
+    def forward(self, images, pos_masks, person_valid, train: bool = False,
+                dropout_seed: Optional[int] = None):
+        was_training = self.training
+        bns = [m for m in self.modules() if isinstance(m, MaskedBatchNorm)] if train else []
+        if train != was_training:
+            self.train(train)
+        for bn in bns:
+            bn.person_mask = person_valid.reshape(-1)
+        try:
+            return self._forward(images, pos_masks, person_valid, dropout_seed)
+        finally:
+            for bn in bns:
+                bn.person_mask = None
+            if train != was_training:
+                self.train(was_training)
+
+    def _forward(self, images, pos_masks, person_valid, dropout_seed):
         b, n, h, w, _ = images.shape
         th, tw = self.trans_size
         dt = self.compute_dtype
@@ -59,13 +84,41 @@ class PureMultiInterFormer(HRNetTrunk):
         tokens = feat.permute(0, 2, 3, 1).reshape(b, n * th * tw, self.d_model)
         pos = flatten_person_tokens(self.position_embedding(pos_masks.to(dt)))
         key_pad = (~person_valid).repeat_interleave(th * tw, dim=1)
-        out = self.global_encoder(tokens, key_pad, pos.to(tokens.dtype))
+        out = self.global_encoder(tokens, key_pad, pos.to(tokens.dtype), dropout_seed)
         out = out.reshape(b * n, th, tw, self.d_model).permute(0, 3, 1, 2)
         out = self.deconv_layers(self.deconv_layers(out))
         heat = self.final_layer(out)
         heat = heat.reshape(b, n, *heat.shape[1:])
         heat = heat * person_valid[:, :, None, None, None].to(heat.dtype)
         return heat.float()
+
+
+def init_weights(model: PureMultiInterFormer, generator: torch.Generator) -> PureMultiInterFormer:
+    """The JAX package's initialisation, in place, from ``generator``: every
+    convolution (and the deconv) N(0, 0.001) with zero bias (``conv_init``,
+    reference ``init_weights``); the encoder's q, k, v, out and FFN weights
+    Xavier-uniform each (q, k, v as three [C, C] matrices, as the JAX
+    ``q_proj``/``k_proj``/``v_proj``) with zero biases; BatchNorm and
+    LayerNorm scale 1, bias 0; running statistics 0 and 1."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                conv_init_(m.weight, generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.Linear):
+                nn.init.xavier_uniform_(m.weight, generator=generator)
+                m.bias.zero_()
+            elif isinstance(m, SelfAttention):
+                for part in m.in_proj_weight.chunk(3, dim=0):
+                    nn.init.xavier_uniform_(part, generator=generator)
+                m.in_proj_bias.zero_()
+            elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                if isinstance(m, nn.BatchNorm2d):
+                    m.reset_running_stats()
+    return model
 
 
 def build_pure_multi(cfg: Dict, use_kernels=None, device=None) -> PureMultiInterFormer:

@@ -1,8 +1,10 @@
-"""Masked multi-head self-attention: the plain version and the dispatch.
+"""Masked multi-head self-attention: the plain versions and the dispatch.
 
-Port of ``i2rnet_tpu/ops/attention.py`` (eval path). Inputs are batch-first
-``[B, S, C]``; ``key_padding_mask`` is ``[B, S]`` with True = padded. The
-plain version lives beside its kernel in :mod:`i2rnet_tpu_torch.ops.cuda.mhsa`.
+Port of ``i2rnet_tpu/ops/attention.py``. Inputs are batch-first ``[B, S,
+C]``; ``key_padding_mask`` is ``[B, S]`` with True = padded. The plain
+versions live beside their kernels: eval in :mod:`i2rnet_tpu_torch.ops.cuda.mhsa`
+(Kernel A), training with dropout on the attention weights in
+:mod:`i2rnet_tpu_torch.ops.cuda.mhsa_train` (Kernel C).
 """
 
 from __future__ import annotations
@@ -12,8 +14,9 @@ from typing import Optional
 import torch
 
 from i2rnet_tpu_torch.ops.cuda.mhsa import masked_mhsa_fused, masked_mhsa_torch
+from i2rnet_tpu_torch.ops.cuda.mhsa_train import masked_mhsa_train_fused, masked_mhsa_train_torch
 
-__all__ = ["masked_mhsa", "masked_mhsa_torch"]
+__all__ = ["masked_mhsa", "masked_mhsa_torch", "masked_mhsa_train", "masked_mhsa_train_torch"]
 
 
 def masked_mhsa(q, k, v, num_heads: int,
@@ -24,3 +27,15 @@ def masked_mhsa(q, k, v, num_heads: int,
     kernel path raises if the kernel cannot run on a CUDA tensor."""
     fn = masked_mhsa_fused if use_kernel else masked_mhsa_torch
     return fn(q, k, v, num_heads, key_padding_mask)
+
+
+def masked_mhsa_train(q, k, v, num_heads: int,
+                      key_padding_mask: Optional[torch.Tensor] = None,
+                      dropout_rate: float = 0.0, dropout_seed: Optional[int] = None,
+                      dropout_offset: int = 0, use_kernel: bool = False):
+    """Training attention (dropout on the attention weights, seed mode):
+    Kernel C when ``use_kernel`` (``TPU.FLASH_TRAIN_ATTENTION``), else its
+    plain version. No fallback."""
+    fn = masked_mhsa_train_fused if use_kernel else masked_mhsa_train_torch
+    return fn(q, k, v, num_heads, key_padding_mask, dropout_rate,
+              dropout_seed=dropout_seed, dropout_offset=dropout_offset)

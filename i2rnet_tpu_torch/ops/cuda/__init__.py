@@ -2,12 +2,17 @@
 
 Each wrapper keeps a plain integer ``launches`` that it raises by one where it
 launches its kernel, so a run can show that its path went through the kernel.
+The training kernels count their forward and backward launches apart.
 """
 
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn import encoder_ffn_fused
+from i2rnet_tpu_torch.ops.cuda.encoder_ffn_train import ffn_train_bwd, ffn_train_fwd
 from i2rnet_tpu_torch.ops.cuda.mhsa import masked_mhsa_fused
+from i2rnet_tpu_torch.ops.cuda.mhsa_train import mhsa_train_bwd, mhsa_train_fwd
 
-KERNELS = {"masked_mhsa": masked_mhsa_fused, "encoder_ffn": encoder_ffn_fused}
+KERNELS = {"masked_mhsa": masked_mhsa_fused, "encoder_ffn": encoder_ffn_fused,
+           "mhsa_train_fwd": mhsa_train_fwd, "mhsa_train_bwd": mhsa_train_bwd,
+           "encoder_ffn_train_fwd": ffn_train_fwd, "encoder_ffn_train_bwd": ffn_train_bwd}
 
 
 def reset_launches() -> None:

@@ -3,8 +3,8 @@
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface (no PyTorch headers, so a build takes
 seconds). The library lands in ``i2rnet_tpu_torch/_build/``, named by a hash
-of the sources and flags, so an edited source builds anew and an unchanged one
-is loaded as it is. Nothing is downloaded: the build reads only the sources in
+of the sources, the headers they share (``csrc/*.cuh``) and the flags, so an
+edited source builds anew and an unchanged one is loaded as it is. Nothing is downloaded: the build reads only the sources in
 this checkout and the CUDA toolkit (``$CUDA_HOME``, else ``/usr/local/cuda``,
 else ``nvcc`` on ``PATH``). A failed build raises.
 """
@@ -22,17 +22,27 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # C entry points and their argument types: pointers and the stream as void*
 SIGNATURES = {
     "i2r_mhsa_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     "i2r_encoder_ffn_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _F, _I, _I, _P),
+    "i2r_mhsa_train_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                           _P, _U, _U, _U, _F, _I, _P),
+    "i2r_mhsa_train_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _F, _I, _P, _U, _U, _U, _F, _I, _P),
+    "i2r_ffn_train_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
+                          _P, _P, _U, _U, _U, _F, _I, _P),
+    "i2r_ffn_train_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _U, _U, _U, _F,
+                          _I, _P),
 }
 
 
@@ -53,7 +63,7 @@ def sources() -> list:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libi2r_kernels_{h.hexdigest()[:16]}.so"
@@ -62,20 +72,34 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet; returns its path.
 
-    The compiler's output (``-Xptxas -v``: registers, shared memory, spills per
+    One ``nvcc -c`` per source, all started together, then one link. The
+    compiler's output (``-Xptxas -v``: registers, shared memory, spills per
     kernel) is kept beside the library as ``<name>.log``.
     """
     so = library_path()
     if so.exists():
         return so
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objs = BUILD_DIR / f"{so.stem}.{os.getpid()}.obj"
+    objs.mkdir(exist_ok=True)
+    procs = [(src, objs / f"{src.stem}.o") for src in sources()]
+    running = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+               for src, obj in procs]
+    outs = [p.communicate()[0] for p in running]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *(str(o) for _, o in procs)],
+                          capture_output=True, text=True)
+    log = "".join(f"== {src.name}\n{out}" for (src, _), out in zip(procs, outs))
+    so.with_suffix(".log").write_text(log + link.stdout + link.stderr)
+    shutil.rmtree(objs, ignore_errors=True)
+    failed = [(src.name, p.returncode, out) for (src, _), p, out in zip(procs, running, outs)
+              if p.returncode != 0]
+    if failed or link.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        detail = "".join(f"{n} ({rc}):\n{out[-3000:]}" for n, rc, out in failed)
+        raise RuntimeError(f"nvcc failed: {detail or link.stderr[-3000:]}")
     os.replace(tmp, so)
     return so
 

@@ -1,12 +1,13 @@
-"""Batched preprocessing on the device (serving path).
+"""Batched preprocessing on the device.
 
-Port of ``i2rnet_tpu/ops/preprocess.py::preprocess_inputs``: per-person affine
-crop of the shared raw image (bilinear, zero border), ImageNet
+Port of ``i2rnet_tpu/ops/preprocess.py``. ``preprocess_inputs``: per-person
+affine crop of the shared raw image (bilinear, zero border), ImageNet
 normalisation, and the analytic soft-edged box mask that feeds the position
 embedding. Two crop paths, as in the JAX package: the general bilinear gather,
 and the axis-aligned one (every serving affine: no rotation) written as two
-banded matmuls, one per axis. ``np_rotate_bound_resize_affine`` is the host
-helper for the mask affine, copied.
+banded matmuls, one per axis. ``device_preprocess`` adds the training targets.
+``np_rotate_bound_resize_affine`` is the host helper for the mask affine,
+copied.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from i2rnet_tpu_torch.ops.target import generate_targets
 from i2rnet_tpu_torch.ops.transforms import invert_affine
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -99,6 +101,35 @@ def preprocess_inputs(images, crop_affines, boxes, mask_affines,
     mean = torch.tensor(IMAGENET_MEAN, device=crops.device)
     std = torch.tensor(IMAGENET_STD, device=crops.device)
     return (crops - mean) / std, _pos_masks(boxes.float(), mask_affines.float(), w, h)
+
+
+def device_preprocess(raw, image_size: Tuple[int, int], heatmap_size: Tuple[int, int],
+                      sigma: float, joints_weight=None, axis_aligned: bool = False):
+    """Raw host batch -> model batch, on the device of ``raw``'s tensors
+    (``i2rnet_tpu/ops/preprocess.py:140-178``).
+
+    ``raw``: images [B, maxH, maxW, 3] uint8; crop_affines [B, N, 2, 3];
+    boxes [B, N, 4] x1y1x2y2; mask_affines [B, N, 2, 3]; joints_hm [B, N, K, 2]
+    in heatmap pixels; joints_vis [B, N, K]; person_valid [B, N] bool.
+    Returns images (normalised float32), pos_masks, target [B, N, K, h, w],
+    target_weight [B, N, K] (times ``joints_weight`` when given,
+    ``LOSS.USE_DIFFERENT_JOINTS_WEIGHT``), padded persons' targets and weights
+    zeroed, and person_valid.
+    """
+    crops, pos_masks = preprocess_inputs(raw["images"], raw["crop_affines"], raw["boxes"],
+                                         raw["mask_affines"], image_size,
+                                         axis_aligned=axis_aligned)
+    target, target_weight = generate_targets(raw["joints_hm"], raw["joints_vis"],
+                                             heatmap_size, sigma)
+    if joints_weight is not None:
+        target_weight = target_weight * torch.as_tensor(joints_weight, dtype=torch.float32,
+                                                        device=target_weight.device)
+    valid = raw["person_valid"]
+    vf = valid.to(torch.float32)
+    return {"images": crops, "pos_masks": pos_masks,
+            "target": target * vf[:, :, None, None, None],
+            "target_weight": target_weight * vf[:, :, None],
+            "person_valid": valid}
 
 
 def np_rotate_bound_resize_affine(src_w: int, src_h: int, angle_deg: float,

@@ -2,9 +2,11 @@
 
 Mirrors ``i2rnet_tpu/presets.py:70,190`` and
 ``experiments/coco/interformer_coco_w48_pure_en6.yaml``, keeping only the keys
-the ported serving path reads, under the JAX config's section and key names.
-The one renamed section is ``DEVICE``: ``COMPUTE_DTYPE`` and ``USE_KERNELS``
-(the JAX ``TPU.COMPUTE_DTYPE`` and ``TPU.USE_PALLAS_ATTENTION``).
+the ported serving and training paths read, under the JAX config's section
+and key names. The one renamed section is ``DEVICE``: ``COMPUTE_DTYPE`` and
+``USE_KERNELS`` (the JAX ``TPU.COMPUTE_DTYPE`` and ``TPU.USE_PALLAS_ATTENTION``;
+the recipe's ``FLASH_TRAIN_ATTENTION`` and ``FUSED_FFN_TRAIN`` are on, so the
+one flag also routes training through Kernels C and D).
 """
 
 from __future__ import annotations
@@ -15,6 +17,10 @@ from typing import Dict
 #: COCO left/right joint pairs (``i2rnet_tpu/data/coco.py:37``)
 COCO_FLIP_PAIRS = [[1, 2], [3, 4], [5, 6], [7, 8], [9, 10], [11, 12],
                    [13, 14], [15, 16]]
+
+#: COCO limb up-weighting (``i2rnet_tpu/data/coco.py:42``, reference coco.py:106-112)
+COCO_JOINTS_WEIGHT = (1., 1., 1., 1., 1., 1., 1., 1.2, 1.2,
+                      1.5, 1.5, 1., 1., 1.2, 1.2, 1.5, 1.5)
 
 HRNET_W48S_EXTRA = {
     "DECONV_WITH_BIAS": False,
@@ -30,8 +36,24 @@ HRNET_W48S_EXTRA = {
 
 _MODEL_KEYS = ("NAME", "NUM_JOINTS", "IMAGE_SIZE", "HEATMAP_SIZE", "TRANS_SIZE",
                "DIM_MODEL", "DIM_FEEDFORWARD", "N_HEAD", "ENCODER_LAYERS",
-               "USE_MULTI_POS", "MULTI_POS_EMBEDDING")
+               "USE_MULTI_POS", "MULTI_POS_EMBEDDING", "SIGMA", "LOSS_WEIGHTS")
 _TEST_KEYS = ("FLIP_TEST", "BLUR_KERNEL", "POST_PROCESS")
+_TRAIN_KEYS = ("BATCH_SIZE_PER_GPU", "BEGIN_EPOCH", "END_EPOCH", "LR", "LR_END", "OPTIMIZER",
+               "MOMENTUM", "WD", "NESTEROV")
+_LOSS_KEYS = ("USE_OHKM", "TOPK", "USE_TARGET_WEIGHT", "USE_DIFFERENT_JOINTS_WEIGHT")
+_TOP_KEYS = ("SEED", "AUTO_RESUME", "PRINT_FREQ")
+
+
+def _training(batch: int, end_epoch: int, lr: float, lr_end: float, wd: float) -> Dict:
+    """The training sections and top-level keys shared by the presets."""
+    return {
+        "TRAIN": {"BATCH_SIZE_PER_GPU": batch, "BEGIN_EPOCH": 0, "END_EPOCH": end_epoch,
+                  "LR": lr, "LR_END": lr_end, "OPTIMIZER": "adam", "MOMENTUM": 0.9, "WD": wd,
+                  "NESTEROV": False},
+        "LOSS": {"USE_OHKM": False, "TOPK": 8, "USE_TARGET_WEIGHT": True,
+                 "USE_DIFFERENT_JOINTS_WEIGHT": False},
+        "SEED": 0, "AUTO_RESUME": True, "PRINT_FREQ": 100,
+    }
 
 
 def w48_pure_en6() -> Dict:
@@ -49,11 +71,14 @@ def w48_pure_en6() -> Dict:
             "ENCODER_LAYERS": 6,
             "USE_MULTI_POS": True,
             "MULTI_POS_EMBEDDING": "conv",
+            "SIGMA": 2,
+            "LOSS_WEIGHTS": [0.5, 0.5],
             "EXTRA": copy.deepcopy(HRNET_W48S_EXTRA),
         },
-        "DATASET": {"DATASET": "coco"},
+        "DATASET": {"DATASET": "coco", "MAX_PATCH": 7},
         "TEST": {"FLIP_TEST": True, "BLUR_KERNEL": 11, "POST_PROCESS": True},
         "DEVICE": {"COMPUTE_DTYPE": "bfloat16", "USE_KERNELS": True},
+        **_training(batch=8, end_epoch=240, lr=5e-4, lr_end=5e-5, wd=0.1),
     }
 
 
@@ -72,6 +97,8 @@ def tiny_test_config(num_joints: int = 5) -> Dict:
             "ENCODER_LAYERS": 2,
             "USE_MULTI_POS": True,
             "MULTI_POS_EMBEDDING": "conv",
+            "SIGMA": 2,
+            "LOSS_WEIGHTS": [0.5, 0.5],
             "EXTRA": {
                 "DECONV_WITH_BIAS": False,
                 "NUM_DECONV_LAYERS": 1,
@@ -86,9 +113,10 @@ def tiny_test_config(num_joints: int = 5) -> Dict:
                            "FUSE_METHOD": "SUM"},
             },
         },
-        "DATASET": {"DATASET": "synthetic"},
+        "DATASET": {"DATASET": "synthetic", "MAX_PATCH": 7},
         "TEST": {"FLIP_TEST": True, "BLUR_KERNEL": 11, "POST_PROCESS": True},
         "DEVICE": {"COMPUTE_DTYPE": "float32", "USE_KERNELS": False},
+        **_training(batch=2, end_epoch=2, lr=1e-4, lr_end=1e-5, wd=1e-4),
     }
 
 
@@ -107,8 +135,11 @@ def from_config(cfg) -> Dict:
     return {
         "MODEL": {**{k: _plain(getattr(cfg.MODEL, k)) for k in _MODEL_KEYS},
                   "EXTRA": _plain(cfg.MODEL.EXTRA)},
-        "DATASET": {"DATASET": cfg.DATASET.DATASET},
+        "DATASET": {"DATASET": cfg.DATASET.DATASET, "MAX_PATCH": cfg.DATASET.MAX_PATCH},
         "TEST": {k: _plain(getattr(cfg.TEST, k)) for k in _TEST_KEYS},
         "DEVICE": {"COMPUTE_DTYPE": cfg.TPU.COMPUTE_DTYPE,
                    "USE_KERNELS": bool(cfg.TPU.USE_PALLAS_ATTENTION)},
+        "TRAIN": {k: _plain(getattr(cfg.TRAIN, k)) for k in _TRAIN_KEYS},
+        "LOSS": {k: _plain(getattr(cfg.LOSS, k)) for k in _LOSS_KEYS},
+        **{k: _plain(getattr(cfg, k)) for k in _TOP_KEYS},
     }

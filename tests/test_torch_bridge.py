@@ -123,7 +123,10 @@ def test_port_imports_without_jax_yaml_cv2():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
-    assert len(mods) >= 15
+    assert len(mods) >= 30
+    assert {"i2rnet_tpu_torch.core.trainer", "i2rnet_tpu_torch.ops.cuda.mhsa_train",
+            "i2rnet_tpu_torch.ops.cuda.encoder_ffn_train", "i2rnet_tpu_torch.utils.checkpoint",
+            "i2rnet_tpu_torch.data.synthetic"} <= set(mods)
 
 
 def test_from_config_matches_presets():
@@ -132,13 +135,15 @@ def test_from_config_matches_presets():
     for jax_cfg, port_cfg in ((tiny_test_config(5), presets.tiny_test_config(5)),
                               (w48_pure_en6(), presets.w48_pure_en6())):
         got = presets.from_config(jax_cfg)
-        for sec in ("MODEL", "TEST", "DEVICE"):
+        for sec in ("MODEL", "TEST", "DEVICE", "DATASET", "TRAIN", "LOSS"):
             for k, v in port_cfg[sec].items():
                 if k == "EXTRA":
                     for ek, ev in v.items():
                         assert got[sec][k][ek] == ev, (sec, k, ek)
                 else:
                     assert got[sec][k] == v, (sec, k)
+        for k in ("SEED", "AUTO_RESUME", "PRINT_FREQ"):
+            assert got[k] == port_cfg[k], k
 
 
 def test_host_helpers_match():

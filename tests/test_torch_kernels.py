@@ -97,7 +97,9 @@ def test_wrappers_take_plain_path_on_cpu(rng):
     args = (p["n1_scale"], p["n1_bias"], p["w1"].T, p["b1"], p["w2"].T, p["b2"],
             p["n2_scale"], p["n2_bias"])
     assert torch.equal(encoder_ffn_fused(q, *args), encoder_ffn_torch(q, *args))
-    assert launch_counts() == {"masked_mhsa": 0, "encoder_ffn": 0}
+    assert launch_counts() == {"masked_mhsa": 0, "encoder_ffn": 0, "mhsa_train_fwd": 0,
+                               "mhsa_train_bwd": 0, "encoder_ffn_train_fwd": 0,
+                               "encoder_ffn_train_bwd": 0}
 
 
 def test_wrappers_refuse_other_devices():

@@ -65,7 +65,9 @@ def test_kernel_flag_on_cpu_is_the_plain_path(models, rng):
         finally:
             model.global_encoder.use_kernels = False
     assert torch.equal(on, off)
-    assert launch_counts() == {"masked_mhsa": 0, "encoder_ffn": 0}
+    assert launch_counts() == {"masked_mhsa": 0, "encoder_ffn": 0, "mhsa_train_fwd": 0,
+                               "mhsa_train_bwd": 0, "encoder_ffn_train_fwd": 0,
+                               "encoder_ffn_train_bwd": 0}
 
 
 def test_bfloat16_compute_dtype(models, rng):
