@@ -40,9 +40,24 @@ Phases, one line each (any failure exits non-zero):
     idle share, launches, top kernels), and each training kernel beside its
     plain version at the main-path shapes, bf16, seed mode (a backward timed
     alone, on a graph recorded once), and the plain forwards again handed
-    their bits.
+    their bits;
+12-14. Kernels E (HRFormer window-attention half block), F (its MlpDWBN half
+    block) and G (MlpDWBN alone) against their plain versions, f32 and bf16,
+    at HRFormer-B's four branch maps of a 256x192 input (P = 32 persons),
+    384x288's branch 0 and an odd small map;
+15. the HRFormer-B I²R-Net (``hrt_interformer``) at full width, seeded and
+    calibrated as phase 5: one f32 forward at B=8, N=4 with ragged counts,
+    kernels on (E, F, A, B) vs off; the same on Kernel G's route
+    (FUSED_MLP_EVAL on, FUSED_BLOCK_EVAL off); requests served through
+    ``Predictor`` in bf16 (buckets 2/4/7), E and F launched in that run;
+16. timing, for information: its eval protocol at B=8, N=4, bf16, kernels on
+    and off, a ``torch.profiler`` breakdown of the kernels-on step, and E, F
+    and G beside their plain versions at each branch map.
 
-Then a JSON line of the kernels, and last ``{"ok": true, "device": {...}}``.
+Then a JSON line of the kernels (each with its main-path launches, its error
+against the plain version, its time, the plain version's, the bound the card
+sets for the same work and, where one PyTorch call computes the same
+function, that call's time), and last ``{"ok": true, "device": {...}}``.
 TF32 is off throughout, so the float32 parts (crops, decode) stay float32.
 Training writes its checkpoints under ``output/chip_smoke/`` of this checkout.
 """
@@ -65,16 +80,21 @@ from i2rnet_tpu_torch.core.train import compute_losses, make_train_step
 from i2rnet_tpu_torch.core.train_state import TrainState, make_optimizer
 from i2rnet_tpu_torch.core.trainer import raw_to_device, train_loop
 from i2rnet_tpu_torch.data.synthetic import synthetic_raw_batch
+from i2rnet_tpu_torch.models.interformer import build_model
 from i2rnet_tpu_torch.models.layers import MaskedBatchNorm
-from i2rnet_tpu_torch.models.pure_multi import build_pure_multi, init_weights
+from i2rnet_tpu_torch.models.pure_multi import init_weights
 from i2rnet_tpu_torch.ops.cuda import KERNELS, build, launch_counts, reset_launches
 from i2rnet_tpu_torch.ops.cuda.dropout import threshold
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn import _layer_norm, encoder_ffn_fused, encoder_ffn_torch
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn_train import (encoder_ffn_train_fused,
                                                          encoder_ffn_train_torch, ffn_bits)
+from i2rnet_tpu_torch.ops.cuda.hrformer_block import (mlp_block_fused, mlp_block_torch, pack_attn,
+                                                      window_attn_block_fused,
+                                                      window_attn_block_torch)
 from i2rnet_tpu_torch.ops.cuda.mhsa import masked_mhsa_fused, masked_mhsa_torch
 from i2rnet_tpu_torch.ops.cuda.mhsa_train import (attention_bits, masked_mhsa_train_fused,
                                                   masked_mhsa_train_torch)
+from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import mlp_dwbn_fused, mlp_dwbn_torch, pack_mlp
 from i2rnet_tpu_torch.ops.preprocess import device_preprocess
 from i2rnet_tpu_torch.serving import Predictor, make_eval_fn
 from i2rnet_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
@@ -95,8 +115,27 @@ SOURCES = {
                               "i2rnet_tpu/ops/pallas/encoder_ffn_train.py:249"),
     "encoder_ffn_train_bwd": ("i2rnet_tpu_torch/csrc/encoder_ffn_train.cu",
                               "i2rnet_tpu/ops/pallas/encoder_ffn_train.py:280"),
+    "window_attn_block": ("i2rnet_tpu_torch/csrc/window_attn_block.cu",
+                          "i2rnet_tpu/ops/pallas/hrformer_block.py:279"),
+    "mlp_block": ("i2rnet_tpu_torch/csrc/mlp_dwbn.cu", "i2rnet_tpu/ops/pallas/hrformer_block.py:361"),
+    "mlp_dwbn": ("i2rnet_tpu_torch/csrc/mlp_dwbn.cu", "i2rnet_tpu/ops/pallas/mlp_dwbn.py:99"),
 }
 EVAL_KERNELS = ("masked_mhsa", "encoder_ffn")
+HRT_KERNELS = ("window_attn_block", "mlp_block", "masked_mhsa", "encoder_ffn")
+#: persons per image of the HRT model's f32 checks: B=8 images x N=4 slots
+HRT_COUNTS = [4, 3, 1, 2, 4, 0, 2, 3]
+#: HRFormer-B's branch maps (P, H, W, C, heads): 256x192's four at P=32
+#: persons, then 384x288's branch 0 and an odd small map
+HRT_SHAPES = [(32, 64, 48, 78, 2), (32, 32, 24, 156, 4), (32, 16, 12, 312, 8),
+              (32, 8, 6, 624, 16), (8, 96, 72, 78, 2), (3, 7, 6, 24, 3)]
+#: Kernels E, F, G vs plain: max |err| / max |ref|. f32: summation order;
+#: bf16: the same rounding points, so a value differs only where two f32
+#: sums straddle a bf16 boundary (one bf16 step, 2^-8 of the value)
+HRT_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+#: the H100 SXM's published dense peaks (data sheet) for the bound: bytes/s
+#: of HBM3 and operations/s by input type (f32 outside the tensor cores)
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TRAIN_KERNELS = ("mhsa_train_fwd", "mhsa_train_bwd", "encoder_ffn_train_fwd",
                  "encoder_ffn_train_bwd")
 OUT_DIR = Path(__file__).resolve().parent / "output" / "chip_smoke"
@@ -111,6 +150,30 @@ TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-4, 1e-3
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, n_ops, dtype):
+    """(ms, what bounds it): the least time the card takes to move
+    ``n_bytes`` and do ``n_ops`` operations on inputs of ``dtype``."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timing(plain_ms, ms, bound_, library_ms=None):
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_[0], "bound_by": bound_[1],
+            "library_ms": library_ms}
+
+
+def attention_ops(mask, c, matmuls):
+    """Multiply-add operations of ``matmuls`` [S, kv] x [kv, C]-sized products
+    per image, over the keys each image's mask leaves (at least one)."""
+    b, s = mask.shape
+    kv = (~mask).sum(1).clamp_min(1).double()
+    return float(2 * matmuls * s * c * kv.sum())
 
 
 def card_line() -> str:
@@ -163,7 +226,7 @@ def ragged_mask(b, s, per_person, g):
 
 def phase_mhsa(g):
     main_err = None
-    for b, s, c, h in ((8, 1344, 96, 1), (2, 130, 24, 8)):
+    for b, s, c, h in ((8, 1344, 96, 1), (8, 768, 78, 1), (2, 130, 24, 8)):
         mask = ragged_mask(b, s, 192, g)
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = (randn(b, s, c, g=g, dtype=dt) for _ in range(3))
@@ -187,7 +250,7 @@ def ffn_params(c, f, g):
 
 def phase_ffn(g):
     main_err = None
-    for rows, c, f in ((8 * 1344, 96, 192), (1003, 16, 32)):
+    for rows, c, f in ((8 * 1344, 96, 192), (8 * 768, 78, 192), (1003, 16, 32)):
         p = ffn_params(c, f, g)
         for dt in (torch.float32, torch.bfloat16):
             x = (2 * randn(rows, c, g=g) + 0.5).to(dt)
@@ -331,7 +394,7 @@ def random_model(cfg, g):
     """The recipe's model at full width with seeded random weights; each
     BatchNorm's running statistics set from its input on a calibration batch,
     so every layer's output is O(1)."""
-    model = build_pure_multi(cfg, use_kernels=False, device=DEV)
+    model = build_model(cfg, use_kernels=False, device=DEV)
     model.compute_dtype = torch.float32
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -395,11 +458,16 @@ def requests(rng, n_images=12):
     return images, boxes
 
 
-def phase_serve(model, cfg):
+def w48_kernels(model):
+    """Kernels A and B on or off in the W48 model."""
+    return lambda on: setattr(model.global_encoder, "use_kernels", on)
+
+
+def phase_serve(model, cfg, set_kernels, kernels=EVAL_KERNELS):
     rng = np.random.RandomState(SEED)
     images, boxes = requests(rng)
     model.compute_dtype = torch.bfloat16
-    model.global_encoder.use_kernels = True
+    set_kernels(True)
     pred = Predictor(model, cfg, flip_pairs(cfg), batch_images=8, n_buckets=(2, 4, 7),
                      raw_hw=(480, 640))
     pred.predict(images[:2], boxes[:2])  # warm-up, outside the counted run
@@ -409,13 +477,13 @@ def phase_serve(model, cfg):
     out = pred.predict(images, boxes)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {k: launch_counts()[k] for k in EVAL_KERNELS}
+    counts = {k: launch_counts()[k] for k in kernels}
     for i, (kp, bxs) in enumerate(zip(out, boxes)):
         if kp.shape != (len(bxs), cfg["MODEL"]["NUM_JOINTS"], 3) or not np.isfinite(kp).all():
             raise AssertionError(f"image {i}: result {kp.shape}, finite {np.isfinite(kp).all()}")
     if min(counts.values()) < 1:
-        raise AssertionError(f"the served path launched no kernel: {counts}")
-    model.global_encoder.use_kernels = False
+        raise AssertionError(f"the served path launched a kernel no time: {counts}")
+    set_kernels(False)
     plain = pred.predict(images, boxes)
     conf = np.concatenate([k[..., 2] for k in out])
     conf_plain = np.concatenate([k[..., 2] for k in plain])
@@ -460,7 +528,7 @@ def train_cfg(dtype: str, use_kernels: bool):
 
 def seeded_model(cfg):
     """The model of ``cfg`` initialised as the JAX package does, on the card."""
-    model = build_pure_multi(cfg)
+    model = build_model(cfg, device="cpu")  # initialised from a CPU generator, then moved
     init_weights(model, gen(SEED))
     return model.to(DEV)
 
@@ -645,9 +713,34 @@ def phase_train_kernel_timing(g, card):
     times["encoder_ffn_train_bwd"] = alternate(
         backward_only(tail(encoder_ffn_train_torch), (x, *p), cot2),
         backward_only(tail(encoder_ffn_train_fused), (x, *p), cot2), 20)
-    for name, (plain_ms, ms) in times.items():
-        log(f"  {name} B={b} S={s} C={c} bf16 seed mode: kernel {ms * 1e3:.1f} us, plain "
-            f"{plain_ms * 1e3:.1f} us [{card}]")
+    # the one PyTorch call for the same attention: SDPA with the key mask and
+    # dropout 0.1 on the weights (it draws its own bits), forward and backward
+    def sdpa(q_, k_, v_):
+        heads = [t.view(b, s, 1, c).transpose(1, 2) for t in (q_, k_, v_)]
+        return torch.nn.functional.scaled_dot_product_attention(
+            *heads, attn_mask=~mask[:, None, None, :], dropout_p=RATE)
+    with torch.no_grad():
+        lib_fwd = time_cuda(lambda: sdpa(q, k, v), 10)
+    lib_bwd = time_cuda(backward_only(sdpa, (q, k, v), cot.view(b, s, 1, c).transpose(1, 2)), 10)
+    bf = torch.bfloat16
+    lse = b * s * 4
+    io = nbytes(q, k, v, mask)
+    times["mhsa_train_fwd"] = timing(*times["mhsa_train_fwd"], bound(
+        io + nbytes(q) + b * s * c * 4 + 2 * lse, attention_ops(mask, c, 2), bf), lib_fwd)
+    times["mhsa_train_bwd"] = timing(*times["mhsa_train_bwd"], bound(
+        io + nbytes(cot) + b * s * c * 4 + 2 * lse + 3 * nbytes(q), attention_ops(mask, c, 5), bf),
+        lib_bwd)
+    wts = 2 * c * f * 2 + (4 * c + f) * 4
+    times["encoder_ffn_train_fwd"] = timing(*times["encoder_ffn_train_fwd"], bound(
+        2 * nbytes(x) + wts, 4.0 * b * s * c * f, bf))
+    times["encoder_ffn_train_bwd"] = timing(*times["encoder_ffn_train_bwd"], bound(
+        3 * nbytes(x) + 2 * wts, 12.0 * b * s * c * f, bf))
+    for name in TRAIN_KERNELS:
+        t = times[name]
+        lib = "" if t["library_ms"] is None else f", SDPA {t['library_ms'] * 1e3:.1f} us"
+        log(f"  {name} B={b} S={s} C={c} bf16 seed mode: kernel {t['ms'] * 1e3:.1f} us, plain "
+            f"{t['plain_ms'] * 1e3:.1f} us{lib}, bound {t['bound_ms'] * 1e3:.2f} us "
+            f"({t['bound_by']}) [{card}]")
     # the plain forwards again with their bits drawn beforehand: their own
     # arithmetic, without the Philox rounds in int64 tensor ops
     bits_a = attention_bits(5, 0, b, s, DEV)
@@ -662,38 +755,210 @@ def phase_train_kernel_timing(g, card):
     return times
 
 
-def phase_timing(model, cfg, g, card):
+def eval_steps(model, cfg, set_kernels, b, n, g):
+    """The eval protocol (2 forwards + DARK decode) at (B, N) in bf16, as a
+    call that takes ``on`` and returns the step with the kernels on or off."""
     model.compute_dtype = torch.bfloat16
-    b, n = 16, 7
     images, pos, valid = person_inputs(cfg, b, n, [n] * b, g)
-    centers = torch.tensor([[128.0, 96.0]], device=DEV).repeat(b * n, 1)
+    w, h = cfg["MODEL"]["IMAGE_SIZE"]
+    centers = torch.tensor([[w / 2, h / 2]], device=DEV).repeat(b * n, 1)
     scales = torch.tensor([[1.2, 1.6]], device=DEV).repeat(b * n, 1)
     evaluate = make_eval_fn(cfg, model, flip_pairs(cfg))
 
     def step(on):
         def run():
-            model.global_encoder.use_kernels = on
+            set_kernels(on)
             evaluate(images, pos, valid, centers, scales)
         return run
 
-    t_off, t_on = alternate(step(False), step(True), 5)
+    return step
+
+
+def eval_timing(step, b, n, iters, card):
+    t_off, t_on = alternate(step(False), step(True), iters)
     log(f"  eval protocol B={b} N={n} bf16 (2 forwards + DARK decode): kernels on "
         f"{t_on:.2f} ms = {b * n / t_on * 1e3:.1f} persons/s; kernels off {t_off:.2f} ms = "
         f"{b * n / t_off * 1e3:.1f} persons/s [{card}]")
 
+
+def phase_timing(model, cfg, g, card):
+    b, n = 16, 7
+    eval_timing(eval_steps(model, cfg, w48_kernels(model), b, n, g), b, n, 3, card)
     times = {}
-    s, c = n * 192, 96
-    q, k, v = (randn(b, s, c, g=g, dtype=torch.bfloat16) for _ in range(3))
+    s, c, f = n * 192, 96, 192
+    bf = torch.bfloat16
+    q, k, v = (randn(b, s, c, g=g, dtype=bf) for _ in range(3))
     mask = ragged_mask(b, s, 192, g)
-    times["masked_mhsa"] = alternate(lambda: masked_mhsa_torch(q, k, v, 1, mask),
-                                     lambda: masked_mhsa_fused(q, k, v, 1, mask), 20)
-    x = randn(b * s, c, g=g, dtype=torch.bfloat16)
-    p = ffn_params(c, 192, g)
-    times["encoder_ffn"] = alternate(lambda: encoder_ffn_torch(x, *p),
-                                     lambda: encoder_ffn_fused(x, *p), 20)
-    for name, (plain_ms, ms) in times.items():
-        log(f"  {name} B={b} S={s} C={c} bf16: kernel {ms * 1e3:.1f} us, plain "
-            f"{plain_ms * 1e3:.1f} us [{card}]")
+    heads = [t.view(b, s, 1, c).transpose(1, 2) for t in (q, k, v)]
+    with torch.no_grad():
+        lib = time_cuda(lambda: torch.nn.functional.scaled_dot_product_attention(
+            *heads, attn_mask=~mask[:, None, None, :]), 20)
+    times["masked_mhsa"] = timing(*alternate(lambda: masked_mhsa_torch(q, k, v, 1, mask),
+                                             lambda: masked_mhsa_fused(q, k, v, 1, mask), 20),
+                                  bound(4 * nbytes(q) + nbytes(mask), attention_ops(mask, c, 2), bf),
+                                  lib)
+    x = randn(b * s, c, g=g, dtype=bf)
+    p = ffn_params(c, f, g)
+    times["encoder_ffn"] = timing(*alternate(lambda: encoder_ffn_torch(x, *p),
+                                             lambda: encoder_ffn_fused(x, *p), 20),
+                                  bound(2 * nbytes(x) + 2 * c * f * 2 + (5 * c + f) * 4,
+                                        4.0 * b * s * c * f, bf))
+    for name, t in times.items():
+        lib = "" if t["library_ms"] is None else f", SDPA {t['library_ms'] * 1e3:.1f} us"
+        log(f"  {name} B={b} S={s} C={c} bf16: kernel {t['ms'] * 1e3:.1f} us, plain "
+            f"{t['plain_ms'] * 1e3:.1f} us{lib}, bound {t['bound_ms'] * 1e3:.2f} us "
+            f"({t['bound_by']}) [{card}]")
+    return times
+
+
+def hrt_kernel_args(c, heads, g):
+    """Random weights of one HRFormer block at width C: Kernel E's (LN1 and
+    the four projections, torch layouts) and the folded MlpDWBN's (LN2, w1
+    [4C, C], b1, dw [4C, 3, 3], bdw, w2 [C, 4C], b2)."""
+    d = 4 * c
+    ln = [1 + 0.2 * randn(c, g=g), 0.1 * randn(c, g=g)]
+    attn = []
+    for _ in range(4):
+        attn += [randn(c, c, g=g) / math.sqrt(c), 0.1 * randn(c, g=g)]
+    mlp = [randn(d, c, g=g) / math.sqrt(c), 0.1 * randn(d, g=g), randn(d, 3, 3, g=g) / 3,
+           0.1 * randn(d, g=g), randn(c, d, g=g) / math.sqrt(d), 0.1 * randn(c, g=g)]
+    return ln, attn, mlp
+
+
+def hrt_kernel_calls(shape, g):
+    """{name: (kernel, plain, args after x)} of Kernels E, F, G at one map."""
+    _, _, _, c, heads = shape
+    ln, attn, mlp = hrt_kernel_args(c, heads, g)
+    return {"window_attn_block": (lambda x, *a, **kw: window_attn_block_fused(x, *a, heads=heads,
+                                                                              **kw),
+                                  lambda x, *a: window_attn_block_torch(x, *a, heads),
+                                  (*ln, *attn)),
+            "mlp_block": (mlp_block_fused, mlp_block_torch, (*ln, *mlp)),
+            "mlp_dwbn": (mlp_dwbn_fused, mlp_dwbn_torch, tuple(mlp))}
+
+
+#: the activation dtype each of E, F, G takes on the model's path (G gets
+#: LN2's f32 output)
+PATH_DTYPE = {"window_attn_block": torch.bfloat16, "mlp_block": torch.bfloat16,
+              "mlp_dwbn": torch.float32}
+
+
+def phase_hrt_kernels(g):
+    """Kernels E, F and G vs their plain versions, f32 and bf16, at each map."""
+    errs = {}
+    for shape in HRT_SHAPES:
+        calls = hrt_kernel_calls(shape, g)
+        for dt in (torch.float32, torch.bfloat16):
+            x = (2 * randn(*shape[:4], g=g)).to(dt)
+            line = []
+            for name, (kernel, plain, args) in calls.items():
+                got = kernel(x, *args)
+                torch.cuda.synchronize()
+                ref = plain(x, *args).float()
+                if not torch.isfinite(got).all() or got.shape != x.shape or got.dtype != dt:
+                    raise AssertionError(f"{name} {shape} {dt}: {got.dtype} {tuple(got.shape)}")
+                err = (got.float() - ref).abs().max().item()
+                rel = err / ref.abs().max().item()
+                if rel > HRT_TOL[dt]:
+                    raise AssertionError(f"{name} {shape} {dt}: max|err|/max|ref| {rel:.3g} "
+                                         f"(bound {HRT_TOL[dt]:g})")
+                if shape == HRT_SHAPES[0] and dt == PATH_DTYPE[name]:
+                    errs[name] = err
+                line.append(f"{name} {err:.3g} ({rel:.2g})")
+            log(f"  (P, H, W, C, heads) = {shape} {str(dt)[6:]}: max|err| (of max|ref|) "
+                + ", ".join(line) + f"; bound {HRT_TOL[dt]:g} of max|ref|")
+    return errs
+
+
+def hrt_kernels(model):
+    """Kernel routes of the HRT model: on = E, F, A, B; off = modules."""
+    return lambda on: model.set_kernels(on, True, False)
+
+
+def phase_hrt_model(cfg, g):
+    """The full-width HRFormer-B I²R-Net in f32: kernels on vs off on both
+    kernel routes (E + F, and G), heatmaps multi and single; then returns
+    the G route's launches, counted from zero over its forward."""
+    model = random_model(cfg, g)
+    images, pos, valid = person_inputs(cfg, 8, 4, HRT_COUNTS, g)
+    with torch.no_grad():
+        model.set_kernels(False)
+        off = model(images, pos, valid)
+    counts = {}
+    for label, route in (("E + F", (True, True, False)), ("G", (True, False, True))):
+        reset_launches()
+        with torch.no_grad():
+            model.set_kernels(*route)
+            on = model(images, pos, valid)
+            torch.cuda.synchronize()
+        counts[label] = {k: v for k, v in launch_counts().items() if v}
+        rels = []
+        for key in ("multi", "single"):
+            if not torch.isfinite(on[key]).all() or on[key][~valid].abs().max() != 0:
+                raise AssertionError(f"{label}: {key} heatmaps non-finite or padded not zero")
+            scale = off[key].abs().max().item()
+            rels.append((on[key] - off[key]).abs().max().item() / scale)
+            if rels[-1] > HEAT_REL_BOUND or scale < 1e-3:
+                raise AssertionError(f"{label} {key}: rel {rels[-1]:.3g} (bound "
+                                     f"{HEAT_REL_BOUND}), max|heat| {scale:.3g}")
+        log(f"  route {label}: heatmaps {tuple(on['multi'].shape)}, max|dheat|/max|heat| multi "
+            f"{rels[0]:.3g}, single {rels[1]:.3g} (bound {HEAT_REL_BOUND:g}); launches "
+            f"{counts[label]}")
+    need = {"E + F": ("window_attn_block", "mlp_block", "masked_mhsa", "encoder_ffn"),
+            "G": ("mlp_dwbn", "masked_mhsa", "encoder_ffn")}
+    for label, names in need.items():
+        if any(counts[label].get(k, 0) < 1 for k in names):
+            raise AssertionError(f"route {label} launched a kernel no time: {counts[label]}")
+    if counts["G"].get("window_attn_block") or counts["E + F"].get("mlp_dwbn"):
+        raise AssertionError(f"the routes mixed their kernels: {counts}")
+    return model, {"mlp_dwbn": counts["G"]["mlp_dwbn"]}
+
+
+def hrt_bound(name, shape, dtype):
+    """Bound of Kernel E, F or G at one map: the map read and written once
+    plus the weights as the kernel takes them; the products' multiply-adds
+    (E over the 7-padded windows, q/k/v/out projections and attention; F and
+    G the two 1x1 convolutions and the depthwise 3x3)."""
+    p, h, w, c, heads = shape
+    el = torch.empty((), dtype=dtype).element_size()
+    hw = h * w
+    if name == "window_attn_block":
+        tp = (h + (-h) % 7) * (w + (-w) % 7)
+        ops = p * (8.0 * tp * c * c + 4.0 * 49 * tp * c)
+        weights = 4 * c * c * el + (6 * c) * 4
+    else:
+        d = 4 * c
+        ops = p * (4.0 * hw * c * d + 18.0 * hw * d)
+        weights = 2 * c * d * (el if name == "mlp_block" else 4) + (11 * d + 3 * c) * 4
+    return bound(2 * p * hw * c * el + weights, ops, dtype)
+
+
+def phase_hrt_kernel_timing(g, card):
+    """E, F and G beside their plain versions at 256x192's branch maps, each
+    in its path's dtype (E, F bf16; G f32), with the kernels' weights packed
+    once as the model keeps them."""
+    times = {}
+    for shape in HRT_SHAPES[:4]:
+        calls = hrt_kernel_calls(shape, g)
+        line = []
+        for name, (kernel, plain, args) in calls.items():
+            dt = PATH_DTYPE[name]
+            x = randn(*shape[:4], g=g, dtype=dt)
+            if name == "window_attn_block":
+                packed = pack_attn(*args[2:], shape[4], dt, x.device)
+            else:
+                packed = pack_mlp(*args[-6:], dt if name == "mlp_block" else torch.float32,
+                                  x.device)
+            with torch.no_grad():
+                t = timing(*alternate(lambda: plain(x, *args),
+                                      lambda: kernel(x, *args, packed=packed), 10),
+                           hrt_bound(name, shape, dt))
+            if shape == HRT_SHAPES[0]:
+                times[name] = t
+            line.append(f"{name} {str(dt)[6:]} kernel {t['ms'] * 1e3:.1f} us, plain "
+                        f"{t['plain_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.2f} us "
+                        f"({t['bound_by']})")
+        log(f"  {shape}: " + "; ".join(line) + f" [{card}]")
     return times
 
 
@@ -724,7 +989,7 @@ def main() -> int:
     log("phase 5 W48-pure-en6 full width, f32, B=8 N=7, kernels on vs off:")
     phase_model(model, cfg, g)
     log("phase 6 serving through Predictor (bf16, batch 8, buckets 2/4/7):")
-    counts = phase_serve(model, cfg)
+    counts = phase_serve(model, cfg, w48_kernels(model))
     log(f"phase 7 timing [{card}]:")
     times = phase_timing(model, cfg, g, card)
     del model
@@ -741,13 +1006,34 @@ def main() -> int:
     log(f"phase 11 training timing [{card}]:")
     times.update(phase_train_timing(raw, g, card))
 
+    torch.cuda.empty_cache()
+
+    log("phases 12-14 window_attn_block (E), mlp_block (F), mlp_dwbn (G) kernels vs plain:")
+    errs = phase_hrt_kernels(g)
+    cfg = presets.hrt_interformer()
+    log("phase 15 HRFormer-B I²R-Net full width, f32, B=8 N=4, kernels on vs off:")
+    model, g_counts = phase_hrt_model(cfg, g)
+    log("  serving through Predictor (bf16, batch 8, buckets 2/4/7):")
+    hrt_counts = phase_serve(model, cfg, hrt_kernels(model), HRT_KERNELS)
+    log(f"phase 16 HRT timing [{card}]:")
+    step = eval_steps(model, cfg, hrt_kernels(model), 8, 4, g)
+    eval_timing(step, 8, 4, 3, card)
+    wall, busy, launches, top = profile_steps(step(True), 2)
+    log(f"  profile, kernels on: wall {wall:.2f} ms/step under the profiler, device busy "
+        f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
+        f"launches/step; top kernels (ms/step, launches/step):")
+    for name, t, c in top:
+        log(f"    {t:8.3f} {c:6.0f}  {name[:110]}")
+    times.update(phase_hrt_kernel_timing(g, card))
+
     counts.update(train_counts)
-    errs = {"masked_mhsa": mhsa_err, "encoder_ffn": ffn_err,
-            "mhsa_train_fwd": c_err["fwd"], "mhsa_train_bwd": c_err["bwd"],
-            "encoder_ffn_train_fwd": d_err["fwd"], "encoder_ffn_train_bwd": d_err["bwd"]}
+    counts.update({k: hrt_counts[k] for k in ("window_attn_block", "mlp_block")}, **g_counts)
+    errs.update({"masked_mhsa": mhsa_err, "encoder_ffn": ffn_err,
+                 "mhsa_train_fwd": c_err["fwd"], "mhsa_train_bwd": c_err["bwd"],
+                 "encoder_ffn_train_fwd": d_err["fwd"], "encoder_ffn_train_bwd": d_err["bwd"]})
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": counts[name],
-                "max_abs_err": errs[name], "ms": times[name][1], "plain_ms": times[name][0]}
+                "max_abs_err": errs[name], **times[name]}
                for name in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

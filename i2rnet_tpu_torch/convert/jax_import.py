@@ -1,17 +1,23 @@
 """JAX variable tree -> the port's state dict (the original PyTorch names).
 
-``params_from_jax(variables, "interformer_pureMulti")`` takes the JAX model's
+``params_from_jax(variables, model_name)`` takes the JAX model's
 ``{"params": ..., "batch_stats": ...}`` tree (numpy or jax arrays; read with
-``np.asarray`` only) and returns a state dict that
-``PureMultiInterFormer.load_state_dict(..., strict=True)`` takes. It is the
+``np.asarray`` only) and returns a state dict that the port's model of
+``model_name`` (``interformer_pureMulti`` or ``interformer``, the HRFormer
+two-stage model) takes with ``load_state_dict(..., strict=True)``. It is the
 exact inverse of ``i2rnet_tpu/convert/torch_import.py::convert_state_dict``:
 
 * names: JAX module paths -> the reference's module names;
-* conv kernels HWIO -> OIHW; the deconv's spatially flipped HWIO ->
-  ``ConvTranspose2d``'s ``[I, O, kh, kw]``; dense ``[in, out]`` -> ``[out, in]``;
-* separate ``q_proj``/``k_proj``/``v_proj`` -> packed ``in_proj_weight``/``in_proj_bias``;
+* conv kernels HWIO -> OIHW (depthwise ``[3, 3, 1, C]`` -> ``[C, 1, 3, 3]``);
+  a deconv's spatially flipped HWIO -> ``ConvTranspose2d``'s
+  ``[I, O, kh, kw]``; dense ``[in, out]`` -> ``[out, in]``;
+* the inter encoder's separate ``q_proj``/``k_proj``/``v_proj`` -> packed
+  ``in_proj_weight``/``in_proj_bias`` (HRFormer's window attention keeps
+  them separate, as the reference does);
 * BN/LN ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
-  ``running_mean``/``running_var`` (+ ``num_batches_tracked`` = 0).
+  ``running_mean``/``running_var`` (+ ``num_batches_tracked`` = 0); HRFormer's
+  ``rpe_table`` -> ``relative_position_bias_table`` and the
+  ``relative_position_index`` buffer regenerated (the JAX tree has none).
 """
 
 from __future__ import annotations
@@ -22,39 +28,85 @@ from typing import Dict
 import numpy as np
 import torch
 
-_CB = {"conv": "0", "bn": "1"}
+from i2rnet_tpu_torch.models.hrformer import _rpe_index
 
-# JAX module path -> torch module name, for interformer_pureMulti
-_RULES = [
-    (r"trunk/stem/conv([12])/(conv|bn)", lambda m: f"{m[2]}{m[1]}"),
-    (r"trunk/stem/layer1_(\d+)/conv([123])/(conv|bn)", lambda m: f"layer1.{m[1]}.{m[3]}{m[2]}"),
-    (r"trunk/stem/layer1_(\d+)/downsample/(conv|bn)",
-     lambda m: f"layer1.{m[1]}.downsample.{_CB[m[2]]}"),
-    (r"trunk/stage(\d)/transition/t(\d+)/(conv|bn)",
-     lambda m: f"transition{int(m[1]) - 1}.{m[2]}.{_CB[m[3]]}"),
-    (r"trunk/stage(\d)/transition/t(\d+)_(\d+)/(conv|bn)",
-     lambda m: f"transition{int(m[1]) - 1}.{m[2]}.{m[3]}.{_CB[m[4]]}"),
-    (r"trunk/stage(\d)/module(\d+)/branch(\d+)_block(\d+)/conv([12])/(conv|bn)",
-     lambda m: f"stage{m[1]}.{m[2]}.branches.{m[3]}.{m[4]}.{m[6]}{m[5]}"),
-    (r"trunk/stage(\d)/module(\d+)/branch(\d+)_block(\d+)/downsample/(conv|bn)",
-     lambda m: f"stage{m[1]}.{m[2]}.branches.{m[3]}.{m[4]}.downsample.{_CB[m[5]]}"),
-    (r"trunk/stage(\d)/module(\d+)/fuse(\d+)_(\d+)/(conv|bn)",
-     lambda m: f"stage{m[1]}.{m[2]}.fuse_layers.{m[3]}.{m[4]}.{_CB[m[5]]}"),
-    (r"trunk/stage(\d)/module(\d+)/fuse(\d+)_(\d+)_(\d+)/(conv|bn)",
-     lambda m: f"stage{m[1]}.{m[2]}.fuse_layers.{m[3]}.{m[4]}.{m[5]}.{_CB[m[6]]}"),
-    (r"reduce", lambda m: "reduce"),
-    (r"multi_pos/conv([12])/(conv|bn)", lambda m: f"position_embedding.{m[2]}{m[1]}"),
-    (r"encoder/layer(\d+)/self_attn/out_proj",
-     lambda m: f"global_encoder.layers.{m[1]}.self_attn.out_proj"),
-    (r"encoder/layer(\d+)/(linear[12]|norm[12])",
-     lambda m: f"global_encoder.layers.{m[1]}.{m[2]}"),
-    (r"deconv", lambda m: "deconv_layers.0"),
-    (r"deconv/bn", lambda m: "deconv_layers.1"),
-    (r"final_layer", lambda m: "final_layer"),
-]
-_QKV = re.compile(r"encoder/layer(\d+)/self_attn/([qkv])_proj")
+_CB = {"conv": "0", "bn": "1"}
+_FUSE = {"dw": "0", "dwbn": "1", "pw": "2", "pwbn": "3"}
+_SF = "singleformer.backbone"
+_BLK = r"singleformer/stage(\d)/m(\d+)_b(\d+)_blk(\d+)"
+
+
+def _blk(m) -> str:
+    return f"{_SF}.stage{m[1]}.{m[2]}.branches.{m[3]}.{m[4]}"
+
+
+# JAX module path -> torch module name, per model
+_RULES = {
+    "interformer_pureMulti": [
+        (r"trunk/stem/conv([12])/(conv|bn)", lambda m: f"{m[2]}{m[1]}"),
+        (r"trunk/stem/layer1_(\d+)/conv([123])/(conv|bn)",
+         lambda m: f"layer1.{m[1]}.{m[3]}{m[2]}"),
+        (r"trunk/stem/layer1_(\d+)/downsample/(conv|bn)",
+         lambda m: f"layer1.{m[1]}.downsample.{_CB[m[2]]}"),
+        (r"trunk/stage(\d)/transition/t(\d+)/(conv|bn)",
+         lambda m: f"transition{int(m[1]) - 1}.{m[2]}.{_CB[m[3]]}"),
+        (r"trunk/stage(\d)/transition/t(\d+)_(\d+)/(conv|bn)",
+         lambda m: f"transition{int(m[1]) - 1}.{m[2]}.{m[3]}.{_CB[m[4]]}"),
+        (r"trunk/stage(\d)/module(\d+)/branch(\d+)_block(\d+)/conv([12])/(conv|bn)",
+         lambda m: f"stage{m[1]}.{m[2]}.branches.{m[3]}.{m[4]}.{m[6]}{m[5]}"),
+        (r"trunk/stage(\d)/module(\d+)/branch(\d+)_block(\d+)/downsample/(conv|bn)",
+         lambda m: f"stage{m[1]}.{m[2]}.branches.{m[3]}.{m[4]}.downsample.{_CB[m[5]]}"),
+        (r"trunk/stage(\d)/module(\d+)/fuse(\d+)_(\d+)/(conv|bn)",
+         lambda m: f"stage{m[1]}.{m[2]}.fuse_layers.{m[3]}.{m[4]}.{_CB[m[5]]}"),
+        (r"trunk/stage(\d)/module(\d+)/fuse(\d+)_(\d+)_(\d+)/(conv|bn)",
+         lambda m: f"stage{m[1]}.{m[2]}.fuse_layers.{m[3]}.{m[4]}.{m[5]}.{_CB[m[6]]}"),
+        (r"reduce", lambda m: "reduce"),
+        (r"multi_pos/conv([12])/(conv|bn)", lambda m: f"position_embedding.{m[2]}{m[1]}"),
+        (r"encoder/layer(\d+)/self_attn/out_proj",
+         lambda m: f"global_encoder.layers.{m[1]}.self_attn.out_proj"),
+        (r"encoder/layer(\d+)/(linear[12]|norm[12])",
+         lambda m: f"global_encoder.layers.{m[1]}.{m[2]}"),
+        (r"deconv", lambda m: "deconv_layers.0"),
+        (r"deconv/bn", lambda m: "deconv_layers.1"),
+        (r"final_layer", lambda m: "final_layer"),
+    ],
+    "interformer": [
+        (r"singleformer/conv([12])/(conv|bn)", lambda m: f"{_SF}.{m[2]}{m[1]}"),
+        (r"singleformer/layer1_(\d+)/conv([123])/(conv|bn)",
+         lambda m: f"{_SF}.layer1.{m[1]}.{m[3]}{m[2]}"),
+        (r"singleformer/layer1_(\d+)/downsample/(conv|bn)",
+         lambda m: f"{_SF}.layer1.{m[1]}.downsample.{_CB[m[2]]}"),
+        (r"singleformer/stage(\d)/transition(\d+)/(conv|bn)",
+         lambda m: f"{_SF}.transition{int(m[1]) - 1}.{m[2]}.{_CB[m[3]]}"),
+        (r"singleformer/stage(\d)/transition(\d+)_(\d+)/(conv|bn)",
+         lambda m: f"{_SF}.transition{int(m[1]) - 1}.{m[2]}.{m[3]}.{_CB[m[4]]}"),
+        (_BLK + r"/(norm[12])", lambda m: f"{_blk(m)}.{m[5]}"),
+        (_BLK + r"/attn", lambda m: f"{_blk(m)}.attn.attn"),
+        (_BLK + r"/attn/([qkv]|out)_proj", lambda m: f"{_blk(m)}.attn.attn.{m[5]}_proj"),
+        (_BLK + r"/mlp/(fc[12]|dw3x3|norm[123])", lambda m: f"{_blk(m)}.mlp.{m[5]}"),
+        (r"singleformer/stage(\d)/m(\d+)_fuse/fuse(\d+)_(\d+)/(conv|bn)",
+         lambda m: f"{_SF}.stage{m[1]}.{m[2]}.fuse_layers.{m[3]}.{m[4]}.{_CB[m[5]]}"),
+        (r"singleformer/stage(\d)/m(\d+)_fuse/fuse(\d+)_(\d+)_(\d+)_(dw|dwbn|pw|pwbn)",
+         lambda m: f"{_SF}.stage{m[1]}.{m[2]}.fuse_layers.{m[3]}.{m[4]}.{m[5]}.{_FUSE[m[6]]}"),
+        (r"singleformer/final_layer", lambda m: "singleformer.keypoint_head.final_layer"),
+        (r"multi_encoder/layer(\d+)/self_attn/out_proj",
+         lambda m: f"multi_global_encoder.layers.{m[1]}.self_attn.out_proj"),
+        (r"multi_encoder/layer(\d+)/(linear[12]|norm[12])",
+         lambda m: f"multi_global_encoder.layers.{m[1]}.{m[2]}"),
+        (r"deconv(\d+)", lambda m: f"upsample_layer.deconv_layers.{m[1]}.0"),
+        (r"deconv(\d+)/bn", lambda m: f"upsample_layer.deconv_layers.{m[1]}.1"),
+        (r"final_layer", lambda m: "final_layer"),
+    ],
+}
+# the inter encoder's q/k/v, packed into in_proj
+_QKV = {"interformer_pureMulti": (re.compile(r"encoder/layer(\d+)/self_attn/([qkv])_proj"),
+                                  "global_encoder"),
+        "interformer": (re.compile(r"multi_encoder/layer(\d+)/self_attn/([qkv])_proj"),
+                        "multi_global_encoder")}
+_DECONV = re.compile(r"deconv\d*")
 _LEAF = {"scale": "weight", "kernel": "weight", "bias": "bias",
-         "mean": "running_mean", "var": "running_var"}
+         "mean": "running_mean", "var": "running_var",
+         "rpe_table": "relative_position_bias_table"}
 
 
 def _flatten(tree, prefix=""):
@@ -66,8 +118,8 @@ def _flatten(tree, prefix=""):
             yield path, np.asarray(v, np.float32)
 
 
-def _module_name(path: str) -> str:
-    for pat, fn in _RULES:
+def _module_name(rules, path: str) -> str:
+    for pat, fn in rules:
         m = re.fullmatch(pat, path)
         if m:
             return fn(m)
@@ -76,7 +128,7 @@ def _module_name(path: str) -> str:
 
 def _value(module: str, leaf: str, v: np.ndarray) -> np.ndarray:
     if leaf == "kernel" and v.ndim == 4:
-        if module == "deconv":  # flipped HWIO -> [I, O, kh, kw]
+        if _DECONV.fullmatch(module):  # flipped HWIO -> [I, O, kh, kw]
             return np.flip(v.transpose(2, 3, 0, 1), axis=(2, 3))
         return v.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     if leaf == "kernel" and v.ndim == 2:
@@ -86,24 +138,29 @@ def _value(module: str, leaf: str, v: np.ndarray) -> np.ndarray:
 
 def params_from_jax(variables, model_name: str = "interformer_pureMulti") -> Dict[str, torch.Tensor]:
     """The port's state dict from a JAX variable tree (see the module docstring)."""
-    if model_name != "interformer_pureMulti":
+    if model_name not in _RULES:
         raise KeyError(f"params_from_jax: model {model_name!r} is not ported")
+    rules = _RULES[model_name]
+    qkv_re, qkv_owner = _QKV[model_name]
     leaves = list(_flatten(variables.get("params", {})))
     leaves += list(_flatten(variables.get("batch_stats", {})))
     sd: Dict[str, np.ndarray] = {}
     qkv: Dict[str, Dict[str, np.ndarray]] = {}
     for path, v in leaves:
         module, leaf = path.rsplit("/", 1)
-        m = _QKV.fullmatch(module)
+        m = qkv_re.fullmatch(module)
         if m:
-            base = f"global_encoder.layers.{m[1]}.self_attn.in_proj_"
+            base = f"{qkv_owner}.layers.{m[1]}.self_attn.in_proj_"
             part = _value(module, leaf, v)
             qkv.setdefault(base + ("weight" if leaf == "kernel" else "bias"), {})[m[2]] = part
             continue
-        name = _module_name(module)
+        name = _module_name(rules, module)
         sd[f"{name}.{_LEAF[leaf]}"] = _value(module, leaf, v)
         if leaf == "mean":
             sd[f"{name}.num_batches_tracked"] = np.zeros((), np.int64)
+        if leaf == "rpe_table":  # window (2w-1)^2 = table rows
+            window = (int(round(np.sqrt(v.shape[0]))) + 1) // 2
+            sd[f"{name}.relative_position_index"] = _rpe_index(window).astype(np.int64)
     for name, parts in qkv.items():
         sd[name] = np.concatenate([parts["q"], parts["k"], parts["v"]], axis=0)
     return {k: torch.from_numpy(np.array(v)) for k, v in sorted(sd.items())}  # contiguous copies

@@ -91,7 +91,9 @@ def train_loop(cfg: Dict, output_dir: str, batches: Callable[[int], Iterable[Dic
     given, sees each step's metrics (device tensors).
     """
     m = cfg["MODEL"]
-    model = build_pure_multi(cfg)
+    # initialised on the CPU from a CPU generator (the same weights on any
+    # device), then moved
+    model = build_pure_multi(cfg, device="cpu")
     init_weights(model, torch.Generator().manual_seed(cfg["SEED"]))
     model.to(device)
 

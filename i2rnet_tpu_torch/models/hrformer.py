@@ -1,0 +1,357 @@
+"""HRFormer-B, the intra-human first stage of the two-stage I²R-Net (eval).
+
+Port of ``i2rnet_tpu/models/hrformer.py`` (reference ``lib/models/
+hrformer.py``): a stem (two stride-2 3x3 convs, two Bottlenecks), three stages
+of transformer blocks on parallel branches (channels 78·2^i, heads 2^(i+1),
+7x7 windows, MLP ratio 4) with multi-scale fusion, and a 1x1 heatmap head on
+branch 0. Module names are the reference's (``backbone.stage2.0.branches.0.1
+.attn.attn.q_proj``, ``keypoint_head.final_layer``...), so
+``convert_state_dict(..., "interformer")`` maps them to the JAX tree.
+
+Layout: the convolutions run NCHW; the transformer blocks take the map as
+``[P, H, W, C]`` (the JAX layout, which the kernels take), a view of the
+same memory where the map is channels-last. A block runs one of three routes
+in eval (``HRFormerBlock.use_kernels``, ``fused_block``, ``fused_mlp``, from
+``DEVICE.USE_KERNELS``, ``FUSED_BLOCK_EVAL``, ``FUSED_MLP_EVAL``):
+
+* kernels and fused block: Kernel E (LN1 + window attention + residual), then
+  Kernel F (LN2 + BN-folded MlpDWBN + residual);
+* kernels and fused MLP only: the modules' attention, then LN2 and Kernel G
+  (the BN-folded MlpDWBN) and the residual;
+* otherwise the modules (LayerNorm, window partition, ``WindowRPEAttention``,
+  ``MlpDWBN`` with BatchNorms and erf GELU), as the JAX unfused path.
+
+Only eval is ported: DropPath is the identity there (its rates are kept on
+the blocks), and a training forward raises. ``use_rpe`` is not ported: the
+relative-position table is carried, not added (the reference quirk).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from i2rnet_tpu_torch.models.hrnet import Transition
+from i2rnet_tpu_torch.models.layers import (Bottleneck, Conv2d, ConvBN, LayerNorm, Linear,
+                                            MaskedBatchNorm, upsample_bilinear)
+from i2rnet_tpu_torch.ops.cuda.hrformer_block import (mlp_block_fused, pack_attn,
+                                                      window_attn_block_fused, window_partition,
+                                                      window_unpartition)
+from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import fold_bn, mlp_dwbn_fused, pack_mlp
+
+#: the HRFormer-B architecture (reference factory ``hrformer.py:2487-2533``,
+#: ``i2rnet_tpu/models/hrformer.py:44``)
+HRFORMER_B_ARCH = {
+    "drop_path_rate": 0.2,
+    "stage2": dict(num_modules=1, num_branches=2, num_blocks=(2, 2),
+                   num_channels=(78, 156), num_heads=(2, 4),
+                   num_mlp_ratios=(4, 4), num_window_sizes=(7, 7)),
+    "stage3": dict(num_modules=4, num_branches=3, num_blocks=(2, 2, 2),
+                   num_channels=(78, 156, 312), num_heads=(2, 4, 8),
+                   num_mlp_ratios=(4, 4, 4), num_window_sizes=(7, 7, 7)),
+    "stage4": dict(num_modules=2, num_branches=4, num_blocks=(2, 2, 2, 2),
+                   num_channels=(78, 156, 312, 624), num_heads=(2, 4, 8, 16),
+                   num_mlp_ratios=(4, 4, 4, 4), num_window_sizes=(7, 7, 7, 7)),
+}
+STAGES = ("stage2", "stage3", "stage4")
+
+
+def _rpe_index(window: int) -> np.ndarray:
+    """Swin-style relative position index [w*w, w*w] into a (2w-1)^2 table
+    (``i2rnet_tpu/models/hrformer.py:58``)."""
+    coords = np.stack(np.meshgrid(np.arange(window), np.arange(window), indexing="ij"))
+    flat = coords.reshape(2, -1)
+    rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0)
+    rel[:, :, 0] += window - 1
+    rel[:, :, 1] += window - 1
+    rel[:, :, 0] *= 2 * window - 1
+    return rel.sum(-1)
+
+
+class WindowRPEAttention(nn.Module):
+    """MHSA over window tokens ``[BW, T, C]`` (reference ``MHA_``,
+    ``hrformer.py:590-680``): separate q/k/v/out projections, q scaled by
+    d^-1/2 after its projection (bias included). The relative-position table
+    and index are carried for the checkpoints but not added."""
+
+    def __init__(self, channels: int, num_heads: int, window: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q_proj = Linear(channels, channels)
+        self.k_proj = Linear(channels, channels)
+        self.v_proj = Linear(channels, channels)
+        self.out_proj = Linear(channels, channels)
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * window - 1) ** 2, num_heads))
+        self.register_buffer("relative_position_index",
+                             torch.from_numpy(_rpe_index(window)).long())
+
+    def forward(self, x):
+        bw, t, c = x.shape
+        h = self.num_heads
+        d = c // h
+
+        def split(a):
+            return a.reshape(bw, t, h, d).transpose(1, 2).float()
+
+        q = split(self.q_proj(x)) * (1.0 / math.sqrt(d))
+        logits = torch.matmul(q, split(self.k_proj(x)).transpose(-1, -2))
+        weights = torch.softmax(logits, dim=-1).to(x.dtype).float()
+        out = torch.matmul(weights, split(self.v_proj(x))).to(x.dtype)
+        return self.out_proj(out.transpose(1, 2).reshape(bw, t, c))
+
+
+class InterlacedPoolAttention(nn.Module):
+    """Window attention on a ``[B, H, W, C]`` map: center pad, 7x7 windows,
+    MHSA, back (reference ``hrformer.py:1138-1180``; ``.attn`` is ``MHA_``)."""
+
+    def __init__(self, channels: int, num_heads: int, window: int):
+        super().__init__()
+        self.window = window
+        self.attn = WindowRPEAttention(channels, num_heads, window)
+
+    def forward(self, x):
+        win, info = window_partition(x, self.window)
+        return window_unpartition(self.attn(win), self.window, info)
+
+
+class MlpDWBN(nn.Module):
+    """1x1 conv + BN + GELU -> depthwise 3x3 + BN + GELU -> 1x1 + BN + GELU
+    over ``[B, H, W, C]`` (reference ``hrformer.py:1044-1137``)."""
+
+    def __init__(self, channels: int, hidden: int):
+        super().__init__()
+        self.fc1 = Conv2d(channels, hidden, 1)
+        self.norm1 = MaskedBatchNorm(hidden)
+        self.dw3x3 = Conv2d(hidden, hidden, 3, 1, 1, groups=hidden)
+        self.norm2 = MaskedBatchNorm(hidden)
+        self.fc2 = Conv2d(hidden, channels, 1)
+        self.norm3 = MaskedBatchNorm(channels)
+
+    def forward(self, x):
+        y = x.permute(0, 3, 1, 2)
+        y = F.gelu(self.norm1(self.fc1(y)))
+        y = F.gelu(self.norm2(self.dw3x3(y)))
+        y = F.gelu(self.norm3(self.fc2(y)))
+        return y.permute(0, 2, 3, 1)
+
+    def folded_params(self):
+        """The BN-folded weights for Kernels F and G in f32 (exact in eval):
+        ``w1`` [D, C], ``b1`` [D], ``dw`` [D, 3, 3], ``bdw`` [D], ``w2`` [C, D], ``b2`` [C]."""
+        out = []
+        for conv, bn in ((self.fc1, self.norm1), (self.dw3x3, self.norm2), (self.fc2, self.norm3)):
+            k, c = fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+            w = conv.weight.float()
+            w = w[:, :, 0, 0] if conv.groups == 1 else w[:, 0]
+            out += [w * k.reshape(-1, *([1] * (w.dim() - 1))), conv.bias.float() * k + c]
+        return tuple(t.detach() for t in out)
+
+
+class HRFormerBlock(nn.Module):
+    """GeneralTransformerBlock over ``[B, H, W, C]`` (reference
+    ``hrformer.py:1182-1242``): ``x + attn(norm1(x))``, then ``x + mlp(norm2(x))``.
+    The kernel routes are set by the owning model (see the module docstring)."""
+
+    def __init__(self, channels: int, num_heads: int, window: int, mlp_ratio: float,
+                 drop_path: float = 0.0):
+        super().__init__()
+        self.num_heads = num_heads
+        self.window = window
+        self.drop_path = drop_path  # DropPath rate: the identity in eval
+        self.norm1 = LayerNorm(channels)
+        self.attn = InterlacedPoolAttention(channels, num_heads, window)
+        self.norm2 = LayerNorm(channels)
+        self.mlp = MlpDWBN(channels, int(channels * mlp_ratio))
+        self.use_kernels = False
+        self.fused_block = True
+        self.fused_mlp = False
+        self._packed = {}
+
+    def forward(self, x):
+        if self.training:
+            raise NotImplementedError("HRFormer training is not ported (eval only)")
+        if self.use_kernels and self.fused_block:
+            a = self.attn.attn
+            attn_w = (a.q_proj.weight, a.q_proj.bias, a.k_proj.weight, a.k_proj.bias,
+                      a.v_proj.weight, a.v_proj.bias, a.out_proj.weight, a.out_proj.bias)
+            x = window_attn_block_fused(x, self.norm1.weight, self.norm1.bias, *attn_w,
+                                        heads=self.num_heads, window=self.window,
+                                        eps=self.norm1.eps, packed=self._kernel_weights("attn", x))
+            return mlp_block_fused(x, self.norm2.weight, self.norm2.bias,
+                                   *self._kernel_weights("folded", x), eps=self.norm2.eps,
+                                   packed=self._kernel_weights("mlp", x))
+        x = x + self.attn(self.norm1(x))
+        if self.use_kernels and self.fused_mlp:
+            # Kernel G takes LN2's f32 output, as the JAX module hands it; its
+            # result comes back in f32 and joins the residual in x's dtype
+            y = F.layer_norm(x.float(), self.norm2.normalized_shape, self.norm2.weight,
+                             self.norm2.bias, self.norm2.eps)
+            y = mlp_dwbn_fused(y, *self._kernel_weights("folded", x),
+                               packed=self._kernel_weights("mlp32", x)).to(x.dtype)
+        else:
+            y = self.mlp(self.norm2(x))
+        return x + y
+
+    def _kernel_weights(self, kind: str, x):
+        """The weights a kernel route takes, made once per (kind, dtype,
+        device) and kept until a parameter or BN statistic changes (its
+        version or storage): ``"folded"`` the BN-folded MLP weights,
+        ``"attn"``/``"mlp"``/``"mlp32"`` the kernels' packed layouts (in x's
+        dtype; ``mlp32`` f32 for Kernel G)."""
+        tensors = list(self.parameters()) + list(self.mlp.buffers())
+        stamp = tuple((t.data_ptr(), t._version) for t in tensors)
+        key = (kind, x.dtype, x.device)
+        hit = self._packed.get(key)
+        if hit is not None and hit[0] == stamp:
+            return hit[1]
+        with torch.no_grad():
+            if kind == "folded":
+                val = self.mlp.folded_params()
+            elif kind == "attn":
+                a = self.attn.attn
+                val = pack_attn(a.q_proj.weight, a.q_proj.bias, a.k_proj.weight, a.k_proj.bias,
+                                a.v_proj.weight, a.v_proj.bias, a.out_proj.weight,
+                                a.out_proj.bias, self.num_heads, x.dtype, x.device)
+            else:
+                wdt = torch.float32 if kind == "mlp32" else x.dtype
+                val = pack_mlp(*self._kernel_weights("folded", x), wdt, x.device)
+        self._packed[key] = (stamp, val)
+        return val
+
+
+def _fuse_layers(channels: List[int], n_out: int) -> nn.ModuleList:
+    """Reference HRT fusion (``hrformer.py:1616-1705``): for output i, input
+    j > i a 1x1 ConvBN (then bilinear up), j < i a chain of (depthwise 3x3/s2
+    + BN + 1x1 + BN [+ ReLU except last])."""
+    rows = []
+    for i in range(n_out):
+        row = []
+        for j in range(len(channels)):
+            if j == i:
+                row.append(None)
+            elif j > i:
+                row.append(ConvBN(channels[j], channels[i], 1, relu=False))
+            else:
+                cj, chain = channels[j], []
+                for k in range(i - j):
+                    last = k == i - j - 1
+                    cout = channels[i] if last else cj
+                    mods = [Conv2d(cj, cj, 3, 2, 1, groups=cj, bias=False), MaskedBatchNorm(cj),
+                            Conv2d(cj, cout, 1, bias=False), MaskedBatchNorm(cout)]
+                    if not last:
+                        mods.append(nn.ReLU())
+                    chain.append(nn.Sequential(*mods))
+                row.append(nn.Sequential(*chain))
+        rows.append(nn.ModuleList(row))
+    return nn.ModuleList(rows)
+
+
+class HRTModule(nn.Module):
+    """One module of an HRT stage: the branches' transformer blocks, then
+    the fusion (only branch 0's output when ``multi_scale_output`` is off)."""
+
+    def __init__(self, cfg: Dict, drop_paths, multi_scale_output: bool):
+        super().__init__()
+        ch = list(cfg["num_channels"])
+        nb = cfg["num_branches"]
+        per = cfg["num_blocks"][0]
+        self.branches = nn.ModuleList([
+            nn.Sequential(*[HRFormerBlock(ch[b], cfg["num_heads"][b], cfg["num_window_sizes"][b],
+                                          float(cfg["num_mlp_ratios"][b]), drop_paths[k])
+                            for k in range(per)])
+            for b in range(nb)])
+        self.fuse_layers = _fuse_layers(ch, nb if multi_scale_output else 1)
+
+    def forward(self, xs: List):
+        # blocks on [B, H, W, C]; the NCHW view of the result is channels-last
+        return self.fuse([branch(x.permute(0, 2, 3, 1).contiguous()).permute(0, 3, 1, 2)
+                          for branch, x in zip(self.branches, xs)])
+
+    def fuse(self, outs: List) -> List:
+        """The multi-scale fusion of the branches' NCHW maps (JAX ``HRTFuse``)."""
+        fused = []
+        for i, row in enumerate(self.fuse_layers):
+            y = None
+            for j, layer in enumerate(row):
+                if j == i:
+                    t = outs[j]
+                elif j > i:
+                    t = upsample_bilinear(layer(outs[j]), outs[i].shape[2:])
+                else:
+                    t = layer(outs[j])
+                y = t if y is None else y + t
+            fused.append(F.relu(y))
+        return fused
+
+
+class HRFormerBackbone(nn.Module):
+    """The HighResolutionTransformer: stem, ``transition{1,2,3}`` and
+    ``stage{2,3,4}``; returns branch 0's map ``[P, 78, H/4, W/4]``."""
+
+    def __init__(self, arch: Dict):
+        super().__init__()
+        self.conv1 = Conv2d(3, 64, 3, 2, 1, bias=False)
+        self.bn1 = MaskedBatchNorm(64)
+        self.conv2 = Conv2d(64, 64, 3, 2, 1, bias=False)
+        self.bn2 = MaskedBatchNorm(64)
+        self.layer1 = nn.Sequential(Bottleneck(64, 64, downsample=True), Bottleneck(256, 64))
+        depths = [arch[s]["num_modules"] * arch[s]["num_blocks"][0] for s in STAGES]
+        dpr = list(np.linspace(0, arch["drop_path_rate"], sum(depths)))
+        pre, o = [256], 0
+        for si, s in enumerate(STAGES):
+            cfg = arch[s]
+            ch = list(cfg["num_channels"])
+            per = cfg["num_blocks"][0]
+            mso = cfg.get("multiscale_output", s != "stage4")
+            setattr(self, f"transition{si + 1}", Transition(pre, ch))
+            setattr(self, s, nn.Sequential(*[
+                HRTModule(cfg, dpr[o + m * per:o + (m + 1) * per],
+                          mso or m < cfg["num_modules"] - 1)
+                for m in range(cfg["num_modules"])]))
+            pre, o = ch, o + depths[si]
+
+    def forward(self, x):
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn2(self.conv2(x)))
+        xs = [self.layer1(x)]
+        for si, s in enumerate(STAGES):
+            xs = getattr(self, s)(getattr(self, f"transition{si + 1}")(xs))
+        return xs[0]
+
+
+class KeypointHead(nn.Module):
+    """``TopDownSimpleHead`` without deconvs: the 1x1 ``final_layer``."""
+
+    def __init__(self, channels: int, num_joints: int):
+        super().__init__()
+        self.final_layer = Conv2d(channels, num_joints, 1)
+
+    def forward(self, x):
+        return self.final_layer(x)
+
+
+class HRFormer(nn.Module):
+    """HRFormer-B pose model: ``forward(x [P, 3, H, W]) -> (branch-0 features
+    [P, 78, H/4, W/4], heatmaps [P, K, H/4, W/4] f32)``, the first-stage
+    contract (reference ``hrformer.py:2470-2480``)."""
+
+    def __init__(self, arch: Dict, num_joints: int = 17):
+        super().__init__()
+        self.backbone = HRFormerBackbone(arch)
+        self.keypoint_head = KeypointHead(arch["stage2"]["num_channels"][0], num_joints)
+
+    def blocks(self):
+        return [m for m in self.modules() if isinstance(m, HRFormerBlock)]
+
+    def set_routes(self, use_kernels: bool, fused_block: bool, fused_mlp: bool) -> None:
+        for blk in self.blocks():
+            blk.use_kernels, blk.fused_block, blk.fused_mlp = use_kernels, fused_block, fused_mlp
+
+    def forward(self, x):
+        feat = self.backbone(x)
+        return feat, self.keypoint_head(feat).float()

@@ -16,7 +16,9 @@ from torch import nn
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` computing in the input's dtype (float32 master weights)."""
+    """``nn.Conv2d`` computing in the input's dtype (float32 master weights).
+    ``groups=channels`` makes it depthwise (HRFormer's ``dw3x3`` and fusion
+    downsamples, flax ``feature_group_count``)."""
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
@@ -29,6 +31,19 @@ class Linear(nn.Linear):
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), b)
+
+
+class LayerNorm(nn.LayerNorm):
+    """HRFormer's LayerNorm over the last (channel) axis: eps 1e-6, statistics
+    and affine in f32, the result in the input's dtype (flax ``nn.LayerNorm``
+    feeding a Dense of that dtype)."""
+
+    def __init__(self, channels: int, eps: float = 1e-6):
+        super().__init__(channels, eps=eps)
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(x.dtype)
 
 
 CONV_INIT_STD = 0.001
@@ -170,6 +185,13 @@ class DeconvBlock(nn.Sequential):
 def upsample_nearest(x, factor: int):
     """Exact torch ``nn.Upsample(scale_factor=factor, mode='nearest')``."""
     return F.interpolate(x, scale_factor=factor, mode="nearest")
+
+
+def upsample_bilinear(x, size):
+    """NCHW bilinear resize to ``size`` (h, w) with half-pixel centres:
+    ``jax.image.resize(..., "bilinear")`` for the integer upsampling HRFormer's
+    fusion does (antialiasing only acts when downsampling)."""
+    return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False)
 
 
 def max_pool_3x3_s2(x):

@@ -121,9 +121,11 @@ def init_weights(model: PureMultiInterFormer, generator: torch.Generator) -> Pur
     return model
 
 
-def build_pure_multi(cfg: Dict, use_kernels=None, device=None) -> PureMultiInterFormer:
-    """The model from a port config (``presets``), in eval mode. ``use_kernels``
-    defaults to ``cfg["DEVICE"]["USE_KERNELS"]`` (``TPU.USE_PALLAS_ATTENTION``)."""
+def build_pure_multi(cfg: Dict, use_kernels=None, device="cuda") -> PureMultiInterFormer:
+    """The model from a port config (``presets``), in eval mode, on ``device``
+    (the card unless the caller names another; without CUDA that raises).
+    ``use_kernels`` defaults to ``cfg["DEVICE"]["USE_KERNELS"]``
+    (``TPU.USE_PALLAS_ATTENTION``)."""
     m = cfg["MODEL"]
     if m["NAME"] != "interformer_pureMulti":
         raise ValueError(f"model {m['NAME']!r} is not ported")

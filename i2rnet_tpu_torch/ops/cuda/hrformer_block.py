@@ -1,0 +1,195 @@
+"""Kernels E and F: the two halves of an HRFormer transformer block (eval).
+
+Replace ``i2rnet_tpu/ops/pallas/hrformer_block.py::window_attn_block_fused``
+(Kernel E, ``csrc/window_attn_block.cu``) and ``::mlp_block_fused`` (Kernel F,
+``csrc/mlp_dwbn.cu``). Their plain PyTorch versions round where the JAX
+kernels' ``_attn_math`` and ``_mlp_math`` round (:109-185), with T the
+activation dtype:
+
+E: ``x + WindowMHSA(LN1(x))``
+    y   = T(LN1(x))                     f32 statistics over C, eps 1e-6
+    windows of 7x7 tokens after zero center padding (pad tokens are 0 after
+    LN; their q/k/v are the projection biases, and they are attended to)
+    q   = T(y . T(s Wq)^T + s bq)       s = 1/sqrt(d) folded into Wq, bq in f32
+    k,v = T(y . T(W)^T + b)             f32 accumulation
+    o   = T(T(softmax(q . k^T)) . v)    per head, f32 logits and softmax
+    out = x + T(o . T(Wo)^T + bo)       residual in T, real tokens only
+
+F: ``x + MlpDWBN(LN2(x))`` with the BatchNorms folded (:func:`fold_bn`)
+    y   = T(LN2(x))
+    h   = T(gelu(y . T(W1)^T + b1))     1x1 expand, f32 accumulation
+    h   = T(gelu(dw3x3(h) + bdw))       f32 taps, zero border of the H x W map
+    out = x + T(gelu(h . T(W2)^T + b2)) 1x1 contract, residual in T
+
+GELU is the tanh-form fit :func:`gelu_tanh_erf`. Weights come in the torch
+layouts (Linear ``[out, in]``; ``w1`` [D, C], ``dw`` [D, 3, 3], ``w2`` [C, D]);
+LayerNorm parameters and biases are f32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from i2rnet_tpu_torch.ops.cuda import build
+from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import (DTYPE_CODES, check_cuda_mlp, depthwise3x3,
+                                                gelu_tanh_erf, launch_mlp, pack_mlp)
+
+LN_EPS = 1e-6
+WINDOW = 7  # the kernel's window (HRFormer-B's everywhere)
+
+
+def layer_norm_f32(x, weight, bias, eps: float = LN_EPS):
+    """LayerNorm over the last axis in f32 (two-pass variance), as ``_ln``."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    diff = xf - mean
+    var = (diff * diff).mean(-1, keepdim=True)
+    return diff * torch.rsqrt(var + eps) * weight.float() + bias.float()
+
+
+def window_partition(x, window: int):
+    """``[B, H, W, C]`` -> zero center-padded windows ``[B*nh*nw, w*w, C]`` and
+    the pad info (reference PadBlock, ``hrformer.py:175-189``)."""
+    b, h, w, c = x.shape
+    pad_h, pad_w = (-h) % window, (-w) % window
+    x = F.pad(x, (0, 0, pad_w // 2, pad_w - pad_w // 2, pad_h // 2, pad_h - pad_h // 2))
+    hp, wp = h + pad_h, w + pad_w
+    nh, nw = hp // window, wp // window
+    x = x.reshape(b, nh, window, nw, window, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b * nh * nw, window * window, c), (b, h, w, hp, wp, pad_h, pad_w)
+
+
+def window_unpartition(x, window: int, info):
+    """Inverse of :func:`window_partition`: the windows back on the map, the
+    padding cut off (``hrformer.py:192-198``)."""
+    b, h, w, hp, wp, pad_h, pad_w = info
+    nh, nw = hp // window, wp // window
+    c = x.shape[-1]
+    x = x.reshape(b, nh, nw, window, window, c).permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, c)
+    return x[:, pad_h // 2:pad_h // 2 + h, pad_w // 2:pad_w // 2 + w, :]
+
+
+def _t32(a, dt):
+    """The value of ``a`` once stored in ``dt``, as f32."""
+    return a.to(dt).float()
+
+
+def window_attn_block_torch(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
+                            window: int = WINDOW, eps: float = LN_EPS):
+    """Plain PyTorch ``x + WindowMHSA(LN1(x))`` with Kernel E's rounding."""
+    dt = x.dtype
+    c = x.shape[-1]
+    d = c // heads
+    s = 1.0 / math.sqrt(d)
+    y = layer_norm_f32(x, ln_w, ln_b, eps).to(dt)
+    win, info = window_partition(y, window)
+    tf = win.float()
+
+    def proj(w, b):
+        return (torch.matmul(tf, _t32(w, dt).t()) + b.float()).to(dt)
+
+    q = proj(wq.float() * s, bq.float() * s)
+    k, v = proj(wk, bk), proj(wv, bv)
+    nb, t, _ = q.shape
+
+    def split(a):
+        return a.reshape(nb, t, heads, d).transpose(1, 2).float()
+
+    prob = torch.softmax(torch.matmul(split(q), split(k).transpose(-1, -2)), dim=-1)
+    o = torch.matmul(_t32(prob, dt), split(v)).to(dt).transpose(1, 2).reshape(nb, t, c)
+    a = (torch.matmul(o.float(), _t32(wo, dt).t()) + bo.float()).to(dt)
+    return x + window_unpartition(a, window, info)
+
+
+def mlp_block_torch(x, ln_w, ln_b, w1, b1, dw, bdw, w2, b2, eps: float = LN_EPS):
+    """Plain PyTorch ``x + MlpDWBN(LN2(x))`` (folded BNs) with Kernel F's rounding."""
+    dt = x.dtype
+    y = layer_norm_f32(x, ln_w, ln_b, eps).to(dt)
+    h = gelu_tanh_erf(torch.matmul(y.float(), _t32(w1, dt).t()) + b1.float()).to(dt)
+    h = gelu_tanh_erf(depthwise3x3(h.float(), dw.float()) + bdw.float()).to(dt)
+    out = gelu_tanh_erf(torch.matmul(h.float(), _t32(w2, dt).t()) + b2.float()).to(dt)
+    return x + out
+
+
+def pack_attn(wq, bq, wk, bk, wv, bv, wo, bo, heads: int, dtype, device):
+    """Kernel E's weight layout on ``device``: ``Wqkv`` [C, heads, 3, d] (in
+    features first; q scaled by 1/sqrt(d) in f32 before the cast to
+    ``dtype``), ``bqkv`` [heads, 3, d] f32, ``Wo^T`` [C, C] in ``dtype``, ``bo`` f32."""
+    c = wq.shape[0]
+    d = c // heads
+    s = 1.0 / math.sqrt(d)
+    ws = [wq.detach().float() * s, wk.detach().float(), wv.detach().float()]
+    bs = [bq.detach().float() * s, bk.detach().float(), bv.detach().float()]
+    wqkv = torch.stack([w.to(device, dtype).t().reshape(c, heads, d) for w in ws], dim=2)
+    bqkv = torch.stack([b.to(device).reshape(heads, d) for b in bs], dim=1)
+    return (wqkv.contiguous(), bqkv.contiguous(), wo.detach().to(device, dtype).t().contiguous(),
+            bo.detach().to(device, torch.float32).contiguous())
+
+
+def window_attn_block_fused(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
+                            window: int = WINDOW, eps: float = LN_EPS, packed=None):
+    """``x + WindowMHSA(LN1(x))`` through Kernel E over ``x`` ``[P, H, W, C]``.
+
+    CPU tensors take :func:`window_attn_block_torch`; CUDA tensors launch the
+    kernel or raise. ``packed``, when given, is :func:`pack_attn` of the same
+    weights in x's dtype on x's device (a caller's cache).
+    """
+    if x.device.type == "cpu":
+        return window_attn_block_torch(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo,
+                                       heads, window, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"window_attn_block_fused: unsupported device {x.device}")
+    if x.dim() != 4 or x.dtype not in DTYPE_CODES:
+        raise ValueError(f"window_attn_block_fused: x must be float32 or bfloat16 "
+                         f"[P, H, W, C], got {x.dtype} {tuple(x.shape)}")
+    p, h, w, c = x.shape
+    if window != WINDOW or heads < 1 or c % heads:
+        raise ValueError(f"window_attn_block_fused: window {window} (kernel: {WINDOW}), "
+                         f"C={c} must split into {heads} heads")
+    if any(t.shape != (c, c) for t in (wq, wk, wv, wo)):
+        raise ValueError(f"window_attn_block_fused: projections must be [C, C] = {(c, c)}")
+    nwin = -(-h // window) * -(-w // window)
+    if nwin > 2 ** 31 - 1 or p > 65535:
+        raise ValueError(f"window_attn_block_fused: grid ({nwin}, {p}) out of range")
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    if packed is None:
+        packed = pack_attn(wq, bq, wk, bk, wv, bv, wo, bo, heads, x.dtype, x.device)
+    wqkv, bqkv, wot, bof = packed
+    g, b = (t.detach().to(x.device, torch.float32).contiguous() for t in (ln_w, ln_b))
+    xc = x.contiguous()
+    out = torch.empty_like(xc)
+    err = build.library().i2r_window_attn_fwd(
+        xc.data_ptr(), g.data_ptr(), b.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+        wot.data_ptr(), bof.data_ptr(), out.data_ptr(), p, h, w, c, heads, float(eps),
+        DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "window_attn_block kernel")
+    window_attn_block_fused.launches += 1
+    return out
+
+
+def mlp_block_fused(x, ln_w, ln_b, w1, b1, dw, bdw, w2, b2, eps: float = LN_EPS, packed=None):
+    """``x + MlpDWBN(LN2(x))`` (folded BNs) through Kernel F over ``[P, H, W, C]``.
+
+    CPU tensors take :func:`mlp_block_torch`; CUDA tensors launch the kernel
+    or raise. ``packed``, when given, is :func:`pack_mlp` of the same weights
+    in x's dtype on x's device.
+    """
+    if x.device.type == "cpu":
+        return mlp_block_torch(x, ln_w, ln_b, w1, b1, dw, bdw, w2, b2, eps)
+    check_cuda_mlp(x, w1, dw, w2, "mlp_block_fused")
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    if packed is None:
+        packed = pack_mlp(w1, b1, dw, bdw, w2, b2, x.dtype, x.device)
+    out = launch_mlp(build.library().i2r_mlp_block_fwd, x, (ln_w, ln_b, eps), packed,
+                     "mlp_block kernel")
+    mlp_block_fused.launches += 1
+    return out
+
+
+window_attn_block_fused.launches = 0
+mlp_block_fused.launches = 0

@@ -1,12 +1,17 @@
 """Model configurations as plain dicts (no YAML, no config package).
 
-Mirrors ``i2rnet_tpu/presets.py:70,190`` and
-``experiments/coco/interformer_coco_w48_pure_en6.yaml``, keeping only the keys
-the ported serving and training paths read, under the JAX config's section
-and key names. The one renamed section is ``DEVICE``: ``COMPUTE_DTYPE`` and
-``USE_KERNELS`` (the JAX ``TPU.COMPUTE_DTYPE`` and ``TPU.USE_PALLAS_ATTENTION``;
-the recipe's ``FLASH_TRAIN_ATTENTION`` and ``FUSED_FFN_TRAIN`` are on, so the
-one flag also routes training through Kernels C and D).
+Mirrors ``i2rnet_tpu/presets.py:70,141,190`` and the recipes
+``experiments/coco/interformer_coco_w48_pure_en6.yaml`` and
+``interformer_coco_hrt_192_p2_b12.yaml``, keeping only the keys the ported
+paths read, under the JAX config's section and key names. The one renamed
+section is ``DEVICE``: ``COMPUTE_DTYPE``, ``USE_KERNELS`` (the JAX
+``TPU.COMPUTE_DTYPE`` and ``TPU.USE_PALLAS_ATTENTION``, the master switch of
+every kernel route; the recipes' ``FLASH_TRAIN_ATTENTION`` and
+``FUSED_FFN_TRAIN`` are on, so it also routes training through Kernels C and
+D), ``FUSED_BLOCK_EVAL`` (HRFormer blocks on Kernels E and F) and
+``FUSED_MLP_EVAL`` (their MlpDWBN on Kernel G where E and F are off). One
+key is the port's own: ``MODEL.HRFORMER_ARCH``, the HRFormer architecture
+(the JAX builder's ``arch=`` argument; HRFormer-B when absent).
 """
 
 from __future__ import annotations
@@ -36,12 +41,19 @@ HRNET_W48S_EXTRA = {
 
 _MODEL_KEYS = ("NAME", "NUM_JOINTS", "IMAGE_SIZE", "HEATMAP_SIZE", "TRANS_SIZE",
                "DIM_MODEL", "DIM_FEEDFORWARD", "N_HEAD", "ENCODER_LAYERS",
-               "USE_MULTI_POS", "MULTI_POS_EMBEDDING", "SIGMA", "LOSS_WEIGHTS")
+               "USE_MULTI_POS", "MULTI_POS_EMBEDDING", "SIGMA", "LOSS_WEIGHTS",
+               "SINGLEFORMER", "SINGLEFORMER_FIX", "INTER_SUPERVISION", "ENCODER_MULTI_LAYERS",
+               "UPSAMPLE_TYPE", "ATTENTION_TYPE", "DOMAIN_TRANS")
 _TEST_KEYS = ("FLIP_TEST", "BLUR_KERNEL", "POST_PROCESS")
 _TRAIN_KEYS = ("BATCH_SIZE_PER_GPU", "BEGIN_EPOCH", "END_EPOCH", "LR", "LR_END", "OPTIMIZER",
                "MOMENTUM", "WD", "NESTEROV")
 _LOSS_KEYS = ("USE_OHKM", "TOPK", "USE_TARGET_WEIGHT", "USE_DIFFERENT_JOINTS_WEIGHT")
 _TOP_KEYS = ("SEED", "AUTO_RESUME", "PRINT_FREQ")
+
+
+def _device(dtype: str, use_kernels: bool) -> Dict:
+    return {"COMPUTE_DTYPE": dtype, "USE_KERNELS": use_kernels, "FUSED_BLOCK_EVAL": True,
+            "FUSED_MLP_EVAL": False}
 
 
 def _training(batch: int, end_epoch: int, lr: float, lr_end: float, wd: float) -> Dict:
@@ -77,8 +89,69 @@ def w48_pure_en6() -> Dict:
         },
         "DATASET": {"DATASET": "coco", "MAX_PATCH": 7},
         "TEST": {"FLIP_TEST": True, "BLUR_KERNEL": 11, "POST_PROCESS": True},
-        "DEVICE": {"COMPUTE_DTYPE": "bfloat16", "USE_KERNELS": True},
+        "DEVICE": _device("bfloat16", True),
         **_training(batch=8, end_epoch=240, lr=5e-4, lr_end=5e-5, wd=0.1),
+    }
+
+
+def _hrt_extra(filters: int) -> Dict:
+    """The HRFormer two-stage models' deconv head (filters = DIM_MODEL)."""
+    return {"DECONV_WITH_BIAS": False, "NUM_DECONV_LAYERS": 1, "NUM_DECONV_FILTERS": [filters],
+            "NUM_DECONV_KERNELS": [4], "FINAL_CONV_KERNEL": 1}
+
+
+def _hrt_model(num_joints, image_size, heatmap_size, trans_size, d_model, dim_ff, n_head,
+               layers) -> Dict:
+    return {
+        "NAME": "interformer", "SINGLEFORMER": "hrformer", "SINGLEFORMER_FIX": False,
+        "INTER_SUPERVISION": True, "NUM_JOINTS": num_joints, "IMAGE_SIZE": list(image_size),
+        "HEATMAP_SIZE": list(heatmap_size), "TRANS_SIZE": list(trans_size),
+        "DIM_MODEL": d_model, "DIM_FEEDFORWARD": dim_ff, "N_HEAD": n_head,
+        "ENCODER_LAYERS": 6, "ENCODER_MULTI_LAYERS": layers, "USE_MULTI_POS": False,
+        "MULTI_POS_EMBEDDING": "res", "UPSAMPLE_TYPE": "deconv", "ATTENTION_TYPE": "default",
+        "DOMAIN_TRANS": False, "SIGMA": 2, "LOSS_WEIGHTS": [0.5, 0.5],
+        "EXTRA": _hrt_extra(d_model),
+    }
+
+
+def hrt_interformer(image_size=(192, 256)) -> Dict:
+    """I²R-Net with the HRFormer-B first stage on COCO (``[w, h]`` input):
+    DIM_MODEL 78 = branch 0's width, 2 inter layers, no multi-person
+    position embedding, deconv upsampling, MAX_PATCH 2."""
+    w, h = image_size
+    return {
+        "MODEL": _hrt_model(17, (w, h), (w // 4, h // 4), (h // 16, w // 16), 78, 192, 1, 2),
+        "DATASET": {"DATASET": "coco", "MAX_PATCH": 2},
+        "TEST": {"FLIP_TEST": True, "BLUR_KERNEL": 11, "POST_PROCESS": True},
+        "DEVICE": _device("bfloat16", True),
+        **_training(batch=4, end_epoch=240, lr=1e-4, lr_end=1e-5, wd=1e-4),
+    }
+
+
+#: a small HRFormer for CPU tests (``tests/test_hrformer.py:21`` of the JAX package)
+TINY_HRFORMER_ARCH = {
+    "drop_path_rate": 0.1,
+    "stage2": dict(num_modules=1, num_branches=2, num_blocks=(1, 1),
+                   num_channels=(16, 32), num_heads=(2, 2),
+                   num_mlp_ratios=(2, 2), num_window_sizes=(7, 7)),
+    "stage3": dict(num_modules=1, num_branches=3, num_blocks=(1, 1, 1),
+                   num_channels=(16, 32, 64), num_heads=(2, 2, 2),
+                   num_mlp_ratios=(2, 2, 2), num_window_sizes=(7, 7, 7)),
+    "stage4": dict(num_modules=1, num_branches=4, num_blocks=(1, 1, 1, 1),
+                   num_channels=(16, 32, 64, 128), num_heads=(2, 2, 2, 2),
+                   num_mlp_ratios=(2, 2, 2, 2), num_window_sizes=(7, 7, 7, 7)),
+}
+
+
+def tiny_hrt_config(num_joints: int = 5) -> Dict:
+    """Small HRFormer two-stage config for CPU tests (64x48 input, d_model 16)."""
+    return {
+        "MODEL": {**_hrt_model(num_joints, (48, 64), (12, 16), (4, 3), 16, 32, 2, 2),
+                  "HRFORMER_ARCH": copy.deepcopy(TINY_HRFORMER_ARCH)},
+        "DATASET": {"DATASET": "synthetic", "MAX_PATCH": 7},
+        "TEST": {"FLIP_TEST": True, "BLUR_KERNEL": 11, "POST_PROCESS": True},
+        "DEVICE": _device("float32", False),
+        **_training(batch=2, end_epoch=2, lr=1e-4, lr_end=1e-5, wd=1e-4),
     }
 
 
@@ -115,7 +188,7 @@ def tiny_test_config(num_joints: int = 5) -> Dict:
         },
         "DATASET": {"DATASET": "synthetic", "MAX_PATCH": 7},
         "TEST": {"FLIP_TEST": True, "BLUR_KERNEL": 11, "POST_PROCESS": True},
-        "DEVICE": {"COMPUTE_DTYPE": "float32", "USE_KERNELS": False},
+        "DEVICE": _device("float32", False),
         **_training(batch=2, end_epoch=2, lr=1e-4, lr_end=1e-5, wd=1e-4),
     }
 
@@ -138,7 +211,9 @@ def from_config(cfg) -> Dict:
         "DATASET": {"DATASET": cfg.DATASET.DATASET, "MAX_PATCH": cfg.DATASET.MAX_PATCH},
         "TEST": {k: _plain(getattr(cfg.TEST, k)) for k in _TEST_KEYS},
         "DEVICE": {"COMPUTE_DTYPE": cfg.TPU.COMPUTE_DTYPE,
-                   "USE_KERNELS": bool(cfg.TPU.USE_PALLAS_ATTENTION)},
+                   "USE_KERNELS": bool(cfg.TPU.USE_PALLAS_ATTENTION),
+                   "FUSED_BLOCK_EVAL": bool(cfg.TPU.get("FUSED_BLOCK_EVAL", True)),
+                   "FUSED_MLP_EVAL": bool(cfg.TPU.get("FUSED_MLP_EVAL", False))},
         "TRAIN": {k: _plain(getattr(cfg.TRAIN, k)) for k in _TRAIN_KEYS},
         "LOSS": {k: _plain(getattr(cfg.LOSS, k)) for k in _LOSS_KEYS},
         **{k: _plain(getattr(cfg, k)) for k in _TOP_KEYS},

@@ -56,15 +56,22 @@ def make_eval_fn(cfg: Dict, model, flip_pairs):
     ``core/train.py::make_eval_step`` -- the forward, a second forward on the
     flipped crops averaged in (reference ``lib/core/function.py:142-162``,
     without the HRNet 1px shift, as validate() never applies it), DARK decode
-    to source pixels, padded persons zeroed."""
+    to source pixels, padded persons zeroed. A model that returns a dict
+    (the two-stage ``interformer``) is read at ``["multi"]``, as
+    ``i2rnet_tpu/serving.py:120-124``."""
     heatmap_size = tuple(int(v) for v in cfg["MODEL"]["HEATMAP_SIZE"])
     test = cfg["TEST"]
 
+    def forward(*args):
+        out = model(*args)
+        # the two-stage model's {"single", "multi"}: serve the inter stage's
+        return out["multi"] if isinstance(out, dict) else out
+
     @torch.inference_mode()
     def evaluate(crops, pos_masks, person_valid, centers, scales):
-        heat = model(crops, pos_masks, person_valid)
+        heat = forward(crops, pos_masks, person_valid)
         if test["FLIP_TEST"]:
-            heat_f = model(crops.flip(-2), pos_masks.flip(-2), person_valid)
+            heat_f = forward(crops.flip(-2), pos_masks.flip(-2), person_valid)
             heat = (heat + flip_back(heat_f, flip_pairs or [])) * 0.5
         b, n = heat.shape[:2]
         coords, maxvals = get_final_preds(

@@ -27,6 +27,7 @@ from i2rnet_tpu.presets import tiny_test_config
 from i2rnet_tpu.registry import get_model_builder
 from i2rnet_tpu_torch import presets
 from i2rnet_tpu_torch.convert.jax_import import params_from_jax
+from i2rnet_tpu_torch.models.interformer import build_model
 from i2rnet_tpu_torch.models.pure_multi import build_pure_multi
 
 torch.set_num_threads(2)
@@ -61,7 +62,7 @@ def random_variables(model, cfg, seed=0):
 
 
 def port_model(variables, cfg, use_kernels=False):
-    model = build_pure_multi(presets.from_config(cfg), use_kernels=use_kernels)
+    model = build_pure_multi(presets.from_config(cfg), use_kernels=use_kernels, device="cpu")
     model.load_state_dict(params_from_jax(variables), strict=True)
     return model
 
@@ -88,7 +89,7 @@ def test_state_dict_names_cover_the_port(jax_tiny):
     """strict load: the bridge names every port parameter and buffer, and
     every name it makes exists in the port."""
     cfg, _, variables = jax_tiny
-    model = build_pure_multi(presets.from_config(cfg))
+    model = build_pure_multi(presets.from_config(cfg), device="cpu")
     assert set(params_from_jax(variables)) == set(model.state_dict())
     assert not any(k.startswith("pos_embedding") for k in model.state_dict())
 
@@ -104,7 +105,7 @@ def test_bridge_covers_the_full_width_model():
         jax.random.PRNGKey(0), np.zeros((1, 2, 256, 192, 3), np.float32),
         np.zeros((1, 2, 256, 192, 1), np.float32), np.ones((1, 2), bool), train=False))
     sd = params_from_jax(jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes))
-    port = build_pure_multi(presets.from_config(cfg)).state_dict()
+    port = build_pure_multi(presets.from_config(cfg), device="cpu").state_dict()
     assert set(sd) == set(port)
     assert {k: tuple(v.shape) for k, v in sd.items()} == {k: tuple(v.shape) for k, v in port.items()}
 
@@ -126,7 +127,9 @@ def test_port_imports_without_jax_yaml_cv2():
     assert len(mods) >= 30
     assert {"i2rnet_tpu_torch.core.trainer", "i2rnet_tpu_torch.ops.cuda.mhsa_train",
             "i2rnet_tpu_torch.ops.cuda.encoder_ffn_train", "i2rnet_tpu_torch.utils.checkpoint",
-            "i2rnet_tpu_torch.data.synthetic"} <= set(mods)
+            "i2rnet_tpu_torch.data.synthetic", "i2rnet_tpu_torch.models.hrformer",
+            "i2rnet_tpu_torch.models.interformer", "i2rnet_tpu_torch.ops.cuda.hrformer_block",
+            "i2rnet_tpu_torch.ops.cuda.mlp_dwbn"} <= set(mods)
 
 
 def test_from_config_matches_presets():
@@ -172,3 +175,62 @@ def test_host_helpers_match():
         np.testing.assert_allclose(tdecode.gaussian_kernel1d(k),
                                    jdecode._cv2_gaussian_kernel1d(k), rtol=1e-6, atol=1e-8)
     assert presets.COCO_FLIP_PAIRS == COCODataset.flip_pairs
+
+
+def test_interformer_round_trip_is_exact():
+    """The HRFormer two-stage model's tree (tiny HRFormer) through
+    ``params_from_jax`` and back: bit for bit, every name matched."""
+    from test_torch_hrformer import _person_inputs, init, jax_interformer
+
+    args = _person_inputs(np.random.RandomState(0), np.ones((1, 2), bool))
+    variables = init(jax_interformer("off"), *args, train=False, seed=5)
+    sd = {k: v.numpy() for k, v in params_from_jax(variables, "interformer").items()}
+    back, unmatched = convert_state_dict(sd, "interformer", strict=True)
+    assert unmatched == []
+    flat_in = jax.tree_util.tree_leaves_with_path(variables)
+    flat_out = jax.tree_util.tree_leaves_with_path(back)
+    assert [p for p, _ in flat_in] == [p for p, _ in flat_out]
+    for (path, a), (_, b) in zip(flat_in, flat_out):
+        np.testing.assert_array_equal(np.asarray(a), b, err_msg=jax.tree_util.keystr(path))
+    port = build_model(presets.tiny_hrt_config(5), device="cpu").state_dict()
+    assert set(sd) == set(port)
+    assert any(k.endswith("relative_position_index") for k in sd)
+
+
+def test_bridge_covers_the_full_width_hrt_model():
+    """HRFormer-B I²R-Net at 256x192 (shapes only): every JAX leaf maps to a
+    port tensor of the same name set and shape."""
+    from i2rnet_tpu.presets import hrt_interformer
+
+    cfg = hrt_interformer()
+    jmodel = get_model_builder(cfg.MODEL.NAME)(cfg, use_pallas=True)
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        jax.random.PRNGKey(0), np.zeros((1, 1, 256, 192, 3), np.float32),
+        np.zeros((1, 1, 256, 192, 1), np.float32), np.ones((1, 1), bool), train=False))
+    sd = params_from_jax(jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes),
+                         "interformer")
+    port = build_model(presets.from_config(cfg), device="cpu").state_dict()
+    assert set(sd) == set(port)
+    assert {k: tuple(v.shape) for k, v in sd.items()} == {k: tuple(v.shape) for k, v in port.items()}
+    assert sum(k.endswith("attn.attn.q_proj.weight") for k in sd) == 44  # transformer blocks
+
+
+def test_from_config_matches_the_hrt_preset():
+    from i2rnet_tpu.presets import hrt_interformer
+
+    got, want = presets.from_config(hrt_interformer()), presets.hrt_interformer()
+    for sec in ("MODEL", "TEST", "DEVICE", "DATASET"):
+        for k, v in want[sec].items():
+            assert got[sec][k] == v, (sec, k)
+
+
+def test_builders_default_to_the_card():
+    """Without a ``device`` the builders put the model on CUDA: on a host
+    without it they raise, and hand back no CPU model."""
+    if torch.cuda.is_available():
+        pytest.skip("checks a host without CUDA")
+    for cfg in (presets.tiny_test_config(5), presets.tiny_hrt_config(5)):
+        with pytest.raises((RuntimeError, AssertionError)):
+            build_model(cfg)
+    with pytest.raises((RuntimeError, AssertionError)):
+        build_pure_multi(presets.tiny_test_config(5))

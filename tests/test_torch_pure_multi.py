@@ -52,7 +52,7 @@ def test_pure_multi_matches_jax(models, rng, valid):
 def test_kernel_flag_on_cpu_is_the_plain_path(models, rng):
     """use_kernels routes through the kernel wrappers, which take the plain
     versions for CPU tensors: identical heatmaps, no launches counted."""
-    from i2rnet_tpu_torch.ops.cuda import launch_counts, reset_launches
+    from i2rnet_tpu_torch.ops.cuda import KERNELS, launch_counts, reset_launches
 
     _, model = models
     args = list(map(torch.from_numpy, _inputs(rng, np.array([[1, 1, 0]], bool))))
@@ -65,9 +65,7 @@ def test_kernel_flag_on_cpu_is_the_plain_path(models, rng):
         finally:
             model.global_encoder.use_kernels = False
     assert torch.equal(on, off)
-    assert launch_counts() == {"masked_mhsa": 0, "encoder_ffn": 0, "mhsa_train_fwd": 0,
-                               "mhsa_train_bwd": 0, "encoder_ffn_train_fwd": 0,
-                               "encoder_ffn_train_bwd": 0}
+    assert launch_counts() == dict.fromkeys(KERNELS, 0)
 
 
 def test_bfloat16_compute_dtype(models, rng):

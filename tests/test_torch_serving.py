@@ -128,3 +128,42 @@ def test_predictor_rejects_bad_requests(served):
         pred.predict([np.zeros((8, 8, 3), np.float32)], [[]])
     with pytest.raises(ValueError, match="exceeds the canvas"):
         pred.predict([np.zeros((RAW_H + 1, 8, 3), np.uint8)], [[]])
+
+
+def test_predictor_serves_the_hrt_model_as_jax(rng):
+    """The HRFormer two-stage model (tiny HRFormer, Kernels E and F's routes)
+    behind ``Predictor``: every static call it makes, fed to the jitted JAX
+    serve function of the same weights (fused Pallas blocks in interpret
+    mode), gives the same keypoints. Argmax decode, as the routing test."""
+    from i2rnet_tpu.presets import tiny_test_config
+    from test_torch_hrformer import _person_inputs, init, jax_interformer, port_interformer
+
+    jmodel = jax_interformer("block")
+    variables = init(jmodel, *_person_inputs(np.random.RandomState(0), np.ones((1, 2), bool)),
+                     train=False, seed=6)
+    jcfg = tiny_test_config(5)  # the tiny HRT config's input, heatmap and TEST keys
+    jcfg.TEST.POST_PROCESS = False
+    jserve = jax.jit(lambda *a: jax_make_serve_fn(jcfg, jmodel, FLIP_PAIRS)(variables, *a))
+    model = port_interformer(variables, "block")
+    pcfg = presets.tiny_hrt_config(5)
+    pcfg["TEST"]["POST_PROCESS"] = False
+    pred = Predictor(model, pcfg, FLIP_PAIRS, batch_images=2, n_buckets=(2, 3),
+                     raw_hw=(RAW_H, RAW_W))
+    calls = []
+    serve = pred.serve
+
+    def spy(*a):
+        out = serve(*a)
+        calls.append(([t.numpy() for t in a], [t.numpy() for t in out]))
+        return out
+
+    pred.serve = spy
+    images = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8) for h, w in ((80, 120), (96, 128))]
+    boxes = [[[5.0 + 7 * i, 4.0 + 3 * i, 35.0, 50.0] for i in range(3)], [[2.0, 2.0, 30.0, 40.0]]]
+    out = pred.predict(images, boxes)
+    assert [o.shape for o in out] == [(3, 5, 3), (1, 5, 3)] and calls
+    for args, (gc, gv) in calls:
+        rc, rv = map(np.asarray, jserve(*args))
+        np.testing.assert_allclose(gc, rc, atol=1e-3, rtol=0)
+        np.testing.assert_allclose(gv, rv, atol=1e-5, rtol=1e-4)
+        assert np.abs(rv).max() > 0.05
