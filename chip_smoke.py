@@ -52,7 +52,22 @@ Phases, one line each (any failure exits non-zero):
     ``Predictor`` in bf16 (buckets 2/4/7), E and F launched in that run;
 16. timing, for information: its eval protocol at B=8, N=4, bf16, kernels on
     and off, a ``torch.profiler`` breakdown of the kernels-on step, and E, F
-    and G beside their plain versions at each branch map.
+    and G beside their plain versions at each branch map;
+17. kernel 9 (the HRFormer window-attention half block for training)
+    forward and backward (dx and the ten parameter gradients) against its
+    plain version, f32 and bf16, at HRFormer-B's four branch maps (P = 24
+    persons) and an odd small map, droppath scales including zeros;
+18. the HRFormer-B I²R-Net's training path: ``train_loop`` on
+    ``hrt_interformer`` at full width, seeded as the JAX package initialises
+    it, bf16, B=12 images x N=2 slots (the recipe's batch and MAX_PATCH)
+    with ragged counts and an empty image, 8 steps on one repeated synthetic
+    raw batch: losses finite and falling, kernel 9 and Kernels C and D
+    launched in this run (counts from zero), the checkpoint resumed; then
+    one f32 step at dropout 0 and drop path 0 with the kernels on vs off;
+19. timing, for information: that train step kernels on and off, a
+    ``torch.profiler`` breakdown of the kernels-on step with its peak
+    memory, and kernel 9's forward and backward beside their plain versions
+    at each branch map.
 
 Then a JSON line of the kernels (each with its main-path launches, its error
 against the plain version, its time, the plain version's, the bound the card
@@ -66,6 +81,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -91,6 +107,8 @@ from i2rnet_tpu_torch.ops.cuda.encoder_ffn_train import (encoder_ffn_train_fused
 from i2rnet_tpu_torch.ops.cuda.hrformer_block import (mlp_block_fused, mlp_block_torch, pack_attn,
                                                       window_attn_block_fused,
                                                       window_attn_block_torch)
+from i2rnet_tpu_torch.ops.cuda.hrformer_block_train import (window_attn_block_train_fused,
+                                                            window_attn_block_train_torch)
 from i2rnet_tpu_torch.ops.cuda.mhsa import masked_mhsa_fused, masked_mhsa_torch
 from i2rnet_tpu_torch.ops.cuda.mhsa_train import (attention_bits, masked_mhsa_train_fused,
                                                   masked_mhsa_train_torch)
@@ -119,6 +137,10 @@ SOURCES = {
                           "i2rnet_tpu/ops/pallas/hrformer_block.py:279"),
     "mlp_block": ("i2rnet_tpu_torch/csrc/mlp_dwbn.cu", "i2rnet_tpu/ops/pallas/hrformer_block.py:361"),
     "mlp_dwbn": ("i2rnet_tpu_torch/csrc/mlp_dwbn.cu", "i2rnet_tpu/ops/pallas/mlp_dwbn.py:99"),
+    "window_attn_block_train_fwd": ("i2rnet_tpu_torch/csrc/window_attn_block.cu",
+                                    "i2rnet_tpu/ops/pallas/hrformer_block_train.py:355"),
+    "window_attn_block_train_bwd": ("i2rnet_tpu_torch/csrc/window_attn_block_train.cu",
+                                    "i2rnet_tpu/ops/pallas/hrformer_block_train.py:411"),
 }
 EVAL_KERNELS = ("masked_mhsa", "encoder_ffn")
 HRT_KERNELS = ("window_attn_block", "mlp_block", "masked_mhsa", "encoder_ffn")
@@ -146,6 +168,28 @@ TRAIN_STEPS = 8
 #: max |difference| over its max |value| (two f32 summation orders in the
 #: encoder, amplified by the BatchNorms after it)
 TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-4, 1e-3
+#: kernel 9's maps (P, H, W, C, heads): 256x192's four branches at P = 24
+#: persons (B=12 x N=2), then an odd small map
+HRT_TRAIN_SHAPES = [(24, 64, 48, 78, 2), (24, 32, 24, 156, 4), (24, 16, 12, 312, 8),
+                    (24, 8, 6, 624, 16), (3, 7, 6, 24, 3)]
+HRT_TRAIN_NAMES = ("x", "ln_w", "ln_b", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
+#: persons per image of the HRT training batch: B=12 images x N=2 slots
+HRT_TRAIN_COUNTS = [2, 1, 2, 0, 2, 2, 1, 2, 2, 1, 2, 2]
+HRT_TRAIN_KERNELS = ("window_attn_block_train_fwd", "window_attn_block_train_bwd") + TRAIN_KERNELS
+#: the f32 HRT training step kernels on vs off: each gradient's max |diff| over
+#: its max |value| and its relative L2 error, and the relative L2 error of all
+#: gradients together. A ReLU input of the fusions within f32 noise of zero
+#: takes either branch: one such element moves a fusion's weight gradients by
+#: 16% in the tiny CPU model, and at full width the two routes differ by 2.0e-2
+#: (max), 4.7e-3 (L2) at the worst leaf and 1.2e-3 overall, where two runs of
+#: one route agree within 5e-5 (measured on the card; the phase prints both);
+#: kernel 9 itself is held at 1e-4 in phase 17
+HRT_GRAD_BOUND = {"max": 5e-2, "l2": 1e-2, "all_l2": 5e-3}
+#: HRT gradients that are 0 in exact arithmetic, held against their module's
+#: weight gradient: biases ahead of a BatchNorm's mean subtraction (MlpDWBN's
+#: convs, LN2, the fusion's depthwise BN) and the key bias (softmax ignores a
+#: bias shared by every key)
+ZERO_GRADS = re.compile(r"(k_proj|mlp\.(fc1|dw3x3|fc2)|norm2|fuse_layers\.\d+\.\d+\.\d+\.1)\.bias$")
 
 
 def log(msg: str) -> None:
@@ -533,29 +577,32 @@ def seeded_model(cfg):
     return model.to(DEV)
 
 
-def phase_train(card):
-    """The main path: ``train_loop`` at full width (bf16, kernels on, dropout
-    0.1) on one repeated synthetic batch; launches counted from zero over it;
-    then AUTO_RESUME from its checkpoint."""
-    cfg = train_cfg("bfloat16", True)
-    raw = synthetic_raw_batch(cfg, TRAIN_COUNTS, np.random.RandomState(SEED))
-    out = OUT_DIR / "train"
+def phase_train(cfg, persons, kernels, name):
+    """A main training path: ``train_loop`` at full width (the config's
+    dtype and kernels, its dropout and drop path) on one repeated synthetic
+    batch of ``persons`` per image; the launches of ``kernels`` counted from
+    zero over it; then AUTO_RESUME from its checkpoint."""
+    raw = synthetic_raw_batch(cfg, persons, np.random.RandomState(SEED))
+    out = OUT_DIR / name
     shutil.rmtree(out, ignore_errors=True)
     losses = []
     reset_launches()
     t0 = time.perf_counter()
     state = train_loop(cfg, str(out), lambda epoch: [raw] * TRAIN_STEPS, max_epochs=1,
-                       device=DEV, on_step=lambda e, i, m: losses.append(float(m["loss"])))
+                       device=DEV, on_step=lambda e, i, m: losses.append(
+                           {k: float(v) for k, v in m.items() if k.startswith("loss")}))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {k: launch_counts()[k] for k in TRAIN_KERNELS}
-    log(f"  {TRAIN_STEPS} steps, B=8 images x N=7 (persons {TRAIN_COUNTS}), bf16: losses "
-        + " ".join(f"{v:.6f}" for v in losses)
+    counts = {k: launch_counts()[k] for k in kernels}
+    total = [v["loss"] for v in losses]
+    log(f"  {TRAIN_STEPS} steps, B={len(persons)} images x N={cfg['DATASET']['MAX_PATCH']} "
+        f"(persons {persons}), {cfg['DEVICE']['COMPUTE_DTYPE']}: losses ({', '.join(losses[0])}) "
+        + " ".join("(" + ", ".join(f"{x:.6f}" for x in v.values()) + ")" for v in losses)
         + f"; host clock {dt:.2f} s with build and init; launches {counts}")
-    if len(losses) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for v in losses for x in v.values()):
         raise AssertionError(f"training losses {losses}")
-    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
-        raise AssertionError(f"the loss does not fall on a repeated batch: {losses}")
+    if not np.mean(total[-3:]) < np.mean(total[:3]):
+        raise AssertionError(f"the loss does not fall on a repeated batch: {total}")
     if min(counts.values()) < 1:
         raise AssertionError(f"the training path launched a kernel no time: {counts}")
     ckpt = latest_checkpoint(str(out))
@@ -567,39 +614,52 @@ def phase_train(card):
     same &= all(torch.equal(a.cpu(), b.cpu()) for k in state.optimizer.state_dict()["state"]
                 for a, b in zip(state.optimizer.state_dict()["state"][k].values(),
                                 resumed.optimizer.state_dict()["state"][k].values()))
-    if not same or resumed.step != state.step or payload["epoch"] != 0:
+    if (not same or resumed.step != state.step or payload["epoch"] != 0
+            or payload["meta"]["model"] != cfg["MODEL"]["NAME"]):
         raise AssertionError(f"AUTO_RESUME from {ckpt} did not restore the trained state")
     log(f"  checkpoint {Path(ckpt).name} written; AUTO_RESUME restores its weights, optimizer "
         f"state and step {resumed.step}")
     return counts, raw
 
 
+def grads_on_off(model, cfg, raw, images, set_kernels, routes=(True, False)):
+    """One f32 training step's losses and gradients on the first ``images`` of
+    ``raw`` with the kernels on or off, for each of ``routes``: a list of
+    (losses, {name: gradient}, launch counts)."""
+    m = cfg["MODEL"]
+    batch = device_preprocess(raw_to_device({k: v[:images] for k, v in raw.items()}, DEV),
+                              tuple(m["IMAGE_SIZE"]), tuple(m["HEATMAP_SIZE"]), m["SIGMA"])
+    res = []
+    for on in routes:
+        set_kernels(on)
+        model.zero_grad(set_to_none=True)
+        reset_launches()
+        out = model(batch["images"], batch["pos_masks"], batch["person_valid"], train=True)
+        outputs = out if isinstance(out, dict) else {"single": None, "multi": out}
+        loss, parts = compute_losses(outputs, batch, m["LOSS_WEIGHTS"], True)
+        loss.backward()
+        torch.cuda.synchronize()
+        res.append(({k: v.item() for k, v in (("loss", loss), *parts.items())},
+                    {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                     if p.grad is not None},  # unused branches have none
+                    launch_counts()))
+    return res
+
+
 def phase_train_on_off(raw):
-    """One f32 training step at dropout 0 (2 images, 12 persons) with the
+    """One f32 W48 training step at dropout 0 (2 images, 12 persons) with the
     kernels on and off: the loss and every gradient."""
     cfg = train_cfg("float32", True)
     model = seeded_model(cfg)
     model.global_encoder.dropout_rate = 0.0
-    m = cfg["MODEL"]
-    batch = device_preprocess(raw_to_device({k: v[:2] for k, v in raw.items()}, DEV),
-                              tuple(m["IMAGE_SIZE"]), tuple(m["HEATMAP_SIZE"]), m["SIGMA"])
-    res = {}
-    for on in (True, False):
-        model.global_encoder.use_kernels = on
-        model.zero_grad(set_to_none=True)
-        heat = model(batch["images"], batch["pos_masks"], batch["person_valid"], train=True)
-        loss, _ = compute_losses({"multi": heat}, batch, m["LOSS_WEIGHTS"], True)
-        loss.backward()
-        res[on] = loss.item(), {n: p.grad.detach().clone() for n, p in model.named_parameters()
-                                if p.grad is not None}  # the unused branches have none
-    (l_on, g_on), (l_off, g_off) = res[True], res[False]
-    loss_rel = abs(l_on - l_off) / abs(l_off)
+    (l_on, g_on, _), (l_off, g_off, _) = grads_on_off(model, cfg, raw, 2, w48_kernels(model))
+    loss_rel = abs(l_on["loss"] - l_off["loss"]) / abs(l_off["loss"])
     grad_rel = {n: ((g_on[n] - g_off[n]).abs().max() / g_off[n].abs().max().clamp_min(1e-30)).item()
                 for n in g_off}
     worst = max(grad_rel, key=grad_rel.get)
-    log(f"  loss {l_on:.8f} vs {l_off:.8f} (rel {loss_rel:.3g}, bound {TRAIN_LOSS_REL:g}); "
-        f"{len(grad_rel)} gradients, worst max|dg|/max|g| {grad_rel[worst]:.3g} at {worst} "
-        f"(bound {TRAIN_GRAD_REL:g})")
+    log(f"  loss {l_on['loss']:.8f} vs {l_off['loss']:.8f} (rel {loss_rel:.3g}, bound "
+        f"{TRAIN_LOSS_REL:g}); {len(grad_rel)} gradients, worst max|dg|/max|g| "
+        f"{grad_rel[worst]:.3g} at {worst} (bound {TRAIN_GRAD_REL:g})")
     if loss_rel > TRAIN_LOSS_REL or grad_rel[worst] > TRAIN_GRAD_REL:
         raise AssertionError("f32 training step with kernels strays from the plain path")
 
@@ -640,11 +700,10 @@ def profile_steps(fn, steps):
                                                                for n, (t, c) in top]
 
 
-def phase_train_timing(raw, g, card):
-    """Train step ms and persons/s at full width, bf16, dropout on, kernels on
-    and off; a profile of the kernels-on step; each training kernel beside its
-    plain version."""
-    cfg = train_cfg("bfloat16", True)
+def step_timing(cfg, raw, persons, set_kernels, card):
+    """The train step at full width (the config's dtype, dropout and drop
+    path) kernels on and off, in ms and persons/s, their peak memory, and a
+    profile of the kernels-on step with its kernel calls."""
     model = seeded_model(cfg)
     state = TrainState(model, *make_optimizer(cfg, model.parameters(), 1000))
     step = make_train_step(state, cfg["MODEL"]["LOSS_WEIGHTS"])
@@ -652,26 +711,31 @@ def phase_train_timing(raw, g, card):
     batch = device_preprocess(raw_to_device(raw, DEV), tuple(m["IMAGE_SIZE"]),
                               tuple(m["HEATMAP_SIZE"]), m["SIGMA"])
     dropout_gen = gen(SEED + 1)
+    kernels = set_kernels(model)
 
     def run(on):
         def go():
-            model.global_encoder.use_kernels = on
+            kernels(on)
             step(batch, dropout_gen)
         return go
 
-    persons = sum(TRAIN_COUNTS)
+    n = sum(persons)
+    torch.cuda.reset_peak_memory_stats()
     t_off, t_on = alternate(run(False), run(True), 3)
-    log(f"  train step B=8 N=7 ({persons} persons) bf16 dropout 0.1: kernels on {t_on:.2f} ms = "
-        f"{persons / t_on * 1e3:.1f} persons/s; kernels off {t_off:.2f} ms = "
-        f"{persons / t_off * 1e3:.1f} persons/s [{card}]")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  train step B={len(persons)} N={cfg['DATASET']['MAX_PATCH']} ({n} persons) "
+        f"{cfg['DEVICE']['COMPUTE_DTYPE']}: kernels on {t_on:.2f} ms = {n / t_on * 1e3:.1f} "
+        f"persons/s; kernels off {t_off:.2f} ms = {n / t_off * 1e3:.1f} persons/s [{card}]")
+    reset_launches()
     wall, busy, launches, top = profile_steps(run(True), 2)
+    per_step = {k: v // 3 for k, v in launch_counts().items() if v}  # warm-up + 2 steps
     log(f"  profile, kernels on: wall {wall:.2f} ms/step under the profiler, device busy "
         f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
-        f"launches/step, peak memory {peak:.1f} GiB; top kernels (ms/step, launches/step):")
+        f"launches/step; peak memory over the timed steps {peak:.1f} GiB; kernel calls per "
+        f"step {per_step}; top "
+        f"kernels (ms/step, launches/step):")
     for name, t, c in top:
         log(f"    {t:8.3f} {c:6.0f}  {name[:110]}")
-    return phase_train_kernel_timing(g, card)
 
 
 def backward_only(fn, inputs, cot):
@@ -871,8 +935,9 @@ def phase_hrt_kernels(g):
 
 
 def hrt_kernels(model):
-    """Kernel routes of the HRT model: on = E, F, A, B; off = modules."""
-    return lambda on: model.set_kernels(on, True, False)
+    """Kernel routes of the HRT model: on = E, F, A, B in eval, kernel 9, C, D
+    in training; off = modules and plain versions."""
+    return lambda on: model.set_kernels(on, True, False, on)
 
 
 def phase_hrt_model(cfg, g):
@@ -962,6 +1027,150 @@ def phase_hrt_kernel_timing(g, card):
     return times
 
 
+def phase_hrt_train_kernels(g):
+    """Kernel 9 forward and backward vs its plain version, f32 and bf16, at
+    each map: max |err| / max |ref| of out, dx and the ten parameter
+    gradients (dbk, 0 in exact arithmetic, over the scale of dbq)."""
+    errs = {}
+    for shape in HRT_TRAIN_SHAPES:
+        p, h, w, c, heads = shape
+        ln, attn, _ = hrt_kernel_args(c, heads, g)
+        s = torch.tensor([(0.0 if i % 4 == 1 else 1.25) for i in range(p)], device=DEV)
+        for dt in (torch.float32, torch.bfloat16):
+            x = (2 * randn(p, h, w, c, g=g)).to(dt)
+            cot = randn(p, h, w, c, g=g, dtype=dt)
+
+            def run(fn):
+                return fwd_bwd(lambda x_, *prm: fn(x_, s, *prm, heads=heads), (x, *ln, *attn), cot)
+
+            got, gk = run(window_attn_block_train_fused)
+            torch.cuda.synchronize()
+            ref, gr = run(window_attn_block_train_torch)
+            rels, abs_errs = {}, {}
+            for name, a, r in zip(("out",) + HRT_TRAIN_NAMES, (got, *gk), (ref, *gr)):
+                if not torch.isfinite(a).all() or a.shape != r.shape:
+                    raise AssertionError(f"kernel 9 {shape} {dt} {name}: non-finite or shape")
+                scale = (gr[4] if name == "bk" else r).float().abs().max().item()
+                abs_errs[name] = (a.float() - r.float()).abs().max().item()
+                rels[name] = abs_errs[name] / scale
+            worst = max(rels, key=rels.get)
+            if rels[worst] > HRT_TOL[dt]:
+                raise AssertionError(f"kernel 9 {shape} {dt}: {worst} max|err|/max|ref| "
+                                     f"{rels[worst]:.3g} (bound {HRT_TOL[dt]:g})")
+            if not (torch.equal(got[1], x[1]) and torch.equal(gk[0][1], cot[1])):
+                raise AssertionError(f"kernel 9 {shape} {dt}: a sample with s = 0 is not x, dy")
+            if shape == HRT_TRAIN_SHAPES[0] and dt == torch.bfloat16:
+                errs = {"window_attn_block_train_fwd": abs_errs["out"],
+                        "window_attn_block_train_bwd": max(v for k, v in abs_errs.items()
+                                                           if k != "out")}
+            log(f"  {shape} {str(dt)[6:]}: max|err|/max|ref| out {rels['out']:.2g}, "
+                + " ".join(f"d{k} {rels[k]:.2g}" for k in HRT_TRAIN_NAMES)
+                + f"; s = 0 exact; bound {HRT_TOL[dt]:g}")
+    return errs
+
+
+def hrt_train_cfg(dtype: str, use_kernels: bool):
+    cfg = presets.hrt_interformer()
+    cfg["DEVICE"].update(COMPUTE_DTYPE=dtype, USE_KERNELS=use_kernels,
+                         FUSED_BLOCK_TRAIN=use_kernels)
+    cfg["PRINT_FREQ"] = 1
+    return cfg
+
+
+def phase_hrt_train_on_off(raw):
+    """One f32 HRT training step at dropout 0 and drop path 0 (4 images, 5
+    persons) with the kernels on and off: the losses and every gradient,
+    kernel 9 launched with the kernels on only."""
+    cfg = hrt_train_cfg("float32", True)
+    model = seeded_model(cfg)
+    model.multi_global_encoder.dropout_rate = 0.0
+    for blk in model.singleformer.blocks():
+        blk.drop_path = 0.0
+    (l_on, g_on, c_on), (l_off, g_off, c_off), (_, g_off2, _) = grads_on_off(
+        model, cfg, raw, 4, hrt_kernels(model), routes=(True, False, False))
+    if c_on["window_attn_block_train_bwd"] < 1 or c_off["window_attn_block_train_bwd"]:
+        raise AssertionError(f"kernel 9 with the kernels on {c_on}, off {c_off}")
+    loss_rel = max(abs(l_on[k] - l_off[k]) / abs(l_off[k]) for k in l_off)
+    diff, spread = grad_diff(g_on, g_off), grad_diff(g_off2, g_off)
+    log(f"  losses on {l_on} vs off {l_off} (worst rel {loss_rel:.3g}, bound {TRAIN_LOSS_REL:g}); "
+        f"{len(g_off)} gradients: " + describe_diff(diff) + f" (bounds {HRT_GRAD_BOUND}); two "
+        "runs of the route off: " + describe_diff(spread))
+    if loss_rel > TRAIN_LOSS_REL or any(diff[k][0] > HRT_GRAD_BOUND[k] for k in diff):
+        raise AssertionError("f32 HRT training step with kernels strays from the plain path")
+
+
+def grad_diff(got, ref):
+    """{"max", "l2", "all_l2": (value, leaf)}: the worst leaf's max |dg| over
+    max |g| and |dg| over |g|, and |dg| over |g| of all leaves together; the
+    leaves in ZERO_GRADS over their module's weight gradient."""
+    names = [n for n in ref if ref[n].abs().max() > 0]
+    scale = {n: ref[n[:-4] + "weight" if ZERO_GRADS.search(n) else n] for n in names}
+    rel = {"max": {n: ((got[n] - ref[n]).abs().max() / scale[n].abs().max()).item()
+                   for n in names},
+           "l2": {n: ((got[n] - ref[n]).norm() / scale[n].norm()).item() for n in names}}
+    out = {k: (v[max(v, key=v.get)], max(v, key=v.get)) for k, v in rel.items()}
+    out["all_l2"] = (math.sqrt(sum(((got[n] - ref[n]).double() ** 2).sum().item() for n in names)
+                               / sum((scale[n].double() ** 2).sum().item() for n in names)), "all")
+    return out
+
+
+def describe_diff(diff):
+    return (f"worst max|dg|/max|g| {diff['max'][0]:.3g} at {diff['max'][1]}, worst |dg|/|g| "
+            f"{diff['l2'][0]:.3g} at {diff['l2'][1]}, all together {diff['all_l2'][0]:.3g}")
+
+
+def hrt_train_bound(shape, dtype, backward: bool):
+    """Bound of kernel 9 at one map over the 7-padded windows: the map (x,
+    out; backward x, dy, dx), the window tokens t2 and the weights once, and
+    the products' multiply-adds: forward q/k/v and out projections and the
+    attention (Kernel E's count); backward the q/k/v recompute, dO and dt2
+    (7 C^2 per token), the four weight gradients (4 C^2) and six attention
+    products per head (6 * 49 * C per token)."""
+    p, h, w, c, heads = shape
+    el = torch.empty((), dtype=dtype).element_size()
+    tp = (h + (-h) % 7) * (w + (-w) % 7)
+    weights = 4 * c * c * el + 6 * c * 4
+    if not backward:
+        return bound(2 * p * h * w * c * el + p * tp * c * el + weights,
+                     p * (8.0 * tp * c * c + 4.0 * 49 * tp * c), dtype)
+    grads = (4 * c * c + 6 * c) * 4
+    return bound(3 * p * h * w * c * el + p * tp * c * el + weights + grads,
+                 p * (2.0 * 11 * tp * c * c + 2.0 * 6 * 49 * tp * c), dtype)
+
+
+def phase_hrt_train_kernel_timing(g, card):
+    """Kernel 9 forward and backward beside its plain version at 256x192's
+    branch maps (bf16, P=24)."""
+    times = {}
+    for shape in HRT_TRAIN_SHAPES[:4]:
+        p, h, w, c, heads = shape
+        ln, attn, _ = hrt_kernel_args(c, heads, g)
+        x = randn(p, h, w, c, g=g, dtype=torch.bfloat16)
+        cot = randn(p, h, w, c, g=g, dtype=torch.bfloat16)
+        s = torch.full((p,), 1.25, device=DEV)
+
+        def call(fn):
+            return lambda x_, *prm: fn(x_, s, *prm, heads=heads)
+
+        with torch.no_grad():
+            fwd = timing(*alternate(lambda: call(window_attn_block_train_torch)(x, *ln, *attn),
+                                    lambda: call(window_attn_block_train_fused)(x, *ln, *attn),
+                                    10), hrt_train_bound(shape, torch.bfloat16, False))
+        bwd = timing(*alternate(backward_only(call(window_attn_block_train_torch), (x, *ln, *attn),
+                                              cot),
+                                backward_only(call(window_attn_block_train_fused), (x, *ln, *attn),
+                                              cot), 10),
+                     hrt_train_bound(shape, torch.bfloat16, True))
+        if shape == HRT_TRAIN_SHAPES[0]:
+            times = {"window_attn_block_train_fwd": fwd, "window_attn_block_train_bwd": bwd}
+        log(f"  kernel 9 {shape} bf16: forward kernel {fwd['ms'] * 1e3:.1f} us, plain "
+            f"{fwd['plain_ms'] * 1e3:.1f} us, bound {fwd['bound_ms'] * 1e3:.2f} us "
+            f"({fwd['bound_by']}); backward kernel {bwd['ms'] * 1e3:.1f} us, plain "
+            f"{bwd['plain_ms'] * 1e3:.1f} us, bound {bwd['bound_ms'] * 1e3:.2f} us "
+            f"({bwd['bound_by']}) [{card}]")
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -1000,11 +1209,13 @@ def main() -> int:
     log("phase 9 encoder_ffn_train (Kernel D) forward and backward vs plain:")
     d_err = phase_ffn_train(g)
     log("phase 10 training W48-pure-en6 through train_loop (bf16, B=8 N=7, kernels on):")
-    train_counts, raw = phase_train(card)
+    train_counts, raw = phase_train(train_cfg("bfloat16", True), TRAIN_COUNTS, TRAIN_KERNELS,
+                                    "train")
     log("  one f32 step at dropout 0, kernels on vs off (2 images, 12 persons):")
     phase_train_on_off(raw)
     log(f"phase 11 training timing [{card}]:")
-    times.update(phase_train_timing(raw, g, card))
+    step_timing(train_cfg("bfloat16", True), raw, TRAIN_COUNTS, w48_kernels, card)
+    times.update(phase_train_kernel_timing(g, card))
 
     torch.cuda.empty_cache()
 
@@ -1025,8 +1236,27 @@ def main() -> int:
     for name, t, c in top:
         log(f"    {t:8.3f} {c:6.0f}  {name[:110]}")
     times.update(phase_hrt_kernel_timing(g, card))
+    del model, step
+    torch.cuda.empty_cache()
+
+    log("phase 17 kernel 9 (HRFormer window-attention training block) forward and backward "
+        "vs plain:")
+    errs.update(phase_hrt_train_kernels(g))
+    log("phase 18 training the HRFormer-B I²R-Net through train_loop (bf16, B=12 N=2, "
+        "kernels on):")
+    hrt_train_counts, hrt_raw = phase_train(hrt_train_cfg("bfloat16", True), HRT_TRAIN_COUNTS,
+                                            HRT_TRAIN_KERNELS, "train_hrt")
+    log("  one f32 step at dropout 0 and drop path 0, kernels on vs off (4 images, "
+        f"{sum(HRT_TRAIN_COUNTS[:4])} persons):")
+    phase_hrt_train_on_off(hrt_raw)
+    torch.cuda.empty_cache()
+    log(f"phase 19 HRT training timing [{card}]:")
+    step_timing(hrt_train_cfg("bfloat16", True), hrt_raw, HRT_TRAIN_COUNTS, hrt_kernels, card)
+    times.update(phase_hrt_train_kernel_timing(g, card))
 
     counts.update(train_counts)
+    counts.update({k: hrt_train_counts[k] for k in ("window_attn_block_train_fwd",
+                                                    "window_attn_block_train_bwd")})
     counts.update({k: hrt_counts[k] for k in ("window_attn_block", "mlp_block")}, **g_counts)
     errs.update({"masked_mhsa": mhsa_err, "encoder_ffn": ffn_err,
                  "mhsa_train_fwd": c_err["fwd"], "mhsa_train_bwd": c_err["bwd"],

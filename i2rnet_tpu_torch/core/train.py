@@ -3,8 +3,10 @@
 Port of ``i2rnet_tpu/core/train.py`` (reference ``lib/core/function.py:
 30-102``): forward in training mode, the masked heatmap loss, backward,
 optimizer step, BatchNorm running statistics updated by the forward.
-``TPU.REMAT`` and ``frozen_predicate`` are not ported (no recipe of this
-slice uses them; ROADMAP).
+The model returns its heatmaps (``interformer_pureMulti``) or the
+``{"single", "multi"}`` dict (``interformer``), whose ``single`` adds the
+inter-supervision loss. ``TPU.REMAT`` and ``frozen_predicate`` are not ported
+(no recipe of these slices uses them; ROADMAP).
 """
 
 from __future__ import annotations
@@ -50,22 +52,25 @@ def make_train_step(state: TrainState, loss_weights=(0.5, 0.5), use_target_weigh
     target_weight, person_valid). The step's dropout seed is drawn from
     ``generator`` (a ``torch.Generator`` the caller owns). The learning rate
     is ``state.schedule(state.step)``. Metrics (``loss``, ``acc``,
-    ``loss_multi``) stay device tensors, so no step waits on the host.
+    ``loss_multi``, and ``loss_single`` where the model supervises it) stay
+    device tensors, so no step waits on the host; PCK accuracy is on ``multi``.
     """
 
     def train_step(batch, generator: torch.Generator):
         seed = int(torch.randint(0, SEED_RANGE, (), generator=generator))
         state.set_lr()
-        heat = state.model(batch["images"], batch["pos_masks"], batch["person_valid"],
-                           train=True, dropout_seed=seed)
-        loss, parts = compute_losses({"single": None, "multi": heat}, batch, loss_weights,
-                                     use_target_weight, use_ohkm, topk)
+        out = state.model(batch["images"], batch["pos_masks"], batch["person_valid"],
+                          train=True, dropout_seed=seed)
+        outputs = out if isinstance(out, dict) else {"single": None, "multi": out}
+        loss, parts = compute_losses(outputs, batch, loss_weights, use_target_weight, use_ohkm,
+                                     topk)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
         state.step += 1
         with torch.no_grad():
-            acc, _, _ = pck_accuracy(heat.detach(), batch["target"], batch["person_valid"])
+            acc, _, _ = pck_accuracy(outputs["multi"].detach(), batch["target"],
+                                     batch["person_valid"])
         return {"loss": loss.detach(), "acc": acc, **{k: v.detach() for k, v in parts.items()}}
 
     return train_step

@@ -1,10 +1,12 @@
 """The training loop: epochs, steps, logging, checkpoints, AUTO_RESUME.
 
 Port of ``i2rnet_tpu/core/trainer.py::train_loop`` (reference
-``tools/ddp_train.py:101-263``) on one device. The model is built from the
-config and initialised as the JAX package initialises it (``init_weights``,
-seed ``SEED``); a pretrained ImageNet trunk (``MODEL.PRETRAINED``) waits
-until such a file is in the repository. Each epoch runs its steps, logs as
+``tools/ddp_train.py:101-263``) on one device. The model of ``MODEL.NAME``
+(``build_model``: the vanilla or the HRFormer two-stage I²R-Net) is built
+from the config and initialised as the JAX package initialises it
+(``init_weights``, seed ``SEED``); pretrained weights (``MODEL.PRETRAINED``,
+the two-stage recipes' ``SINGLE_MODEL``) wait until such files are in the
+repository. Each epoch runs its steps, logs as
 the JAX trainer does every ``PRINT_FREQ`` steps, halts on a non-finite loss
 (``FloatingPointError``), and writes a checkpoint; the newest checkpoint is
 resumed under ``AUTO_RESUME``; the final state is written at the end.
@@ -26,7 +28,8 @@ import torch
 
 from i2rnet_tpu_torch.core.train import make_train_step
 from i2rnet_tpu_torch.core.train_state import TrainState, make_optimizer
-from i2rnet_tpu_torch.models.pure_multi import build_pure_multi, init_weights
+from i2rnet_tpu_torch.models.interformer import build_model
+from i2rnet_tpu_torch.models.pure_multi import init_weights
 from i2rnet_tpu_torch.ops.preprocess import device_preprocess
 from i2rnet_tpu_torch.presets import COCO_JOINTS_WEIGHT
 from i2rnet_tpu_torch.utils.checkpoint import (latest_checkpoint, load_checkpoint,
@@ -93,7 +96,7 @@ def train_loop(cfg: Dict, output_dir: str, batches: Callable[[int], Iterable[Dic
     m = cfg["MODEL"]
     # initialised on the CPU from a CPU generator (the same weights on any
     # device), then moved
-    model = build_pure_multi(cfg, device="cpu")
+    model = build_model(cfg, device="cpu")
     init_weights(model, torch.Generator().manual_seed(cfg["SEED"]))
     model.to(device)
 

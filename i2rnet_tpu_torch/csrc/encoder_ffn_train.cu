@@ -45,33 +45,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
 #include "philox.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;     // dW tile edge and row slice of the reduction
-constexpr int kSplits = 16;   // row slices of the dW reduction
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 struct Dropout {
   const uint32_t* bits1;  // [rows, f] (mode 1)
@@ -337,54 +317,6 @@ ffn_train_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ dout,
   }
 }
 
-// part[z][i][j] = sum over rows r of slice z of a[r][i] * b[r][j]; a [rows][m],
-// b [rows][n]; one 32x32 output tile per block, 8 rows x 4 outputs per thread.
-template <typename T>
-__global__ void __launch_bounds__(256)
-outer_sum_kernel(const T* __restrict__ a, const T* __restrict__ b, float* __restrict__ part,
-                 int rows, int m, int n, int rows_per_split) {
-  __shared__ float as[kTile][kTile + 1];
-  __shared__ float bs[kTile][kTile + 1];
-  const int i0 = blockIdx.y * kTile, j0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int r_begin = blockIdx.z * rows_per_split;
-  const int r_end = min(rows, r_begin + rows_per_split);
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int r0 = r_begin; r0 < r_end; r0 += kTile) {
-    for (int e = threadIdx.x; e < kTile * kTile; e += 256) {
-      const int rr = e / kTile, cc = e % kTile, r = r0 + rr;
-      const bool in_r = r < r_end;
-      as[rr][cc] = (in_r && i0 + cc < m) ? to_f32(a[(size_t)r * m + i0 + cc]) : 0.f;
-      bs[rr][cc] = (in_r && j0 + cc < n) ? to_f32(b[(size_t)r * n + j0 + cc]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int rr = 0; rr < kTile; ++rr) {
-      const float bv = bs[rr][tx];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[u] += as[rr][ty + 8 * u] * bv;
-    }
-    __syncthreads();
-  }
-  const int j = j0 + tx;
-  if (j >= n) return;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int i = i0 + ty + 8 * u;
-    if (i < m) part[((size_t)blockIdx.z * m + i) * n + j] = acc[u];
-  }
-}
-
-// out[e] = sum over k < parts of part[k][e], in order
-__global__ void sum_parts_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                 int parts, int n) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  float acc = 0.f;
-  for (int k = 0; k < parts; ++k) acc += part[(size_t)k * n + e];
-  out[e] = acc;
-}
-
 size_t fwd_smem(int c, int f) {
   return sizeof(float) * (param_floats(c, f) + (size_t)kWarps * (3 * c + f));
 }
@@ -416,20 +348,6 @@ cudaError_t launch_fwd(const void* x, const Params& p, void* out, int rows, int 
 }
 
 template <typename T>
-cudaError_t outer_sum(const void* a, const void* b, float* part, float* out, int rows, int m,
-                      int n, cudaStream_t st) {
-  const int per = ((rows + kSplits - 1) / kSplits + kTile - 1) / kTile * kTile;
-  const int splits = (rows + per - 1) / per;
-  dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile, splits);
-  outer_sum_kernel<T><<<grid, 256, 0, st>>>(static_cast<const T*>(a), static_cast<const T*>(b),
-                                            part, rows, m, n, per);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  sum_parts_kernel<<<(m * n + 255) / 256, 256, 0, st>>>(part, out, splits, m * n);
-  return cudaGetLastError();
-}
-
-template <typename T>
 cudaError_t launch_bwd(const void* x, const void* dout, const Params& p, void* dx, void* nb,
                        void* ab, void* dyb, void* dab, float* vec_part, float* w_part,
                        float* d_vec, float* dw1, float* dw2, int rows, int c, int f, float eps,
@@ -444,12 +362,11 @@ cudaError_t launch_bwd(const void* x, const void* dout, const Params& p, void* d
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int nvec = vec_floats(c, f);
-  sum_parts_kernel<<<(nvec + 255) / 256, 256, 0, st>>>(vec_part, d_vec, grid, nvec);
-  err = cudaGetLastError();
+  err = sum_parts(vec_part, d_vec, grid, nvec, nvec, 1.f, st);
   if (err != cudaSuccess) return err;
-  err = outer_sum<T>(dab, nb, w_part, dw1, rows, f, c, st);  // dW1 [f][c]
+  err = outer_sum<T>(dab, nb, w_part, dw1, rows, f, c, 1.f, st);  // dW1 [f][c]
   if (err != cudaSuccess) return err;
-  return outer_sum<T>(dyb, ab, w_part, dw2, rows, c, f, st);  // dW2 [c][f]
+  return outer_sum<T>(dyb, ab, w_part, dw2, rows, c, f, 1.f, st);  // dW2 [c][f]
 }
 
 }  // namespace

@@ -1,6 +1,9 @@
-// HRFormer window-attention half block, forward (eval), for Hopper (sm_90a).
+// HRFormer window-attention half block, forward, for Hopper (sm_90a).
 //
-// Replaces: i2rnet_tpu/ops/pallas/hrformer_block.py::window_attn_block_fused.
+// Replaces: i2rnet_tpu/ops/pallas/hrformer_block.py::window_attn_block_fused
+// (eval, Kernel E) and the forward of
+// i2rnet_tpu/ops/pallas/hrformer_block_train.py::window_attn_block_train
+// (training, kernel 9: the template's kTrain flag).
 //
 // Computes x + WindowMHSA(LN1(x)) on a [P, H, W, C] map, rounding where
 // _attn_math (hrformer_block.py:109-155) rounds, with T the activation type:
@@ -12,6 +15,10 @@
 //     o    = T(T(softmax(q . k^T)) . v)   per head; f32 logits and softmax
 //     out  = x + T(o . Wo + bo)           residual in T, real tokens only
 // The relative-position bias is not added (the reference quirk).
+// With kTrain (kernel 9, _fwd_kernel :104-156) the block also takes the
+// per-sample droppath scale s [P] and writes the window tokens t2 = T(y)
+// [P, nwin, 49, C] (0 at pad tokens) for the backward, and the last line is
+//     out  = x + T(s (o . Wo + bo))        the product in f32
 //
 // What bounds it on the H100: per person at branch 0 of a 256x192 input
 // (64x48x78, padded to 70x49 = 3430 window tokens, 2 heads of d = 39) the
@@ -38,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -47,31 +56,6 @@ constexpr int kTok = kWin * kWin;
 constexpr int kKC = 32;  // input channels per chunk of the q/k/v products
 constexpr size_t kMaxSmem = 232448;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
 // shared memory: 4-byte section (statistics, token coordinates, q/k/v,
 // logits), then the T tiles
 template <typename T>
@@ -80,13 +64,13 @@ size_t smem_bytes(int c, int d) {
          sizeof(T) * (size_t)(kTok * kKC + kKC * 3 * d + kTok * c);
 }
 
-template <typename T>
+template <typename T, bool kTrain>
 __global__ void __launch_bounds__(kThreads)
-window_attn_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
-                   const float* __restrict__ ln_b, const T* __restrict__ wqkv,
-                   const float* __restrict__ bqkv, const T* __restrict__ wot,
-                   const float* __restrict__ bo, T* __restrict__ out, int h, int w, int c,
-                   int heads, float eps) {
+window_attn_kernel(const T* __restrict__ x, const float* __restrict__ s,
+                   const float* __restrict__ ln_g, const float* __restrict__ ln_b,
+                   const T* __restrict__ wqkv, const float* __restrict__ bqkv,
+                   const T* __restrict__ wot, const float* __restrict__ bo, T* __restrict__ out,
+                   T* __restrict__ t2, int h, int w, int c, int heads, float eps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int d = c / heads, n3 = 3 * d;
   float* s_mean = reinterpret_cast<float*>(smem_raw);
@@ -105,6 +89,9 @@ window_attn_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
   const size_t map = (size_t)h * w * c;
   const T* xp = x + (size_t)blockIdx.y * map;
   T* op = out + (size_t)blockIdx.y * map;
+  // the window's tokens in t2 (kTrain)
+  T* t2p = kTrain ? t2 + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * kTok * c : nullptr;
+  const float sc = kTrain ? s[blockIdx.y] : 1.f;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const float fc = (float)c;
 
@@ -148,6 +135,7 @@ window_attn_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
           v = (xv - s_mean[t]) * s_rstd[t] * ln_g[ch] + ln_b[ch];
         }
         yt[i] = from_f32<T>(v);
+        if (kTrain && hd == 0 && k < kc) t2p[(size_t)t * c + c0 + k] = yt[i];
       }
       for (int i = tid; i < kKC * n3; i += kThreads) {
         const int k = i / n3, j = i % n3;
@@ -244,26 +232,46 @@ window_attn_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
       const int t = row * kWin + i;
       if (s_row[t] < 0) continue;
       const size_t off = ((size_t)s_row[t] * w + s_col[t]) * c + col;
-      op[off] = from_f32<T>(to_f32(xp[off]) + round_to<T>(acc[i] + bo[col]));
+      const float a = acc[i] + bo[col];
+      op[off] = from_f32<T>(to_f32(xp[off]) + round_to<T>(kTrain ? sc * a : a));
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* ln_g, const void* ln_b, const void* wqkv,
-                   const void* bqkv, const void* wot, const void* bo, void* out, int p, int h,
-                   int w, int c, int heads, float eps, cudaStream_t stream) {
+template <typename T, bool kTrain>
+cudaError_t launch(const void* x, const void* s, const void* ln_g, const void* ln_b,
+                   const void* wqkv, const void* bqkv, const void* wot, const void* bo, void* out,
+                   void* t2, int p, int h, int w, int c, int heads, float eps,
+                   cudaStream_t stream) {
   const size_t bytes = smem_bytes<T>(c, c / heads);
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(window_attn_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(window_attn_kernel<T, kTrain>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(((h + kWin - 1) / kWin) * ((w + kWin - 1) / kWin), p);
-  window_attn_kernel<T><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(ln_g), static_cast<const float*>(ln_b),
-      static_cast<const T*>(wqkv), static_cast<const float*>(bqkv), static_cast<const T*>(wot),
-      static_cast<const float*>(bo), static_cast<T*>(out), h, w, c, heads, eps);
+  window_attn_kernel<T, kTrain><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(s), static_cast<const float*>(ln_g),
+      static_cast<const float*>(ln_b), static_cast<const T*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<const T*>(wot), static_cast<const float*>(bo),
+      static_cast<T*>(out), static_cast<T*>(t2), h, w, c, heads, eps);
   return cudaGetLastError();
+}
+
+template <bool kTrain>
+int dispatch(const void* x, const void* s, const void* ln_g, const void* ln_b, const void* wqkv,
+             const void* bqkv, const void* wot, const void* bo, void* out, void* t2, int p,
+             int h, int w, int c, int heads, float eps, int dtype, void* stream) {
+  if (p < 1 || h < 1 || w < 1 || heads < 1 || c < heads || c % heads) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch<float, kTrain>(x, s, ln_g, ln_b, wqkv, bqkv, wot, bo, out, t2, p, h, w, c,
+                                      heads, eps, st);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16, kTrain>(x, s, ln_g, ln_b, wqkv, bqkv, wot, bo, out, t2, p,
+                                              h, w, c, heads, eps, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -277,17 +285,19 @@ extern "C" int i2r_window_attn_fwd(const void* x, const void* ln_g, const void* 
                                    const void* wqkv, const void* bqkv, const void* wot,
                                    const void* bo, void* out, int p, int h, int w, int c,
                                    int heads, float eps, int dtype, void* stream) {
-  if (p < 1 || h < 1 || w < 1 || heads < 1 || c < heads || c % heads) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = launch<float>(x, ln_g, ln_b, wqkv, bqkv, wot, bo, out, p, h, w, c, heads, eps, st);
-  else if (dtype == 1)
-    err = launch<__nv_bfloat16>(x, ln_g, ln_b, wqkv, bqkv, wot, bo, out, p, h, w, c, heads, eps,
-                                st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return dispatch<false>(x, nullptr, ln_g, ln_b, wqkv, bqkv, wot, bo, out, nullptr, p, h, w, c,
+                         heads, eps, dtype, stream);
+}
+
+// Kernel 9's forward: as above, plus s [p] f32 (the per-sample droppath
+// scale) and t2 [p, nwin, 49, c] of type T, the window tokens after LN1 (0
+// at pad tokens), nwin = ceil(h / 7) * ceil(w / 7) in row-major window order.
+extern "C" int i2r_window_attn_train_fwd(const void* x, const void* s, const void* ln_g,
+                                         const void* ln_b, const void* wqkv, const void* bqkv,
+                                         const void* wot, const void* bo, void* out, void* t2,
+                                         int p, int h, int w, int c, int heads, float eps,
+                                         int dtype, void* stream) {
+  if (s == nullptr || t2 == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch<true>(x, s, ln_g, ln_b, wqkv, bqkv, wot, bo, out, t2, p, h, w, c, heads, eps,
+                        dtype, stream);
 }

@@ -1,4 +1,4 @@
-"""HRFormer-B, the intra-human first stage of the two-stage I²R-Net (eval).
+"""HRFormer-B, the intra-human first stage of the two-stage I²R-Net.
 
 Port of ``i2rnet_tpu/models/hrformer.py`` (reference ``lib/models/
 hrformer.py``): a stem (two stride-2 3x3 convs, two Bottlenecks), three stages
@@ -10,26 +10,36 @@ branch 0. Module names are the reference's (``backbone.stage2.0.branches.0.1
 
 Layout: the convolutions run NCHW; the transformer blocks take the map as
 ``[P, H, W, C]`` (the JAX layout, which the kernels take), a view of the
-same memory where the map is channels-last. A block runs one of three routes
-in eval (``HRFormerBlock.use_kernels``, ``fused_block``, ``fused_mlp``, from
-``DEVICE.USE_KERNELS``, ``FUSED_BLOCK_EVAL``, ``FUSED_MLP_EVAL``):
+same memory where the map is channels-last. Every convolution and
+projection computes in the model's compute dtype, the dtype of the input
+map (flax ``dtype=``), whatever dtype the stream has reached. A block runs one
+of three routes in eval (``HRFormerBlock.use_kernels``, ``fused_block``,
+``fused_mlp``, from ``DEVICE.USE_KERNELS``, ``FUSED_BLOCK_EVAL``,
+``FUSED_MLP_EVAL``):
 
 * kernels and fused block: Kernel E (LN1 + window attention + residual), then
   Kernel F (LN2 + BN-folded MlpDWBN + residual);
 * kernels and fused MLP only: the modules' attention, then LN2 and Kernel G
-  (the BN-folded MlpDWBN) and the residual;
+  (the BN-folded MlpDWBN) in f32 and the residual, which makes the stream f32
+  from that block on, as JAX's promotion does;
 * otherwise the modules (LayerNorm, window partition, ``WindowRPEAttention``,
   ``MlpDWBN`` with BatchNorms and erf GELU), as the JAX unfused path.
 
-Only eval is ported: DropPath is the identity there (its rates are kept on
-the blocks), and a training forward raises. ``use_rpe`` is not ported: the
-relative-position table is carried, not added (the reference quirk).
+In training (``module.training``; the two-stage model sets it per call) a
+block is ``x + dp(attn(LN1(x)))`` then ``x + dp(MlpDWBN(LN2(x)))`` with the
+BatchNorms' batch statistics over the valid persons and DropPath's
+per-sample scales (:func:`drop_path_scale`, drawn in
+:meth:`HRFormer.forward` from the call's seed); the attention half runs
+kernel 9 (``window_attn_block_train_fused``) where ``use_kernels`` and
+``fused_train`` (``DEVICE.FUSED_BLOCK_TRAIN``) are on, else the modules.
+``use_rpe`` is not ported: the relative-position table is carried, not
+added (the reference quirk), and a block built with ``use_rpe`` raises.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -38,10 +48,11 @@ from torch import nn
 
 from i2rnet_tpu_torch.models.hrnet import Transition
 from i2rnet_tpu_torch.models.layers import (Bottleneck, Conv2d, ConvBN, LayerNorm, Linear,
-                                            MaskedBatchNorm, upsample_bilinear)
+                                            MaskedBatchNorm, set_compute_dtype, upsample_bilinear)
 from i2rnet_tpu_torch.ops.cuda.hrformer_block import (mlp_block_fused, pack_attn,
                                                       window_attn_block_fused, window_partition,
                                                       window_unpartition)
+from i2rnet_tpu_torch.ops.cuda.hrformer_block_train import window_attn_block_train_fused
 from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import fold_bn, mlp_dwbn_fused, pack_mlp
 
 #: the HRFormer-B architecture (reference factory ``hrformer.py:2487-2533``,
@@ -59,6 +70,9 @@ HRFORMER_B_ARCH = {
                    num_mlp_ratios=(4, 4, 4, 4), num_window_sizes=(7, 7, 7, 7)),
 }
 STAGES = ("stage2", "stage3", "stage4")
+#: the DropPath generator's seed is ``dropout_seed * 2^8 + DROP_PATH_OFFSET``,
+#: apart from the encoder's dropout sites (offsets below 4 * layers)
+DROP_PATH_OFFSET = 255
 
 
 def _rpe_index(window: int) -> np.ndarray:
@@ -71,6 +85,23 @@ def _rpe_index(window: int) -> np.ndarray:
     rel[:, :, 1] += window - 1
     rel[:, :, 0] *= 2 * window - 1
     return rel.sum(-1)
+
+
+def drop_path_scale(p: int, rate: float, generator: torch.Generator, device):
+    """One DropPath draw for ``p`` samples (reference ``hrformer.py:1008-1040``,
+    ``i2rnet_tpu/models/hrformer.py:71-84``): ``floor(keep + U[0, 1)) / keep``
+    per sample, 0 or 1/keep, keep = 1 - rate; None (the identity) at rate 0,
+    after the same draw, so the stream does not depend on the rates."""
+    u = torch.rand(p, generator=generator, device=device)
+    if rate == 0.0:
+        return None
+    keep = 1.0 - rate
+    return torch.floor(keep + u) / keep
+
+
+def drop_path(y, scale):
+    """``y`` times its sample's scale ``[P]`` (in y's dtype), or ``y`` for None."""
+    return y if scale is None else y * scale.to(y.dtype)[:, None, None, None]
 
 
 class WindowRPEAttention(nn.Module):
@@ -154,15 +185,18 @@ class MlpDWBN(nn.Module):
 
 class HRFormerBlock(nn.Module):
     """GeneralTransformerBlock over ``[B, H, W, C]`` (reference
-    ``hrformer.py:1182-1242``): ``x + attn(norm1(x))``, then ``x + mlp(norm2(x))``.
-    The kernel routes are set by the owning model (see the module docstring)."""
+    ``hrformer.py:1182-1242``): ``x + dp(attn(norm1(x)))``, then
+    ``x + dp(mlp(norm2(x)))``. The kernel routes are set by the owning model,
+    and in training its DropPath scales ``dp_scales`` (see the module
+    docstring)."""
 
     def __init__(self, channels: int, num_heads: int, window: int, mlp_ratio: float,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, use_rpe: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.window = window
         self.drop_path = drop_path  # DropPath rate: the identity in eval
+        self.use_rpe = use_rpe
         self.norm1 = LayerNorm(channels)
         self.attn = InterlacedPoolAttention(channels, num_heads, window)
         self.norm2 = LayerNorm(channels)
@@ -170,11 +204,15 @@ class HRFormerBlock(nn.Module):
         self.use_kernels = False
         self.fused_block = True
         self.fused_mlp = False
+        self.fused_train = False
+        self.dp_scales = None  # (attention half, MLP half) [P] scales or None, per call
         self._packed = {}
 
     def forward(self, x):
+        if self.use_rpe:
+            raise NotImplementedError("use_rpe (adding the relative-position bias) is not ported")
         if self.training:
-            raise NotImplementedError("HRFormer training is not ported (eval only)")
+            return self._forward_train(x)
         if self.use_kernels and self.fused_block:
             a = self.attn.attn
             attn_w = (a.q_proj.weight, a.q_proj.bias, a.k_proj.weight, a.k_proj.bias,
@@ -188,14 +226,28 @@ class HRFormerBlock(nn.Module):
         x = x + self.attn(self.norm1(x))
         if self.use_kernels and self.fused_mlp:
             # Kernel G takes LN2's f32 output, as the JAX module hands it; its
-            # result comes back in f32 and joins the residual in x's dtype
+            # f32 result joins the residual, so the sum is f32 from here on
             y = F.layer_norm(x.float(), self.norm2.normalized_shape, self.norm2.weight,
                              self.norm2.bias, self.norm2.eps)
             y = mlp_dwbn_fused(y, *self._kernel_weights("folded", x),
-                               packed=self._kernel_weights("mlp32", x)).to(x.dtype)
+                               packed=self._kernel_weights("mlp32", x))
         else:
             y = self.mlp(self.norm2(x))
         return x + y
+
+    def _forward_train(self, x):
+        s_attn, s_mlp = self.dp_scales or (None, None)
+        if self.use_kernels and self.fused_train:
+            a = self.attn.attn
+            s = torch.ones(x.shape[0], device=x.device) if s_attn is None else s_attn
+            x = window_attn_block_train_fused(
+                x, s, self.norm1.weight, self.norm1.bias, a.q_proj.weight, a.q_proj.bias,
+                a.k_proj.weight, a.k_proj.bias, a.v_proj.weight, a.v_proj.bias,
+                a.out_proj.weight, a.out_proj.bias, heads=self.num_heads, window=self.window,
+                eps=self.norm1.eps)
+        else:
+            x = x + drop_path(self.attn(self.norm1(x)), s_attn)
+        return x + drop_path(self.mlp(self.norm2(x)), s_mlp)
 
     def _kernel_weights(self, kind: str, x):
         """The weights a kernel route takes, made once per (kind, dtype,
@@ -348,10 +400,40 @@ class HRFormer(nn.Module):
     def blocks(self):
         return [m for m in self.modules() if isinstance(m, HRFormerBlock)]
 
-    def set_routes(self, use_kernels: bool, fused_block: bool, fused_mlp: bool) -> None:
+    def set_routes(self, use_kernels: bool, fused_block: bool, fused_mlp: bool,
+                   fused_train: bool = False) -> None:
         for blk in self.blocks():
-            blk.use_kernels, blk.fused_block, blk.fused_mlp = use_kernels, fused_block, fused_mlp
+            blk.use_kernels, blk.fused_block = use_kernels, fused_block
+            blk.fused_mlp, blk.fused_train = fused_mlp, fused_train
 
-    def forward(self, x):
-        feat = self.backbone(x)
+    def forward(self, x, dropout_seed: Optional[int] = None, drop_path_scales=None):
+        """``x`` ``[P, 3, H, W]`` in the compute dtype. In training the blocks'
+        DropPath scales come from ``dropout_seed`` (one draw of ``[P]`` per
+        block half, in :meth:`blocks` order), or are ``drop_path_scales``, a
+        sequence of (attention, MLP) scale pairs per block (tests)."""
+        set_compute_dtype(self, x.dtype)
+        blocks = self.blocks()
+        if self.training:
+            scales = self._drop_path_scales(x.shape[0], x.device, dropout_seed, drop_path_scales)
+            for blk, pair in zip(blocks, scales):
+                blk.dp_scales = pair
+        try:
+            feat = self.backbone(x)
+        finally:
+            for blk in blocks:
+                blk.dp_scales = None
         return feat, self.keypoint_head(feat).float()
+
+    def _drop_path_scales(self, p, device, dropout_seed, given):
+        blocks = self.blocks()
+        if given is not None:
+            if len(given) != len(blocks):
+                raise ValueError(f"drop_path_scales: {len(given)} pairs for {len(blocks)} blocks")
+            return [tuple(pair) for pair in given]
+        if all(blk.drop_path == 0.0 for blk in blocks):
+            return [None] * len(blocks)
+        if dropout_seed is None:
+            raise ValueError("a training forward with DropPath needs dropout_seed")
+        g = torch.Generator(device=device).manual_seed((int(dropout_seed) << 8) + DROP_PATH_OFFSET)
+        return [tuple(drop_path_scale(p, blk.drop_path, g, device) for _ in range(2))
+                for blk in blocks]

@@ -1,4 +1,4 @@
-"""Two-stage I²R-Net (``interformer``) with the HRFormer-B first stage (eval).
+"""Two-stage I²R-Net (``interformer``) with the HRFormer-B first stage.
 
 Port of ``i2rnet_tpu/models/interformer.py:59-231`` for the released HRT
 recipe (``experiments/coco/interformer_coco_hrt_192_p2_b12.yaml``):
@@ -16,6 +16,13 @@ recipe (``experiments/coco/interformer_coco_hrt_192_p2_b12.yaml``):
 * returns ``{"single", "multi"}`` heatmaps ``[B, N, K, H/4, W/4]`` (f32;
   ``single`` None unless inter-supervision is on and the first stage trains).
 
+``forward(..., train=True, dropout_seed=...)`` is the JAX ``train=True`` as
+:class:`~.pure_multi.PureMultiInterFormer` has it: training mode for the call,
+every BatchNorm (first stage, deconvs) over the valid persons, the first
+stage's DropPath and the encoder's dropout keyed by the seed. A frozen first
+stage (``SINGLEFORMER_FIX``, ``DEVICE.FROZEN_STAGE_EVAL_MODE``) and
+``DEVICE.REMAT`` are not ported: a training forward with them raises.
+
 :func:`build_model` builds either ported model from a port config, on the
 card unless asked otherwise.
 """
@@ -30,7 +37,7 @@ from torch import nn
 
 from i2rnet_tpu_torch.models.encoder import TransformerEncoder
 from i2rnet_tpu_torch.models.hrformer import HRFORMER_B_ARCH, HRFormer
-from i2rnet_tpu_torch.models.layers import Conv2d, DeconvBlock, max_pool_3x3_s2
+from i2rnet_tpu_torch.models.layers import Conv2d, DeconvBlock, max_pool_3x3_s2, training_call
 from i2rnet_tpu_torch.models.pure_multi import DTYPES, build_pure_multi
 
 
@@ -47,20 +54,27 @@ class DeconvUpsample(nn.Module):
 
 
 class InterFormer(nn.Module):
-    """``forward(images [B,N,H,W,3], pos_masks, person_valid [B,N]) ->
-    {"single", "multi"}`` (eval; ``pos_masks`` unused without a multi-person
-    position embedding). ``compute_dtype`` is ``DEVICE.COMPUTE_DTYPE``;
-    :meth:`set_kernels` switches every kernel route at once."""
+    """``forward(images [B,N,H,W,3], pos_masks, person_valid [B,N], train=False,
+    dropout_seed=None) -> {"single", "multi"}`` (``pos_masks`` unused without a
+    multi-person position embedding). ``compute_dtype`` is
+    ``DEVICE.COMPUTE_DTYPE``; :meth:`set_kernels` switches every kernel route
+    at once."""
 
     def __init__(self, arch: Dict, extra: Dict, num_joints: int = 17, d_model: int = 78,
                  dim_feedforward: int = 192, n_head: int = 1, encoder_layers: int = 2,
                  trans_size=(16, 12), heatmap_size=(48, 64), inter_supervision: bool = True,
-                 singleformer_fix: bool = False, compute_dtype: torch.dtype = torch.float32):
+                 singleformer_fix: bool = False, frozen_stage_eval: bool = False,
+                 remat=False, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.trans_size = tuple(trans_size)
         self.d_model = d_model
         self.compute_dtype = compute_dtype
         self.return_single = inter_supervision and not singleformer_fix
+        # training options not ported: (config key, value) pairs that are set
+        self.unported_training = [(k, v) for k, v in (
+            ("MODEL.SINGLEFORMER_FIX", singleformer_fix),
+            ("DEVICE.FROZEN_STAGE_EVAL_MODE", frozen_stage_eval),
+            ("DEVICE.REMAT", remat)) if v not in (False, None, "none")]
         self.singleformer = HRFormer(arch, num_joints)
         self.multi_global_encoder = TransformerEncoder(encoder_layers, d_model, n_head,
                                                        dim_feedforward)
@@ -77,25 +91,31 @@ class InterFormer(nn.Module):
         self.final_layer = Conv2d(filters, num_joints, k, 1, k // 2)
 
     def set_kernels(self, use_kernels: bool, fused_block: bool = True,
-                    fused_mlp: bool = False) -> None:
+                    fused_mlp: bool = False, fused_train: bool = False) -> None:
         """``DEVICE.USE_KERNELS`` (all routes), ``FUSED_BLOCK_EVAL`` (Kernels
-        E + F) and ``FUSED_MLP_EVAL`` (Kernel G, where E + F are off)."""
+        E + F), ``FUSED_MLP_EVAL`` (Kernel G, where E + F are off) and
+        ``FUSED_BLOCK_TRAIN`` (kernel 9 in training)."""
         self.multi_global_encoder.use_kernels = use_kernels
-        self.singleformer.set_routes(use_kernels, fused_block, fused_mlp)
+        self.singleformer.set_routes(use_kernels, fused_block, fused_mlp, fused_train)
 
-    def forward(self, images, pos_masks, person_valid, train: bool = False):
-        if train or self.training:
-            raise NotImplementedError("training the HRFormer I²R-Net is not ported")
+    def forward(self, images, pos_masks, person_valid, train: bool = False,
+                dropout_seed: Optional[int] = None, drop_path_scales=None):
+        if (train or self.training) and self.unported_training:
+            raise NotImplementedError(f"training with {self.unported_training} is not ported")
+        with training_call(self, train, person_valid):
+            return self._forward(images, person_valid, dropout_seed, drop_path_scales)
+
+    def _forward(self, images, person_valid, dropout_seed, drop_path_scales):
         b, n, h, w, _ = images.shape
         x = images.reshape(b * n, h, w, 3).permute(0, 3, 1, 2).to(self.compute_dtype)
-        feat, single_heat = self.singleformer(x)            # [B*N, C, H/4, W/4]
+        feat, single_heat = self.singleformer(x, dropout_seed, drop_path_scales)
         single_res = feat
         for _ in range(int(math.log2(feat.shape[3] // self.trans_size[1]))):
             feat = max_pool_3x3_s2(feat)
         th, tw = feat.shape[2], feat.shape[3]
         tokens = feat.permute(0, 2, 3, 1).reshape(b, n * th * tw, self.d_model)
         key_pad = (~person_valid).repeat_interleave(th * tw, dim=1)
-        out = self.multi_global_encoder(tokens, key_pad, None)
+        out = self.multi_global_encoder(tokens, key_pad, None, dropout_seed)
         out = out.reshape(b * n, th, tw, self.d_model).permute(0, 3, 1, 2)
         out = single_res + self.upsample_layer(out)
         heat = self.final_layer(out)
@@ -126,9 +146,12 @@ def build_interformer(cfg: Dict, use_kernels: Optional[bool] = None,
         dim_feedforward=m["DIM_FEEDFORWARD"], n_head=m["N_HEAD"],
         encoder_layers=m["ENCODER_MULTI_LAYERS"], trans_size=tuple(m["TRANS_SIZE"]),
         heatmap_size=tuple(m["HEATMAP_SIZE"]), inter_supervision=m["INTER_SUPERVISION"],
-        singleformer_fix=m["SINGLEFORMER_FIX"], compute_dtype=DTYPES[dev["COMPUTE_DTYPE"]])
+        singleformer_fix=m["SINGLEFORMER_FIX"],
+        frozen_stage_eval=dev.get("FROZEN_STAGE_EVAL_MODE", False),
+        remat=dev.get("REMAT", False), compute_dtype=DTYPES[dev["COMPUTE_DTYPE"]])
     model.set_kernels(dev["USE_KERNELS"] if use_kernels is None else use_kernels,
-                      dev.get("FUSED_BLOCK_EVAL", True), dev.get("FUSED_MLP_EVAL", False))
+                      dev.get("FUSED_BLOCK_EVAL", True), dev.get("FUSED_MLP_EVAL", False),
+                      dev.get("FUSED_BLOCK_TRAIN", False))
     return model.to(device).eval()
 
 

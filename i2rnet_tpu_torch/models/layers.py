@@ -4,11 +4,15 @@ Port of ``i2rnet_tpu/models/layers.py``. Module and parameter names are the
 original PyTorch repo's (``conv1``/``bn1``/``downsample.0``...), so its state
 dicts load as they are and ``convert/torch_import.py`` maps them to the JAX
 tree. Parameters stay float32; convolutions and linears cast them to the
-activation dtype at use, as flax's ``dtype=`` does. :func:`conv_init_` is the
+activation dtype at use, as flax's ``dtype=`` does: the input's dtype, or
+``compute_dtype`` where the owning model sets one (the HRFormer, whose stream
+may be f32 where its projections compute in bf16). :func:`conv_init_` is the
 JAX package's ``conv_init`` (N(0, 0.001), reference ``init_weights``).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -16,21 +20,36 @@ from torch import nn
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` computing in the input's dtype (float32 master weights).
-    ``groups=channels`` makes it depthwise (HRFormer's ``dw3x3`` and fusion
-    downsamples, flax ``feature_group_count``)."""
+    """``nn.Conv2d`` computing in ``compute_dtype``, else the input's dtype
+    (float32 master weights). ``groups=channels`` makes it depthwise
+    (HRFormer's ``dw3x3`` and fusion downsamples, flax ``feature_group_count``)."""
+
+    compute_dtype = None
 
     def forward(self, x):
+        x = x.to(self.compute_dtype or x.dtype)
         b = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), b)
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` computing in the input's dtype (float32 master weights)."""
+    """``nn.Linear`` computing in ``compute_dtype``, else the input's dtype
+    (float32 master weights)."""
+
+    compute_dtype = None
 
     def forward(self, x):
+        x = x.to(self.compute_dtype or x.dtype)
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), b)
+
+
+def set_compute_dtype(module: nn.Module, dtype) -> None:
+    """Every :class:`Conv2d` and :class:`Linear` under ``module`` computes in
+    ``dtype`` (flax ``dtype=`` on each of the model's layers)."""
+    for m in module.modules():
+        if isinstance(m, (Conv2d, Linear)):
+            m.compute_dtype = dtype
 
 
 class LayerNorm(nn.LayerNorm):
@@ -101,6 +120,27 @@ class MaskedBatchNorm(nn.BatchNorm2d):
             self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
             self.num_batches_tracked.add_(1)
         return mean, var
+
+
+@contextlib.contextmanager
+def training_call(model: nn.Module, train: bool, person_valid):
+    """The JAX ``train=`` flag for one call: ``model`` runs in training mode
+    inside the block (restored after), and with ``train`` every
+    :class:`MaskedBatchNorm` under it normalises over the valid persons
+    (``person_valid`` ``[B, N]`` flattened as each BN's ``person_mask``)."""
+    was_training = model.training
+    bns = [m for m in model.modules() if isinstance(m, MaskedBatchNorm)] if train else []
+    if train != was_training:
+        model.train(train)
+    for bn in bns:
+        bn.person_mask = person_valid.reshape(-1)
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.person_mask = None
+        if train != was_training:
+            model.train(was_training)
 
 
 class ConvBN(nn.Sequential):

@@ -7,7 +7,8 @@ weights, faithful to the reference quirk), a 1x1 heatmap head, and padded
 persons' heatmaps zeroed. The state-dict names are the original PyTorch
 repo's, so ``convert_state_dict(model.state_dict(), "interformer_pureMulti")``
 gives the JAX variable tree. :func:`init_weights` is the JAX package's
-initialisation (convs N(0, 0.001), encoder Xavier-uniform, BN/LN 1 and 0).
+initialisation of this model and of the HRFormer two-stage model (convs
+N(0, 0.001), dense layers Xavier-uniform, BN/LN 1 and 0).
 """
 
 from __future__ import annotations
@@ -19,11 +20,13 @@ from torch import nn
 
 from i2rnet_tpu_torch.models.encoder import (SelfAttention, TransformerEncoder,
                                              flatten_person_tokens)
+from i2rnet_tpu_torch.models.hrformer import WindowRPEAttention
 from i2rnet_tpu_torch.models.hrnet import HRNetTrunk
-from i2rnet_tpu_torch.models.layers import Conv2d, DeconvBlock, MaskedBatchNorm, conv_init_
+from i2rnet_tpu_torch.models.layers import Conv2d, DeconvBlock, conv_init_, training_call
 from i2rnet_tpu_torch.models.position import PositionEmbeddingImage
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+RPE_INIT_STD = 0.02  # flax truncated_normal(0.02): the untruncated std, cut at +-2 std
 
 
 class PureMultiInterFormer(HRNetTrunk):
@@ -61,19 +64,8 @@ class PureMultiInterFormer(HRNetTrunk):
 
     def forward(self, images, pos_masks, person_valid, train: bool = False,
                 dropout_seed: Optional[int] = None):
-        was_training = self.training
-        bns = [m for m in self.modules() if isinstance(m, MaskedBatchNorm)] if train else []
-        if train != was_training:
-            self.train(train)
-        for bn in bns:
-            bn.person_mask = person_valid.reshape(-1)
-        try:
+        with training_call(self, train, person_valid):
             return self._forward(images, pos_masks, person_valid, dropout_seed)
-        finally:
-            for bn in bns:
-                bn.person_mask = None
-            if train != was_training:
-                self.train(was_training)
 
     def _forward(self, images, pos_masks, person_valid, dropout_seed):
         b, n, h, w, _ = images.shape
@@ -93,13 +85,16 @@ class PureMultiInterFormer(HRNetTrunk):
         return heat.float()
 
 
-def init_weights(model: PureMultiInterFormer, generator: torch.Generator) -> PureMultiInterFormer:
-    """The JAX package's initialisation, in place, from ``generator``: every
-    convolution (and the deconv) N(0, 0.001) with zero bias (``conv_init``,
-    reference ``init_weights``); the encoder's q, k, v, out and FFN weights
-    Xavier-uniform each (q, k, v as three [C, C] matrices, as the JAX
-    ``q_proj``/``k_proj``/``v_proj``) with zero biases; BatchNorm and
-    LayerNorm scale 1, bias 0; running statistics 0 and 1."""
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The JAX package's initialisation of either ported model, in place, from
+    ``generator``: every convolution (and the deconvs) N(0, 0.001) with zero
+    bias (``conv_init``, reference ``init_weights``); every dense layer
+    Xavier-uniform with zero bias (``nn.Dense(kernel_init=xavier)``: the
+    encoder's q, k, v as three [C, C] matrices, as the JAX ``q_proj``/
+    ``k_proj``/``v_proj``, and the HRFormer's window-attention projections);
+    the HRFormer's relative-position tables truncated normal, std 0.02 cut
+    at 2 std (``rpe_table``); BatchNorm and LayerNorm scale 1, bias 0;
+    running statistics 0 and 1."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
@@ -113,6 +108,10 @@ def init_weights(model: PureMultiInterFormer, generator: torch.Generator) -> Pur
                 for part in m.in_proj_weight.chunk(3, dim=0):
                     nn.init.xavier_uniform_(part, generator=generator)
                 m.in_proj_bias.zero_()
+            elif isinstance(m, WindowRPEAttention):
+                nn.init.trunc_normal_(m.relative_position_bias_table, std=RPE_INIT_STD,
+                                      a=-2 * RPE_INIT_STD, b=2 * RPE_INIT_STD,
+                                      generator=generator)
             elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()

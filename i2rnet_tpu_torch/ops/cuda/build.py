@@ -44,6 +44,10 @@ SIGNATURES = {
                           _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _U, _U, _U, _F,
                           _I, _P),
     "i2r_window_attn_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    "i2r_window_attn_train_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                  _I, _P),
+    "i2r_window_attn_train_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _F, _F, _I, _P),
     "i2r_mlp_block_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "i2r_mlp_dwbn_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }

@@ -77,9 +77,10 @@ def _t32(a, dt):
     return a.to(dt).float()
 
 
-def window_attn_block_torch(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
-                            window: int = WINDOW, eps: float = LN_EPS):
-    """Plain PyTorch ``x + WindowMHSA(LN1(x))`` with Kernel E's rounding."""
+def window_attn_f32(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
+                    window: int = WINDOW, eps: float = LN_EPS):
+    """``o . T(Wo)^T + bo`` of E's arithmetic in f32 on the map, before the
+    rounding and residual (differentiable)."""
     dt = x.dtype
     c = x.shape[-1]
     d = c // heads
@@ -100,8 +101,14 @@ def window_attn_block_torch(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads
 
     prob = torch.softmax(torch.matmul(split(q), split(k).transpose(-1, -2)), dim=-1)
     o = torch.matmul(_t32(prob, dt), split(v)).to(dt).transpose(1, 2).reshape(nb, t, c)
-    a = (torch.matmul(o.float(), _t32(wo, dt).t()) + bo.float()).to(dt)
-    return x + window_unpartition(a, window, info)
+    return window_unpartition(torch.matmul(o.float(), _t32(wo, dt).t()) + bo.float(), window, info)
+
+
+def window_attn_block_torch(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
+                            window: int = WINDOW, eps: float = LN_EPS):
+    """Plain PyTorch ``x + WindowMHSA(LN1(x))`` with Kernel E's rounding."""
+    a = window_attn_f32(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads, window, eps)
+    return x + a.to(x.dtype)
 
 
 def mlp_block_torch(x, ln_w, ln_b, w1, b1, dw, bdw, w2, b2, eps: float = LN_EPS):
@@ -140,28 +147,16 @@ def window_attn_block_fused(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads
     if x.device.type == "cpu":
         return window_attn_block_torch(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo,
                                        heads, window, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"window_attn_block_fused: unsupported device {x.device}")
-    if x.dim() != 4 or x.dtype not in DTYPE_CODES:
-        raise ValueError(f"window_attn_block_fused: x must be float32 or bfloat16 "
-                         f"[P, H, W, C], got {x.dtype} {tuple(x.shape)}")
-    p, h, w, c = x.shape
-    if window != WINDOW or heads < 1 or c % heads:
-        raise ValueError(f"window_attn_block_fused: window {window} (kernel: {WINDOW}), "
-                         f"C={c} must split into {heads} heads")
-    if any(t.shape != (c, c) for t in (wq, wk, wv, wo)):
-        raise ValueError(f"window_attn_block_fused: projections must be [C, C] = {(c, c)}")
-    nwin = -(-h // window) * -(-w // window)
-    if nwin > 2 ** 31 - 1 or p > 65535:
-        raise ValueError(f"window_attn_block_fused: grid ({nwin}, {p}) out of range")
+    check_cuda_attn(x, (wq, wk, wv, wo), heads, window, "window_attn_block_fused")
     if x.numel() == 0:
         return torch.empty_like(x)
     if packed is None:
         packed = pack_attn(wq, bq, wk, bk, wv, bv, wo, bo, heads, x.dtype, x.device)
     wqkv, bqkv, wot, bof = packed
-    g, b = (t.detach().to(x.device, torch.float32).contiguous() for t in (ln_w, ln_b))
+    g, b = ln_f32(ln_w, ln_b, x.device)
     xc = x.contiguous()
     out = torch.empty_like(xc)
+    p, h, w, c = x.shape
     err = build.library().i2r_window_attn_fwd(
         xc.data_ptr(), g.data_ptr(), b.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
         wot.data_ptr(), bof.data_ptr(), out.data_ptr(), p, h, w, c, heads, float(eps),
@@ -169,6 +164,31 @@ def window_attn_block_fused(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads
     build.check(err, "window_attn_block kernel")
     window_attn_block_fused.launches += 1
     return out
+
+
+def check_cuda_attn(x, projections, heads: int, window: int, what: str) -> None:
+    """Raise unless ``x`` is a float32/bfloat16 ``[P, H, W, C]`` CUDA tensor the
+    window-attention kernels take (7x7 windows, C split into ``heads``,
+    ``[C, C]`` projections, a grid in range); shapes are checked first."""
+    if x.dim() != 4 or x.dtype not in DTYPE_CODES:
+        raise ValueError(f"{what}: x must be float32 or bfloat16 [P, H, W, C], "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    p, h, w, c = x.shape
+    if window != WINDOW or heads < 1 or c % heads:
+        raise ValueError(f"{what}: window {window} (kernel: {WINDOW}), "
+                         f"C={c} must split into {heads} heads")
+    if any(t.shape != (c, c) for t in projections):
+        raise ValueError(f"{what}: projections must be [C, C] = {(c, c)}")
+    nwin = -(-h // window) * -(-w // window)
+    if nwin > 2 ** 31 - 1 or p > 65535 or h > 65535:
+        raise ValueError(f"{what}: grid ({nwin}, {p}) out of range")
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+
+
+def ln_f32(ln_w, ln_b, device):
+    """LayerNorm scale and bias as contiguous f32 on ``device``."""
+    return tuple(t.detach().to(device, torch.float32).contiguous() for t in (ln_w, ln_b))
 
 
 def mlp_block_fused(x, ln_w, ln_b, w1, b1, dw, bdw, w2, b2, eps: float = LN_EPS, packed=None):

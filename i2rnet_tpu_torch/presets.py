@@ -8,10 +8,16 @@ section is ``DEVICE``: ``COMPUTE_DTYPE``, ``USE_KERNELS`` (the JAX
 ``TPU.COMPUTE_DTYPE`` and ``TPU.USE_PALLAS_ATTENTION``, the master switch of
 every kernel route; the recipes' ``FLASH_TRAIN_ATTENTION`` and
 ``FUSED_FFN_TRAIN`` are on, so it also routes training through Kernels C and
-D), ``FUSED_BLOCK_EVAL`` (HRFormer blocks on Kernels E and F) and
-``FUSED_MLP_EVAL`` (their MlpDWBN on Kernel G where E and F are off). One
-key is the port's own: ``MODEL.HRFORMER_ARCH``, the HRFormer architecture
-(the JAX builder's ``arch=`` argument; HRFormer-B when absent).
+D), ``FUSED_BLOCK_EVAL`` (HRFormer blocks on Kernels E and F),
+``FUSED_MLP_EVAL`` (their MlpDWBN on Kernel G where E and F are off),
+``FUSED_BLOCK_TRAIN`` (the HRFormer blocks' attention half on kernel 9 in
+training), and ``FROZEN_STAGE_EVAL_MODE`` and ``REMAT``, which the port does
+not implement (a training forward with either raises). One key is the
+port's own: ``MODEL.HRFORMER_ARCH``, the HRFormer architecture (the JAX
+builder's ``arch=`` argument; HRFormer-B when absent). The JAX gates
+``TPU.MIN_FUSED_TRAIN_TOKENS`` and ``TPU.FUSED_TRAIN_MAX_BLOCKS`` are not
+carried: they cap what the TPU compiler is given, and every block takes
+kernel 9 when its route is on.
 """
 
 from __future__ import annotations
@@ -51,9 +57,10 @@ _LOSS_KEYS = ("USE_OHKM", "TOPK", "USE_TARGET_WEIGHT", "USE_DIFFERENT_JOINTS_WEI
 _TOP_KEYS = ("SEED", "AUTO_RESUME", "PRINT_FREQ")
 
 
-def _device(dtype: str, use_kernels: bool) -> Dict:
+def _device(dtype: str, use_kernels: bool, fused_block_train: bool = False) -> Dict:
     return {"COMPUTE_DTYPE": dtype, "USE_KERNELS": use_kernels, "FUSED_BLOCK_EVAL": True,
-            "FUSED_MLP_EVAL": False}
+            "FUSED_MLP_EVAL": False, "FUSED_BLOCK_TRAIN": fused_block_train,
+            "FROZEN_STAGE_EVAL_MODE": False, "REMAT": False}
 
 
 def _training(batch: int, end_epoch: int, lr: float, lr_end: float, wd: float) -> Dict:
@@ -117,13 +124,20 @@ def _hrt_model(num_joints, image_size, heatmap_size, trans_size, d_model, dim_ff
 def hrt_interformer(image_size=(192, 256)) -> Dict:
     """I²R-Net with the HRFormer-B first stage on COCO (``[w, h]`` input):
     DIM_MODEL 78 = branch 0's width, 2 inter layers, no multi-person
-    position embedding, deconv upsampling, MAX_PATCH 2."""
+    position embedding, deconv upsampling, MAX_PATCH 2.
+
+    ``DEVICE.FUSED_BLOCK_TRAIN`` is on here, so training runs kernel 9 on
+    every HRFormer block's attention half. The JAX recipe leaves its
+    ``TPU.FUSED_BLOCK_TRAIN`` off: it was retired for a TPU reason (the
+    window relayouts it removes fed the matrix unit, ``docs/KERNELS.md:25``).
+    Both routes compute the same function; the measurement on the H100
+    (PERF.md) decides whether the port keeps it on."""
     w, h = image_size
     return {
         "MODEL": _hrt_model(17, (w, h), (w // 4, h // 4), (h // 16, w // 16), 78, 192, 1, 2),
         "DATASET": {"DATASET": "coco", "MAX_PATCH": 2},
         "TEST": {"FLIP_TEST": True, "BLUR_KERNEL": 11, "POST_PROCESS": True},
-        "DEVICE": _device("bfloat16", True),
+        "DEVICE": _device("bfloat16", True, fused_block_train=True),
         **_training(batch=4, end_epoch=240, lr=1e-4, lr_end=1e-5, wd=1e-4),
     }
 
@@ -213,7 +227,10 @@ def from_config(cfg) -> Dict:
         "DEVICE": {"COMPUTE_DTYPE": cfg.TPU.COMPUTE_DTYPE,
                    "USE_KERNELS": bool(cfg.TPU.USE_PALLAS_ATTENTION),
                    "FUSED_BLOCK_EVAL": bool(cfg.TPU.get("FUSED_BLOCK_EVAL", True)),
-                   "FUSED_MLP_EVAL": bool(cfg.TPU.get("FUSED_MLP_EVAL", False))},
+                   "FUSED_MLP_EVAL": bool(cfg.TPU.get("FUSED_MLP_EVAL", False)),
+                   "FUSED_BLOCK_TRAIN": bool(cfg.TPU.get("FUSED_BLOCK_TRAIN", False)),
+                   "FROZEN_STAGE_EVAL_MODE": bool(cfg.TPU.get("FROZEN_STAGE_EVAL_MODE", False)),
+                   "REMAT": _plain(cfg.TPU.get("REMAT", False))},
         "TRAIN": {k: _plain(getattr(cfg.TRAIN, k)) for k in _TRAIN_KEYS},
         "LOSS": {k: _plain(getattr(cfg.LOSS, k)) for k in _LOSS_KEYS},
         **{k: _plain(getattr(cfg, k)) for k in _TOP_KEYS},

@@ -129,7 +129,8 @@ def test_port_imports_without_jax_yaml_cv2():
             "i2rnet_tpu_torch.ops.cuda.encoder_ffn_train", "i2rnet_tpu_torch.utils.checkpoint",
             "i2rnet_tpu_torch.data.synthetic", "i2rnet_tpu_torch.models.hrformer",
             "i2rnet_tpu_torch.models.interformer", "i2rnet_tpu_torch.ops.cuda.hrformer_block",
-            "i2rnet_tpu_torch.ops.cuda.mlp_dwbn"} <= set(mods)
+            "i2rnet_tpu_torch.ops.cuda.mlp_dwbn",
+            "i2rnet_tpu_torch.ops.cuda.hrformer_block_train"} <= set(mods)
 
 
 def test_from_config_matches_presets():
@@ -216,12 +217,20 @@ def test_bridge_covers_the_full_width_hrt_model():
 
 
 def test_from_config_matches_the_hrt_preset():
+    """Equal key for key, but ``DEVICE.FUSED_BLOCK_TRAIN``: the port's preset
+    turns on the kernel route the JAX recipe leaves off (``presets.
+    hrt_interformer``), and ``from_config`` carries the JAX value."""
     from i2rnet_tpu.presets import hrt_interformer
 
     got, want = presets.from_config(hrt_interformer()), presets.hrt_interformer()
     for sec in ("MODEL", "TEST", "DEVICE", "DATASET"):
         for k, v in want[sec].items():
-            assert got[sec][k] == v, (sec, k)
+            if (sec, k) != ("DEVICE", "FUSED_BLOCK_TRAIN"):
+                assert got[sec][k] == v, (sec, k)
+    assert want["DEVICE"]["FUSED_BLOCK_TRAIN"] and not got["DEVICE"]["FUSED_BLOCK_TRAIN"]
+    jcfg = hrt_interformer()
+    jcfg.TPU.FUSED_BLOCK_TRAIN = True
+    assert presets.from_config(jcfg)["DEVICE"]["FUSED_BLOCK_TRAIN"] is True
 
 
 def test_builders_default_to_the_card():

@@ -140,9 +140,13 @@ def test_hrformer_block_matches_jax(rng, route, h, w, c, heads):
 
 
 def test_hrformer_block_is_eval_only(rng):
-    blk = HRFormerBlock(16, 2, 7, 2.0).train()
-    with pytest.raises(NotImplementedError, match="eval only"):
-        blk(torch.zeros(1, 7, 7, 16))
+    """What of the block stays unported raises in both modes: ``use_rpe``
+    (adding the relative-position bias) in training and in eval."""
+    for train in (True, False):
+        blk = HRFormerBlock(16, 2, 7, 2.0, use_rpe=True).train(train)
+        with pytest.raises(NotImplementedError, match="use_rpe"):
+            blk(torch.zeros(1, 7, 7, 16))
+    assert HRFormerBlock(16, 2, 7, 2.0).train()(torch.zeros(1, 7, 7, 16)).shape == (1, 7, 7, 16)
 
 
 @pytest.mark.parametrize("factor", [2, 4, 8])
@@ -194,6 +198,32 @@ def test_hrformer_matches_jax(rng, route):
     assert np.abs(heat_ref).max() > 0.05  # O(1) maps
     assert _rel(feat.permute(0, 2, 3, 1).numpy(), feat_ref) < MODEL_REL
     assert _rel(heat.numpy(), heat_ref) < MODEL_REL
+
+
+def test_hrformer_g_route_matches_jax_in_bfloat16(rng):
+    """Kernel G's route in bf16 (JAX ``fused_eval_mlp``, Pallas in interpret
+    mode): G's f32 result joins the residual, so from the first block on the
+    stream is f32 on both sides while every projection and convolution still
+    computes in bf16; the features come out f32. Held within 3e-2 of the
+    largest magnitude (bf16 rounding through nine blocks and the fusions:
+    one bf16 step, 2^-8, at each of a few dozen rounding points; measured
+    about 0.013 for the heatmaps and 0.009 for the features, where the
+    module route, whose LayerNorm output the port rounds to bf16 and JAX
+    keeps in f32, is at 0.028 and 0.018)."""
+    x = rng.randn(2, 64, 48, 3).astype(np.float32)
+    jm = JaxHRFormer(arch=TINY_ARCH, num_joints=5, fused_eval_mlp=True, dtype=jnp.bfloat16)
+    v = init(jm, x, None, train=False, seed=1)
+    feat_ref, heat_ref = jax.jit(lambda x_: jm.apply(v, x_, None, train=False))(
+        jnp.asarray(x, jnp.bfloat16))
+    port = load(HRFormer(TINY_ARCH, 5), port_weights(v, "singleformer", "singleformer."))
+    port.set_routes(True, False, True)
+    with torch.no_grad():
+        feat, heat = port(T(x).to(torch.bfloat16).permute(0, 3, 1, 2))
+    assert feat_ref.dtype == jnp.float32 and feat.dtype == torch.float32
+    feat_ref, heat_ref = np.asarray(feat_ref), np.asarray(heat_ref)
+    assert np.abs(heat_ref).max() > 0.05
+    assert _rel(feat.permute(0, 2, 3, 1).numpy(), feat_ref) < 3e-2
+    assert _rel(heat.numpy(), heat_ref) < 3e-2
 
 
 def jax_interformer(route):
@@ -268,8 +298,18 @@ def test_build_model_dispatches_on_the_name():
         build_model(cfg, device="cpu")
 
 
-def test_interformer_is_eval_only():
-    model = build_model(presets.tiny_hrt_config(5), device="cpu").train()
+@pytest.mark.parametrize("section,key,value", [("MODEL", "SINGLEFORMER_FIX", True),
+                                               ("DEVICE", "FROZEN_STAGE_EVAL_MODE", True),
+                                               ("DEVICE", "REMAT", "layers")])
+def test_interformer_is_eval_only(section, key, value):
+    """The training options the port does not implement raise in a training
+    forward (and only there): a frozen first stage and rematerialisation."""
+    cfg = presets.tiny_hrt_config(5)
+    cfg[section][key] = value
+    model = build_model(cfg, device="cpu")
     z = torch.zeros(1, 1, 64, 48, 3)
-    with pytest.raises(NotImplementedError):
-        model(z, z[..., :1], torch.ones(1, 1, dtype=torch.bool))
+    args = (z, z[..., :1], torch.ones(1, 1, dtype=torch.bool))
+    with pytest.raises(NotImplementedError, match=key):
+        model(*args, train=True, dropout_seed=0)
+    with torch.no_grad():
+        assert model(*args)["multi"].shape == (1, 1, 5, 16, 12)
