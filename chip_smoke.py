@@ -67,7 +67,20 @@ Phases, one line each (any failure exits non-zero):
 19. timing, for information: that train step kernels on and off, a
     ``torch.profiler`` breakdown of the kernels-on step with its peak
     memory, and kernel 9's forward and backward beside their plain versions
-    at each branch map.
+    at each branch map;
+20. kernel 7 (the HRFormer block in one cooperative launch) against its
+    plain version at every map of phases 12-14, f32 and bf16, and against
+    Kernel E then Kernel F on the same input (bit-equal when both sum in the
+    same order, as they share their bodies), with the grid it launches;
+21. the HRFormer-B I²R-Net built with ``FUSED_BLOCK_EVAL_ONEPASS`` on, at full
+    width: one f32 forward at B=8, N=4 kernels on (kernel 7, A, B) vs off;
+    requests served through ``Predictor`` in bf16 at 256x192 (buckets 2/4/7)
+    and at 384x288 (``hrt_interformer((288, 384))``, batch 4, bucket 2: its
+    96x72 branch-0 map too); kernel 7 launched and E, F, G not, in each run;
+22. timing, for information: the eval protocol at B=8, N=4, bf16 on the
+    one-pass route, on E + F and kernels off, a ``torch.profiler`` breakdown
+    of the one-pass step, and kernel 7 beside its plain version, E then F and
+    its bound at each branch map.
 
 Then a JSON line of the kernels (each with its main-path launches, its error
 against the plain version, its time, the plain version's, the bound the card
@@ -79,6 +92,7 @@ Training writes its checkpoints under ``output/chip_smoke/`` of this checkout.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import re
@@ -104,7 +118,8 @@ from i2rnet_tpu_torch.ops.cuda.dropout import threshold
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn import _layer_norm, encoder_ffn_fused, encoder_ffn_torch
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn_train import (encoder_ffn_train_fused,
                                                          encoder_ffn_train_torch, ffn_bits)
-from i2rnet_tpu_torch.ops.cuda.hrformer_block import (mlp_block_fused, mlp_block_torch, pack_attn,
+from i2rnet_tpu_torch.ops.cuda.hrformer_block import (full_block_fused, full_block_torch,
+                                                      mlp_block_fused, mlp_block_torch, pack_attn,
                                                       window_attn_block_fused,
                                                       window_attn_block_torch)
 from i2rnet_tpu_torch.ops.cuda.hrformer_block_train import (window_attn_block_train_fused,
@@ -112,7 +127,8 @@ from i2rnet_tpu_torch.ops.cuda.hrformer_block_train import (window_attn_block_tr
 from i2rnet_tpu_torch.ops.cuda.mhsa import masked_mhsa_fused, masked_mhsa_torch
 from i2rnet_tpu_torch.ops.cuda.mhsa_train import (attention_bits, masked_mhsa_train_fused,
                                                   masked_mhsa_train_torch)
-from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import mlp_dwbn_fused, mlp_dwbn_torch, pack_mlp
+from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import (DTYPE_CODES, mlp_dwbn_fused, mlp_dwbn_torch,
+                                                pack_mlp)
 from i2rnet_tpu_torch.ops.preprocess import device_preprocess
 from i2rnet_tpu_torch.serving import Predictor, make_eval_fn
 from i2rnet_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
@@ -141,9 +157,14 @@ SOURCES = {
                                     "i2rnet_tpu/ops/pallas/hrformer_block_train.py:355"),
     "window_attn_block_train_bwd": ("i2rnet_tpu_torch/csrc/window_attn_block_train.cu",
                                     "i2rnet_tpu/ops/pallas/hrformer_block_train.py:411"),
+    "full_block": ("i2rnet_tpu_torch/csrc/full_block.cu",
+                   "i2rnet_tpu/ops/pallas/hrformer_block.py:317"),
 }
 EVAL_KERNELS = ("masked_mhsa", "encoder_ffn")
 HRT_KERNELS = ("window_attn_block", "mlp_block", "masked_mhsa", "encoder_ffn")
+#: the one-pass route's eval kernels, and the block kernels it must not launch
+ONEPASS_KERNELS = ("full_block", "masked_mhsa", "encoder_ffn")
+NOT_ONEPASS = ("window_attn_block", "mlp_block", "mlp_dwbn")
 #: persons per image of the HRT model's f32 checks: B=8 images x N=4 slots
 HRT_COUNTS = [4, 3, 1, 2, 4, 0, 2, 3]
 #: HRFormer-B's branch maps (P, H, W, C, heads): 256x192's four at P=32
@@ -507,12 +528,16 @@ def w48_kernels(model):
     return lambda on: setattr(model.global_encoder, "use_kernels", on)
 
 
-def phase_serve(model, cfg, set_kernels, kernels=EVAL_KERNELS):
+def phase_serve(model, cfg, set_kernels, kernels=EVAL_KERNELS, batch_images=8,
+                n_buckets=(2, 4, 7), absent=()):
+    """Requests served in bf16 with the kernels on: each of ``kernels``
+    launched and none of ``absent`` in the counted run; the results against
+    the same requests served with the kernels off."""
     rng = np.random.RandomState(SEED)
     images, boxes = requests(rng)
     model.compute_dtype = torch.bfloat16
     set_kernels(True)
-    pred = Predictor(model, cfg, flip_pairs(cfg), batch_images=8, n_buckets=(2, 4, 7),
+    pred = Predictor(model, cfg, flip_pairs(cfg), batch_images=batch_images, n_buckets=n_buckets,
                      raw_hw=(480, 640))
     pred.predict(images[:2], boxes[:2])  # warm-up, outside the counted run
     torch.cuda.synchronize()
@@ -522,11 +547,14 @@ def phase_serve(model, cfg, set_kernels, kernels=EVAL_KERNELS):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = {k: launch_counts()[k] for k in kernels}
+    stray = {k: launch_counts()[k] for k in absent if launch_counts()[k]}
     for i, (kp, bxs) in enumerate(zip(out, boxes)):
         if kp.shape != (len(bxs), cfg["MODEL"]["NUM_JOINTS"], 3) or not np.isfinite(kp).all():
             raise AssertionError(f"image {i}: result {kp.shape}, finite {np.isfinite(kp).all()}")
     if min(counts.values()) < 1:
         raise AssertionError(f"the served path launched a kernel no time: {counts}")
+    if stray:
+        raise AssertionError(f"the served path launched kernels of another route: {stray}")
     set_kernels(False)
     plain = pred.predict(images, boxes)
     conf = np.concatenate([k[..., 2] for k in out])
@@ -557,10 +585,18 @@ def time_cuda(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def in_turns(fns, iters):
+    """ms of each of ``fns``, timed in order and then in reverse order (a, b,
+    b, a for two); the mean of each one's two runs."""
+    ts = [0.0] * len(fns)
+    for i in [*range(len(fns)), *reversed(range(len(fns)))]:
+        ts[i] += time_cuda(fns[i], iters) / 2
+    return ts
+
+
 def alternate(a, b, iters):
     """ms of ``a`` and ``b`` timed in the order a, b, b, a; the mean of each pair."""
-    ta1, tb1, tb2, ta2 = (time_cuda(f, iters) for f in (a, b, b, a))
-    return (ta1 + ta2) / 2, (tb1 + tb2) / 2
+    return tuple(in_turns((a, b), iters))
 
 
 def train_cfg(dtype: str, use_kernels: bool):
@@ -940,6 +976,22 @@ def hrt_kernels(model):
     return lambda on: model.set_kernels(on, True, False, on)
 
 
+def check_heatmaps(on, off, valid, label, counts):
+    """The HRT model's ``multi`` and ``single`` heatmaps kernels on vs off:
+    finite, padded persons exactly 0, within HEAT_REL_BOUND of max|heat|."""
+    rels = []
+    for key in ("multi", "single"):
+        if not torch.isfinite(on[key]).all() or on[key][~valid].abs().max() != 0:
+            raise AssertionError(f"{label}: {key} heatmaps non-finite or padded not zero")
+        scale = off[key].abs().max().item()
+        rels.append((on[key] - off[key]).abs().max().item() / scale)
+        if rels[-1] > HEAT_REL_BOUND or scale < 1e-3:
+            raise AssertionError(f"{label} {key}: rel {rels[-1]:.3g} (bound "
+                                 f"{HEAT_REL_BOUND}), max|heat| {scale:.3g}")
+    log(f"  route {label}: heatmaps {tuple(on['multi'].shape)}, max|dheat|/max|heat| multi "
+        f"{rels[0]:.3g}, single {rels[1]:.3g} (bound {HEAT_REL_BOUND:g}); launches {counts}")
+
+
 def phase_hrt_model(cfg, g):
     """The full-width HRFormer-B I²R-Net in f32: kernels on vs off on both
     kernel routes (E + F, and G), heatmaps multi and single; then returns
@@ -957,45 +1009,32 @@ def phase_hrt_model(cfg, g):
             on = model(images, pos, valid)
             torch.cuda.synchronize()
         counts[label] = {k: v for k, v in launch_counts().items() if v}
-        rels = []
-        for key in ("multi", "single"):
-            if not torch.isfinite(on[key]).all() or on[key][~valid].abs().max() != 0:
-                raise AssertionError(f"{label}: {key} heatmaps non-finite or padded not zero")
-            scale = off[key].abs().max().item()
-            rels.append((on[key] - off[key]).abs().max().item() / scale)
-            if rels[-1] > HEAT_REL_BOUND or scale < 1e-3:
-                raise AssertionError(f"{label} {key}: rel {rels[-1]:.3g} (bound "
-                                     f"{HEAT_REL_BOUND}), max|heat| {scale:.3g}")
-        log(f"  route {label}: heatmaps {tuple(on['multi'].shape)}, max|dheat|/max|heat| multi "
-            f"{rels[0]:.3g}, single {rels[1]:.3g} (bound {HEAT_REL_BOUND:g}); launches "
-            f"{counts[label]}")
+        check_heatmaps(on, off, valid, label, counts[label])
     need = {"E + F": ("window_attn_block", "mlp_block", "masked_mhsa", "encoder_ffn"),
             "G": ("mlp_dwbn", "masked_mhsa", "encoder_ffn")}
     for label, names in need.items():
         if any(counts[label].get(k, 0) < 1 for k in names):
             raise AssertionError(f"route {label} launched a kernel no time: {counts[label]}")
-    if counts["G"].get("window_attn_block") or counts["E + F"].get("mlp_dwbn"):
+    if (counts["G"].get("window_attn_block") or counts["E + F"].get("mlp_dwbn")
+            or any(c.get("full_block") for c in counts.values())):
         raise AssertionError(f"the routes mixed their kernels: {counts}")
     return model, {"mlp_dwbn": counts["G"]["mlp_dwbn"]}
 
 
 def hrt_bound(name, shape, dtype):
-    """Bound of Kernel E, F or G at one map: the map read and written once
+    """Bound of Kernel E, F, G or 7 at one map: the map read and written once
     plus the weights as the kernel takes them; the products' multiply-adds
     (E over the 7-padded windows, q/k/v/out projections and attention; F and
-    G the two 1x1 convolutions and the depthwise 3x3)."""
+    G the two 1x1 convolutions and the depthwise 3x3; 7 E's and F's)."""
     p, h, w, c, heads = shape
     el = torch.empty((), dtype=dtype).element_size()
-    hw = h * w
-    if name == "window_attn_block":
-        tp = (h + (-h) % 7) * (w + (-w) % 7)
-        ops = p * (8.0 * tp * c * c + 4.0 * 49 * tp * c)
-        weights = 4 * c * c * el + (6 * c) * 4
-    else:
-        d = 4 * c
-        ops = p * (4.0 * hw * c * d + 18.0 * hw * d)
-        weights = 2 * c * d * (el if name == "mlp_block" else 4) + (11 * d + 3 * c) * 4
-    return bound(2 * p * hw * c * el + weights, ops, dtype)
+    hw, d = h * w, 4 * c
+    tp = (h + (-h) % 7) * (w + (-w) % 7)
+    attn = (p * (8.0 * tp * c * c + 4.0 * 49 * tp * c), 4 * c * c * el + (6 * c) * 4)
+    mlp = (p * (4.0 * hw * c * d + 18.0 * hw * d),
+           2 * c * d * (4 if name == "mlp_dwbn" else el) + (11 * d + 3 * c) * 4)
+    parts = {"window_attn_block": [attn], "full_block": [attn, mlp]}.get(name, [mlp])
+    return bound(2 * p * hw * c * el + sum(wb for _, wb in parts), sum(o for o, _ in parts), dtype)
 
 
 def phase_hrt_kernel_timing(g, card):
@@ -1171,6 +1210,136 @@ def phase_hrt_train_kernel_timing(g, card):
     return times
 
 
+def full_block_args(c, heads, g):
+    """Random weights of one HRFormer block in kernel 7's order: LN1, the four
+    projections, LN2, the folded MlpDWBN's (see ``hrt_kernel_args``)."""
+    ln, attn, mlp = hrt_kernel_args(c, heads, g)
+    return (*ln, *attn, 1 + 0.2 * randn(c, g=g), 0.1 * randn(c, g=g), *mlp)
+
+
+def kernel7_plan(shape, dtype):
+    """(blocks per SM, grid, shared memory bytes, MLP tile edge) of kernel
+    7's cooperative launch at one map, as the kernel library computes it."""
+    p, h, w, c, heads = shape
+    out = (ctypes.c_int * 4)()
+    build.check(build.library().i2r_full_block_plan(p, h, w, c, heads, DTYPE_CODES[dtype], out),
+                "full_block plan")
+    return tuple(out)
+
+
+def phase_full_block(g):
+    """Kernel 7 vs its plain version at each map, f32 and bf16, and vs E then
+    F on the same input: both within HRT_TOL of max|ref|; returns the main
+    map's bf16 error and the largest |difference| from E then F."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    main_err, worst = None, 0.0
+    for shape in HRT_SHAPES:
+        p, h, w, c, heads = shape
+        args = full_block_args(c, heads, g)
+        for dt in (torch.float32, torch.bfloat16):
+            x = (2 * randn(p, h, w, c, g=g)).to(dt)
+            got = full_block_fused(x, *args, heads=heads)
+            two = mlp_block_fused(window_attn_block_fused(x, *args[:10], heads=heads), *args[10:])
+            torch.cuda.synchronize()
+            ref = full_block_torch(x, *args, heads).float()
+            if not torch.isfinite(got).all() or got.shape != x.shape or got.dtype != dt:
+                raise AssertionError(f"full_block {shape} {dt}: {got.dtype} {tuple(got.shape)}")
+            scale = ref.abs().max().item()
+            err = (got.float() - ref).abs().max().item()
+            diff = (got.float() - two.float()).abs().max().item()
+            if err / scale > HRT_TOL[dt] or diff / scale > HRT_TOL[dt]:
+                raise AssertionError(f"full_block {shape} {dt}: max|err|/max|ref| {err / scale:.3g}"
+                                     f", vs E then F {diff / scale:.3g} (bound {HRT_TOL[dt]:g})")
+            worst = max(worst, diff)
+            if (shape, dt) == (HRT_SHAPES[0], torch.bfloat16):
+                main_err = err
+            per_sm, grid, smem, tile = kernel7_plan(shape, dt)
+            same = "bit-equal" if torch.equal(got, two) else f"max|diff| {diff:.3g}"
+            log(f"  {shape} {str(dt)[6:]}: max|err| {err:.3g} ({err / scale:.2g} of max|ref|, "
+                f"bound {HRT_TOL[dt]:g}); vs E then F: {same}; grid {grid} blocks ({sms} SMs x "
+                f"{per_sm} resident), {smem} B shared, {tile}x{tile} MLP tiles")
+    return main_err, worst
+
+
+def onepass_cfg(image_size=(192, 256)):
+    """``hrt_interformer`` at ``image_size`` with FUSED_BLOCK_EVAL_ONEPASS on."""
+    cfg = presets.hrt_interformer(image_size)
+    cfg["DEVICE"]["FUSED_BLOCK_EVAL_ONEPASS"] = True
+    return cfg
+
+
+def use_kernels(model):
+    """DEVICE.USE_KERNELS on or off in the HRT model, every block keeping the
+    routes its config chose."""
+    def switch(on):
+        model.multi_global_encoder.use_kernels = on
+        for blk in model.singleformer.blocks():
+            blk.use_kernels = on
+    return switch
+
+
+def phase_onepass_model(cfg, g):
+    """The full-width HRFormer-B I²R-Net built from ``cfg`` (one-pass knob on)
+    in f32, kernels on vs off: kernel 7, A and B launched, E, F, G not."""
+    model = random_model(cfg, g)
+    if not all(blk.fused_block and blk.fused_onepass for blk in model.singleformer.blocks()):
+        raise AssertionError("FUSED_BLOCK_EVAL_ONEPASS did not reach the blocks")
+    images, pos, valid = person_inputs(cfg, 8, 4, HRT_COUNTS, g)
+    switch = use_kernels(model)
+    with torch.no_grad():
+        switch(False)
+        off = model(images, pos, valid)
+        reset_launches()
+        switch(True)
+        on = model(images, pos, valid)
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    check_heatmaps(on, off, valid, "one-pass", counts)
+    if any(counts.get(k, 0) < 1 for k in ONEPASS_KERNELS) or any(k in counts for k in NOT_ONEPASS):
+        raise AssertionError(f"the one-pass route launched {counts}")
+    return model
+
+
+def phase_onepass_timing(model, cfg, g, card):
+    """The eval protocol on the one-pass route, on E + F and kernels off; a
+    profile of the one-pass step; kernel 7 per branch map (bf16, weights
+    packed once) beside its plain version, E then F and its bound."""
+    routes = {"one-pass": (True, True, False, True, True), "E + F": (True, True, False, True),
+              "off": (False,)}
+    step = eval_steps(model, cfg, lambda route: model.set_kernels(*routes[route]), 8, 4, g)
+    t = dict(zip(routes, in_turns([step(r) for r in routes], 3)))
+    log("  eval protocol B=8 N=4 bf16 (2 forwards + DARK decode), order one-pass, E + F, off, "
+        "off, E + F, one-pass: " + ", ".join(f"{r} {v:.2f} ms = {32 / v * 1e3:.1f} persons/s"
+                                             for r, v in t.items()) + f" [{card}]")
+    wall, busy, launches, top = profile_steps(step("one-pass"), 2)
+    log(f"  profile, one-pass: wall {wall:.2f} ms/step under the profiler, device busy "
+        f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
+        f"launches/step; top kernels (ms/step, launches/step):")
+    for name, ms, c in top:
+        log(f"    {ms:8.3f} {c:6.0f}  {name[:110]}")
+    times = {}
+    bf = torch.bfloat16
+    for shape in HRT_SHAPES[:4]:
+        p, h, w, c, heads = shape
+        args = full_block_args(c, heads, g)
+        x = randn(p, h, w, c, g=g, dtype=bf)
+        pa, pm = pack_attn(*args[2:10], heads, bf, x.device), pack_mlp(*args[12:], bf, x.device)
+        with torch.no_grad():
+            plain, ms, two = in_turns([
+                lambda: full_block_torch(x, *args, heads),
+                lambda: full_block_fused(x, *args, heads=heads, packed=(pa, pm)),
+                lambda: mlp_block_fused(window_attn_block_fused(x, *args[:10], heads=heads,
+                                                                packed=pa), *args[10:], packed=pm)],
+                10)
+        tm = timing(plain, ms, hrt_bound("full_block", shape, bf))
+        if shape == HRT_SHAPES[0]:
+            times["full_block"] = tm
+        log(f"  kernel 7 {shape} bf16: kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, E "
+            f"then F {two * 1e3:.1f} us, bound {tm['bound_ms'] * 1e3:.2f} us ({tm['bound_by']}) "
+            f"[{card}]")
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -1253,11 +1422,33 @@ def main() -> int:
     log(f"phase 19 HRT training timing [{card}]:")
     step_timing(hrt_train_cfg("bfloat16", True), hrt_raw, HRT_TRAIN_COUNTS, hrt_kernels, card)
     times.update(phase_hrt_train_kernel_timing(g, card))
+    torch.cuda.empty_cache()
+
+    log("phase 20 kernel 7 (HRFormer block in one pass) vs plain and vs E then F:")
+    errs["full_block"], k7_diff = phase_full_block(g)
+    log(f"  largest |difference| from E then F over the maps: {k7_diff:.3g}")
+    cfg = onepass_cfg()
+    log("phase 21 HRFormer-B I²R-Net built with FUSED_BLOCK_EVAL_ONEPASS, full width, f32, "
+        "B=8 N=4, kernels on vs off:")
+    model = phase_onepass_model(cfg, g)
+    log("  serving through Predictor at 256x192 (bf16, batch 8, buckets 2/4/7):")
+    onepass_counts = phase_serve(model, cfg, use_kernels(model), ONEPASS_KERNELS,
+                                 absent=NOT_ONEPASS)
+    cfg288 = onepass_cfg((288, 384))
+    model288 = random_model(cfg288, g)
+    log("  serving through Predictor at 384x288 (bf16, batch 4, bucket 2; branch 0 96x72):")
+    phase_serve(model288, cfg288, use_kernels(model288), ONEPASS_KERNELS, batch_images=4,
+                n_buckets=(2,), absent=NOT_ONEPASS)
+    del model288
+    torch.cuda.empty_cache()
+    log(f"phase 22 one-pass timing [{card}]:")
+    times.update(phase_onepass_timing(model, cfg, g, card))
 
     counts.update(train_counts)
     counts.update({k: hrt_train_counts[k] for k in ("window_attn_block_train_fwd",
                                                     "window_attn_block_train_bwd")})
     counts.update({k: hrt_counts[k] for k in ("window_attn_block", "mlp_block")}, **g_counts)
+    counts["full_block"] = onepass_counts["full_block"]
     errs.update({"masked_mhsa": mhsa_err, "encoder_ffn": ffn_err,
                  "mhsa_train_fwd": c_err["fwd"], "mhsa_train_bwd": c_err["bwd"],
                  "encoder_ffn_train_fwd": d_err["fwd"], "encoder_ffn_train_bwd": d_err["bwd"]})

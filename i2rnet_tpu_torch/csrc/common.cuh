@@ -1,6 +1,6 @@
-// Helpers shared by the training kernels: the activation-type conversions,
-// warp reductions, and the fixed-order reductions that turn per-token
-// operands into weight and vector gradients without atomics.
+// Helpers shared by the kernel sources: the block shape, the activation-type
+// conversions, warp reductions, and the fixed-order reductions that turn
+// per-token operands into weight and vector gradients without atomics.
 //
 // Everything sits in the unnamed namespace, so each translation unit that
 // includes this file has its own copy (no link-time symbol clashes between
@@ -12,6 +12,10 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr int kThreads = 256;  // threads of a block
+constexpr int kWarps = kThreads / 32;
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block may use on the H100
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -50,9 +50,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
 struct Dropout {
   const uint32_t* bits1;  // [rows, f] (mode 1)
   const uint32_t* bits2;  // [rows, c] (mode 1)

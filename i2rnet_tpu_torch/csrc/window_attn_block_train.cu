@@ -63,12 +63,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kWin = 7;
 constexpr int kTok = kWin * kWin;
 constexpr int kKC = 32;  // input channels per chunk of the q/k/v and dO products
-constexpr size_t kMaxSmem = 232448;
 
 // K1's shared memory: token coordinates, then f32 (q/k/v, P, dP/dS, dO,
 // dQ/dK/dV, the dt2 accumulator), then the T chunk tiles

@@ -13,10 +13,13 @@ Layout: the convolutions run NCHW; the transformer blocks take the map as
 same memory where the map is channels-last. Every convolution and
 projection computes in the model's compute dtype, the dtype of the input
 map (flax ``dtype=``), whatever dtype the stream has reached. A block runs one
-of three routes in eval (``HRFormerBlock.use_kernels``, ``fused_block``,
-``fused_mlp``, from ``DEVICE.USE_KERNELS``, ``FUSED_BLOCK_EVAL``,
-``FUSED_MLP_EVAL``):
+of four routes in eval (``HRFormerBlock.use_kernels``, ``fused_block``,
+``fused_onepass``, ``fused_mlp``, from ``DEVICE.USE_KERNELS``,
+``FUSED_BLOCK_EVAL``, ``FUSED_BLOCK_EVAL_ONEPASS``, ``FUSED_MLP_EVAL``):
 
+* kernels, fused block and one pass: kernel 7 (``full_block_fused``), the
+  whole block in one launch, bit-equal to the next route on every map (the
+  JAX package's VMEM gate on this route is a TPU limit and is not carried);
 * kernels and fused block: Kernel E (LN1 + window attention + residual), then
   Kernel F (LN2 + BN-folded MlpDWBN + residual);
 * kernels and fused MLP only: the modules' attention, then LN2 and Kernel G
@@ -49,9 +52,9 @@ from torch import nn
 from i2rnet_tpu_torch.models.hrnet import Transition
 from i2rnet_tpu_torch.models.layers import (Bottleneck, Conv2d, ConvBN, LayerNorm, Linear,
                                             MaskedBatchNorm, set_compute_dtype, upsample_bilinear)
-from i2rnet_tpu_torch.ops.cuda.hrformer_block import (mlp_block_fused, pack_attn,
-                                                      window_attn_block_fused, window_partition,
-                                                      window_unpartition)
+from i2rnet_tpu_torch.ops.cuda.hrformer_block import (full_block_fused, mlp_block_fused,
+                                                      pack_attn, window_attn_block_fused,
+                                                      window_partition, window_unpartition)
 from i2rnet_tpu_torch.ops.cuda.hrformer_block_train import window_attn_block_train_fused
 from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import fold_bn, mlp_dwbn_fused, pack_mlp
 
@@ -203,6 +206,7 @@ class HRFormerBlock(nn.Module):
         self.mlp = MlpDWBN(channels, int(channels * mlp_ratio))
         self.use_kernels = False
         self.fused_block = True
+        self.fused_onepass = False
         self.fused_mlp = False
         self.fused_train = False
         self.dp_scales = None  # (attention half, MLP half) [P] scales or None, per call
@@ -217,6 +221,12 @@ class HRFormerBlock(nn.Module):
             a = self.attn.attn
             attn_w = (a.q_proj.weight, a.q_proj.bias, a.k_proj.weight, a.k_proj.bias,
                       a.v_proj.weight, a.v_proj.bias, a.out_proj.weight, a.out_proj.bias)
+            if self.fused_onepass:
+                return full_block_fused(
+                    x, self.norm1.weight, self.norm1.bias, *attn_w, self.norm2.weight,
+                    self.norm2.bias, *self._kernel_weights("folded", x), heads=self.num_heads,
+                    window=self.window, eps=self.norm1.eps,
+                    packed=(self._kernel_weights("attn", x), self._kernel_weights("mlp", x)))
             x = window_attn_block_fused(x, self.norm1.weight, self.norm1.bias, *attn_w,
                                         heads=self.num_heads, window=self.window,
                                         eps=self.norm1.eps, packed=self._kernel_weights("attn", x))
@@ -401,10 +411,11 @@ class HRFormer(nn.Module):
         return [m for m in self.modules() if isinstance(m, HRFormerBlock)]
 
     def set_routes(self, use_kernels: bool, fused_block: bool, fused_mlp: bool,
-                   fused_train: bool = False) -> None:
+                   fused_train: bool = False, fused_onepass: bool = False) -> None:
         for blk in self.blocks():
             blk.use_kernels, blk.fused_block = use_kernels, fused_block
             blk.fused_mlp, blk.fused_train = fused_mlp, fused_train
+            blk.fused_onepass = fused_onepass
 
     def forward(self, x, dropout_seed: Optional[int] = None, drop_path_scales=None):
         """``x`` ``[P, 3, H, W]`` in the compute dtype. In training the blocks'

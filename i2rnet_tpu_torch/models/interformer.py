@@ -91,12 +91,15 @@ class InterFormer(nn.Module):
         self.final_layer = Conv2d(filters, num_joints, k, 1, k // 2)
 
     def set_kernels(self, use_kernels: bool, fused_block: bool = True,
-                    fused_mlp: bool = False, fused_train: bool = False) -> None:
+                    fused_mlp: bool = False, fused_train: bool = False,
+                    fused_onepass: bool = False) -> None:
         """``DEVICE.USE_KERNELS`` (all routes), ``FUSED_BLOCK_EVAL`` (Kernels
-        E + F), ``FUSED_MLP_EVAL`` (Kernel G, where E + F are off) and
-        ``FUSED_BLOCK_TRAIN`` (kernel 9 in training)."""
+        E + F), ``FUSED_MLP_EVAL`` (Kernel G, where E + F are off),
+        ``FUSED_BLOCK_TRAIN`` (kernel 9 in training) and
+        ``FUSED_BLOCK_EVAL_ONEPASS`` (kernel 7 in place of E + F)."""
         self.multi_global_encoder.use_kernels = use_kernels
-        self.singleformer.set_routes(use_kernels, fused_block, fused_mlp, fused_train)
+        self.singleformer.set_routes(use_kernels, fused_block, fused_mlp, fused_train,
+                                     fused_onepass)
 
     def forward(self, images, pos_masks, person_valid, train: bool = False,
                 dropout_seed: Optional[int] = None, drop_path_scales=None):
@@ -151,7 +154,8 @@ def build_interformer(cfg: Dict, use_kernels: Optional[bool] = None,
         remat=dev.get("REMAT", False), compute_dtype=DTYPES[dev["COMPUTE_DTYPE"]])
     model.set_kernels(dev["USE_KERNELS"] if use_kernels is None else use_kernels,
                       dev.get("FUSED_BLOCK_EVAL", True), dev.get("FUSED_MLP_EVAL", False),
-                      dev.get("FUSED_BLOCK_TRAIN", False))
+                      dev.get("FUSED_BLOCK_TRAIN", False),
+                      dev.get("FUSED_BLOCK_EVAL_ONEPASS", False))
     return model.to(device).eval()
 
 

@@ -7,7 +7,8 @@ The training kernels count their forward and backward launches apart.
 
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn import encoder_ffn_fused
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn_train import ffn_train_bwd, ffn_train_fwd
-from i2rnet_tpu_torch.ops.cuda.hrformer_block import mlp_block_fused, window_attn_block_fused
+from i2rnet_tpu_torch.ops.cuda.hrformer_block import (full_block_fused, mlp_block_fused,
+                                                      window_attn_block_fused)
 from i2rnet_tpu_torch.ops.cuda.hrformer_block_train import (window_attn_train_bwd,
                                                             window_attn_train_fwd)
 from i2rnet_tpu_torch.ops.cuda.mhsa import masked_mhsa_fused
@@ -19,7 +20,7 @@ KERNELS = {"masked_mhsa": masked_mhsa_fused, "encoder_ffn": encoder_ffn_fused,
            "encoder_ffn_train_fwd": ffn_train_fwd, "encoder_ffn_train_bwd": ffn_train_bwd,
            "window_attn_block": window_attn_block_fused, "mlp_block": mlp_block_fused,
            "mlp_dwbn": mlp_dwbn_fused, "window_attn_block_train_fwd": window_attn_train_fwd,
-           "window_attn_block_train_bwd": window_attn_train_bwd}
+           "window_attn_block_train_bwd": window_attn_train_bwd, "full_block": full_block_fused}
 
 
 def reset_launches() -> None:

@@ -50,6 +50,8 @@ SIGNATURES = {
                                   _I, _I, _I, _I, _I, _F, _F, _I, _P),
     "i2r_mlp_block_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "i2r_mlp_dwbn_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "i2r_full_block_fwd": (_P,) * 17 + (_I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "i2r_full_block_plan": (_I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,8 +1,11 @@
-"""Kernels E and F: the two halves of an HRFormer transformer block (eval).
+"""Kernels E and F, the two halves of an HRFormer transformer block (eval),
+and kernel 7, the whole block in one launch.
 
 Replace ``i2rnet_tpu/ops/pallas/hrformer_block.py::window_attn_block_fused``
-(Kernel E, ``csrc/window_attn_block.cu``) and ``::mlp_block_fused`` (Kernel F,
-``csrc/mlp_dwbn.cu``). Their plain PyTorch versions round where the JAX
+(Kernel E, ``csrc/window_attn_block.cu``), ``::mlp_block_fused`` (Kernel F,
+``csrc/mlp_dwbn.cu``) and ``::full_block_fused`` (kernel 7,
+``csrc/full_block.cu``: E's then F's work on the same items, split by a
+grid-wide barrier). Their plain PyTorch versions round where the JAX
 kernels' ``_attn_math`` and ``_mlp_math`` round (:109-185), with T the
 activation dtype:
 
@@ -20,6 +23,9 @@ F: ``x + MlpDWBN(LN2(x))`` with the BatchNorms folded (:func:`fold_bn`)
     h   = T(gelu(y . T(W1)^T + b1))     1x1 expand, f32 accumulation
     h   = T(gelu(dw3x3(h) + bdw))       f32 taps, zero border of the H x W map
     out = x + T(gelu(h . T(W2)^T + b2)) 1x1 contract, residual in T
+
+kernel 7: ``F(E(x))``, E's output rounded to T between the halves, as
+``_block_kernel`` (:218-234) hands ``_attn_math``'s result to ``_mlp_math``.
 
 GELU is the tanh-form fit :func:`gelu_tanh_erf`. Weights come in the torch
 layouts (Linear ``[out, in]``; ``w1`` [D, C], ``dw`` [D, 3, 3], ``w2`` [C, D]);
@@ -211,5 +217,58 @@ def mlp_block_fused(x, ln_w, ln_b, w1, b1, dw, bdw, w2, b2, eps: float = LN_EPS,
     return out
 
 
+def full_block_torch(x, ln1_w, ln1_b, wq, bq, wk, bk, wv, bv, wo, bo, ln2_w, ln2_b,
+                     w1, b1, dw, bdw, w2, b2, heads: int, window: int = WINDOW,
+                     eps: float = LN_EPS):
+    """Plain PyTorch GeneralTransformerBlock with kernel 7's rounding:
+    :func:`mlp_block_torch` of :func:`window_attn_block_torch` (one eps for
+    both LayerNorms)."""
+    xa = window_attn_block_torch(x, ln1_w, ln1_b, wq, bq, wk, bk, wv, bv, wo, bo, heads, window,
+                                 eps)
+    return mlp_block_torch(xa, ln2_w, ln2_b, w1, b1, dw, bdw, w2, b2, eps)
+
+
+def full_block_fused(x, ln1_w, ln1_b, wq, bq, wk, bk, wv, bv, wo, bo, ln2_w, ln2_b,
+                     w1, b1, dw, bdw, w2, b2, heads: int, window: int = WINDOW,
+                     eps: float = LN_EPS, packed=None):
+    """One GeneralTransformerBlock through kernel 7 over ``x`` ``[P, H, W, C]``:
+    Kernel E's then Kernel F's work in one cooperative launch, bit-equal to
+    ``mlp_block_fused(window_attn_block_fused(x))``.
+
+    CPU tensors take :func:`full_block_torch`; CUDA tensors launch the kernel
+    or raise (a refused cooperative launch raises; nothing falls back to E
+    then F). ``packed``, when given, is the pair (:func:`pack_attn`,
+    :func:`pack_mlp`) of the same weights in x's dtype on x's device. Every map
+    size takes the kernel: the JAX package's VMEM gate
+    (``block_onepass_fits_vmem``, which sends 384x288's 96x72 branch-0 map to
+    its two kernels) is a TPU limit, and both routes compute the same function.
+    """
+    if x.device.type == "cpu":
+        return full_block_torch(x, ln1_w, ln1_b, wq, bq, wk, bk, wv, bv, wo, bo, ln2_w, ln2_b,
+                                w1, b1, dw, bdw, w2, b2, heads, window, eps)
+    check_cuda_attn(x, (wq, wk, wv, wo), heads, window, "full_block_fused")
+    check_cuda_mlp(x, w1, dw, w2, "full_block_fused")
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    if packed is None:
+        packed = (pack_attn(wq, bq, wk, bk, wv, bv, wo, bo, heads, x.dtype, x.device),
+                  pack_mlp(w1, b1, dw, bdw, w2, b2, x.dtype, x.device))
+    (wqkv, bqkv, wot, bof), (w1t, b1f, dwt, bdwf, w2t, b2f) = packed
+    g1, be1 = ln_f32(ln1_w, ln1_b, x.device)
+    g2, be2 = ln_f32(ln2_w, ln2_b, x.device)
+    xc = x.contiguous()
+    xa = torch.empty_like(xc)  # the attention half's output, written and read by the launch
+    out = torch.empty_like(xc)
+    p, h, w, c = x.shape
+    ptrs = (xc, g1, be1, wqkv, bqkv, wot, bof, g2, be2, w1t, b1f, dwt, bdwf, w2t, b2f, xa, out)
+    err = build.library().i2r_full_block_fwd(
+        *(t.data_ptr() for t in ptrs), p, h, w, c, heads, w1t.shape[1], float(eps),
+        DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "full_block kernel")
+    full_block_fused.launches += 1
+    return out
+
+
 window_attn_block_fused.launches = 0
 mlp_block_fused.launches = 0
+full_block_fused.launches = 0

@@ -9,10 +9,12 @@ section is ``DEVICE``: ``COMPUTE_DTYPE``, ``USE_KERNELS`` (the JAX
 every kernel route; the recipes' ``FLASH_TRAIN_ATTENTION`` and
 ``FUSED_FFN_TRAIN`` are on, so it also routes training through Kernels C and
 D), ``FUSED_BLOCK_EVAL`` (HRFormer blocks on Kernels E and F),
-``FUSED_MLP_EVAL`` (their MlpDWBN on Kernel G where E and F are off),
-``FUSED_BLOCK_TRAIN`` (the HRFormer blocks' attention half on kernel 9 in
-training), and ``FROZEN_STAGE_EVAL_MODE`` and ``REMAT``, which the port does
-not implement (a training forward with either raises). One key is the
+``FUSED_BLOCK_EVAL_ONEPASS`` (each block in one launch of kernel 7 in place
+of E and F; off, as in every recipe), ``FUSED_MLP_EVAL`` (their MlpDWBN on
+Kernel G where E and F are off), ``FUSED_BLOCK_TRAIN`` (the HRFormer blocks'
+attention half on kernel 9 in training), and ``FROZEN_STAGE_EVAL_MODE`` and
+``REMAT``, which the port does not implement (a training forward with either
+raises). One key is the
 port's own: ``MODEL.HRFORMER_ARCH``, the HRFormer architecture (the JAX
 builder's ``arch=`` argument; HRFormer-B when absent). The JAX gates
 ``TPU.MIN_FUSED_TRAIN_TOKENS`` and ``TPU.FUSED_TRAIN_MAX_BLOCKS`` are not
@@ -59,8 +61,9 @@ _TOP_KEYS = ("SEED", "AUTO_RESUME", "PRINT_FREQ")
 
 def _device(dtype: str, use_kernels: bool, fused_block_train: bool = False) -> Dict:
     return {"COMPUTE_DTYPE": dtype, "USE_KERNELS": use_kernels, "FUSED_BLOCK_EVAL": True,
-            "FUSED_MLP_EVAL": False, "FUSED_BLOCK_TRAIN": fused_block_train,
-            "FROZEN_STAGE_EVAL_MODE": False, "REMAT": False}
+            "FUSED_BLOCK_EVAL_ONEPASS": False, "FUSED_MLP_EVAL": False,
+            "FUSED_BLOCK_TRAIN": fused_block_train, "FROZEN_STAGE_EVAL_MODE": False,
+            "REMAT": False}
 
 
 def _training(batch: int, end_epoch: int, lr: float, lr_end: float, wd: float) -> Dict:
@@ -131,7 +134,13 @@ def hrt_interformer(image_size=(192, 256)) -> Dict:
     ``TPU.FUSED_BLOCK_TRAIN`` off: it was retired for a TPU reason (the
     window relayouts it removes fed the matrix unit, ``docs/KERNELS.md:25``).
     Both routes compute the same function; the measurement on the H100
-    (PERF.md) decides whether the port keeps it on."""
+    (PERF.md) decides whether the port keeps it on.
+
+    ``hrt_interformer((288, 384))`` is the 384x288 recipe
+    (``interformer_coco_hrt_288_p2_b4.yaml``). Its ``TRANS_SIZE`` (24, 18)
+    differs from the YAML's [9, 12], as the JAX preset's does; both take the
+    same two 3x3/s2 pools (floored log2 of 72 / 18 and of 72 / 12), so the
+    token grid and the model are the same."""
     w, h = image_size
     return {
         "MODEL": _hrt_model(17, (w, h), (w // 4, h // 4), (h // 16, w // 16), 78, 192, 1, 2),
@@ -227,6 +236,8 @@ def from_config(cfg) -> Dict:
         "DEVICE": {"COMPUTE_DTYPE": cfg.TPU.COMPUTE_DTYPE,
                    "USE_KERNELS": bool(cfg.TPU.USE_PALLAS_ATTENTION),
                    "FUSED_BLOCK_EVAL": bool(cfg.TPU.get("FUSED_BLOCK_EVAL", True)),
+                   "FUSED_BLOCK_EVAL_ONEPASS": bool(cfg.TPU.get("FUSED_BLOCK_EVAL_ONEPASS",
+                                                                False)),
                    "FUSED_MLP_EVAL": bool(cfg.TPU.get("FUSED_MLP_EVAL", False)),
                    "FUSED_BLOCK_TRAIN": bool(cfg.TPU.get("FUSED_BLOCK_TRAIN", False)),
                    "FROZEN_STAGE_EVAL_MODE": bool(cfg.TPU.get("FROZEN_STAGE_EVAL_MODE", False)),

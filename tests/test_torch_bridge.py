@@ -233,6 +233,23 @@ def test_from_config_matches_the_hrt_preset():
     assert presets.from_config(jcfg)["DEVICE"]["FUSED_BLOCK_TRAIN"] is True
 
 
+@pytest.mark.parametrize("onepass", [False, True])
+def test_from_config_carries_the_onepass_knob(onepass):
+    """``TPU.FUSED_BLOCK_EVAL_ONEPASS`` reaches ``DEVICE`` and, through
+    ``build_model``, every HRFormer block's kernel-7 route."""
+    from i2rnet_tpu.presets import hrt_interformer
+
+    jcfg = hrt_interformer()
+    jcfg.TPU.FUSED_BLOCK_EVAL_ONEPASS = onepass
+    cfg = presets.from_config(jcfg)
+    assert cfg["DEVICE"]["FUSED_BLOCK_EVAL_ONEPASS"] is onepass
+    tiny = presets.tiny_hrt_config(5)
+    tiny["DEVICE"].update(USE_KERNELS=True, FUSED_BLOCK_EVAL_ONEPASS=onepass)
+    blocks = build_model(tiny, device="cpu").singleformer.blocks()
+    routes = {(b.use_kernels, b.fused_block, b.fused_onepass) for b in blocks}
+    assert routes == {(True, True, onepass)}
+
+
 def test_builders_default_to_the_card():
     """Without a ``device`` the builders put the model on CUDA: on a host
     without it they raise, and hand back no CPU model."""

@@ -5,7 +5,7 @@ Each JAX module gets seeded numpy weights (convs and denses scaled by their
 fan-in, BN statistics non-trivial, so the folds are exercised), and the port
 module of the same place in the two-stage model takes them through the bridge.
 "Kernels on" runs the port's kernel routes, which on CPU tensors are the
-plain versions of Kernels E, F and G, against the JAX model's fused routes
+plain versions of Kernels E, F, G and 7, against the JAX model's fused routes
 (Pallas in interpret mode); "off" is the unfused module path on both sides.
 
 Tolerance: atol 1e-5 / rtol 1e-4 for modules; the whole models' heatmaps
@@ -119,20 +119,28 @@ def test_mlp_dwbn_eval_matches_jax(rng):
     np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("route", ["off", "block", "mlp"])
+#: the eval routes: modules ("off"), Kernels E + F ("block", JAX
+#: ``fused_eval_block``), kernel 7 ("onepass", JAX ``fused_eval_block`` and
+#: ``fused_eval_onepass``) and Kernel G ("mlp", JAX ``fused_eval_mlp``)
+ROUTES = ["off", "block", "onepass", "mlp"]
+FUSED_BLOCK_ROUTES = ("block", "onepass")
+
+
+@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("h,w,c,heads", [(18, 13, 16, 2), (14, 14, 32, 4), (7, 6, 24, 3)])
 def test_hrformer_block_matches_jax(rng, route, h, w, c, heads):
-    """The block's three eval routes: modules ("off"), Kernels E + F ("block",
-    JAX ``fused_eval_block``) and Kernel G ("mlp", JAX ``fused_eval_mlp``)."""
+    """The block's four eval routes (``ROUTES``)."""
     x = (rng.rand(2, h, w, c) * 2 - 1).astype(np.float32)
     jm = JaxBlock(channels=c, num_heads=heads, window=7, mlp_ratio=2.0,
-                  fused_eval_block=route == "block", fused_eval_mlp=route == "mlp",
+                  fused_eval_block=route in FUSED_BLOCK_ROUTES,
+                  fused_eval_onepass=route == "onepass", fused_eval_mlp=route == "mlp",
                   dtype=jnp.float32)
     v = init(jm, x, train=False, seed=c)
     ref = np.asarray(jax.jit(lambda x_: jm.apply(v, x_, train=False))(x))
     port = load(HRFormerBlock(c, heads, 7, 2.0), port_weights(v, BLOCK, PORT_BLOCK))
     port.use_kernels = route != "off"
-    port.fused_block = route == "block"
+    port.fused_block = route in FUSED_BLOCK_ROUTES
+    port.fused_onepass = route == "onepass"
     port.fused_mlp = route == "mlp"
     with torch.no_grad():
         got = port(T(x)).numpy()
@@ -182,16 +190,16 @@ def _rel(got, ref):
     return np.abs(got - ref).max() / np.abs(ref).max()
 
 
-@pytest.mark.parametrize("route", ["off", "block"])
+@pytest.mark.parametrize("route", ["off", "block", "onepass"])
 def test_hrformer_matches_jax(rng, route):
     """Tiny HRFormer (the JAX tests' arch), 64x48: features and heatmaps."""
     x = rng.randn(2, 64, 48, 3).astype(np.float32)
-    jm = JaxHRFormer(arch=TINY_ARCH, num_joints=5, fused_eval_block=route == "block",
-                     dtype=jnp.float32)
+    jm = JaxHRFormer(arch=TINY_ARCH, num_joints=5, fused_eval_block=route in FUSED_BLOCK_ROUTES,
+                     fused_eval_onepass=route == "onepass", dtype=jnp.float32)
     v = init(jm, x, None, train=False, seed=1)
     feat_ref, heat_ref = map(np.asarray, jax.jit(lambda x_: jm.apply(v, x_, None, train=False))(x))
     port = load(HRFormer(TINY_ARCH, 5), port_weights(v, "singleformer", "singleformer."))
-    port.set_routes(route != "off", True, False)
+    port.set_routes(route != "off", True, False, fused_onepass=route == "onepass")
     with torch.no_grad():
         feat, heat = port(T(x).permute(0, 3, 1, 2))
     assert tuple(feat.shape) == (2, 16, 16, 12) and tuple(heat.shape) == (2, 5, 16, 12)
@@ -229,8 +237,10 @@ def test_hrformer_g_route_matches_jax_in_bfloat16(rng):
 def jax_interformer(route):
     """The JAX two-stage model on the tiny HRFormer, as ``tiny_hrt_config``."""
     m = presets.tiny_hrt_config(5)["MODEL"]
-    single = JaxHRFormer(arch=TINY_ARCH, num_joints=5, fused_eval_block=route == "block",
-                         fused_eval_mlp=route == "mlp", dtype=jnp.float32)
+    single = JaxHRFormer(arch=TINY_ARCH, num_joints=5,
+                         fused_eval_block=route in FUSED_BLOCK_ROUTES,
+                         fused_eval_onepass=route == "onepass", fused_eval_mlp=route == "mlp",
+                         dtype=jnp.float32)
     return JaxInterFormer(
         extra=m["EXTRA"], singleformer=single, num_joints=5, d_model=m["DIM_MODEL"],
         dim_feedforward=m["DIM_FEEDFORWARD"], n_head=m["N_HEAD"],
@@ -241,9 +251,11 @@ def jax_interformer(route):
 
 def port_interformer(variables, route):
     cfg = presets.tiny_hrt_config(5)
-    cfg["DEVICE"].update(USE_KERNELS=route != "off", FUSED_BLOCK_EVAL=route == "block",
+    cfg["DEVICE"].update(USE_KERNELS=route != "off", FUSED_BLOCK_EVAL=route in FUSED_BLOCK_ROUTES,
+                         FUSED_BLOCK_EVAL_ONEPASS=route == "onepass",
                          FUSED_MLP_EVAL=route == "mlp")
     model = build_model(cfg, device="cpu")
+    assert {blk.fused_onepass for blk in model.singleformer.blocks()} == {route == "onepass"}
     model.load_state_dict(params_from_jax(variables, "interformer"), strict=True)
     return model
 
@@ -260,7 +272,7 @@ def hrt_variables():
     return init(jax_interformer("off"), images, pos, valid, train=False, seed=4)
 
 
-@pytest.mark.parametrize("route", ["off", "block", "mlp"])
+@pytest.mark.parametrize("route", ROUTES)
 def test_interformer_matches_jax(rng, hrt_variables, route):
     """B=2, N=3 with 3 and 1 valid persons: ``multi`` and ``single``."""
     valid = np.array([[1, 1, 1], [1, 0, 0]], bool)

@@ -1,8 +1,8 @@
-"""Kernels E, F and G on the CPU: their plain versions vs the JAX Pallas
+"""Kernels E, F, G and 7 on the CPU: their plain versions vs the JAX Pallas
 kernels they replace (interpret mode) and the wrappers' CPU dispatch.
 
-E is ``window_attn_block_fused``, F ``mlp_block_fused`` (both
-``i2rnet_tpu/ops/pallas/hrformer_block.py``), G ``mlp_dwbn_fused``
+E is ``window_attn_block_fused``, F ``mlp_block_fused``, 7 ``full_block_fused``
+(all ``i2rnet_tpu/ops/pallas/hrformer_block.py``), G ``mlp_dwbn_fused``
 (``i2rnet_tpu/ops/pallas/mlp_dwbn.py``). The same numpy inputs go to both
 sides; the MLP weights are BatchNorm-folded on each side by its own
 ``fold_bn`` from non-trivial statistics.
@@ -19,12 +19,14 @@ import numpy as np
 import pytest
 import torch
 
+from i2rnet_tpu.ops.pallas.hrformer_block import full_block_fused as jax_full_block
 from i2rnet_tpu.ops.pallas.hrformer_block import mlp_block_fused as jax_mlp_block
 from i2rnet_tpu.ops.pallas.hrformer_block import window_attn_block_fused as jax_window_attn
 from i2rnet_tpu.ops.pallas.mlp_dwbn import fold_bn as jax_fold_bn
 from i2rnet_tpu.ops.pallas.mlp_dwbn import mlp_dwbn_fused as jax_mlp_dwbn
 from i2rnet_tpu_torch.ops.cuda import KERNELS, build, launch_counts, reset_launches
-from i2rnet_tpu_torch.ops.cuda.hrformer_block import (mlp_block_fused, mlp_block_torch,
+from i2rnet_tpu_torch.ops.cuda.hrformer_block import (full_block_fused, full_block_torch,
+                                                      mlp_block_fused, mlp_block_torch,
                                                       window_attn_block_fused,
                                                       window_attn_block_torch)
 from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import fold_bn, mlp_dwbn_fused, mlp_dwbn_torch
@@ -105,7 +107,21 @@ def test_plain_mlp_dwbn_matches_pallas(rng, p, h, w, c, heads):
     np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("kernel", ["E", "F", "G"])
+def _ln(rng, c):
+    return [rng.uniform(0.5, 1.5, c).astype(np.float32), (0.1 * rng.randn(c)).astype(np.float32)]
+
+
+@pytest.mark.parametrize("p,h,w,c,heads", SHAPES)
+def test_plain_full_block_matches_pallas(rng, p, h, w, c, heads):
+    """Kernel 7's plain version (E's then F's) vs the one-pass Pallas kernel."""
+    x, prm, ln2 = _x(rng, (p, h, w, c)), _attn_params(rng, c), _ln(rng, c)
+    jx, pt = _mlp_params(rng, c, 4 * c)
+    ref = np.asarray(jax_full_block(x, *prm, *ln2, *jx, heads=heads, interpret=True))
+    got = full_block_torch(T(x), *_torch_attn(prm), *map(T, ln2), *pt, heads).numpy()
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("kernel", ["E", "F", "G", "7"])
 def test_plain_versions_match_pallas_in_bfloat16(rng, kernel):
     p, h, w, c, heads = 2, 18, 13, 16, 2
     x = _x(rng, (p, h, w, c))
@@ -114,6 +130,11 @@ def test_plain_versions_match_pallas_in_bfloat16(rng, kernel):
         prm = _attn_params(rng, c)
         ref = jax_window_attn(xj, *prm, heads=heads, interpret=True)
         got = window_attn_block_torch(xt, *_torch_attn(prm), heads)
+    elif kernel == "7":
+        prm, ln2 = _attn_params(rng, c), _ln(rng, c)
+        jx, pt = _mlp_params(rng, c, 4 * c)
+        ref = jax_full_block(xj, *prm, *ln2, *jx, heads=heads, interpret=True)
+        got = full_block_torch(xt, *_torch_attn(prm), *map(T, ln2), *pt, heads)
     else:
         jx, pt = _mlp_params(rng, c, 4 * c)
         if kernel == "F":
@@ -133,8 +154,8 @@ def test_plain_versions_match_pallas_in_bfloat16(rng, kernel):
 
 
 def test_wrappers_take_plain_path_on_cpu(rng):
-    """On CPU tensors Kernels E, F and G's wrappers are their plain versions;
-    no launch is counted."""
+    """On CPU tensors Kernels E, F, G and 7's wrappers are their plain
+    versions; no launch is counted."""
     reset_launches()
     x = T(_x(rng, (2, 9, 8, 16)))
     attn = _torch_attn(_attn_params(rng, 16))
@@ -144,6 +165,8 @@ def test_wrappers_take_plain_path_on_cpu(rng):
                        window_attn_block_torch(x, *attn, 2))
     assert torch.equal(mlp_block_fused(x, *ln, *pt), mlp_block_torch(x, *ln, *pt))
     assert torch.equal(mlp_dwbn_fused(x, *pt), mlp_dwbn_torch(x, *pt))
+    assert torch.equal(full_block_fused(x, *attn, *ln, *pt, heads=2),
+                       full_block_torch(x, *attn, *ln, *pt, 2))
     assert launch_counts() == dict.fromkeys(KERNELS, 0)
 
 
@@ -157,7 +180,11 @@ def test_wrappers_refuse_other_devices():
         mlp_block_fused(x, None, None, w1, None, dw, None, w2, None)
     with pytest.raises(ValueError, match="unsupported device"):
         mlp_dwbn_fused(x, w1, None, dw, None, w2, None)
+    with pytest.raises(ValueError, match="unsupported device"):
+        full_block_fused(x, None, None, w, None, w, None, w, None, w, None, None, None,
+                         w1, None, dw, None, w2, None, heads=2)
 
 
 def test_signatures_cover_the_new_entry_points():
-    assert {"i2r_window_attn_fwd", "i2r_mlp_block_fwd", "i2r_mlp_dwbn_fwd"} <= set(build.SIGNATURES)
+    assert {"i2r_window_attn_fwd", "i2r_mlp_block_fwd", "i2r_mlp_dwbn_fwd",
+            "i2r_full_block_fwd"} <= set(build.SIGNATURES)
