@@ -8,7 +8,9 @@ Phases, one line each (any failure exits non-zero):
 1. require CUDA; print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels of ``i2rnet_tpu_torch/csrc`` from this checkout;
 3. Kernel A (masked MHSA) against its plain PyTorch version on the card,
-   f32 (TF32 off) and bf16, ragged masks with a fully padded image;
+   f32 (TF32 off) and bf16: ragged (suffix) masks with a fully padded image
+   at the W48 (S=1344, C=96) and HRT (S=768, C=78) shapes, no mask and
+   scattered (non-suffix) padding at S=1344, and S=130 in 8 heads of dim 3;
 4. Kernel B (encoder FFN tail) likewise;
 5. the W48-pure-en6 model at full width (seeded random weights, BatchNorm
    statistics calibrated so activations stay O(1)), one f32 forward at
@@ -17,13 +19,19 @@ Phases, one line each (any failure exits non-zero):
    (batch 8, person buckets 2/4/7, 480x640 canvas, one image chunked), with
    Kernels A and B's launches counted from zero over that run;
 7. timing, for information: eval-protocol persons/s (2 forwards + decode) at
-   B=16, N=7, bf16, kernels on and off, and each kernel beside its plain
-   version at the main-path shapes;
+   B=16, N=7, bf16, kernels on and off, a ``torch.profiler`` breakdown of
+   the kernels-on step (device busy, idle share, launches, Kernel A's ms and
+   launches per step), and each kernel beside its plain version and its
+   bound at the main-path shapes; Kernel A beside SDPA too, all three as
+   device time per call (``plain_kernel_sdpa``) with the event-timed ms
+   beside them;
 8. Kernel C (training MHSA with attention-weight dropout) forward and
    backward (dQ, dK, dV) against its plain version, f32 and bf16, at
-   (B, S, C, H) = (8, 1344, 96, 1) and a small multi-head ragged shape, rate
-   0.1 in bits and in seed mode (the plain version draws the same Philox
-   bits), a fully padded image finite; the seed-mode keep fraction printed;
+   (B, S, C, H) = (8, 1344, 96, 1) with ragged, scattered and no masks, the
+   HRT training shape (12, 384, 78, 1) and a small multi-head shape (2, 130,
+   24, 8), rate 0.1 in bits and in seed mode (the plain version draws the
+   same Philox bits), a fully padded image finite; the seed-mode keep
+   fraction printed;
 9. Kernel D (training FFN tail, both dropouts) forward and backward (dx and
    the eight parameter gradients) likewise at R=10752, C=96, F=192 and a
    ragged small shape;
@@ -39,8 +47,9 @@ Phases, one line each (any failure exits non-zero):
     off, a ``torch.profiler`` breakdown of the kernels-on step (device busy,
     idle share, launches, top kernels), and each training kernel beside its
     plain version at the main-path shapes, bf16, seed mode (a backward timed
-    alone, on a graph recorded once), and the plain forwards again handed
-    their bits;
+    alone, on a graph recorded once; Kernel C's forward and backward beside
+    SDPA's too, as device time per call), and the plain forwards again
+    handed their bits;
 12-14. Kernels E (HRFormer window-attention half block), F (its MlpDWBN half
     block) and G (MlpDWBN alone) against their plain versions, f32 and bf16,
     at HRFormer-B's four branch maps of a 256x192 input (P = 32 persons),
@@ -85,7 +94,8 @@ Phases, one line each (any failure exits non-zero):
 Then a JSON line of the kernels (each with its main-path launches, its error
 against the plain version, its time, the plain version's, the bound the card
 sets for the same work and, where one PyTorch call computes the same
-function, that call's time), and last ``{"ok": true, "device": {...}}``.
+function, that call's time; device time for Kernels A and C and their SDPA
+calls, CUDA events for the rest), and last ``{"ok": true, "device": {...}}``.
 TF32 is off throughout, so the float32 parts (crops, decode) stay float32.
 Training writes its checkpoints under ``output/chip_smoke/`` of this checkout.
 """
@@ -228,6 +238,12 @@ def bound(n_bytes, n_ops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def clock(t):
+    """How a timing's ms were taken: device time where SDPA is timed beside
+    the kernel (``plain_kernel_sdpa``), else CUDA events (``in_turns``)."""
+    return "events" if t["library_ms"] is None else "device time"
+
+
 def timing(plain_ms, ms, bound_, library_ms=None):
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_[0], "bound_by": bound_[1],
             "library_ms": library_ms}
@@ -289,20 +305,42 @@ def ragged_mask(b, s, per_person, g):
     return mask.to(DEV)
 
 
+def scattered_mask(b, s, per_person, g):
+    """[B, S] key-padding mask that pads whole persons anywhere, not only a
+    suffix: image 0 fully padded, image 1 only its last person real, the
+    others a random half of their persons (at least one real)."""
+    n = s // per_person
+    real = torch.rand(b, n, generator=g) > 0.5
+    real[:, 0] |= ~real.any(1)
+    real[0] = False
+    real[1] = torch.arange(n) == n - 1
+    return (~real).repeat_interleave(per_person, dim=1).to(DEV)
+
+
+def attention_masks(b, s, g):
+    """The key-padding masks Kernels A and C are held to at (B, S): ragged
+    suffixes (or token-level padding off the person grid), and at S=1344 no
+    mask and scattered persons too."""
+    masks = [("ragged", ragged_mask(b, s, 192, g))]
+    if s == 1344:
+        masks += [("none", None), ("scattered", scattered_mask(b, s, 192, g))]
+    return masks
+
+
 def phase_mhsa(g):
     main_err = None
     for b, s, c, h in ((8, 1344, 96, 1), (8, 768, 78, 1), (2, 130, 24, 8)):
-        mask = ragged_mask(b, s, 192, g)
-        for dt in (torch.float32, torch.bfloat16):
-            q, k, v = (randn(b, s, c, g=g, dtype=dt) for _ in range(3))
-            got = masked_mhsa_fused(q, k, v, h, mask)
-            torch.cuda.synchronize()
-            err = compare(got, masked_mhsa_torch(q, k, v, h, mask), dt,
-                          f"masked_mhsa {(b, s, c, h)} {dt}")
-            if (b, s, dt) == (8, 1344, torch.bfloat16):
-                main_err = err
-            log(f"  masked_mhsa B={b} S={s} C={c} H={h} {str(dt)[6:]}: max|err| {err:.3g} "
-                f"(atol/rtol {TOL[dt][0]:g}/{TOL[dt][1]:g}), finite")
+        for kind, mask in attention_masks(b, s, g):
+            for dt in (torch.float32, torch.bfloat16):
+                q, k, v = (randn(b, s, c, g=g, dtype=dt) for _ in range(3))
+                got = masked_mhsa_fused(q, k, v, h, mask)
+                torch.cuda.synchronize()
+                err = compare(got, masked_mhsa_torch(q, k, v, h, mask), dt,
+                              f"masked_mhsa {(b, s, c, h)} {kind} {dt}")
+                if (b, s, kind, dt) == (8, 1344, "ragged", torch.bfloat16):
+                    main_err = err
+                log(f"  masked_mhsa B={b} S={s} C={c} H={h} {kind} mask {str(dt)[6:]}: max|err| "
+                    f"{err:.3g} (atol/rtol {TOL[dt][0]:g}/{TOL[dt][1]:g}), finite")
     return main_err
 
 
@@ -363,31 +401,32 @@ def fwd_bwd(fn, inputs, cot):
 def phase_mhsa_train(g):
     """Kernel C forward and backward vs plain: bits and seed modes, f32 and bf16."""
     errs = {}
-    for b, s, c, h in ((8, 1344, 96, 1), (2, 130, 24, 8)):
-        mask = ragged_mask(b, s, 192, g)
+    for b, s, c, h in ((8, 1344, 96, 1), (12, 384, 78, 1), (2, 130, 24, 8)):
         bits = torch.randint(0, 2 ** 32, (b * h, s, s), generator=g, dtype=torch.int64).to(DEV)
-        for dt in (torch.float32, torch.bfloat16):
-            q, k, v, cot = (randn(b, s, c, g=g, dtype=dt) for _ in range(4))
-            for mode in ("bits", "seed"):
-                kw = ({"dropout_bits": bits} if mode == "bits"
-                      else {"dropout_seed": 1234, "dropout_offset": 7})
+        for kind, mask in attention_masks(b, s, g):
+            for dt in (torch.float32, torch.bfloat16):
+                q, k, v, cot = (randn(b, s, c, g=g, dtype=dt) for _ in range(4))
+                for mode in ("bits", "seed"):
+                    kw = ({"dropout_bits": bits} if mode == "bits"
+                          else {"dropout_seed": 1234, "dropout_offset": 7})
 
-                def run(fn):
-                    return fwd_bwd(lambda q_, k_, v_: fn(q_, k_, v_, h, mask, RATE, **kw),
-                                   (q, k, v), cot)
+                    def run(fn):
+                        return fwd_bwd(lambda q_, k_, v_: fn(q_, k_, v_, h, mask, RATE, **kw),
+                                       (q, k, v), cot)
 
-                got, gk = run(masked_mhsa_train_fused)
-                torch.cuda.synchronize()
-                ref, gr = run(masked_mhsa_train_torch)
-                what = f"mhsa_train {(b, s, c, h)} {str(dt)[6:]} {mode}"
-                e_f, r_f = compare_scaled(got, ref, dt, what + " out")
-                e_b = [compare_scaled(x, y, dt, f"{what} d{n}") for n, x, y in zip("qkv", gk, gr)]
-                if not torch.isfinite(got[0]).all():
-                    raise AssertionError(f"{what}: the fully padded image is not finite")
-                if (b, s, dt) == (8, 1344, torch.bfloat16) and mode == "seed":
-                    errs = {"fwd": e_f, "bwd": max(e for e, _ in e_b)}
-                log(f"  {what}: out max|err| {e_f:.3g} ({r_f:.2g} of max), dq/dk/dv "
-                    + " ".join(f"{e:.3g} ({r:.2g})" for e, r in e_b))
+                    got, gk = run(masked_mhsa_train_fused)
+                    torch.cuda.synchronize()
+                    ref, gr = run(masked_mhsa_train_torch)
+                    what = f"mhsa_train {(b, s, c, h)} {kind} mask {str(dt)[6:]} {mode}"
+                    e_f, r_f = compare_scaled(got, ref, dt, what + " out")
+                    e_b = [compare_scaled(x, y, dt, f"{what} d{n}")
+                           for n, x, y in zip("qkv", gk, gr)]
+                    if mask is not None and mask[0].all() and not torch.isfinite(got[0]).all():
+                        raise AssertionError(f"{what}: the fully padded image is not finite")
+                    if (b, s, kind, dt, mode) == (8, 1344, "ragged", torch.bfloat16, "seed"):
+                        errs = {"fwd": e_f, "bwd": max(e for e, _ in e_b)}
+                    log(f"  {what}: out max|err| {e_f:.3g} ({r_f:.2g} of max), dq/dk/dv "
+                        + " ".join(f"{e:.3g} ({r:.2g})" for e, r in e_b))
     bits = attention_bits(1234, 7, 8, 1344, DEV)
     keep = (bits >= threshold(RATE)).float().mean().item()
     log(f"  seed-mode keep fraction over {bits.numel()} draws: {keep:.5f} (1 - rate = {1 - RATE})")
@@ -585,6 +624,26 @@ def time_cuda(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters):
+    """ms of device time per call of ``fn``: the summed durations of the
+    kernels it launches, from ``torch.profiler`` over ``iters`` calls (the
+    host's time between launches left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and "#" not in e.name]
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no device activity")
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters
+
+
 def in_turns(fns, iters):
     """ms of each of ``fns``, timed in order and then in reverse order (a, b,
     b, a for two); the mean of each one's two runs."""
@@ -592,6 +651,21 @@ def in_turns(fns, iters):
     for i in [*range(len(fns)), *reversed(range(len(fns)))]:
         ts[i] += time_cuda(fns[i], iters) / 2
     return ts
+
+
+def plain_kernel_sdpa(name, fns, iters, card):
+    """(plain, kernel, SDPA) ms of ``fns`` as device time per call (the
+    kernels' summed durations, ``device_ms``): at these sizes a loop of
+    Python calls timed with CUDA events measures the host as much as the
+    card. The event-timed ms (order plain, kernel, SDPA, SDPA, kernel,
+    plain) are logged beside them."""
+    host = in_turns(fns, iters)
+    dev = [device_ms(f, iters) for f in fns]
+    log(f"  {name}: device time per call kernel {dev[1] * 1e3:.1f} us, plain {dev[0] * 1e3:.1f} "
+        f"us, SDPA {dev[2] * 1e3:.1f} us (kernel/SDPA {dev[1] / dev[2]:.2f}); CUDA events over "
+        f"back-to-back calls kernel {host[1] * 1e3:.1f} us, plain {host[0] * 1e3:.1f} us, SDPA "
+        f"{host[2] * 1e3:.1f} us (kernel/SDPA {host[1] / host[2]:.2f}) [{card}]")
+    return tuple(dev)
 
 
 def alternate(a, b, iters):
@@ -731,9 +805,9 @@ def profile_steps(fn, steps):
     for e in kernels:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     return wall / steps, busy / steps, len(kernels) / steps, [(n, t / steps, c / steps)
-                                                               for n, (t, c) in top]
+                                                               for n, (t, c) in ranked]
 
 
 def step_timing(cfg, raw, persons, set_kernels, card):
@@ -768,9 +842,8 @@ def step_timing(cfg, raw, persons, set_kernels, card):
     log(f"  profile, kernels on: wall {wall:.2f} ms/step under the profiler, device busy "
         f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
         f"launches/step; peak memory over the timed steps {peak:.1f} GiB; kernel calls per "
-        f"step {per_step}; top "
-        f"kernels (ms/step, launches/step):")
-    for name, t, c in top:
+        f"step {per_step}; top kernels (ms/step, launches/step):")
+    for name, t, c in top[:12]:
         log(f"    {t:8.3f} {c:6.0f}  {name[:110]}")
 
 
@@ -793,13 +866,24 @@ def phase_train_kernel_timing(g, card):
     def attn(fn):
         return lambda q_, k_, v_: fn(q_, k_, v_, 1, mask, RATE, **kw)
 
+    # the one PyTorch call for the same attention: SDPA with the key mask and
+    # dropout 0.1 on the weights (it draws its own bits), forward and backward
+    def sdpa(q_, k_, v_):
+        heads = [t.view(b, s, 1, c).transpose(1, 2) for t in (q_, k_, v_)]
+        return torch.nn.functional.scaled_dot_product_attention(
+            *heads, attn_mask=~mask[:, None, None, :], dropout_p=RATE)
+
     times = {}
     with torch.no_grad():
-        times["mhsa_train_fwd"] = alternate(lambda: attn(masked_mhsa_train_torch)(q, k, v),
-                                            lambda: attn(masked_mhsa_train_fused)(q, k, v), 10)
-    times["mhsa_train_bwd"] = alternate(
-        backward_only(attn(masked_mhsa_train_torch), (q, k, v), cot),
-        backward_only(attn(masked_mhsa_train_fused), (q, k, v), cot), 10)
+        times["mhsa_train_fwd"] = plain_kernel_sdpa(
+            "mhsa_train_fwd", [lambda: attn(masked_mhsa_train_torch)(q, k, v),
+                               lambda: attn(masked_mhsa_train_fused)(q, k, v),
+                               lambda: sdpa(q, k, v)], 10, card)
+    times["mhsa_train_bwd"] = plain_kernel_sdpa(
+        "mhsa_train_bwd", [backward_only(attn(masked_mhsa_train_torch), (q, k, v), cot),
+                           backward_only(attn(masked_mhsa_train_fused), (q, k, v), cot),
+                           backward_only(sdpa, (q, k, v), cot.view(b, s, 1, c).transpose(1, 2))],
+        10, card)
     p = ffn_params(c, f, g)
     x = away_from_kink(randn(b * s, c, g=g, dtype=torch.bfloat16), p, g)
     cot2 = randn(b * s, c, g=g, dtype=torch.bfloat16)
@@ -813,23 +897,16 @@ def phase_train_kernel_timing(g, card):
     times["encoder_ffn_train_bwd"] = alternate(
         backward_only(tail(encoder_ffn_train_torch), (x, *p), cot2),
         backward_only(tail(encoder_ffn_train_fused), (x, *p), cot2), 20)
-    # the one PyTorch call for the same attention: SDPA with the key mask and
-    # dropout 0.1 on the weights (it draws its own bits), forward and backward
-    def sdpa(q_, k_, v_):
-        heads = [t.view(b, s, 1, c).transpose(1, 2) for t in (q_, k_, v_)]
-        return torch.nn.functional.scaled_dot_product_attention(
-            *heads, attn_mask=~mask[:, None, None, :], dropout_p=RATE)
-    with torch.no_grad():
-        lib_fwd = time_cuda(lambda: sdpa(q, k, v), 10)
-    lib_bwd = time_cuda(backward_only(sdpa, (q, k, v), cot.view(b, s, 1, c).transpose(1, 2)), 10)
     bf = torch.bfloat16
     lse = b * s * 4
     io = nbytes(q, k, v, mask)
-    times["mhsa_train_fwd"] = timing(*times["mhsa_train_fwd"], bound(
-        io + nbytes(q) + b * s * c * 4 + 2 * lse, attention_ops(mask, c, 2), bf), lib_fwd)
-    times["mhsa_train_bwd"] = timing(*times["mhsa_train_bwd"], bound(
+    plain, ms, lib = times["mhsa_train_fwd"]
+    times["mhsa_train_fwd"] = timing(plain, ms, bound(
+        io + nbytes(q) + b * s * c * 4 + 2 * lse, attention_ops(mask, c, 2), bf), lib)
+    plain, ms, lib = times["mhsa_train_bwd"]
+    times["mhsa_train_bwd"] = timing(plain, ms, bound(
         io + nbytes(cot) + b * s * c * 4 + 2 * lse + 3 * nbytes(q), attention_ops(mask, c, 5), bf),
-        lib_bwd)
+        lib)
     wts = 2 * c * f * 2 + (4 * c + f) * 4
     times["encoder_ffn_train_fwd"] = timing(*times["encoder_ffn_train_fwd"], bound(
         2 * nbytes(x) + wts, 4.0 * b * s * c * f, bf))
@@ -837,8 +914,10 @@ def phase_train_kernel_timing(g, card):
         3 * nbytes(x) + 2 * wts, 12.0 * b * s * c * f, bf))
     for name in TRAIN_KERNELS:
         t = times[name]
-        lib = "" if t["library_ms"] is None else f", SDPA {t['library_ms'] * 1e3:.1f} us"
-        log(f"  {name} B={b} S={s} C={c} bf16 seed mode: kernel {t['ms'] * 1e3:.1f} us, plain "
+        lib = "" if t["library_ms"] is None else (f", SDPA {t['library_ms'] * 1e3:.1f} us "
+                                                  f"(kernel/SDPA {t['ms'] / t['library_ms']:.2f})")
+        log(f"  {name} B={b} S={s} C={c} bf16 seed mode ({clock(t)}): kernel {t['ms'] * 1e3:.1f} "
+            f"us, plain "
             f"{t['plain_ms'] * 1e3:.1f} us{lib}, bound {t['bound_ms'] * 1e3:.2f} us "
             f"({t['bound_by']}) [{card}]")
     # the plain forwards again with their bits drawn beforehand: their own
@@ -881,22 +960,40 @@ def eval_timing(step, b, n, iters, card):
         f"{b * n / t_off * 1e3:.1f} persons/s [{card}]")
 
 
-def phase_timing(model, cfg, g, card):
-    b, n = 16, 7
-    eval_timing(eval_steps(model, cfg, w48_kernels(model), b, n, g), b, n, 3, card)
-    times = {}
-    s, c, f = n * 192, 96, 192
+def phase_timing_mhsa(g, card, b=16, s=1344, c=96):
+    """Kernel A at the W48 eval shape, bf16, ragged mask, beside its plain
+    version and one SDPA call (device time per call)."""
     bf = torch.bfloat16
     q, k, v = (randn(b, s, c, g=g, dtype=bf) for _ in range(3))
     mask = ragged_mask(b, s, 192, g)
     heads = [t.view(b, s, 1, c).transpose(1, 2) for t in (q, k, v)]
     with torch.no_grad():
-        lib = time_cuda(lambda: torch.nn.functional.scaled_dot_product_attention(
-            *heads, attn_mask=~mask[:, None, None, :]), 20)
-    times["masked_mhsa"] = timing(*alternate(lambda: masked_mhsa_torch(q, k, v, 1, mask),
-                                             lambda: masked_mhsa_fused(q, k, v, 1, mask), 20),
-                                  bound(4 * nbytes(q) + nbytes(mask), attention_ops(mask, c, 2), bf),
-                                  lib)
+        plain, ms, lib = plain_kernel_sdpa(
+            "masked_mhsa", [lambda: masked_mhsa_torch(q, k, v, 1, mask),
+                            lambda: masked_mhsa_fused(q, k, v, 1, mask),
+                            lambda: torch.nn.functional.scaled_dot_product_attention(
+                                *heads, attn_mask=~mask[:, None, None, :])], 20, card)
+    return {"masked_mhsa": timing(plain, ms, bound(4 * nbytes(q) + nbytes(mask),
+                                                   attention_ops(mask, c, 2), bf), lib)}
+
+
+def phase_timing(model, cfg, g, card):
+    b, n = 16, 7
+    step = eval_steps(model, cfg, w48_kernels(model), b, n, g)
+    eval_timing(step, b, n, 3, card)
+    reset_launches()
+    wall, busy, launches, top = profile_steps(step(True), 2)
+    a_ms = sum(t for name, t, _ in top if "mhsa_fwd" in name)
+    log(f"  profile, kernels on: wall {wall:.2f} ms/step under the profiler, device busy "
+        f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
+        f"launches/step; Kernel A {a_ms:.3f} ms/step in "
+        f"{launch_counts()['masked_mhsa'] // 3} launches/step; top kernels (ms/step, "
+        f"launches/step):")
+    for name, t, c in top[:12]:
+        log(f"    {t:8.3f} {c:6.0f}  {name[:110]}")
+    times = phase_timing_mhsa(g, card)
+    s, c, f = n * 192, 96, 192
+    bf = torch.bfloat16
     x = randn(b * s, c, g=g, dtype=bf)
     p = ffn_params(c, f, g)
     times["encoder_ffn"] = timing(*alternate(lambda: encoder_ffn_torch(x, *p),
@@ -904,8 +1001,9 @@ def phase_timing(model, cfg, g, card):
                                   bound(2 * nbytes(x) + 2 * c * f * 2 + (5 * c + f) * 4,
                                         4.0 * b * s * c * f, bf))
     for name, t in times.items():
-        lib = "" if t["library_ms"] is None else f", SDPA {t['library_ms'] * 1e3:.1f} us"
-        log(f"  {name} B={b} S={s} C={c} bf16: kernel {t['ms'] * 1e3:.1f} us, plain "
+        lib = "" if t["library_ms"] is None else (f", SDPA {t['library_ms'] * 1e3:.1f} us "
+                                                  f"(kernel/SDPA {t['ms'] / t['library_ms']:.2f})")
+        log(f"  {name} B={b} S={s} C={c} bf16 ({clock(t)}): kernel {t['ms'] * 1e3:.1f} us, plain "
             f"{t['plain_ms'] * 1e3:.1f} us{lib}, bound {t['bound_ms'] * 1e3:.2f} us "
             f"({t['bound_by']}) [{card}]")
     return times
@@ -1315,7 +1413,7 @@ def phase_onepass_timing(model, cfg, g, card):
     log(f"  profile, one-pass: wall {wall:.2f} ms/step under the profiler, device busy "
         f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
         f"launches/step; top kernels (ms/step, launches/step):")
-    for name, ms, c in top:
+    for name, ms, c in top[:12]:
         log(f"    {ms:8.3f} {c:6.0f}  {name[:110]}")
     times = {}
     bf = torch.bfloat16
@@ -1402,7 +1500,7 @@ def main() -> int:
     log(f"  profile, kernels on: wall {wall:.2f} ms/step under the profiler, device busy "
         f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
         f"launches/step; top kernels (ms/step, launches/step):")
-    for name, t, c in top:
+    for name, t, c in top[:12]:
         log(f"    {t:8.3f} {c:6.0f}  {name[:110]}")
     times.update(phase_hrt_kernel_timing(g, card))
     del model, step

@@ -12,8 +12,10 @@ versions:
   Kernel B;
 * training (``module.training``), dropout ``dropout_rate`` (0.1, reference
   ``attention.py:37-112``): the attention with dropout on its weights on
-  Kernel C (``TPU.FLASH_TRAIN_ATTENTION``), ``src + drop(attn)``, and the tail
-  with both its dropouts on Kernel D (``TPU.FUSED_FFN_TRAIN``).
+  Kernel C where ``flash_train`` is on too (``TPU.FLASH_TRAIN_ATTENTION``),
+  ``src + drop(attn)``, and the tail with both its dropouts on Kernel D where
+  ``fused_ffn_train`` is on too (``TPU.FUSED_FFN_TRAIN``), as the JAX encoder
+  routes them (``i2rnet_tpu/models/encoder.py:54,145``).
 
 Training dropout is keyed by one seed per forward: layer i uses the offsets
 4i (attention weights), 4i + 1 (attention output, a ``bernoulli_`` draw from a
@@ -88,7 +90,7 @@ class TransformerEncoderLayer(nn.Module):
 
     def forward(self, src, key_padding_mask=None, pos: Optional[torch.Tensor] = None,
                 use_kernels: bool = False, dropout_rate: float = 0.0, dropout_seed=None,
-                offset: int = 0):
+                offset: int = 0, flash_train: bool = True, fused_ffn_train: bool = True):
         qk = src if pos is None else src + pos
         tail = (self.norm1.weight, self.norm1.bias, self.linear1.weight, self.linear1.bias,
                 self.linear2.weight, self.linear2.bias, self.norm2.weight, self.norm2.bias)
@@ -96,23 +98,27 @@ class TransformerEncoderLayer(nn.Module):
             src = src + self.self_attn(qk, qk, src, key_padding_mask, use_kernel=use_kernels)
             ffn = encoder_ffn_fused if use_kernels else encoder_ffn_torch
             return ffn(src, *tail, eps=self.norm1.eps)
-        attn = self.self_attn(qk, qk, src, key_padding_mask, use_kernels, dropout_rate,
-                              dropout_seed, offset)
+        attn = self.self_attn(qk, qk, src, key_padding_mask, use_kernels and flash_train,
+                              dropout_rate, dropout_seed, offset)
         src = src + dropout(attn, dropout_rate, dropout_seed, offset + 1)
-        ffn = encoder_ffn_train_fused if use_kernels else encoder_ffn_train_torch
+        fused = use_kernels and fused_ffn_train
+        ffn = encoder_ffn_train_fused if fused else encoder_ffn_train_torch
         return ffn(src, *tail, dropout_rate=dropout_rate, dropout_seed=dropout_seed,
                    dropout_offset=offset + 2, eps=self.norm1.eps)
 
 
 class TransformerEncoder(nn.Module):
-    """Stack of encoder layers over flat tokens ``[B, S, C]``. ``use_kernels``
-    and ``dropout_rate`` are settable; a training forward with a dropout rate
-    above 0 needs ``dropout_seed``."""
+    """Stack of encoder layers over flat tokens ``[B, S, C]``. ``use_kernels``,
+    ``flash_train``, ``fused_ffn_train`` and ``dropout_rate`` are settable; a
+    training forward with a dropout rate above 0 needs ``dropout_seed``."""
 
     def __init__(self, num_layers: int, d_model: int, num_heads: int,
-                 dim_feedforward: int, use_kernels: bool = False, dropout_rate: float = 0.1):
+                 dim_feedforward: int, use_kernels: bool = False, dropout_rate: float = 0.1,
+                 flash_train: bool = True, fused_ffn_train: bool = True):
         super().__init__()
         self.use_kernels = use_kernels
+        self.flash_train = flash_train
+        self.fused_ffn_train = fused_ffn_train
         self.dropout_rate = dropout_rate
         self.layers = nn.ModuleList([
             TransformerEncoderLayer(d_model, num_heads, dim_feedforward)
@@ -125,7 +131,7 @@ class TransformerEncoder(nn.Module):
         out = src
         for i, layer in enumerate(self.layers):
             out = layer(out, key_padding_mask, pos, self.use_kernels, rate, dropout_seed,
-                        OFFSETS_PER_LAYER * i)
+                        OFFSETS_PER_LAYER * i, self.flash_train, self.fused_ffn_train)
         return out
 
 

@@ -38,7 +38,7 @@ from torch import nn
 from i2rnet_tpu_torch.models.encoder import TransformerEncoder
 from i2rnet_tpu_torch.models.hrformer import HRFORMER_B_ARCH, HRFormer
 from i2rnet_tpu_torch.models.layers import Conv2d, DeconvBlock, max_pool_3x3_s2, training_call
-from i2rnet_tpu_torch.models.pure_multi import DTYPES, build_pure_multi
+from i2rnet_tpu_torch.models.pure_multi import DTYPES, build_pure_multi, set_train_routes
 
 
 class DeconvUpsample(nn.Module):
@@ -156,6 +156,7 @@ def build_interformer(cfg: Dict, use_kernels: Optional[bool] = None,
                       dev.get("FUSED_BLOCK_EVAL", True), dev.get("FUSED_MLP_EVAL", False),
                       dev.get("FUSED_BLOCK_TRAIN", False),
                       dev.get("FUSED_BLOCK_EVAL_ONEPASS", False))
+    set_train_routes(model.multi_global_encoder, dev)
     return model.to(device).eval()
 
 

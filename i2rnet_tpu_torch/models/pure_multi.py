@@ -41,17 +41,22 @@ class PureMultiInterFormer(HRNetTrunk):
     mode for this call (restored after), every BatchNorm normalises over the
     valid persons (``person_valid`` set as each BN's ``person_mask`` for the
     call: trunk, position embedding and both applications of the deconv
-    block), and the encoder's dropout is keyed by ``dropout_seed``."""
+    block), and the encoder's dropout is keyed by ``dropout_seed``.
+    ``DEVICE.REMAT`` is not ported: a training forward with it set raises,
+    as :class:`~i2rnet_tpu_torch.models.interformer.InterFormer`'s does."""
 
     def __init__(self, extra: Dict, num_joints: int = 17, d_model: int = 96,
                  dim_feedforward: int = 192, n_head: int = 1, encoder_layers: int = 6,
                  trans_size=(16, 12), multi_pos_mode: str = "conv",
                  final_conv_kernel: int = 1, use_kernels: bool = False,
-                 compute_dtype: torch.dtype = torch.float32):
+                 remat=False, compute_dtype: torch.dtype = torch.float32):
         super().__init__(extra)
         self.trans_size = tuple(trans_size)
         self.d_model = d_model
         self.compute_dtype = compute_dtype
+        # training options not ported: (config key, value) pairs that are set
+        self.unported_training = [] if remat in (False, None, "none") else [("DEVICE.REMAT",
+                                                                              remat)]
         self.reduce = Conv2d(self.trunk_channels[-1], d_model, 1, bias=False)
         self.position_embedding = PositionEmbeddingImage(trans_size, d_model, multi_pos_mode)
         self.global_encoder = TransformerEncoder(encoder_layers, d_model, n_head,
@@ -64,6 +69,8 @@ class PureMultiInterFormer(HRNetTrunk):
 
     def forward(self, images, pos_masks, person_valid, train: bool = False,
                 dropout_seed: Optional[int] = None):
+        if (train or self.training) and self.unported_training:
+            raise NotImplementedError(f"training with {self.unported_training} is not ported")
         with training_call(self, train, person_valid):
             return self._forward(images, pos_masks, person_valid, dropout_seed)
 
@@ -124,7 +131,9 @@ def build_pure_multi(cfg: Dict, use_kernels=None, device="cuda") -> PureMultiInt
     """The model from a port config (``presets``), in eval mode, on ``device``
     (the card unless the caller names another; without CUDA that raises).
     ``use_kernels`` defaults to ``cfg["DEVICE"]["USE_KERNELS"]``
-    (``TPU.USE_PALLAS_ATTENTION``)."""
+    (``TPU.USE_PALLAS_ATTENTION``); ``FLASH_TRAIN_ATTENTION`` and
+    ``FUSED_FFN_TRAIN`` set the encoder's training routes, ``REMAT`` is kept
+    to refuse a training forward."""
     m = cfg["MODEL"]
     if m["NAME"] != "interformer_pureMulti":
         raise ValueError(f"model {m['NAME']!r} is not ported")
@@ -138,5 +147,14 @@ def build_pure_multi(cfg: Dict, use_kernels=None, device="cuda") -> PureMultiInt
         multi_pos_mode=m["MULTI_POS_EMBEDDING"],
         final_conv_kernel=m["EXTRA"].get("FINAL_CONV_KERNEL", 1),
         use_kernels=dev["USE_KERNELS"] if use_kernels is None else use_kernels,
-        compute_dtype=DTYPES[dev["COMPUTE_DTYPE"]])
+        remat=dev.get("REMAT", False), compute_dtype=DTYPES[dev["COMPUTE_DTYPE"]])
+    set_train_routes(model.global_encoder, dev)
     return model.to(device).eval()
+
+
+def set_train_routes(encoder: TransformerEncoder, dev: Dict) -> None:
+    """The encoder's training routes from ``DEVICE``: Kernel C on
+    ``FLASH_TRAIN_ATTENTION``, Kernel D on ``FUSED_FFN_TRAIN`` (each where
+    ``use_kernels`` is on too; both on by default, as the JAX config)."""
+    encoder.flash_train = bool(dev.get("FLASH_TRAIN_ATTENTION", True))
+    encoder.fused_ffn_train = bool(dev.get("FUSED_FFN_TRAIN", True))

@@ -35,9 +35,9 @@ SIGNATURES = {
     "i2r_encoder_ffn_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _F, _I, _I, _P),
     "i2r_mhsa_train_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
-                           _P, _U, _U, _U, _F, _I, _P),
+                           _P, _U, _U, _U, _F, _I, _P, _P),
     "i2r_mhsa_train_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _F, _I, _P, _U, _U, _U, _F, _I, _P),
+                           _F, _I, _P, _U, _U, _U, _F, _I, _P, _P),
     "i2r_ffn_train_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
                           _P, _P, _U, _U, _U, _F, _I, _P),
     "i2r_ffn_train_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

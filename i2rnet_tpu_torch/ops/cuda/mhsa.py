@@ -42,6 +42,35 @@ def masked_mhsa_torch(q, k, v, num_heads: int,
     return out.transpose(1, 2).reshape(b, s, c)
 
 
+def fold_heads(x, heads: int):
+    """``[B, S, H*d]`` -> contiguous ``[B*H, S, d]`` (x itself for one head)."""
+    if heads == 1:
+        return x if x.is_contiguous() else x.contiguous()
+    b, s, c = x.shape
+    return x.reshape(b, s, heads, c // heads).transpose(1, 2).reshape(b * heads, s,
+                                                                      c // heads).contiguous()
+
+
+def unfold_heads(x, heads: int):
+    """``[B*H, S, d]`` -> ``[B, S, H*d]`` (x itself for one head)."""
+    if heads == 1:
+        return x
+    bh, s, d = x.shape
+    return x.reshape(bh // heads, heads, s, d).transpose(1, 2).reshape(bh // heads, s, heads * d)
+
+
+def key_mask(key_padding_mask, b: int, s: int, device):
+    """The ``[B, S]`` bool mask as the kernels take it (on ``device``,
+    contiguous), or None; raises on another shape or type."""
+    if key_padding_mask is None:
+        return None
+    if key_padding_mask.shape != (b, s) or key_padding_mask.dtype != torch.bool:
+        raise ValueError(f"key_padding_mask must be bool [B, S] = {(b, s)}, got "
+                         f"{key_padding_mask.dtype} {tuple(key_padding_mask.shape)}")
+    mask = key_padding_mask if key_padding_mask.device == device else key_padding_mask.to(device)
+    return mask if mask.is_contiguous() else mask.contiguous()
+
+
 def masked_mhsa_fused(q, k, v, num_heads: int,
                       key_padding_mask: Optional[torch.Tensor] = None):
     """Masked MHSA through the CUDA kernel.
@@ -67,17 +96,8 @@ def masked_mhsa_fused(q, k, v, num_heads: int,
     if b * h > 65535:
         raise ValueError(f"B*heads={b * h} exceeds the kernel grid")
     d = c // h
-    mask = None
-    if key_padding_mask is not None:
-        if key_padding_mask.shape != (b, s) or key_padding_mask.dtype != torch.bool:
-            raise ValueError(f"key_padding_mask must be bool [B, S] = {(b, s)}, got "
-                             f"{key_padding_mask.dtype} {tuple(key_padding_mask.shape)}")
-        mask = key_padding_mask.to(q.device).contiguous()
-
-    def fold(x):
-        return x.reshape(b, s, h, d).transpose(1, 2).reshape(b * h, s, d).contiguous()
-
-    qf, kf, vf = fold(q), fold(k), fold(v)
+    mask = key_mask(key_padding_mask, b, s, q.device)
+    qf, kf, vf = fold_heads(q, h), fold_heads(k, h), fold_heads(v, h)
     out = torch.empty_like(qf)
     err = build.library().i2r_mhsa_fwd(
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
@@ -86,7 +106,7 @@ def masked_mhsa_fused(q, k, v, num_heads: int,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "masked_mhsa kernel")
     masked_mhsa_fused.launches += 1
-    return out.reshape(b, h, s, d).transpose(1, 2).reshape(b, s, c)
+    return unfold_heads(out, h)
 
 
 masked_mhsa_fused.launches = 0

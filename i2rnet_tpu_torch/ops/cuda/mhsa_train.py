@@ -23,7 +23,7 @@ import torch
 from i2rnet_tpu_torch.ops.cuda import build
 from i2rnet_tpu_torch.ops.cuda.dropout import (as_words, check_mode, kernel_args, keep_mask,
                                                philox_bits)
-from i2rnet_tpu_torch.ops.cuda.mhsa import _DTYPE_CODES
+from i2rnet_tpu_torch.ops.cuda.mhsa import _DTYPE_CODES, fold_heads, key_mask, unfold_heads
 
 NEG_INF = -1e30
 
@@ -67,25 +67,31 @@ def _dropout_args(mode, rate, words, seed, offset):
 
 
 def mhsa_train_fwd(qf, kf, vf, heads: int, mask, mode: str, rate: float, words, seed, offset):
-    """Launch the forward kernel on folded ``[B*H, S, d]`` tensors; returns
-    ``(out, out32, row_m, row_l)``."""
+    """Launch the forward kernels on folded ``[B*H, S, d]`` tensors; returns
+    ``(out, out32, row_m, row_l, keep)``: the f32 output, each row's max (in
+    base 2 on the bf16 route) and sum, kept for the backward, and on the bf16
+    route with dropout the keep bits ``[B*H, S, ceil(S / 32)]`` that its
+    first kernel draws (else None)."""
     bh, s, d = qf.shape
     out = torch.empty_like(qf)
     out32 = torch.empty(qf.shape, device=qf.device, dtype=torch.float32)
     row_m = torch.empty(bh, s, device=qf.device, dtype=torch.float32)
     row_l = torch.empty_like(row_m)
+    keep = None
+    if qf.dtype == torch.bfloat16 and mode != "none":
+        keep = torch.empty(bh, s, (s + 31) // 32, device=qf.device, dtype=torch.int32)
     err = build.library().i2r_mhsa_train_fwd(
         qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), None if mask is None else mask.data_ptr(),
         out.data_ptr(), out32.data_ptr(), row_m.data_ptr(), row_l.data_ptr(),
         bh, s, d, heads, 1.0 / d ** 0.5, _DTYPE_CODES[qf.dtype],
-        *_dropout_args(mode, rate, words, seed, offset),
+        *_dropout_args(mode, rate, words, seed, offset), None if keep is None else keep.data_ptr(),
         torch.cuda.current_stream(qf.device).cuda_stream)
     build.check(err, "mhsa_train forward kernel")
     mhsa_train_fwd.launches += 1
-    return out, out32, row_m, row_l
+    return out, out32, row_m, row_l, keep
 
 
-def mhsa_train_bwd(qf, kf, vf, heads: int, mask, gout, out32, row_m, row_l, mode: str,
+def mhsa_train_bwd(qf, kf, vf, heads: int, mask, gout, out32, row_m, row_l, keep, mode: str,
                    rate: float, words, seed, offset):
     """Launch the backward kernels (rowsum(dO o O), dK/dV, dQ); returns ``(dq, dk, dv)``."""
     bh, s, d = qf.shape
@@ -96,7 +102,7 @@ def mhsa_train_bwd(qf, kf, vf, heads: int, mask, gout, out32, row_m, row_l, mode
         gout.data_ptr(), out32.data_ptr(), row_m.data_ptr(), row_l.data_ptr(), row_d.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, s, d, heads, 1.0 / d ** 0.5,
         _DTYPE_CODES[qf.dtype], *_dropout_args(mode, rate, words, seed, offset),
-        torch.cuda.current_stream(qf.device).cuda_stream)
+        None if keep is None else keep.data_ptr(), torch.cuda.current_stream(qf.device).cuda_stream)
     build.check(err, "mhsa_train backward kernels")
     mhsa_train_bwd.launches += 1
     return dq, dk, dv
@@ -109,33 +115,22 @@ mhsa_train_bwd.launches = 0
 class _MhsaTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, heads, mask, mode, rate, words, seed, offset):
-        b, s, c = q.shape
-        d = c // heads
-
-        def fold(x):
-            return x.reshape(b, s, heads, d).transpose(1, 2).reshape(b * heads, s, d).contiguous()
-
-        qf, kf, vf = fold(q), fold(k), fold(v)
-        out, out32, row_m, row_l = mhsa_train_fwd(qf, kf, vf, heads, mask, mode, rate, words,
-                                                  seed, offset)
-        ctx.save_for_backward(qf, kf, vf, out32, row_m, row_l, mask, words)
+        qf, kf, vf = fold_heads(q, heads), fold_heads(k, heads), fold_heads(v, heads)
+        out, out32, row_m, row_l, keep = mhsa_train_fwd(qf, kf, vf, heads, mask, mode, rate,
+                                                        words, seed, offset)
+        ctx.save_for_backward(qf, kf, vf, out32, row_m, row_l, keep, mask, words)
         ctx.config = (heads, mode, rate, seed, offset)
-        return out.reshape(b, heads, s, d).transpose(1, 2).reshape(b, s, c)
+        return unfold_heads(out, heads)
 
     @staticmethod
     def backward(ctx, gout):
-        qf, kf, vf, out32, row_m, row_l, mask, words = ctx.saved_tensors
+        qf, kf, vf, out32, row_m, row_l, keep, mask, words = ctx.saved_tensors
         heads, mode, rate, seed, offset = ctx.config
-        bh, s, d = qf.shape
-        b = bh // heads
-        g = gout.reshape(b, s, heads, d).transpose(1, 2).reshape(bh, s, d).to(qf.dtype)
-        dq, dk, dv = mhsa_train_bwd(qf, kf, vf, heads, mask, g.contiguous(), out32, row_m, row_l,
-                                    mode, rate, words, seed, offset)
-
-        def unfold(x):
-            return x.reshape(b, heads, s, d).transpose(1, 2).reshape(b, s, heads * d)
-
-        return unfold(dq), unfold(dk), unfold(dv), None, None, None, None, None, None, None
+        g = fold_heads(gout if gout.dtype == qf.dtype else gout.to(qf.dtype), heads)
+        dq, dk, dv = mhsa_train_bwd(qf, kf, vf, heads, mask, g, out32, row_m, row_l, keep, mode,
+                                    rate, words, seed, offset)
+        return (unfold_heads(dq, heads), unfold_heads(dk, heads), unfold_heads(dv, heads),
+                None, None, None, None, None, None, None)
 
 
 def masked_mhsa_train_fused(q, k, v, num_heads: int,
@@ -163,12 +158,7 @@ def masked_mhsa_train_fused(q, k, v, num_heads: int,
         raise ValueError(f"C={c} must split into {h} heads of dim <= 128")
     if b * h > 65535:
         raise ValueError(f"B*heads={b * h} exceeds the kernel grid")
-    mask = None
-    if key_padding_mask is not None:
-        if key_padding_mask.shape != (b, s) or key_padding_mask.dtype != torch.bool:
-            raise ValueError(f"key_padding_mask must be bool [B, S] = {(b, s)}, got "
-                             f"{key_padding_mask.dtype} {tuple(key_padding_mask.shape)}")
-        mask = key_padding_mask.to(q.device).contiguous()
+    mask = key_mask(key_padding_mask, b, s, q.device)
     mode = check_mode(dropout_rate, dropout_bits, dropout_seed)
     words = None
     if mode == "bits":

@@ -6,15 +6,16 @@ Mirrors ``i2rnet_tpu/presets.py:70,141,190`` and the recipes
 paths read, under the JAX config's section and key names. The one renamed
 section is ``DEVICE``: ``COMPUTE_DTYPE``, ``USE_KERNELS`` (the JAX
 ``TPU.COMPUTE_DTYPE`` and ``TPU.USE_PALLAS_ATTENTION``, the master switch of
-every kernel route; the recipes' ``FLASH_TRAIN_ATTENTION`` and
-``FUSED_FFN_TRAIN`` are on, so it also routes training through Kernels C and
-D), ``FUSED_BLOCK_EVAL`` (HRFormer blocks on Kernels E and F),
+every kernel route), ``FLASH_TRAIN_ATTENTION`` and ``FUSED_FFN_TRAIN`` (the
+encoder's training attention on Kernel C and its training tail on Kernel D,
+each where ``USE_KERNELS`` is on too; on, as the JAX defaults and every
+recipe), ``FUSED_BLOCK_EVAL`` (HRFormer blocks on Kernels E and F),
 ``FUSED_BLOCK_EVAL_ONEPASS`` (each block in one launch of kernel 7 in place
 of E and F; off, as in every recipe), ``FUSED_MLP_EVAL`` (their MlpDWBN on
 Kernel G where E and F are off), ``FUSED_BLOCK_TRAIN`` (the HRFormer blocks'
 attention half on kernel 9 in training), and ``FROZEN_STAGE_EVAL_MODE`` and
-``REMAT``, which the port does not implement (a training forward with either
-raises). One key is the
+``REMAT``, which the port does not implement (a training forward of either
+model with one of them set raises). One key is the
 port's own: ``MODEL.HRFORMER_ARCH``, the HRFormer architecture (the JAX
 builder's ``arch=`` argument; HRFormer-B when absent). The JAX gates
 ``TPU.MIN_FUSED_TRAIN_TOKENS`` and ``TPU.FUSED_TRAIN_MAX_BLOCKS`` are not
@@ -60,7 +61,8 @@ _TOP_KEYS = ("SEED", "AUTO_RESUME", "PRINT_FREQ")
 
 
 def _device(dtype: str, use_kernels: bool, fused_block_train: bool = False) -> Dict:
-    return {"COMPUTE_DTYPE": dtype, "USE_KERNELS": use_kernels, "FUSED_BLOCK_EVAL": True,
+    return {"COMPUTE_DTYPE": dtype, "USE_KERNELS": use_kernels, "FLASH_TRAIN_ATTENTION": True,
+            "FUSED_FFN_TRAIN": True, "FUSED_BLOCK_EVAL": True,
             "FUSED_BLOCK_EVAL_ONEPASS": False, "FUSED_MLP_EVAL": False,
             "FUSED_BLOCK_TRAIN": fused_block_train, "FROZEN_STAGE_EVAL_MODE": False,
             "REMAT": False}
@@ -140,14 +142,19 @@ def hrt_interformer(image_size=(192, 256)) -> Dict:
     (``interformer_coco_hrt_288_p2_b4.yaml``). Its ``TRANS_SIZE`` (24, 18)
     differs from the YAML's [9, 12], as the JAX preset's does; both take the
     same two 3x3/s2 pools (floored log2 of 72 / 18 and of 72 / 12), so the
-    token grid and the model are the same."""
+    token grid and the model are the same.
+
+    ``TRAIN`` is the recipe's: ``BATCH_SIZE_PER_GPU`` 12 and ``WD`` 0.1 at
+    256x192 (``interformer_coco_hrt_192_p2_b12.yaml:172,191``), 4 and 0.1 at
+    384x288. The JAX preset keeps 4 and 1e-4."""
     w, h = image_size
     return {
         "MODEL": _hrt_model(17, (w, h), (w // 4, h // 4), (h // 16, w // 16), 78, 192, 1, 2),
         "DATASET": {"DATASET": "coco", "MAX_PATCH": 2},
         "TEST": {"FLIP_TEST": True, "BLUR_KERNEL": 11, "POST_PROCESS": True},
         "DEVICE": _device("bfloat16", True, fused_block_train=True),
-        **_training(batch=4, end_epoch=240, lr=1e-4, lr_end=1e-5, wd=1e-4),
+        **_training(batch=12 if tuple(image_size) == (192, 256) else 4, end_epoch=240,
+                    lr=1e-4, lr_end=1e-5, wd=0.1),
     }
 
 
@@ -235,6 +242,8 @@ def from_config(cfg) -> Dict:
         "TEST": {k: _plain(getattr(cfg.TEST, k)) for k in _TEST_KEYS},
         "DEVICE": {"COMPUTE_DTYPE": cfg.TPU.COMPUTE_DTYPE,
                    "USE_KERNELS": bool(cfg.TPU.USE_PALLAS_ATTENTION),
+                   "FLASH_TRAIN_ATTENTION": bool(cfg.TPU.get("FLASH_TRAIN_ATTENTION", True)),
+                   "FUSED_FFN_TRAIN": bool(cfg.TPU.get("FUSED_FFN_TRAIN", True)),
                    "FUSED_BLOCK_EVAL": bool(cfg.TPU.get("FUSED_BLOCK_EVAL", True)),
                    "FUSED_BLOCK_EVAL_ONEPASS": bool(cfg.TPU.get("FUSED_BLOCK_EVAL_ONEPASS",
                                                                 False)),

@@ -260,3 +260,99 @@ def test_builders_default_to_the_card():
             build_model(cfg)
     with pytest.raises((RuntimeError, AssertionError)):
         build_pure_multi(presets.tiny_test_config(5))
+
+
+@pytest.mark.parametrize("remat", [True, "layers", "dots"])
+def test_remat_refuses_a_training_forward(remat):
+    """``DEVICE.REMAT`` reaches both models through ``from_config``: an eval
+    forward runs, a training forward raises (rematerialisation is not
+    ported), as the HRFormer model always did."""
+    from i2rnet_tpu.presets import hrt_interformer
+
+    jcfg = tiny_test_config(5)
+    jcfg.TPU.REMAT = remat
+    cfg = presets.from_config(jcfg)
+    assert cfg["DEVICE"]["REMAT"] == remat
+    model = build_pure_multi(cfg, device="cpu")
+    images = torch.zeros(1, 2, 64, 48, 3)
+    pos = torch.zeros(1, 2, 64, 48, 1)
+    valid = torch.tensor([[True, False]])
+    with torch.no_grad():
+        assert model(images, pos, valid).shape == (1, 2, 5, 16, 12)
+    with pytest.raises(NotImplementedError, match="REMAT"):
+        model(images, pos, valid, train=True, dropout_seed=0)
+    hrt = presets.tiny_hrt_config(5)
+    hrt["DEVICE"]["REMAT"] = remat
+    assert ("DEVICE.REMAT", remat) in build_model(hrt, device="cpu").unported_training
+    assert presets.from_config(hrt_interformer())["DEVICE"]["REMAT"] is False
+    assert build_pure_multi(presets.tiny_test_config(5), device="cpu").unported_training == []
+
+
+@pytest.mark.parametrize("flash,ffn", [(True, True), (True, False), (False, True),
+                                       (False, False)])
+def test_from_config_routes_the_training_kernels(flash, ffn, monkeypatch):
+    """``TPU.FLASH_TRAIN_ATTENTION`` and ``TPU.FUSED_FFN_TRAIN`` reach
+    ``DEVICE`` and the encoders; in a training forward every layer takes
+    Kernel C on ``USE_KERNELS and FLASH_TRAIN_ATTENTION`` and Kernel D on
+    ``USE_KERNELS and FUSED_FFN_TRAIN`` (``i2rnet_tpu/models/encoder.py:54,
+    145``), each its plain version otherwise."""
+    from i2rnet_tpu_torch.models import encoder
+    from i2rnet_tpu_torch.ops import attention
+
+    calls = []
+
+    def record(module, name):
+        fn = getattr(module, name)
+
+        def wrapped(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+
+        monkeypatch.setattr(module, name, wrapped)
+
+    for name in ("masked_mhsa_train_fused", "masked_mhsa_train_torch"):
+        record(attention, name)
+    for name in ("encoder_ffn_train_fused", "encoder_ffn_train_torch"):
+        record(encoder, name)
+    jcfg = tiny_test_config(5)
+    jcfg.TPU.USE_PALLAS_ATTENTION = True
+    jcfg.TPU.FLASH_TRAIN_ATTENTION = flash
+    jcfg.TPU.FUSED_FFN_TRAIN = ffn
+    cfg = presets.from_config(jcfg)
+    assert (cfg["DEVICE"]["FLASH_TRAIN_ATTENTION"], cfg["DEVICE"]["FUSED_FFN_TRAIN"]) == (flash, ffn)
+    model = build_pure_multi(cfg, device="cpu")
+    rng = np.random.RandomState(0)
+    images = torch.from_numpy(rng.randn(1, 2, 64, 48, 3).astype(np.float32))
+    pos = torch.zeros(1, 2, 64, 48, 1)
+    pos[..., 8:40, 8:30, :] = 1.0
+    heat = model(images, pos, torch.tensor([[True, True]]), train=True, dropout_seed=3)
+    assert torch.isfinite(heat).all()
+    layers = len(model.global_encoder.layers)
+    want = ["masked_mhsa_train_fused" if flash else "masked_mhsa_train_torch",
+            "encoder_ffn_train_fused" if ffn else "encoder_ffn_train_torch"] * layers
+    assert calls == want
+    # with USE_KERNELS off, both plain whatever the knobs say
+    calls.clear()
+    model.global_encoder.use_kernels = False
+    model(images, pos, torch.tensor([[True, True]]), train=True, dropout_seed=3)
+    assert calls == ["masked_mhsa_train_torch", "encoder_ffn_train_torch"] * layers
+    hrt = presets.tiny_hrt_config(5)
+    hrt["DEVICE"].update(FLASH_TRAIN_ATTENTION=flash, FUSED_FFN_TRAIN=ffn)
+    enc = build_model(hrt, device="cpu").multi_global_encoder
+    assert (enc.flash_train, enc.fused_ffn_train) == (flash, ffn)
+
+
+@pytest.mark.parametrize("size,recipe", [((192, 256), "interformer_coco_hrt_192_p2_b12.yaml"),
+                                         ((288, 384), "interformer_coco_hrt_288_p2_b4.yaml")])
+def test_hrt_preset_takes_its_recipes_training_section(size, recipe):
+    """``presets.hrt_interformer`` trains with its recipe's batch and weight
+    decay (12 and 0.1 at 256x192); the JAX preset keeps its own 4."""
+    import yaml
+
+    from i2rnet_tpu.presets import hrt_interformer
+
+    want = yaml.safe_load((REPO / "experiments" / "coco" / recipe).read_text())["TRAIN"]
+    got = presets.hrt_interformer(size)["TRAIN"]
+    for k in ("BATCH_SIZE_PER_GPU", "WD", "LR", "END_EPOCH", "OPTIMIZER"):
+        assert got[k] == want[k], k
+    assert hrt_interformer().TRAIN.BATCH_SIZE_PER_GPU == 4
