@@ -137,8 +137,8 @@ from i2rnet_tpu_torch.ops.cuda.hrformer_block_train import (window_attn_block_tr
 from i2rnet_tpu_torch.ops.cuda.mhsa import masked_mhsa_fused, masked_mhsa_torch
 from i2rnet_tpu_torch.ops.cuda.mhsa_train import (attention_bits, masked_mhsa_train_fused,
                                                   masked_mhsa_train_torch)
-from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import (DTYPE_CODES, mlp_dwbn_fused, mlp_dwbn_torch,
-                                                pack_mlp)
+from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import (DTYPE_CODES, device_plan, mlp_dwbn_fused,
+                                                mlp_dwbn_torch, mlp_plan, pack_mlp, sm_count)
 from i2rnet_tpu_torch.ops.preprocess import device_preprocess
 from i2rnet_tpu_torch.serving import Predictor, make_eval_fn
 from i2rnet_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
@@ -189,6 +189,12 @@ HRT_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 #: of HBM3 and operations/s by input type (f32 outside the tensor cores)
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: device time per call (``device_ms``): the wait, in clock cycles (about
+#: 20 ms at the H100's 1.98 GHz), that holds the card while the host queues
+#: the timed calls
+QUEUE_CYCLES = 40_000_000
+#: profiles taken again where ``torch.profiler`` came back without device work
+PROFILE_TRIES = 3
 TRAIN_KERNELS = ("mhsa_train_fwd", "mhsa_train_bwd", "encoder_ffn_train_fwd",
                  "encoder_ffn_train_bwd")
 OUT_DIR = Path(__file__).resolve().parent / "output" / "chip_smoke"
@@ -625,23 +631,32 @@ def time_cuda(fn, iters):
 
 
 def device_ms(fn, iters):
-    """ms of device time per call of ``fn``: the summed durations of the
-    kernels it launches, from ``torch.profiler`` over ``iters`` calls (the
-    host's time between launches left out)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """ms of device time per call of ``fn`` over ``iters`` back-to-back calls,
+    by CUDA events, with the host's launch time hidden: the calls are queued
+    behind a kernel that spins for ``QUEUE_CYCLES``, and count only if the
+    start event is still pending when the last call is in the stream, so the
+    events time the card running them one after another. Where they were not
+    (the launch queue filled, or a call waits on the card), fewer calls are
+    timed, down to one call timed as it runs."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    asked = iters
+    while True:
+        torch.cuda._sleep(QUEUE_CYCLES)
+        start.record()
         for _ in range(iters):
             fn()
+        end.record()
+        queued = not start.query()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False) and "#" not in e.name]
-    if not kernels:
-        raise AssertionError("torch.profiler recorded no device activity")
-    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters
+        if queued or iters == 1:
+            break
+        iters = max(1, iters // 4)
+    if iters < asked:
+        log(f"  (device_ms: {asked} calls did not queue behind the wait; {iters} timed"
+            + ("" if queued else ", as it ran: the host's time is in it") + ")")
+    return start.elapsed_time(end) / iters
 
 
 def in_turns(fns, iters):
@@ -654,9 +669,9 @@ def in_turns(fns, iters):
 
 
 def plain_kernel_sdpa(name, fns, iters, card):
-    """(plain, kernel, SDPA) ms of ``fns`` as device time per call (the
-    kernels' summed durations, ``device_ms``): at these sizes a loop of
-    Python calls timed with CUDA events measures the host as much as the
+    """(plain, kernel, SDPA) ms of ``fns`` as device time per call
+    (``device_ms``, the calls queued behind a wait): at these sizes a loop
+    of Python calls timed with CUDA events measures the host as much as the
     card. The event-timed ms (order plain, kernel, SDPA, SDPA, kernel,
     plain) are logged beside them."""
     host = in_turns(fns, iters)
@@ -782,16 +797,21 @@ def profile_steps(fn, steps):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False) and "#" not in e.name]
-    if not kernels:
-        raise AssertionError("torch.profiler recorded no device activity")
+    for _ in range(PROFILE_TRIES):  # the profiler has come back empty now and then
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False) and "#" not in e.name]
+        if kernels:
+            break
+    else:
+        log(f"  torch.profiler recorded no device activity in {PROFILE_TRIES} tries: the "
+            f"breakdown below is not measured (nan)")
+        return wall / steps, math.nan, math.nan, []
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for a, b in spans[1:]:
@@ -1135,10 +1155,19 @@ def hrt_bound(name, shape, dtype):
     return bound(2 * p * hw * c * el + sum(wb for _, wb in parts), sum(o for o, _ in parts), dtype)
 
 
+def plan_text(plan):
+    """F's bf16 launch plan as phase 16 and ``probes/mlp_probe.py`` print it."""
+    return (f"{plan.th}x{plan.tw} tiles, {plan.slices} hidden slice(s), grid {plan.grid} = "
+            f"{plan.blocks} blocks, {plan.smem} B shared, partials {plan.partial_bytes / 1e6:.1f} MB")
+
+
 def phase_hrt_kernel_timing(g, card):
     """E, F and G beside their plain versions at 256x192's branch maps, each
     in its path's dtype (E, F bf16; G f32), with the kernels' weights packed
-    once as the model keeps them."""
+    once as the model keeps them, by CUDA events. F's device time per call
+    (``device_ms``, its plain version's too) and launch plan are logged beside
+    them; at F's 0.2-0.5 ms a call the two agree, and the kernels line takes
+    the events as it does for E and G."""
     times = {}
     for shape in HRT_SHAPES[:4]:
         calls = hrt_kernel_calls(shape, g)
@@ -1151,15 +1180,18 @@ def phase_hrt_kernel_timing(g, card):
             else:
                 packed = pack_mlp(*args[-6:], dt if name == "mlp_block" else torch.float32,
                                   x.device)
+            fns = (lambda: plain(x, *args), lambda: kernel(x, *args, packed=packed))
             with torch.no_grad():
-                t = timing(*alternate(lambda: plain(x, *args),
-                                      lambda: kernel(x, *args, packed=packed), 10),
-                           hrt_bound(name, shape, dt))
+                t = timing(*alternate(*fns, 10), hrt_bound(name, shape, dt))
+                dev = [device_ms(f, 10) for f in fns] if name == "mlp_block" else None
             if shape == HRT_SHAPES[0]:
                 times[name] = t
-            line.append(f"{name} {str(dt)[6:]} kernel {t['ms'] * 1e3:.1f} us, plain "
-                        f"{t['plain_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.2f} us "
-                        f"({t['bound_by']})")
+            text = (f"{name} {str(dt)[6:]} kernel {t['ms'] * 1e3:.1f} us, plain "
+                    f"{t['plain_ms'] * 1e3:.1f} us")
+            if dev:
+                text += (f" (device time per call: kernel {dev[1] * 1e3:.1f} us, plain "
+                         f"{dev[0] * 1e3:.1f} us); plan {plan_text(device_plan(x, 4 * shape[3]))}")
+            line.append(f"{text}, bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
         log(f"  {shape}: " + "; ".join(line) + f" [{card}]")
     return times
 
@@ -1316,13 +1348,20 @@ def full_block_args(c, heads, g):
 
 
 def kernel7_plan(shape, dtype):
-    """(blocks per SM, grid, shared memory bytes, MLP tile edge) of kernel
-    7's cooperative launch at one map, as the kernel library computes it."""
+    """(blocks per SM, grid, shared memory bytes, MLP tile rows and columns,
+    hidden slices) of kernel 7's cooperative launch at one map, as the kernel
+    library computes it: F's plan (``mlp_plan``) in bf16; in f32 the
+    CUDA-core template's own tile and one slice."""
     p, h, w, c, heads = shape
-    out = (ctypes.c_int * 4)()
-    build.check(build.library().i2r_full_block_plan(p, h, w, c, heads, DTYPE_CODES[dtype], out),
+    th, tw, slices = 0, 0, 1
+    if dtype == torch.bfloat16:
+        plan = mlp_plan(p, h, w, c, 4 * c, sm_count(0))
+        th, tw, slices = plan.th, plan.tw, plan.slices
+    out = (ctypes.c_int * 5)()
+    build.check(build.library().i2r_full_block_plan(p, h, w, c, heads, 4 * c, th, tw, slices,
+                                                    DTYPE_CODES[dtype], out),
                 "full_block plan")
-    return tuple(out)
+    return (*out, slices)
 
 
 def phase_full_block(g):
@@ -1351,11 +1390,12 @@ def phase_full_block(g):
             worst = max(worst, diff)
             if (shape, dt) == (HRT_SHAPES[0], torch.bfloat16):
                 main_err = err
-            per_sm, grid, smem, tile = kernel7_plan(shape, dt)
+            per_sm, grid, smem, th, tw, slices = kernel7_plan(shape, dt)
             same = "bit-equal" if torch.equal(got, two) else f"max|diff| {diff:.3g}"
             log(f"  {shape} {str(dt)[6:]}: max|err| {err:.3g} ({err / scale:.2g} of max|ref|, "
                 f"bound {HRT_TOL[dt]:g}); vs E then F: {same}; grid {grid} blocks ({sms} SMs x "
-                f"{per_sm} resident), {smem} B shared, {tile}x{tile} MLP tiles")
+                f"{per_sm} resident), {smem} B shared; MLP phase {th}x{tw} tiles, "
+                f"{slices} hidden slice(s)")
     return main_err, worst
 
 
@@ -1496,12 +1536,19 @@ def main() -> int:
     log(f"phase 16 HRT timing [{card}]:")
     step = eval_steps(model, cfg, hrt_kernels(model), 8, 4, g)
     eval_timing(step, 8, 4, 3, card)
+    reset_launches()
     wall, busy, launches, top = profile_steps(step(True), 2)
+    f_ms = sum(t for name, t, _ in top if "mlp_mma_kernel" in name or "mlp_finish_kernel" in name)
     log(f"  profile, kernels on: wall {wall:.2f} ms/step under the profiler, device busy "
         f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
-        f"launches/step; top kernels (ms/step, launches/step):")
+        f"launches/step; Kernel F {f_ms:.3f} ms/step in {launch_counts()['mlp_block'] // 3} "
+        f"calls/step; top kernels (ms/step, launches/step):")
     for name, t, c in top[:12]:
         log(f"    {t:8.3f} {c:6.0f}  {name[:110]}")
+    wall, busy, launches, _ = profile_steps(step(False), 2)
+    log(f"  profile, kernels off: wall {wall:.2f} ms/step under the profiler, device busy "
+        f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
+        f"launches/step")
     times.update(phase_hrt_kernel_timing(g, card))
     del model, step
     torch.cuda.empty_cache()

@@ -14,9 +14,10 @@
 // (64x48x78) E's products (0.22 GFLOP) plus F's (0.32 GFLOP) against one
 // read and one write of the map in bf16 (0.96 MB): about 0.54 us at the bf16
 // tensor-core peak and 0.29 us at the memory rate, so the operations bound
-// it. Its products run on CUDA cores in f32, as E's and F's do, so the FMA
-// rate and the shared-memory reads that feed it bound it in practice. What it
-// saves against E then F is one launch and F's read of E's output from
+// it. E's products run on CUDA cores in f32, so the FMA rate and the
+// shared-memory reads that feed them bound its first phase; F's run on the
+// tensor cores in bf16 (mlp_dwbn.cu), where the GELUs bound the second. What
+// it saves against E then F is one launch and F's read of E's output from
 // device memory (the map stays in L2 between the phases where it fits).
 //
 // Design: the Pallas kernel keeps a person's whole [H, W, C] map in VMEM and
@@ -28,12 +29,16 @@
 //   phase 1: E's work per (7x7 window, person), written to the scratch map xa
 //            [P, H, W, C] in T, which the wrapper allocates;
 //   a grid-wide barrier (cooperative_groups::this_grid().sync());
-//   phase 2: F's work per (8x8 or 4x4 tile, person), reading xa with its
-//            1-pixel halo and writing out.
+//   phase 2: F's work per (output tile, hidden slice, person) of F's plan
+//            (ops/cuda/mlp_dwbn.py::mlp_plan), reading xa with its 1-pixel
+//            halo and writing out, or with several slices the slices' f32
+//            sums to the scratch part [S, P, H, W, C];
+//   with several slices, a second grid-wide barrier and
+//   phase 3: F's fixed-order sum of the slices and its epilogue per element.
 // Each block walks each phase's items in steps of the grid. The grid is as
 // many blocks as the card holds at once (SMs x blocks per SM for this shared
 // memory and these registers), at most the larger phase's item count; shared
-// memory is the larger of the two phases' needs. xa is read in phase 2
+// memory is the larger of the two phases' needs. xa and part are read
 // through plain loads (no __restrict__, no __ldg): the read-only path is not
 // coherent with writes made earlier in the same launch.
 // Not built: recomputing the neighbouring windows' attention for each tile's
@@ -45,17 +50,18 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "mlp_dwbn.cuh"
 #include "window_attn.cuh"
 
 namespace {
 
 // Registers: each phase is a function of its own, not inlined, so ptxas
-// allocates registers for each body apart, and the kernel asks for 3 blocks
-// per SM, which caps them at 80 a thread. So the bodies do not spill, and
-// kernel 7 runs 3 blocks per SM where shared memory allows it. Left alone,
-// ptxas gives the kernel 128 registers (2 blocks per SM); capped at 64 (4
-// blocks per SM), the inlined bodies spill. PERF.md has the measured sweep.
+// allocates registers for each body apart, and the kernel asks for 2 blocks
+// per SM, which caps them at 128 a thread; shared memory holds kernel 7 at 2
+// blocks per SM on most maps in bf16 anyway (F's slice buffer, E's tiles).
+// PERF.md has the measured sweep (probes/kernel7_sweep.py).
 template <typename T>
 __device__ __noinline__ void attn_phase(const T* __restrict__ x, const float* __restrict__ ln1_g,
                                         const float* __restrict__ ln1_b,
@@ -72,57 +78,83 @@ __device__ __noinline__ void attn_phase(const T* __restrict__ x, const float* __
   }
 }
 
+// F's body per (tile, slice, person) item: the bf16 tensor-core body for T =
+// bf16 (w1, w2 its fragments), the CUDA-core template for f32 (one slice)
 template <typename T>
 __device__ __noinline__ void mlp_phase(const T* xa, const float* __restrict__ ln2_g,
                                        const float* __restrict__ ln2_b,
-                                       const T* __restrict__ w1t, const float* __restrict__ b1,
+                                       const T* __restrict__ w1, const float* __restrict__ b1,
                                        const float* __restrict__ dwt,
                                        const float* __restrict__ bdw,
-                                       const T* __restrict__ w2t, const float* __restrict__ b2,
-                                       T* __restrict__ out, int p, int h, int w, int c, int dh,
-                                       float eps, int th, int tw, unsigned char* smem_raw) {
+                                       const T* __restrict__ w2, const float* __restrict__ b2,
+                                       T* __restrict__ out, float* part, int p, int h, int w,
+                                       int c, int dh, float eps, int th, int tw, int slices,
+                                       unsigned char* smem_raw) {
   const int ntile = ((h + th - 1) / th) * ((w + tw - 1) / tw);
-  for (int i = blockIdx.x; i < ntile * p; i += gridDim.x) {
+  for (int i = blockIdx.x; i < ntile * slices * p; i += gridDim.x) {
     __syncthreads();
-    mlp_item<T, T, true>(xa, ln2_g, ln2_b, w1t, b1, dwt, bdw, w2t, b2, out, h, w, c, dh, eps, th,
-                         tw, i % ntile, i / ntile, smem_raw);
+    if constexpr (std::is_same_v<T, __nv_bfloat16>)
+      mlp_item_mma(xa, ln2_g, ln2_b, reinterpret_cast<const uint2*>(w1), b1, dwt, bdw,
+                   reinterpret_cast<const uint2*>(w2), b2, out, part, p, h, w, c, dh, eps, th, tw,
+                   slices, i % ntile, (i / ntile) % slices, i / (ntile * slices), smem_raw);
+    else
+      mlp_item<T, T, true>(xa, ln2_g, ln2_b, w1, b1, dwt, bdw, w2, b2, out, h, w, c, dh, eps, th,
+                           tw, i % ntile, i / ntile, smem_raw);
   }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, 2)
 full_block_kernel(const T* __restrict__ x, const float* __restrict__ ln1_g,
                   const float* __restrict__ ln1_b, const T* __restrict__ wqkv,
                   const float* __restrict__ bqkv, const T* __restrict__ wot,
                   const float* __restrict__ bo, const float* __restrict__ ln2_g,
-                  const float* __restrict__ ln2_b, const T* __restrict__ w1t,
+                  const float* __restrict__ ln2_b, const T* __restrict__ w1,
                   const float* __restrict__ b1, const float* __restrict__ dwt,
-                  const float* __restrict__ bdw, const T* __restrict__ w2t,
-                  const float* __restrict__ b2, T* xa, T* __restrict__ out, int p, int h, int w,
-                  int c, int heads, int dh, float eps, int th, int tw) {
+                  const float* __restrict__ bdw, const T* __restrict__ w2,
+                  const float* __restrict__ b2, T* xa, float* part, T* __restrict__ out, int p,
+                  int h, int w, int c, int heads, int dh, float eps, int th, int tw, int slices) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   attn_phase<T>(x, ln1_g, ln1_b, wqkv, bqkv, wot, bo, xa, p, h, w, c, heads, eps, smem_raw);
   cooperative_groups::this_grid().sync();  // every pixel of xa written and visible
-  mlp_phase<T>(xa, ln2_g, ln2_b, w1t, b1, dwt, bdw, w2t, b2, out, p, h, w, c, dh, eps, th, tw,
-               smem_raw);
+  mlp_phase<T>(xa, ln2_g, ln2_b, w1, b1, dwt, bdw, w2, b2, out, part, p, h, w, c, dh, eps, th, tw,
+               slices, smem_raw);
+  if (slices == 1) return;  // the same for every block
+  cooperative_groups::this_grid().sync();  // every slice's sums written and visible
+  const size_t n = (size_t)p * h * w * c;
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * kThreads)
+    mlp_finish(xa, part, b2, out, n, c, slices, i);
 }
 
 template <typename T>
 using FullBlockKernel = void (*)(const T*, const float*, const float*, const T*, const float*,
                                  const T*, const float*, const float*, const float*, const T*,
                                  const float*, const float*, const float*, const T*, const float*,
-                                 T*, T*, int, int, int, int, int, int, float, int, int);
+                                 T*, float*, T*, int, int, int, int, int, int, float, int, int, int);
 
-// The launch's shape: tile edge, shared memory, blocks per SM and grid.
+// The launch's shape: blocks per SM, grid, the MLP phase's tile, shared memory.
 struct Plan {
-  int tile, per_sm, grid;
+  int per_sm, grid, th, tw;
   size_t bytes;
 };
 
+// bf16: F's plan (th x tw tiles, `slices` hidden slices) comes from the
+// wrapper (ops/cuda/mlp_dwbn.py::mlp_plan); f32 takes th = tw = 0 and one
+// slice, and the CUDA-core template its own tile (mlp_tile).
 template <typename T>
-cudaError_t plan(int p, int h, int w, int c, int heads, Plan* out) {
-  const int t = mlp_tile<T>(c);
-  const size_t attn = attn_smem_bytes<T>(c, c / heads), mlp = mlp_smem_bytes<T>(c, t, t);
+cudaError_t plan(int p, int h, int w, int c, int heads, int dh, int th, int tw, int slices,
+                 Plan* out) {
+  constexpr bool kMma = std::is_same_v<T, __nv_bfloat16>;
+  if (!kMma) {
+    if (th != 0 || tw != 0 || slices != 1) return cudaErrorInvalidValue;
+    th = tw = mlp_tile<T>(c);
+  } else if (!mlp_mma_fits(c, h, w, th, tw, dh, slices)) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t attn = attn_smem_bytes<T>(c, c / heads);
+  const size_t mlp =
+      kMma ? mlp_mma_smem_bytes(c, h, w, th, tw, dh, slices) : mlp_smem_bytes<T>(c, th, tw);
   const size_t bytes = attn > mlp ? attn : mlp;
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
   FullBlockKernel<T> kernel = full_block_kernel<T>;
@@ -137,23 +169,26 @@ cudaError_t plan(int p, int h, int w, int c, int heads, Plan* out) {
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;  // no block fits an SM
   const long items1 = (long)((h + kWin - 1) / kWin) * ((w + kWin - 1) / kWin) * p;
-  const long items2 = (long)((h + t - 1) / t) * ((w + t - 1) / t) * p;
+  const long items2 = (long)((h + th - 1) / th) * ((w + tw - 1) / tw) * slices * p;
   const long items = items1 > items2 ? items1 : items2;
   const long resident = (long)sms * per_sm;
-  *out = Plan{t, per_sm, (int)(items < resident ? items : resident), bytes};
+  *out = Plan{per_sm, (int)(items < resident ? items : resident), th, tw, bytes};
   return cudaSuccess;
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* ln1_g, const void* ln1_b, const void* wqkv,
                    const void* bqkv, const void* wot, const void* bo, const void* ln2_g,
-                   const void* ln2_b, const void* w1t, const void* b1, const void* dwt,
-                   const void* bdw, const void* w2t, const void* b2, void* xa, void* out, int p,
-                   int h, int w, int c, int heads, int dh, float eps, cudaStream_t stream) {
+                   const void* ln2_b, const void* w1, const void* b1, const void* dwt,
+                   const void* bdw, const void* w2, const void* b2, void* xa, void* part,
+                   void* out, int p, int h, int w, int c, int heads, int dh, float eps, int th,
+                   int tw, int slices, cudaStream_t stream) {
+  if (slices > 1 && part == nullptr) return cudaErrorInvalidValue;
   Plan pl;
-  cudaError_t err = plan<T>(p, h, w, c, heads, &pl);
+  cudaError_t err = plan<T>(p, h, w, c, heads, dh, th, tw, slices, &pl);
   if (err != cudaSuccess) return err;
-  int th = pl.tile, tw = pl.tile;
+  th = pl.th;
+  tw = pl.tw;
   const T* a_x = static_cast<const T*>(x);
   const float* a_ln1_g = static_cast<const float*>(ln1_g);
   const float* a_ln1_b = static_cast<const float*>(ln1_b);
@@ -163,17 +198,19 @@ cudaError_t launch(const void* x, const void* ln1_g, const void* ln1_b, const vo
   const float* a_bo = static_cast<const float*>(bo);
   const float* a_ln2_g = static_cast<const float*>(ln2_g);
   const float* a_ln2_b = static_cast<const float*>(ln2_b);
-  const T* a_w1t = static_cast<const T*>(w1t);
+  const T* a_w1 = static_cast<const T*>(w1);
   const float* a_b1 = static_cast<const float*>(b1);
   const float* a_dwt = static_cast<const float*>(dwt);
   const float* a_bdw = static_cast<const float*>(bdw);
-  const T* a_w2t = static_cast<const T*>(w2t);
+  const T* a_w2 = static_cast<const T*>(w2);
   const float* a_b2 = static_cast<const float*>(b2);
   T* a_xa = static_cast<T*>(xa);
+  float* a_part = static_cast<float*>(part);
   T* a_out = static_cast<T*>(out);
-  void* args[] = {&a_x,   &a_ln1_g, &a_ln1_b, &a_wqkv, &a_bqkv, &a_wot, &a_bo, &a_ln2_g, &a_ln2_b,
-                  &a_w1t, &a_b1,    &a_dwt,   &a_bdw,  &a_w2t,  &a_b2,  &a_xa, &a_out,   &p,
-                  &h,     &w,       &c,       &heads,  &dh,     &eps,   &th,   &tw};
+  void* args[] = {&a_x,    &a_ln1_g, &a_ln1_b, &a_wqkv, &a_bqkv, &a_wot, &a_bo,  &a_ln2_g,
+                  &a_ln2_b, &a_w1,    &a_b1,    &a_dwt,  &a_bdw,  &a_w2,  &a_b2,  &a_xa,
+                  &a_part,  &a_out,   &p,       &h,      &w,      &c,     &heads, &dh,
+                  &eps,     &th,      &tw,      &slices};
   FullBlockKernel<T> kernel = full_block_kernel<T>;
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(pl.grid),
                                     dim3(kThreads), args, pl.bytes, stream);
@@ -191,44 +228,51 @@ bool bad_shape(int p, int h, int w, int c, int heads) {
 // contiguous, type T (dtype 0 = float32, 1 = bfloat16). The attention half's
 // weights as Kernel E takes them (i2r_window_attn_fwd: ln1 [c] f32, wqkv
 // [c][heads][3][d] in T with q pre-scaled, bqkv [heads][3][d] f32, Wo^T [c][c]
-// in T, bo [c] f32); the MLP half's as Kernel F takes them (i2r_mlp_block_fwd:
-// ln2 [c] f32, W1^T [c][dh] and W2^T [dh][c] in T, dwt [3][3][dh], b1, bdw,
-// b2 f32). One LayerNorm eps for both halves. Window 7. Returns the
-// cudaError_t of the launch: cudaErrorInvalidValue for shapes it does not
-// take, cudaErrorCooperativeLaunchTooLarge when no block fits an SM, and the
-// cooperative launch's own error when the card refuses it.
+// in T, bo [c] f32); the MLP half's, th, tw, slices and part (f32 scratch of
+// slices * p * h * w * c where slices > 1) as Kernel F takes them
+// (i2r_mlp_block_fwd). One LayerNorm eps for both halves.
+// Window 7. Returns the cudaError_t of the launch: cudaErrorInvalidValue for
+// shapes or plans it does not take, cudaErrorCooperativeLaunchTooLarge when no
+// block fits an SM, and the cooperative launch's own error when the card
+// refuses it.
 extern "C" int i2r_full_block_fwd(const void* x, const void* ln1_g, const void* ln1_b,
                                   const void* wqkv, const void* bqkv, const void* wot,
                                   const void* bo, const void* ln2_g, const void* ln2_b,
-                                  const void* w1t, const void* b1, const void* dwt,
-                                  const void* bdw, const void* w2t, const void* b2, void* xa,
-                                  void* out, int p, int h, int w, int c, int heads, int dh,
-                                  float eps, int dtype, void* stream) {
+                                  const void* w1, const void* b1, const void* dwt,
+                                  const void* bdw, const void* w2, const void* b2, void* xa,
+                                  void* part, void* out, int p, int h, int w, int c, int heads,
+                                  int dh, int th, int tw, int slices, float eps, int dtype,
+                                  void* stream) {
   if (bad_shape(p, h, w, c, heads) || dh < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(x, ln1_g, ln1_b, wqkv, bqkv, wot, bo, ln2_g, ln2_b, w1t, b1, dwt,
-                              bdw, w2t, b2, xa, out, p, h, w, c, heads, dh, eps, st);
+    return (int)launch<float>(x, ln1_g, ln1_b, wqkv, bqkv, wot, bo, ln2_g, ln2_b, w1, b1, dwt,
+                              bdw, w2, b2, xa, part, out, p, h, w, c, heads, dh, eps, th, tw,
+                              slices, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, ln1_g, ln1_b, wqkv, bqkv, wot, bo, ln2_g, ln2_b, w1t, b1,
-                                      dwt, bdw, w2t, b2, xa, out, p, h, w, c, heads, dh, eps, st);
+    return (int)launch<__nv_bfloat16>(x, ln1_g, ln1_b, wqkv, bqkv, wot, bo, ln2_g, ln2_b, w1, b1,
+                                      dwt, bdw, w2, b2, xa, part, out, p, h, w, c, heads, dh, eps,
+                                      th, tw, slices, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// The shape kernel 7 launches with for a [p, h, w, c] map of type dtype on the
-// current device: blocks per SM (the occupancy at its shared memory and
-// registers), grid, dynamic shared memory in bytes and the MLP phase's tile
-// edge, written to out[0..3]. Returns the cudaError_t, as i2r_full_block_fwd.
-extern "C" int i2r_full_block_plan(int p, int h, int w, int c, int heads, int dtype, int* out) {
-  if (bad_shape(p, h, w, c, heads) || out == nullptr) return (int)cudaErrorInvalidValue;
+// The shape kernel 7 launches with for a [p, h, w, c] map of type dtype and
+// th, tw, slices as i2r_full_block_fwd takes them, on the current device:
+// blocks per SM (the occupancy at its shared memory and registers), grid,
+// dynamic shared memory in bytes and the MLP phase's tile rows and columns,
+// written to out[0..4]. Returns the cudaError_t, as i2r_full_block_fwd.
+extern "C" int i2r_full_block_plan(int p, int h, int w, int c, int heads, int dh, int th, int tw,
+                                   int slices, int dtype, int* out) {
+  if (bad_shape(p, h, w, c, heads) || dh < 1 || out == nullptr) return (int)cudaErrorInvalidValue;
   Plan pl;
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0) err = plan<float>(p, h, w, c, heads, &pl);
-  if (dtype == 1) err = plan<__nv_bfloat16>(p, h, w, c, heads, &pl);
+  if (dtype == 0) err = plan<float>(p, h, w, c, heads, dh, th, tw, slices, &pl);
+  if (dtype == 1) err = plan<__nv_bfloat16>(p, h, w, c, heads, dh, th, tw, slices, &pl);
   if (err != cudaSuccess) return (int)err;
   out[0] = pl.per_sm;
   out[1] = pl.grid;
   out[2] = (int)pl.bytes;
-  out[3] = pl.tile;
+  out[3] = pl.th;
+  out[4] = pl.tw;
   return 0;
 }

@@ -41,7 +41,7 @@ import torch.nn.functional as F
 
 from i2rnet_tpu_torch.ops.cuda import build
 from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import (DTYPE_CODES, check_cuda_mlp, depthwise3x3,
-                                                gelu_tanh_erf, launch_mlp, pack_mlp)
+                                                gelu_tanh_erf, launch_plan, pack_mlp)
 
 LN_EPS = 1e-6
 WINDOW = 7  # the kernel's window (HRFormer-B's everywhere)
@@ -202,7 +202,9 @@ def mlp_block_fused(x, ln_w, ln_b, w1, b1, dw, bdw, w2, b2, eps: float = LN_EPS,
 
     CPU tensors take :func:`mlp_block_torch`; CUDA tensors launch the kernel
     or raise. ``packed``, when given, is :func:`pack_mlp` of the same weights
-    in x's dtype on x's device.
+    in x's dtype on x's device. The launch follows
+    :func:`~i2rnet_tpu_torch.ops.cuda.mlp_dwbn.launch_plan`; with several
+    hidden slices it allocates their f32 sums.
     """
     if x.device.type == "cpu":
         return mlp_block_torch(x, ln_w, ln_b, w1, b1, dw, bdw, w2, b2, eps)
@@ -211,8 +213,16 @@ def mlp_block_fused(x, ln_w, ln_b, w1, b1, dw, bdw, w2, b2, eps: float = LN_EPS,
         return torch.empty_like(x)
     if packed is None:
         packed = pack_mlp(w1, b1, dw, bdw, w2, b2, x.dtype, x.device)
-    out = launch_mlp(build.library().i2r_mlp_block_fwd, x, (ln_w, ln_b, eps), packed,
-                     "mlp_block kernel")
+    dh = packed[1].shape[0]
+    plan, part = launch_plan(x, dh)
+    g, b = ln_f32(ln_w, ln_b, x.device)
+    xc = x.contiguous()
+    out = torch.empty_like(xc)
+    err = build.library().i2r_mlp_block_fwd(
+        xc.data_ptr(), g.data_ptr(), b.data_ptr(), *(t.data_ptr() for t in packed),
+        out.data_ptr(), part.data_ptr(), *x.shape, dh, *plan, float(eps), DTYPE_CODES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "mlp_block kernel")
     mlp_block_fused.launches += 1
     return out
 
@@ -253,16 +263,17 @@ def full_block_fused(x, ln1_w, ln1_b, wq, bq, wk, bk, wv, bv, wo, bo, ln2_w, ln2
     if packed is None:
         packed = (pack_attn(wq, bq, wk, bk, wv, bv, wo, bo, heads, x.dtype, x.device),
                   pack_mlp(w1, b1, dw, bdw, w2, b2, x.dtype, x.device))
-    (wqkv, bqkv, wot, bof), (w1t, b1f, dwt, bdwf, w2t, b2f) = packed
+    (wqkv, bqkv, wot, bof), (w1p, b1f, dwt, bdwf, w2p, b2f) = packed
+    plan, part = launch_plan(x, b1f.shape[0])  # part: the slices' sums, written and read
     g1, be1 = ln_f32(ln1_w, ln1_b, x.device)
     g2, be2 = ln_f32(ln2_w, ln2_b, x.device)
     xc = x.contiguous()
     xa = torch.empty_like(xc)  # the attention half's output, written and read by the launch
     out = torch.empty_like(xc)
-    p, h, w, c = x.shape
-    ptrs = (xc, g1, be1, wqkv, bqkv, wot, bof, g2, be2, w1t, b1f, dwt, bdwf, w2t, b2f, xa, out)
+    ptrs = (xc, g1, be1, wqkv, bqkv, wot, bof, g2, be2, w1p, b1f, dwt, bdwf, w2p, b2f, xa, part,
+            out)
     err = build.library().i2r_full_block_fwd(
-        *(t.data_ptr() for t in ptrs), p, h, w, c, heads, w1t.shape[1], float(eps),
+        *(t.data_ptr() for t in ptrs), *x.shape, heads, b1f.shape[0], *plan, float(eps),
         DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "full_block kernel")
     full_block_fused.launches += 1

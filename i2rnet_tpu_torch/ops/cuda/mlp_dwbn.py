@@ -10,9 +10,10 @@ is its plain PyTorch version and follows the Pallas kernel's numerics
     out = T(gelu(h . W2^T + b2))              1x1 contract, D -> C
 
 with the Abramowitz-Stegun erf GELU (:func:`gelu_exact`) and one cast to the
-input dtype T at the end. Also here, shared with Kernel F: :func:`fold_bn`,
-the tanh-form GELU :func:`gelu_tanh_erf` (constants copied from the JAX
-module) and the packing and launch of the shared source.
+input dtype T at the end. Also here, shared with Kernel F and kernel 7:
+:func:`fold_bn`, the tanh-form GELU :func:`gelu_tanh_erf` (constants copied
+from the JAX module), the weight packing of the shared source and F's launch
+plan (:func:`mlp_plan`).
 
 Layouts: ``x`` ``[P, H, W, C]``; ``w1`` ``[D, C]`` and ``w2`` ``[C, D]`` (a
 1x1 convolution's weight without its 1x1), ``dw`` ``[D, 3, 3]`` (a depthwise
@@ -20,6 +21,9 @@ convolution's weight without its group axis); biases f32.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +40,15 @@ GELU_TANH_C = (7.978695036392e-01, 3.639282100698e-02, -8.813181379539e-05,
 _AS_P = 0.3275911
 _AS_A = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429)
 BN_EPS = 1e-5
+
+# F's bf16 tensor-core body, as ``csrc/mlp_dwbn.cuh`` and ``csrc/common.cuh``
+# compile it (tests/test_torch_mlp_tiles.py reads the same constants there)
+HIDDEN_CHUNK = 64  #: hidden channels per chunk (kHC)
+TILE = 8  #: output tile edge before it is evened out over the map (at most kMaxTw)
+TWO_PER_SM = 113 * 1024  #: shared memory that still fits two blocks per SM (kTwoPerSm)
+MAX_SMEM = 232448  #: shared memory of one block (kMaxSmem)
+#: the f32 sums of the hidden slices stay in the H100's 50 MB of L2
+PARTIAL_LIMIT = 32 << 20
 
 
 def fold_bn(weight, bias, mean, var, eps: float = BN_EPS):
@@ -87,14 +100,147 @@ def mlp_dwbn_torch(x, w1, b1, dw, bdw, w2, b2):
     return gelu_exact(torch.matmul(h, w2.t()) + b2).to(x.dtype)
 
 
+def pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def pack_fragments(m, n_pad: int, k_pad: int):
+    """``m`` [N, K] bf16 as the B operand of ``mma.sync.m16n8k16`` (K x N,
+    "col") fragment by fragment: ``[n_pad / 8, k_pad / 16, 32 lanes, 4]``,
+    where lane l of n-tile j and k-step kk holds ``m[8j + l // 4, 16kk +
+    2(l % 4) + (0, 1, 8, 9)]`` (its registers b0 and b1), zero past ``m``. A
+    warp loads one fragment as 32 consecutive 8-byte words."""
+    n, k = m.shape
+    padded = torch.zeros(n_pad, k_pad, dtype=m.dtype, device=m.device)
+    padded[:n, :k] = m
+    frag = padded.reshape(n_pad // 8, 8, k_pad // 16, 2, 4, 2).permute(0, 2, 1, 4, 3, 5)
+    return frag.reshape(n_pad // 8, k_pad // 16, 32, 4).contiguous()
+
+
 def pack_mlp(w1, b1, dw, bdw, w2, b2, wdtype, device):
-    """The kernel's weight layout: ``W1^T`` [C, D] and ``W2^T`` [D, C] in
-    ``wdtype``, the taps [3, 3, D] and the biases in f32, on ``device``."""
-    w1t = w1.detach().to(device, wdtype).t().contiguous()
-    w2t = w2.detach().to(device, wdtype).t().contiguous()
+    """The kernels' weight layout on ``device``: the taps [3, 3, D] and the
+    biases in f32; in float32 ``W1^T`` [C, D] and ``W2^T`` [D, C] (the
+    CUDA-core template), in bfloat16 W1 [D, C] and W2 [C, D] as tensor-core
+    fragments (:func:`pack_fragments`; D padded to a multiple of
+    ``HIDDEN_CHUNK``, C to 16)."""
+    if wdtype == torch.bfloat16:
+        (d, c), dp = w1.shape, -(-w1.shape[0] // HIDDEN_CHUNK) * HIDDEN_CHUNK
+        w1p = pack_fragments(w1.detach().to(device, wdtype), dp, pad16(c))
+        w2p = pack_fragments(w2.detach().to(device, wdtype), pad16(c), dp)
+    else:
+        w1p = w1.detach().to(device, wdtype).t().contiguous()
+        w2p = w2.detach().to(device, wdtype).t().contiguous()
     dwt = dw.detach().to(device, torch.float32).permute(1, 2, 0).contiguous()
     b1f, bdwf, b2f = (t.detach().to(device, torch.float32).contiguous() for t in (b1, bdw, b2))
-    return w1t, b1f, dwt, bdwf, w2t, b2f
+    return w1p, b1f, dwt, bdwf, w2p, b2f
+
+
+@dataclass(frozen=True)
+class MlpPlan:
+    """Kernel F's launch over one ``[P, H, W, C]`` map with D hidden channels
+    (kernel 7's second phase takes the same): output tiles ``th`` x ``tw``,
+    row-major; ``slices`` hidden slices, each summed by its own block; grid
+    (tiles, slices, P); ``smem`` bytes of shared memory a block; ``partial_bytes``
+    of f32 slice sums in device memory (0 with one slice)."""
+
+    p: int
+    h: int
+    w: int
+    c: int
+    dh: int
+    th: int
+    tw: int
+    slices: int
+    smem: int
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.h // self.th) * -(-self.w // self.tw)
+
+    @property
+    def grid(self) -> tuple:
+        return self.tiles, self.slices, self.p
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.slices * self.p
+
+    @property
+    def partial_bytes(self) -> int:
+        return 4 * self.slices * self.p * self.h * self.w * self.c if self.slices > 1 else 0
+
+    def tile_pixels(self, tile: int):
+        """(rows, cols) of the map that output tile ``tile`` writes."""
+        tiles_w = -(-self.w // self.tw)
+        oy, ox = tile // tiles_w * self.th, tile % tiles_w * self.tw
+        return range(oy, min(oy + self.th, self.h)), range(ox, min(ox + self.tw, self.w))
+
+    def slice_channels(self, s: int) -> range:
+        """The hidden channels slice ``s`` sums: whole chunks of
+        ``HIDDEN_CHUNK``, slice s taking chunks [s n / S, (s + 1) n / S)."""
+        n = -(-self.dh // HIDDEN_CHUNK)
+        lo, hi = s * n // self.slices, (s + 1) * n // self.slices
+        return range(lo * HIDDEN_CHUNK, min(hi * HIDDEN_CHUNK, self.dh))
+
+
+def _mma_smem(c, h, w, th, tw, dh, slices):
+    """``mlp_dwbn.cuh::mlp_mma_smem_bytes``: the LN'd tile + halo (cut to the
+    map), the expanded chunk, the slice after the depthwise conv; bf16."""
+    box, chunks = pad16(min(th + 2, h) * min(tw + 2, w)), -(-dh // HIDDEN_CHUNK)
+    per = -(-chunks // slices)  # chunks of the largest slice
+    return 2 * (box * (pad16(c) + 8) + box * (HIDDEN_CHUNK + 8)
+                + pad16(th * tw) * (per * HIDDEN_CHUNK + 8))
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_plan(p: int, h: int, w: int, c: int, dh: int, sms: int = 132) -> MlpPlan:
+    """Kernel F's bf16 launch plan for ``p`` maps ``[h, w, c]`` with ``dh``
+    hidden channels on a card with ``sms`` SMs: ``TILE`` x ``TILE`` output
+    tiles evened out over the map (a smaller map is one tile), the fewest
+    hidden slices that keep two blocks per SM in shared memory (or one block
+    where two never fit), then one more slice at a time while the grid holds
+    fewer than two blocks per SM, up to one slice per chunk and
+    ``PARTIAL_LIMIT`` bytes of slice sums. Raises ValueError where one block
+    does not fit (a width of about a thousand channels). The float32
+    instances keep the CUDA-core template, which picks its own tile
+    (``mlp_dwbn.cuh::mlp_tile``) and takes one slice.
+    """
+    th, tw = -(-h // -(-h // TILE)), -(-w // -(-w // TILE))  # 8x8 tiles, evened out
+    chunks = -(-dh // HIDDEN_CHUNK)
+    for limit in (TWO_PER_SM, MAX_SMEM):
+        fits = [s for s in range(1, chunks + 1) if _mma_smem(c, h, w, th, tw, dh, s) <= limit]
+        if fits:
+            break
+    else:
+        raise ValueError(f"the bf16 MlpDWBN kernel does not fit C={c} in {MAX_SMEM} B")
+    slices = fits[0]
+    while (-(-h // th) * -(-w // tw) * slices * p < 2 * sms and slices < chunks
+           and 4 * (slices + 1) * p * h * w * c <= PARTIAL_LIMIT):
+        slices += 1
+    return MlpPlan(p, h, w, c, dh, th, tw, slices, _mma_smem(c, h, w, th, tw, dh, slices))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def device_plan(x, dh: int) -> MlpPlan:
+    """:func:`mlp_plan` for bf16 ``x`` ``[P, H, W, C]`` on its CUDA device."""
+    p, h, w, c = x.shape
+    return mlp_plan(p, h, w, c, dh, sm_count(x.device.index or 0))
+
+
+def launch_plan(x, dh: int):
+    """``(th, tw, slices)`` of F's launch over ``x`` ``[P, H, W, C]`` (kernel
+    7's second phase too) and the f32 scratch of the slices' sums, empty
+    with one slice: :func:`device_plan` in bfloat16; ``(0, 0, 1)`` in
+    float32, where the CUDA-core template picks its own tile."""
+    if x.dtype != torch.bfloat16:
+        return (0, 0, 1), torch.empty(0, dtype=torch.float32, device=x.device)
+    plan = device_plan(x, dh)
+    part = torch.empty(plan.partial_bytes // 4, dtype=torch.float32, device=x.device)
+    return (plan.th, plan.tw, plan.slices), part
 
 
 def check_cuda_mlp(x, w1, dw, w2, what):
@@ -111,26 +257,6 @@ def check_cuda_mlp(x, w1, dw, w2, what):
                          f"{tuple(w1.shape)} {tuple(dw.shape)} {tuple(w2.shape)}")
 
 
-def launch_mlp(lib_fn, x, ln, packed, what):
-    """One launch of ``csrc/mlp_dwbn.cu``: Kernel F when ``ln`` is (scale,
-    bias, eps), Kernel G when it is None. Returns ``[P, H, W, C]``."""
-    p, h, w, c = x.shape
-    w1t, b1f, dwt, bdwf, w2t, b2f = packed
-    xc = x.contiguous()
-    out = torch.empty_like(xc)
-    args = [xc.data_ptr()]
-    if ln is not None:
-        g, b = (t.detach().to(x.device, torch.float32).contiguous() for t in ln[:2])
-        args += [g.data_ptr(), b.data_ptr()]
-    args += [w1t.data_ptr(), b1f.data_ptr(), dwt.data_ptr(), bdwf.data_ptr(), w2t.data_ptr(),
-             b2f.data_ptr(), out.data_ptr(), p, h, w, c, w1t.shape[1]]
-    if ln is not None:
-        args.append(float(ln[2]))
-    err = lib_fn(*args, DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, what)
-    return out
-
-
 def mlp_dwbn_fused(x, w1, b1, dw, bdw, w2, b2, packed=None):
     """MlpDWBN (folded BNs) through Kernel G over ``x`` ``[P, H, W, C]``.
 
@@ -145,7 +271,13 @@ def mlp_dwbn_fused(x, w1, b1, dw, bdw, w2, b2, packed=None):
         return torch.empty_like(x)
     if packed is None:
         packed = pack_mlp(w1, b1, dw, bdw, w2, b2, torch.float32, x.device)
-    out = launch_mlp(build.library().i2r_mlp_dwbn_fwd, x, None, packed, "mlp_dwbn kernel")
+    p, h, w, c = x.shape
+    xc = x.contiguous()
+    out = torch.empty_like(xc)
+    err = build.library().i2r_mlp_dwbn_fwd(
+        xc.data_ptr(), *(t.data_ptr() for t in packed), out.data_ptr(), p, h, w, c,
+        packed[1].shape[0], DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "mlp_dwbn kernel")
     mlp_dwbn_fused.launches += 1
     return out
 

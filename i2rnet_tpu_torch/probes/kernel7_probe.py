@@ -37,9 +37,10 @@ def main() -> None:
                                           or "error" in ln.lower()]))
     for shape in ((32, 64, 48, 78, 2), (32, 8, 6, 624, 16)):
         for dt in (torch.float32, torch.bfloat16):
-            per_sm, grid, smem, tile = cs.kernel7_plan(shape, dt)
+            per_sm, grid, smem, th, tw, slices = cs.kernel7_plan(shape, dt)
             print(f"plan {shape} {str(dt)[6:]}: {per_sm} blocks per SM, grid {grid}, "
-                  f"{smem} B shared, {tile}x{tile} MLP tiles", flush=True)
+                  f"{smem} B shared, MLP phase {th}x{tw} tiles, {slices} hidden slice(s)",
+                  flush=True)
     g = cs.gen(0)
     print("kernel 7 vs plain and vs E then F:", flush=True)
     err, diff = cs.phase_full_block(g)

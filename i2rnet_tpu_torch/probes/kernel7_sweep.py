@@ -1,13 +1,13 @@
 """Register and occupancy sweep of kernel 7 (``csrc/full_block.cu``).
 
 Builds six variants of the kernel in copies of the package under
-``.local/kernel7_sweep/`` (gitignored): its two phases inlined into the
-kernel or not, and ``__launch_bounds__`` asking for no minimum, 3 or 4
-blocks per SM (registers left to ptxas, capped at 80, capped at 64). Each
+``.local/kernel7_sweep/`` (gitignored): its phases inlined into the
+kernel or not, and ``__launch_bounds__`` asking for no minimum, 2 or 3
+blocks per SM (registers left to ptxas, capped at 128, capped at 80). Each
 variant prints ptxas' register and spill report and times kernel 7 against
 Kernel E then Kernel F at HRFormer-B's four branch maps (bf16, P=32), checks
 that the two agree bit for bit, and sums both over one eval step's blocks
-(28, 28, 24 and 8 on branches 0-3). The shipped kernel is "noinline, 3".
+(28, 28, 24 and 8 on branches 0-3). The shipped kernel is "noinline, 2".
 
     python3 -m i2rnet_tpu_torch.probes.kernel7_sweep    # from the repository root, on a card
 """
@@ -22,7 +22,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
 OUT = REPO / ".local" / "kernel7_sweep"
-SHIPPED = ("__device__ __noinline__ void", "__launch_bounds__(kThreads, 3)\nfull_block_kernel")
+SHIPPED = ("__device__ __noinline__ void", "__launch_bounds__(kThreads, 2)\nfull_block_kernel")
 #: blocks per HRT eval step on branches 0-3 (two forwards of 14, 14, 12, 4)
 STEP_BLOCKS = (28, 28, 24, 8)
 
@@ -67,9 +67,9 @@ def time_variant(name: str) -> None:
             ms7, ms2 = cs.in_turns([lambda: full_block_fused(x, *args, heads=heads), two_kernels],
                                    5)
         total7, total2 = total7 + n * ms7, total2 + n * ms2
+        per_sm, grid, smem, *_ = cs.kernel7_plan(shape, torch.bfloat16)
         print(f"  {name} {shape}: kernel 7 {ms7 * 1e3:.1f} us, E then F {ms2 * 1e3:.1f} us, "
-              f"plan (blocks/SM, grid, smem, tile) {cs.kernel7_plan(shape, torch.bfloat16)}",
-              flush=True)
+              f"{per_sm} blocks/SM, grid {grid}, {smem} B shared", flush=True)
     print(f"  {name} summed over one eval step's blocks: kernel 7 {total7:.1f} ms, E then F "
           f"{total2:.1f} ms [{cs.card_line()}]", flush=True)
 
@@ -78,7 +78,7 @@ def main() -> None:
     src = (REPO / "i2rnet_tpu_torch" / "csrc" / "full_block.cu").read_text()
     failed = []
     for inline in (False, True):
-        for min_blocks in (0, 3, 4):
+        for min_blocks in (0, 2, 3):
             name = f"{'inline' if inline else 'noinline'}, {min_blocks or 'no'} min blocks"
             d = OUT / f"{'inline' if inline else 'noinline'}_{min_blocks}"
             shutil.rmtree(d, ignore_errors=True)

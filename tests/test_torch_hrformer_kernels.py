@@ -186,5 +186,9 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_signatures_cover_the_new_entry_points():
+    sig = build.SIGNATURES
     assert {"i2r_window_attn_fwd", "i2r_mlp_block_fwd", "i2r_mlp_dwbn_fwd",
-            "i2r_full_block_fwd"} <= set(build.SIGNATURES)
+            "i2r_full_block_fwd", "i2r_full_block_plan"} <= set(sig)
+    # F and kernel 7 take F's plan (th, tw, slices) and the slices' f32 scratch
+    assert len(sig["i2r_mlp_block_fwd"]) == 22 and len(sig["i2r_full_block_fwd"]) == 30
+    assert len(sig["i2r_full_block_plan"]) == 11 and len(sig["i2r_mlp_dwbn_fwd"]) == 15
