@@ -60,8 +60,10 @@ Phases, one line each (any failure exits non-zero):
     (FUSED_MLP_EVAL on, FUSED_BLOCK_EVAL off); requests served through
     ``Predictor`` in bf16 (buckets 2/4/7), E and F launched in that run;
 16. timing, for information: its eval protocol at B=8, N=4, bf16, kernels on
-    and off, a ``torch.profiler`` breakdown of the kernels-on step, and E, F
-    and G beside their plain versions at each branch map;
+    and off, a ``torch.profiler`` breakdown of the kernels-on step (E's and
+    F's ms and calls per step among them), and E, F and G beside their plain
+    versions at each branch map, by CUDA events, E's and F's device time per
+    call and launch plans beside;
 17. kernel 9 (the HRFormer window-attention half block for training)
     forward and backward (dx and the ten parameter gradients) against its
     plain version, f32 and bf16, at HRFormer-B's four branch maps (P = 24
@@ -76,7 +78,7 @@ Phases, one line each (any failure exits non-zero):
 19. timing, for information: that train step kernels on and off, a
     ``torch.profiler`` breakdown of the kernels-on step with its peak
     memory, and kernel 9's forward and backward beside their plain versions
-    at each branch map;
+    at each branch map, the forward's device time per call and plan beside;
 20. kernel 7 (the HRFormer block in one cooperative launch) against its
     plain version at every map of phases 12-14, f32 and bf16, and against
     Kernel E then Kernel F on the same input (bit-equal when both sum in the
@@ -89,13 +91,15 @@ Phases, one line each (any failure exits non-zero):
 22. timing, for information: the eval protocol at B=8, N=4, bf16 on the
     one-pass route, on E + F and kernels off, a ``torch.profiler`` breakdown
     of the one-pass step, and kernel 7 beside its plain version, E then F and
-    its bound at each branch map.
+    its bound at each branch map, with kernel 7's and E then F's device time
+    per call beside.
 
 Then a JSON line of the kernels (each with its main-path launches, its error
 against the plain version, its time, the plain version's, the bound the card
 sets for the same work and, where one PyTorch call computes the same
-function, that call's time; device time for Kernels A and C and their SDPA
-calls, CUDA events for the rest), and last ``{"ok": true, "device": {...}}``.
+function, that call's time; device time per call for Kernels A, C, E and
+kernel 9's forward, their plain versions and the SDPA calls, CUDA events for
+the rest), and last ``{"ok": true, "device": {...}}``.
 TF32 is off throughout, so the float32 parts (crops, decode) stay float32.
 Training writes its checkpoints under ``output/chip_smoke/`` of this checkout.
 """
@@ -128,8 +132,9 @@ from i2rnet_tpu_torch.ops.cuda.dropout import threshold
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn import _layer_norm, encoder_ffn_fused, encoder_ffn_torch
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn_train import (encoder_ffn_train_fused,
                                                          encoder_ffn_train_torch, ffn_bits)
-from i2rnet_tpu_torch.ops.cuda.hrformer_block import (full_block_fused, full_block_torch,
-                                                      mlp_block_fused, mlp_block_torch, pack_attn,
+from i2rnet_tpu_torch.ops.cuda.hrformer_block import (attn_plan, full_block_fused,
+                                                      full_block_torch, mlp_block_fused,
+                                                      mlp_block_torch, pack_attn,
                                                       window_attn_block_fused,
                                                       window_attn_block_torch)
 from i2rnet_tpu_torch.ops.cuda.hrformer_block_train import (window_attn_block_train_fused,
@@ -1161,13 +1166,29 @@ def plan_text(plan):
             f"{plan.blocks} blocks, {plan.smem} B shared, partials {plan.partial_bytes / 1e6:.1f} MB")
 
 
+def attn_plan_text(plan):
+    """E's bf16 launch plan as phases 16, 19 and ``probes/attn_probe.py`` print it."""
+    text = (f"G={plan.group} heads a block, pass 1 grid {plan.grid1} = {plan.blocks1} blocks, "
+            f"{plan.smem1} B shared; ")
+    if plan.fused:
+        return text + "no pass 2 (pass 1 runs the out-projection)"
+    return text + (f"pass 2 {plan.cols} n-tiles a block, grid {plan.grid2} = {plan.blocks2} "
+                   f"blocks, {plan.smem2} B shared")
+
+
+def e_plan_text(x, heads):
+    return attn_plan_text(attn_plan(*x.shape, heads, sm_count(x.device.index or 0)))
+
+
 def phase_hrt_kernel_timing(g, card):
     """E, F and G beside their plain versions at 256x192's branch maps, each
     in its path's dtype (E, F bf16; G f32), with the kernels' weights packed
-    once as the model keeps them, by CUDA events. F's device time per call
-    (``device_ms``, its plain version's too) and launch plan are logged beside
-    them; at F's 0.2-0.5 ms a call the two agree, and the kernels line takes
-    the events as it does for E and G."""
+    once as the model keeps them, by CUDA events. E's and F's device time per
+    call (``device_ms``, their plain versions' too) and launch plans are
+    logged beside them. E falls below 100 us a call, where events over a
+    loop of calls time the host: the kernels line takes E's (and its plain
+    version's) device time, and the events for F (at 0.2-0.5 ms a call the
+    two agree) and G."""
     times = {}
     for shape in HRT_SHAPES[:4]:
         calls = hrt_kernel_calls(shape, g)
@@ -1183,14 +1204,18 @@ def phase_hrt_kernel_timing(g, card):
             fns = (lambda: plain(x, *args), lambda: kernel(x, *args, packed=packed))
             with torch.no_grad():
                 t = timing(*alternate(*fns, 10), hrt_bound(name, shape, dt))
-                dev = [device_ms(f, 10) for f in fns] if name == "mlp_block" else None
-            if shape == HRT_SHAPES[0]:
-                times[name] = t
+                dev = [device_ms(f, 10) for f in fns] if name != "mlp_dwbn" else None
             text = (f"{name} {str(dt)[6:]} kernel {t['ms'] * 1e3:.1f} us, plain "
-                    f"{t['plain_ms'] * 1e3:.1f} us")
+                    f"{t['plain_ms'] * 1e3:.1f} us by events")
             if dev:
                 text += (f" (device time per call: kernel {dev[1] * 1e3:.1f} us, plain "
-                         f"{dev[0] * 1e3:.1f} us); plan {plan_text(device_plan(x, 4 * shape[3]))}")
+                         f"{dev[0] * 1e3:.1f} us); plan ")
+                text += (e_plan_text(x, shape[4]) if name == "window_attn_block"
+                         else plan_text(device_plan(x, 4 * shape[3])))
+            if name == "window_attn_block":
+                t.update(ms=dev[1], plain_ms=dev[0])
+            if shape == HRT_SHAPES[0]:
+                times[name] = t
             line.append(f"{text}, bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
         log(f"  {shape}: " + "; ".join(line) + f" [{card}]")
     return times
@@ -1309,7 +1334,10 @@ def hrt_train_bound(shape, dtype, backward: bool):
 
 def phase_hrt_train_kernel_timing(g, card):
     """Kernel 9 forward and backward beside its plain version at 256x192's
-    branch maps (bf16, P=24)."""
+    branch maps (bf16, P=24), by CUDA events; the forward's device time per
+    call (``device_ms``, its plain version's too) and E's launch plan, which
+    it takes, beside them. The kernels line takes the forward's device time
+    (it falls below 100 us a call, as E does) and the backward's events."""
     times = {}
     for shape in HRT_TRAIN_SHAPES[:4]:
         p, h, w, c, heads = shape
@@ -1321,22 +1349,26 @@ def phase_hrt_train_kernel_timing(g, card):
         def call(fn):
             return lambda x_, *prm: fn(x_, s, *prm, heads=heads)
 
+        fwd_fns = (lambda: call(window_attn_block_train_torch)(x, *ln, *attn),
+                   lambda: call(window_attn_block_train_fused)(x, *ln, *attn))
         with torch.no_grad():
-            fwd = timing(*alternate(lambda: call(window_attn_block_train_torch)(x, *ln, *attn),
-                                    lambda: call(window_attn_block_train_fused)(x, *ln, *attn),
-                                    10), hrt_train_bound(shape, torch.bfloat16, False))
+            fwd = timing(*alternate(*fwd_fns, 10), hrt_train_bound(shape, torch.bfloat16, False))
+            dev = [device_ms(f, 10) for f in fwd_fns]
         bwd = timing(*alternate(backward_only(call(window_attn_block_train_torch), (x, *ln, *attn),
                                               cot),
                                 backward_only(call(window_attn_block_train_fused), (x, *ln, *attn),
                                               cot), 10),
                      hrt_train_bound(shape, torch.bfloat16, True))
+        log(f"  kernel 9 {shape} bf16: forward kernel {fwd['ms'] * 1e3:.1f} us, plain "
+            f"{fwd['plain_ms'] * 1e3:.1f} us by events (device time per call: kernel "
+            f"{dev[1] * 1e3:.1f} us, plain {dev[0] * 1e3:.1f} us; plan {e_plan_text(x, heads)}), "
+            f"bound {fwd['bound_ms'] * 1e3:.2f} us ({fwd['bound_by']}); backward kernel "
+            f"{bwd['ms'] * 1e3:.1f} us, plain {bwd['plain_ms'] * 1e3:.1f} us, bound "
+            f"{bwd['bound_ms'] * 1e3:.2f} us "
+            f"({bwd['bound_by']}) [{card}]")
+        fwd.update(ms=dev[1], plain_ms=dev[0])
         if shape == HRT_TRAIN_SHAPES[0]:
             times = {"window_attn_block_train_fwd": fwd, "window_attn_block_train_bwd": bwd}
-        log(f"  kernel 9 {shape} bf16: forward kernel {fwd['ms'] * 1e3:.1f} us, plain "
-            f"{fwd['plain_ms'] * 1e3:.1f} us, bound {fwd['bound_ms'] * 1e3:.2f} us "
-            f"({fwd['bound_by']}); backward kernel {bwd['ms'] * 1e3:.1f} us, plain "
-            f"{bwd['plain_ms'] * 1e3:.1f} us, bound {bwd['bound_ms'] * 1e3:.2f} us "
-            f"({bwd['bound_by']}) [{card}]")
     return times
 
 
@@ -1350,16 +1382,18 @@ def full_block_args(c, heads, g):
 def kernel7_plan(shape, dtype):
     """(blocks per SM, grid, shared memory bytes, MLP tile rows and columns,
     hidden slices) of kernel 7's cooperative launch at one map, as the kernel
-    library computes it: F's plan (``mlp_plan``) in bf16; in f32 the
-    CUDA-core template's own tile and one slice."""
+    library computes it: E's and F's plans (``attn_plan``, ``mlp_plan``) in
+    bf16; in f32 the CUDA-core templates' own items and one slice."""
     p, h, w, c, heads = shape
-    th, tw, slices = 0, 0, 1
+    group, cols, th, tw, slices = 0, 0, 0, 0, 1
     if dtype == torch.bfloat16:
         plan = mlp_plan(p, h, w, c, 4 * c, sm_count(0))
         th, tw, slices = plan.th, plan.tw, plan.slices
+        e_plan = attn_plan(p, h, w, c, heads, sm_count(0))
+        group, cols = e_plan.group, e_plan.cols
     out = (ctypes.c_int * 5)()
-    build.check(build.library().i2r_full_block_plan(p, h, w, c, heads, 4 * c, th, tw, slices,
-                                                    DTYPE_CODES[dtype], out),
+    build.check(build.library().i2r_full_block_plan(p, h, w, c, heads, 4 * c, group, cols, th, tw,
+                                                    slices, DTYPE_CODES[dtype], out),
                 "full_block plan")
     return (*out, slices)
 
@@ -1441,7 +1475,8 @@ def phase_onepass_model(cfg, g):
 def phase_onepass_timing(model, cfg, g, card):
     """The eval protocol on the one-pass route, on E + F and kernels off; a
     profile of the one-pass step; kernel 7 per branch map (bf16, weights
-    packed once) beside its plain version, E then F and its bound."""
+    packed once) beside its plain version, E then F and its bound, by CUDA
+    events, with kernel 7's and E then F's device time per call beside."""
     routes = {"one-pass": (True, True, False, True, True), "E + F": (True, True, False, True),
               "off": (False,)}
     step = eval_steps(model, cfg, lambda route: model.set_kernels(*routes[route]), 8, 4, g)
@@ -1462,19 +1497,20 @@ def phase_onepass_timing(model, cfg, g, card):
         args = full_block_args(c, heads, g)
         x = randn(p, h, w, c, g=g, dtype=bf)
         pa, pm = pack_attn(*args[2:10], heads, bf, x.device), pack_mlp(*args[12:], bf, x.device)
+        fns = [lambda: full_block_torch(x, *args, heads),
+               lambda: full_block_fused(x, *args, heads=heads, packed=(pa, pm)),
+               lambda: mlp_block_fused(window_attn_block_fused(x, *args[:10], heads=heads,
+                                                               packed=pa), *args[10:], packed=pm)]
         with torch.no_grad():
-            plain, ms, two = in_turns([
-                lambda: full_block_torch(x, *args, heads),
-                lambda: full_block_fused(x, *args, heads=heads, packed=(pa, pm)),
-                lambda: mlp_block_fused(window_attn_block_fused(x, *args[:10], heads=heads,
-                                                                packed=pa), *args[10:], packed=pm)],
-                10)
+            plain, ms, two = in_turns(fns, 10)
+            dev = [device_ms(f, 10) for f in fns[1:]]
         tm = timing(plain, ms, hrt_bound("full_block", shape, bf))
         if shape == HRT_SHAPES[0]:
             times["full_block"] = tm
         log(f"  kernel 7 {shape} bf16: kernel {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, E "
-            f"then F {two * 1e3:.1f} us, bound {tm['bound_ms'] * 1e3:.2f} us ({tm['bound_by']}) "
-            f"[{card}]")
+            f"then F {two * 1e3:.1f} us by events (device time per call: kernel "
+            f"{dev[0] * 1e3:.1f} us, E then F {dev[1] * 1e3:.1f} us), bound "
+            f"{tm['bound_ms'] * 1e3:.2f} us ({tm['bound_by']}) [{card}]")
     return times
 
 
@@ -1539,9 +1575,12 @@ def main() -> int:
     reset_launches()
     wall, busy, launches, top = profile_steps(step(True), 2)
     f_ms = sum(t for name, t, _ in top if "mlp_mma_kernel" in name or "mlp_finish_kernel" in name)
+    e_ms = sum(t for name, t, _ in top if "attn_mma_kernel" in name or "attn_out_kernel" in name)
+    calls = launch_counts()
     log(f"  profile, kernels on: wall {wall:.2f} ms/step under the profiler, device busy "
         f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
-        f"launches/step; Kernel F {f_ms:.3f} ms/step in {launch_counts()['mlp_block'] // 3} "
+        f"launches/step; Kernel E {e_ms:.3f} ms/step in {calls['window_attn_block'] // 3} "
+        f"calls/step; Kernel F {f_ms:.3f} ms/step in {calls['mlp_block'] // 3} "
         f"calls/step; top kernels (ms/step, launches/step):")
     for name, t, c in top[:12]:
         log(f"    {t:8.3f} {c:6.0f}  {name[:110]}")

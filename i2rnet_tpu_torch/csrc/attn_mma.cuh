@@ -1,5 +1,6 @@
 // Tensor-core building blocks of the bf16 attention kernels (mhsa.cu,
-// Kernel A; mhsa_train.cu, Kernel C): warp-level mma.sync, ldmatrix,
+// Kernel A; mhsa_train.cu, Kernel C), also used by the bf16 bodies of
+// mlp_dwbn.cuh and window_attn.cuh: warp-level mma.sync, ldmatrix,
 // cp.async tile copies, and the key-mask scan that decides which 64-key tiles
 // a block skips.
 //
@@ -78,6 +79,15 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// Two 8x8 b16 matrices transposed: the B operand of one n-tile (8 columns
+// c0.. of rows r0..r0+15) of a product that contracts along the stored rows
+// (address a_off(lane & 15, r0, c0, LD)); lanes 0-15 give the row addresses.
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_u32(p)));
 }
 

@@ -16,9 +16,10 @@ in f32.
 :func:`window_attn_block_train_fused` runs the CUDA kernels under a
 ``torch.autograd.Function``:
 
-* forward: Kernel E's template with the scale ``s`` and a second output,
-  the window tokens ``t2 = T(LN1(x))`` ``[P, nwin, 49, C]`` (exactly 0 at the
-  pad tokens), saved for the backward (``csrc/window_attn_block.cu``);
+* forward: Kernel E's launches (its bf16 tensor-core body in two passes, or
+  its f32 template) with the scale ``s`` and a second output, the window
+  tokens ``t2 = T(LN1(x))`` ``[P, nwin, 49, C]`` (exactly 0 at the pad
+  tokens), saved for the backward (``csrc/window_attn_block.cu``);
 * backward (``csrc/window_attn_block_train.cu``): K1, the attention
   backward per (window, person), from ``t2`` and ``da2 = T(s * dy)`` on the
   windows; then K2, the LayerNorm backward per row of pixels, ``dx = dy +
@@ -39,8 +40,9 @@ import math
 import torch
 
 from i2rnet_tpu_torch.ops.cuda import build
-from i2rnet_tpu_torch.ops.cuda.hrformer_block import (LN_EPS, WINDOW, check_cuda_attn, ln_f32,
-                                                      pack_attn, window_attn_f32)
+from i2rnet_tpu_torch.ops.cuda.hrformer_block import (LN_EPS, WINDOW, attn_launch_plan,
+                                                      check_cuda_attn, ln_f32, pack_attn,
+                                                      window_attn_f32)
 from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import DTYPE_CODES
 
 #: row slices of the weight-gradient reduction (``csrc/common.cuh``)
@@ -65,25 +67,28 @@ def _stream(x):
 
 
 def window_attn_train_fwd(x, s, ln, packed, heads: int, eps: float):
-    """Launch the forward on contiguous ``x``; returns ``(out, t2)``."""
+    """Launch the forward on contiguous ``x`` (Kernel E's launches with the
+    droppath scale, :func:`~.hrformer_block.attn_plan` in bfloat16); ``packed``
+    is :func:`~.hrformer_block.pack_attn`'s six tensors. Returns ``(out, t2)``."""
     p, h, w, c = x.shape
     g, b = ln
-    wqkv, bqkv, wot, bof = packed
+    plan, o = attn_launch_plan(x, heads)
     out = torch.empty_like(x)
     t2 = torch.empty(p, _nwin(h, w), WINDOW * WINDOW, c, device=x.device, dtype=x.dtype)
     err = build.library().i2r_window_attn_train_fwd(
-        x.data_ptr(), s.data_ptr(), g.data_ptr(), b.data_ptr(), wqkv.data_ptr(),
-        bqkv.data_ptr(), wot.data_ptr(), bof.data_ptr(), out.data_ptr(), t2.data_ptr(),
-        p, h, w, c, heads, float(eps), DTYPE_CODES[x.dtype], _stream(x))
+        x.data_ptr(), s.data_ptr(), g.data_ptr(), b.data_ptr(), *(t.data_ptr() for t in packed),
+        o.data_ptr(), out.data_ptr(), t2.data_ptr(), p, h, w, c, heads, *plan, float(eps),
+        DTYPE_CODES[x.dtype], _stream(x))
     build.check(err, "window_attn_block_train forward kernel")
     window_attn_train_fwd.launches += 1
     return out, t2
 
 
 def window_attn_train_bwd(x, dy, s, t2, ln, packed, heads: int, eps: float):
-    """Launch K1, K2 and the weight-gradient reduction; returns ``(dx, dln_w,
-    dln_b, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo)``, dx in x's dtype, the rest
-    f32 in the torch layouts."""
+    """Launch K1, K2 and the weight-gradient reduction; ``packed`` holds
+    :func:`~.hrformer_block.pack_attn`'s first four tensors. Returns ``(dx,
+    dln_w, dln_b, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo)``, dx in x's dtype,
+    the rest f32 in the torch layouts."""
     p, h, w, c = x.shape
     g, _ = ln
     wqkv, bqkv, wot, _ = packed
@@ -120,7 +125,7 @@ class _WindowAttnTrain(torch.autograd.Function):
         ln = ln_f32(ln_w, ln_b, x.device)
         packed = pack_attn(wq, bq, wk, bk, wv, bv, wo, bo, heads, x.dtype, x.device)
         out, t2 = window_attn_train_fwd(xc, sf, ln, packed, heads, eps)
-        ctx.save_for_backward(xc, sf, t2, *ln, *packed)
+        ctx.save_for_backward(xc, sf, t2, *ln, *packed[:4])
         ctx.config = (heads, eps, [t.dtype for t in (ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo)])
         return out
 

@@ -105,16 +105,18 @@ def pad16(n: int) -> int:
 
 
 def pack_fragments(m, n_pad: int, k_pad: int):
-    """``m`` [N, K] bf16 as the B operand of ``mma.sync.m16n8k16`` (K x N,
-    "col") fragment by fragment: ``[n_pad / 8, k_pad / 16, 32 lanes, 4]``,
+    """``m`` [..., N, K] bf16 as the B operand of ``mma.sync.m16n8k16`` (K x N,
+    "col") fragment by fragment: ``[..., n_pad / 8, k_pad / 16, 32 lanes, 4]``,
     where lane l of n-tile j and k-step kk holds ``m[8j + l // 4, 16kk +
     2(l % 4) + (0, 1, 8, 9)]`` (its registers b0 and b1), zero past ``m``. A
     warp loads one fragment as 32 consecutive 8-byte words."""
-    n, k = m.shape
-    padded = torch.zeros(n_pad, k_pad, dtype=m.dtype, device=m.device)
-    padded[:n, :k] = m
-    frag = padded.reshape(n_pad // 8, 8, k_pad // 16, 2, 4, 2).permute(0, 2, 1, 4, 3, 5)
-    return frag.reshape(n_pad // 8, k_pad // 16, 32, 4).contiguous()
+    *lead, n, k = m.shape
+    padded = torch.zeros(*lead, n_pad, k_pad, dtype=m.dtype, device=m.device)
+    padded[..., :n, :k] = m
+    frag = padded.reshape(*lead, n_pad // 8, 8, k_pad // 16, 2, 4, 2)
+    b = len(lead)
+    frag = frag.permute(*range(b), b, b + 2, b + 1, b + 4, b + 3, b + 5)
+    return frag.reshape(*lead, n_pad // 8, k_pad // 16, 32, 4).contiguous()
 
 
 def pack_mlp(w1, b1, dw, bdw, w2, b2, wdtype, device):

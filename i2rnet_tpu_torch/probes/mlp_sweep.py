@@ -80,29 +80,40 @@ def time_variant(name: str) -> None:
           flush=True)
 
 
-def main(names) -> None:
-    src = (REPO / "i2rnet_tpu_torch" / "csrc" / "mlp_dwbn.cuh").read_text()
+def run_variants(names, variants, files, module, out) -> None:
+    """Copy the package to ``out``/<variant> for each variant of ``names``
+    (all of ``variants`` when empty), apply its (old, new) edits to the
+    package's files ``files`` (paths inside ``i2rnet_tpu_torch/``; each edit
+    to the first file that holds its text, which must hold it), and run
+    ``python -m module --time <variant>`` there."""
+    pkg = REPO / "i2rnet_tpu_torch"
     failed = []
-    for name in names or VARIANTS:
-        text = src
-        for old, new in VARIANTS[name]:
-            if old not in text:
-                raise RuntimeError(f"mlp_dwbn.cuh no longer has {old!r}")
-            text = text.replace(old, new)
-        d = OUT / name.replace(" ", "_").replace(".", "_")
+    for name in names or variants:
+        texts = {f: (pkg / f).read_text() for f in files}
+        for old, new in variants[name]:
+            where = [f for f in files if old in texts[f]]
+            if not where:
+                raise RuntimeError(f"{files} no longer have {old!r}")
+            texts[where[0]] = texts[where[0]].replace(old, new)
+        d = out / name.replace(" ", "_").replace(".", "_")
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(REPO / "i2rnet_tpu_torch", d / "i2rnet_tpu_torch",
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
         shutil.copy(REPO / "chip_smoke.py", d / "chip_smoke.py")
-        (d / "i2rnet_tpu_torch" / "csrc" / "mlp_dwbn.cuh").write_text(text)
+        for f, text in texts.items():
+            (d / "i2rnet_tpu_torch" / f).write_text(text)
         env = {**os.environ, "PYTHONPATH": str(d)}
-        proc = subprocess.run([sys.executable, "-m", "i2rnet_tpu_torch.probes.mlp_sweep",
-                               "--time", name], cwd=d, env=env, timeout=600)
+        proc = subprocess.run([sys.executable, "-m", module, "--time", name], cwd=d, env=env,
+                              timeout=600)
         if proc.returncode != 0:
             failed.append(name)
     if failed:
         raise SystemExit(f"variants failed: {failed}")
     print("SWEEP OK")
+
+
+def main(names) -> None:
+    run_variants(names, VARIANTS, ("csrc/mlp_dwbn.cuh",), "i2rnet_tpu_torch.probes.mlp_sweep", OUT)
 
 
 if __name__ == "__main__":
