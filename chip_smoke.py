@@ -137,7 +137,8 @@ from i2rnet_tpu_torch.ops.cuda.hrformer_block import (attn_plan, full_block_fuse
                                                       mlp_block_torch, pack_attn,
                                                       window_attn_block_fused,
                                                       window_attn_block_torch)
-from i2rnet_tpu_torch.ops.cuda.hrformer_block_train import (window_attn_block_train_fused,
+from i2rnet_tpu_torch.ops.cuda.hrformer_block_train import (attn_bwd_plan,
+                                                            window_attn_block_train_fused,
                                                             window_attn_block_train_torch)
 from i2rnet_tpu_torch.ops.cuda.mhsa import masked_mhsa_fused, masked_mhsa_torch
 from i2rnet_tpu_torch.ops.cuda.mhsa_train import (attention_bits, masked_mhsa_train_fused,
@@ -231,6 +232,9 @@ HRT_GRAD_BOUND = {"max": 5e-2, "l2": 1e-2, "all_l2": 5e-3}
 #: weight gradient: biases ahead of a BatchNorm's mean subtraction (MlpDWBN's
 #: convs, LN2, the fusion's depthwise BN) and the key bias (softmax ignores a
 #: bias shared by every key)
+#: kernel 9's bf16 backward kernels in the phase 19 profile: (label, name substrings)
+KERNEL9_BWD = (("pass 1", ("attn_bwd_mma_kernel",)), ("pass 2", ("dt2_mma_kernel",)),
+               ("K2", ("ln_bwd_kernel",)), ("weight gradients", ("dw_mma_kernel", "bwd_sum_kernel")))
 ZERO_GRADS = re.compile(r"(k_proj|mlp\.(fc1|dw3x3|fc2)|norm2|fuse_layers\.\d+\.\d+\.\d+\.1)\.bias$")
 
 
@@ -835,10 +839,12 @@ def profile_steps(fn, steps):
                                                                for n, (t, c) in ranked]
 
 
-def step_timing(cfg, raw, persons, set_kernels, card):
+def step_timing(cfg, raw, persons, set_kernels, card, breakdown=()):
     """The train step at full width (the config's dtype, dropout and drop
     path) kernels on and off, in ms and persons/s, their peak memory, and a
-    profile of the kernels-on step with its kernel calls."""
+    profile of the kernels-on step with its kernel calls; ``breakdown``:
+    (label, name substrings) of kernels whose ms and launches per step the
+    profile also sums."""
     model = seeded_model(cfg)
     state = TrainState(model, *make_optimizer(cfg, model.parameters(), 1000))
     step = make_train_step(state, cfg["MODEL"]["LOSS_WEIGHTS"])
@@ -870,6 +876,10 @@ def step_timing(cfg, raw, persons, set_kernels, card):
         f"step {per_step}; top kernels (ms/step, launches/step):")
     for name, t, c in top[:12]:
         log(f"    {t:8.3f} {c:6.0f}  {name[:110]}")
+    for label, parts in breakdown:
+        hits = [(t, c) for name, t, c in top if any(p in name for p in parts)]
+        log(f"  {label}: {sum(t for t, _ in hits):.3f} ms/step in {sum(c for _, c in hits):.0f} "
+            f"launches/step")
 
 
 def backward_only(fn, inputs, cot):
@@ -1224,7 +1234,9 @@ def phase_hrt_kernel_timing(g, card):
 def phase_hrt_train_kernels(g):
     """Kernel 9 forward and backward vs its plain version, f32 and bf16, at
     each map: max |err| / max |ref| of out, dx and the ten parameter
-    gradients (dbk, 0 in exact arithmetic, over the scale of dbq)."""
+    gradients (dbk, 0 in exact arithmetic, over the scale of dbq); a sample
+    with s = 0 exactly x and dy; in bf16 two backward calls on the same
+    inputs bit-equal (every sum in a fixed order, no atomics)."""
     errs = {}
     for shape in HRT_TRAIN_SHAPES:
         p, h, w, c, heads = shape
@@ -1239,6 +1251,10 @@ def phase_hrt_train_kernels(g):
 
             got, gk = run(window_attn_block_train_fused)
             torch.cuda.synchronize()
+            same = "" if dt == torch.float32 else "; two backward calls bit-equal"
+            if same and not all(torch.equal(a, b) for a, b in
+                                zip(gk, run(window_attn_block_train_fused)[1])):
+                raise AssertionError(f"kernel 9 {shape} {dt}: two backward calls differ")
             ref, gr = run(window_attn_block_train_torch)
             rels, abs_errs = {}, {}
             for name, a, r in zip(("out",) + HRT_TRAIN_NAMES, (got, *gk), (ref, *gr)):
@@ -1259,7 +1275,7 @@ def phase_hrt_train_kernels(g):
                                                            if k != "out")}
             log(f"  {shape} {str(dt)[6:]}: max|err|/max|ref| out {rels['out']:.2g}, "
                 + " ".join(f"d{k} {rels[k]:.2g}" for k in HRT_TRAIN_NAMES)
-                + f"; s = 0 exact; bound {HRT_TOL[dt]:g}")
+                + f"; s = 0 exact{same}; bound {HRT_TOL[dt]:g}")
     return errs
 
 
@@ -1332,12 +1348,20 @@ def hrt_train_bound(shape, dtype, backward: bool):
                  p * (2.0 * 11 * tp * c * c + 2.0 * 6 * 49 * tp * c), dtype)
 
 
+def bwd_plan_text(plan):
+    """Kernel 9's bf16 backward plan as phase 19 and ``probes/kernel9_probe.py`` print it."""
+    return (f"G={plan.group} heads a block, pass 1 {plan.blocks1} blocks, {plan.smem1} B shared; "
+            f"pass 2 {plan.cols} n-tiles a block, {plan.blocks2} blocks; weight gradients "
+            f"{plan.grid_w[1]} row slices, {plan.blocks_w} blocks")
+
+
 def phase_hrt_train_kernel_timing(g, card):
     """Kernel 9 forward and backward beside its plain version at 256x192's
-    branch maps (bf16, P=24), by CUDA events; the forward's device time per
-    call (``device_ms``, its plain version's too) and E's launch plan, which
-    it takes, beside them. The kernels line takes the forward's device time
-    (it falls below 100 us a call, as E does) and the backward's events."""
+    branch maps (bf16, P=24): device time per call (``device_ms``) of each
+    and of its plain version, CUDA events over back-to-back calls beside
+    them, the forward's plan (E's) and the backward's. The kernels line
+    takes the device times (both fall where events over a loop of Python
+    calls time the host)."""
     times = {}
     for shape in HRT_TRAIN_SHAPES[:4]:
         p, h, w, c, heads = shape
@@ -1354,19 +1378,20 @@ def phase_hrt_train_kernel_timing(g, card):
         with torch.no_grad():
             fwd = timing(*alternate(*fwd_fns, 10), hrt_train_bound(shape, torch.bfloat16, False))
             dev = [device_ms(f, 10) for f in fwd_fns]
-        bwd = timing(*alternate(backward_only(call(window_attn_block_train_torch), (x, *ln, *attn),
-                                              cot),
-                                backward_only(call(window_attn_block_train_fused), (x, *ln, *attn),
-                                              cot), 10),
-                     hrt_train_bound(shape, torch.bfloat16, True))
-        log(f"  kernel 9 {shape} bf16: forward kernel {fwd['ms'] * 1e3:.1f} us, plain "
-            f"{fwd['plain_ms'] * 1e3:.1f} us by events (device time per call: kernel "
-            f"{dev[1] * 1e3:.1f} us, plain {dev[0] * 1e3:.1f} us; plan {e_plan_text(x, heads)}), "
-            f"bound {fwd['bound_ms'] * 1e3:.2f} us ({fwd['bound_by']}); backward kernel "
-            f"{bwd['ms'] * 1e3:.1f} us, plain {bwd['plain_ms'] * 1e3:.1f} us, bound "
-            f"{bwd['bound_ms'] * 1e3:.2f} us "
-            f"({bwd['bound_by']}) [{card}]")
+        bwd_fns = [backward_only(call(fn), (x, *ln, *attn), cot)
+                   for fn in (window_attn_block_train_torch, window_attn_block_train_fused)]
+        bwd = timing(*alternate(*bwd_fns, 10), hrt_train_bound(shape, torch.bfloat16, True))
+        dev_b = [device_ms(f, 10) for f in bwd_fns]
+        log(f"  kernel 9 {shape} bf16: forward device time per call kernel {dev[1] * 1e3:.1f} us, "
+            f"plain {dev[0] * 1e3:.1f} us (events {fwd['ms'] * 1e3:.1f}, "
+            f"{fwd['plain_ms'] * 1e3:.1f} us; plan {e_plan_text(x, heads)}), bound "
+            f"{fwd['bound_ms'] * 1e3:.2f} us ({fwd['bound_by']}); backward device time per call "
+            f"kernel {dev_b[1] * 1e3:.1f} us, plain {dev_b[0] * 1e3:.1f} us (events "
+            f"{bwd['ms'] * 1e3:.1f}, {bwd['plain_ms'] * 1e3:.1f} us; plan "
+            f"{bwd_plan_text(attn_bwd_plan(*shape, sm_count(0)))}), bound "
+            f"{bwd['bound_ms'] * 1e3:.2f} us ({bwd['bound_by']}) [{card}]")
         fwd.update(ms=dev[1], plain_ms=dev[0])
+        bwd.update(ms=dev_b[1], plain_ms=dev_b[0])
         if shape == HRT_TRAIN_SHAPES[0]:
             times = {"window_attn_block_train_fwd": fwd, "window_attn_block_train_bwd": bwd}
     return times
@@ -1604,7 +1629,8 @@ def main() -> int:
     phase_hrt_train_on_off(hrt_raw)
     torch.cuda.empty_cache()
     log(f"phase 19 HRT training timing [{card}]:")
-    step_timing(hrt_train_cfg("bfloat16", True), hrt_raw, HRT_TRAIN_COUNTS, hrt_kernels, card)
+    step_timing(hrt_train_cfg("bfloat16", True), hrt_raw, HRT_TRAIN_COUNTS, hrt_kernels, card,
+                [(f"kernel 9 backward {label}", parts) for label, parts in KERNEL9_BWD])
     times.update(phase_hrt_train_kernel_timing(g, card))
     torch.cuda.empty_cache()
 
