@@ -11,7 +11,9 @@ Phases, one line each (any failure exits non-zero):
    f32 (TF32 off) and bf16: ragged (suffix) masks with a fully padded image
    at the W48 (S=1344, C=96) and HRT (S=768, C=78) shapes, no mask and
    scattered (non-suffix) padding at S=1344, and S=130 in 8 heads of dim 3;
-4. Kernel B (encoder FFN tail) likewise;
+4. Kernel B (encoder FFN tail) against its plain version, f32 and bf16, at
+   (rows, C, F) = (10752, 96, 192) (W48), (6144, 78, 192) (HRT) and (1003,
+   16, 32);
 5. the W48-pure-en6 model at full width (seeded random weights, BatchNorm
    statistics calibrated so activations stay O(1)), one f32 forward at
    B=8, N=7 with the kernels on and off;
@@ -20,11 +22,11 @@ Phases, one line each (any failure exits non-zero):
    Kernels A and B's launches counted from zero over that run;
 7. timing, for information: eval-protocol persons/s (2 forwards + decode) at
    B=16, N=7, bf16, kernels on and off, a ``torch.profiler`` breakdown of
-   the kernels-on step (device busy, idle share, launches, Kernel A's ms and
-   launches per step), and each kernel beside its plain version and its
-   bound at the main-path shapes; Kernel A beside SDPA too, all three as
-   device time per call (``plain_kernel_sdpa``) with the event-timed ms
-   beside them;
+   the kernels-on step (device busy, idle share, launches, Kernels A's and
+   B's ms and launches per step), and each kernel beside its plain version
+   and its bound at the main-path shapes, as device time per call
+   (``plain_kernel_sdpa``) with the event-timed ms beside them; Kernel A
+   beside SDPA too;
 8. Kernel C (training MHSA with attention-weight dropout) forward and
    backward (dQ, dK, dV) against its plain version, f32 and bf16, at
    (B, S, C, H) = (8, 1344, 96, 1) with ragged, scattered and no masks, the
@@ -33,8 +35,8 @@ Phases, one line each (any failure exits non-zero):
    same Philox bits), a fully padded image finite; the seed-mode keep
    fraction printed;
 9. Kernel D (training FFN tail, both dropouts) forward and backward (dx and
-   the eight parameter gradients) likewise at R=10752, C=96, F=192 and a
-   ragged small shape;
+   the eight parameter gradients) likewise at phase 4's shapes, and two bf16
+   backward calls at the W48 shape bit-equal;
 10. the training path: W48-pure-en6 at full width, seeded as the JAX package
     initialises it, bf16, B=8 images x N=7 slots with ragged person counts,
     trained through ``core.trainer.train_loop`` on one repeated synthetic raw
@@ -45,11 +47,12 @@ Phases, one line each (any failure exits non-zero):
     gradient within the stated bounds);
 11. timing, for information: the train step (ms, persons/s) kernels on and
     off, a ``torch.profiler`` breakdown of the kernels-on step (device busy,
-    idle share, launches, top kernels), and each training kernel beside its
-    plain version at the main-path shapes, bf16, seed mode (a backward timed
-    alone, on a graph recorded once; Kernel C's forward and backward beside
-    SDPA's too, as device time per call), and the plain forwards again
-    handed their bits;
+    idle share, launches, top kernels, Kernel D's forward and backward ms and
+    launches per step), and each training kernel beside its plain version
+    at the main-path shapes, bf16, seed mode, as device time per call (a
+    backward timed alone, on a graph recorded once; Kernel C's forward and
+    backward beside SDPA's too), and the plain forwards again handed their
+    bits;
 12-14. Kernels E (HRFormer window-attention half block), F (its MlpDWBN half
     block) and G (MlpDWBN alone) against their plain versions, f32 and bf16,
     at HRFormer-B's four branch maps of a 256x192 input (P = 32 persons),
@@ -97,9 +100,9 @@ Phases, one line each (any failure exits non-zero):
 Then a JSON line of the kernels (each with its main-path launches, its error
 against the plain version, its time, the plain version's, the bound the card
 sets for the same work and, where one PyTorch call computes the same
-function, that call's time; device time per call for Kernels A, C, E and
-kernel 9's forward, their plain versions and the SDPA calls, CUDA events for
-the rest), and last ``{"ok": true, "device": {...}}``.
+function, that call's time; device time per call for Kernels A-E and
+kernel 9, their plain versions and the SDPA calls, CUDA events for the
+rest), and last ``{"ok": true, "device": {...}}``.
 TF32 is off throughout, so the float32 parts (crops, decode) stay float32.
 Training writes its checkpoints under ``output/chip_smoke/`` of this checkout.
 """
@@ -235,6 +238,10 @@ HRT_GRAD_BOUND = {"max": 5e-2, "l2": 1e-2, "all_l2": 5e-3}
 #: kernel 9's bf16 backward kernels in the phase 19 profile: (label, name substrings)
 KERNEL9_BWD = (("pass 1", ("attn_bwd_mma_kernel",)), ("pass 2", ("dt2_mma_kernel",)),
                ("K2", ("ln_bwd_kernel",)), ("weight gradients", ("dw_mma_kernel", "bwd_sum_kernel")))
+#: Kernels B and D's bf16 kernels in the phase 7 and 11 profiles (name substrings)
+KERNEL_B = ("ffn::fwd_kernel",)
+KERNEL_D = (("Kernel D forward", ("ffn::fwd_kernel",)),
+            ("Kernel D backward", ("ffn::bwd_rows_kernel", "ffn::dw_kernel", "ffn::bwd_sum_kernel")))
 ZERO_GRADS = re.compile(r"(k_proj|mlp\.(fc1|dw3x3|fc2)|norm2|fuse_layers\.\d+\.\d+\.\d+\.1)\.bias$")
 
 
@@ -251,12 +258,6 @@ def bound(n_bytes, n_ops, dtype):
     ``n_bytes`` and do ``n_ops`` operations on inputs of ``dtype``."""
     t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_OPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def clock(t):
-    """How a timing's ms were taken: device time where SDPA is timed beside
-    the kernel (``plain_kernel_sdpa``), else CUDA events (``in_turns``)."""
-    return "events" if t["library_ms"] is None else "device time"
 
 
 def timing(plain_ms, ms, bound_, library_ms=None):
@@ -366,9 +367,14 @@ def ffn_params(c, f, g):
             1 + 0.2 * randn(c, g=g), 0.1 * randn(c, g=g)]
 
 
+#: Kernels B and D vs plain (rows, C, F): W48's encoder tokens (B=8, S=1344),
+#: HRT's (B=8, S=768, C=78) and a small ragged shape
+FFN_SHAPES = ((8 * 1344, 96, 192), (8 * 768, 78, 192), (1003, 16, 32))
+
+
 def phase_ffn(g):
     main_err = None
-    for rows, c, f in ((8 * 1344, 96, 192), (8 * 768, 78, 192), (1003, 16, 32)):
+    for rows, c, f in FFN_SHAPES:
         p = ffn_params(c, f, g)
         for dt in (torch.float32, torch.bfloat16):
             x = (2 * randn(rows, c, g=g) + 0.5).to(dt)
@@ -465,9 +471,10 @@ def away_from_kink(x, p, g, eps=1e-4):
 
 
 def phase_ffn_train(g):
-    """Kernel D forward and backward (dx + 8 parameter grads) vs plain."""
+    """Kernel D forward and backward (dx + 8 parameter grads) vs plain, and
+    two bf16 backward calls bit-equal (seed mode, the main-path shape)."""
     errs = {}
-    for rows, c, f in ((8 * 1344, 96, 192), (1003, 16, 32)):
+    for rows, c, f in FFN_SHAPES:
         p = ffn_params(c, f, g)
         bits = (torch.randint(0, 2 ** 32, (rows, f), generator=g, dtype=torch.int64).to(DEV),
                 torch.randint(0, 2 ** 32, (rows, c), generator=g, dtype=torch.int64).to(DEV))
@@ -485,6 +492,11 @@ def phase_ffn_train(g):
                 torch.cuda.synchronize()
                 ref, gr = run(encoder_ffn_train_torch)
                 what = f"encoder_ffn_train rows={rows} C={c} F={f} {str(dt)[6:]} {mode}"
+                if rows == FFN_SHAPES[0][0] and dt == torch.bfloat16 and mode == "seed":
+                    again = run(encoder_ffn_train_fused)[1]
+                    if not all(torch.equal(a, b) for a, b in zip(gk, again)):
+                        raise AssertionError(f"{what}: two backward calls differ")
+                    log(f"  {what}: two backward calls give the same bits")
                 e_f, r_f = compare_scaled(got, ref, dt, what + " out")
                 names = ("x", "ln1_w", "ln1_b", "w1", "b1", "w2", "b2", "ln2_w", "ln2_b")
                 e_b = [compare_scaled(a, r, dt, f"{what} d{n}") for n, a, r in zip(names, gk, gr)]
@@ -678,17 +690,20 @@ def in_turns(fns, iters):
 
 
 def plain_kernel_sdpa(name, fns, iters, card):
-    """(plain, kernel, SDPA) ms of ``fns`` as device time per call
+    """(plain, kernel[, SDPA]) ms of ``fns`` as device time per call
     (``device_ms``, the calls queued behind a wait): at these sizes a loop
     of Python calls timed with CUDA events measures the host as much as the
-    card. The event-timed ms (order plain, kernel, SDPA, SDPA, kernel,
+    card. The event-timed ms (order plain, kernel[, SDPA, SDPA], kernel,
     plain) are logged beside them."""
     host = in_turns(fns, iters)
     dev = [device_ms(f, iters) for f in fns]
-    log(f"  {name}: device time per call kernel {dev[1] * 1e3:.1f} us, plain {dev[0] * 1e3:.1f} "
-        f"us, SDPA {dev[2] * 1e3:.1f} us (kernel/SDPA {dev[1] / dev[2]:.2f}); CUDA events over "
-        f"back-to-back calls kernel {host[1] * 1e3:.1f} us, plain {host[0] * 1e3:.1f} us, SDPA "
-        f"{host[2] * 1e3:.1f} us (kernel/SDPA {host[1] / host[2]:.2f}) [{card}]")
+
+    def text(t):
+        sdpa = f", SDPA {t[2] * 1e3:.1f} us (kernel/SDPA {t[1] / t[2]:.2f})" if len(t) > 2 else ""
+        return f"kernel {t[1] * 1e3:.1f} us, plain {t[0] * 1e3:.1f} us{sdpa}"
+
+    log(f"  {name}: device time per call {text(dev)}; CUDA events over back-to-back calls "
+        f"{text(host)} [{card}]")
     return tuple(dev)
 
 
@@ -927,11 +942,13 @@ def phase_train_kernel_timing(g, card):
         return lambda *a: fn(*a, dropout_rate=RATE, **kw)
 
     with torch.no_grad():
-        times["encoder_ffn_train_fwd"] = alternate(lambda: tail(encoder_ffn_train_torch)(x, *p),
-                                                   lambda: tail(encoder_ffn_train_fused)(x, *p), 20)
-    times["encoder_ffn_train_bwd"] = alternate(
-        backward_only(tail(encoder_ffn_train_torch), (x, *p), cot2),
-        backward_only(tail(encoder_ffn_train_fused), (x, *p), cot2), 20)
+        times["encoder_ffn_train_fwd"] = plain_kernel_sdpa(
+            "encoder_ffn_train_fwd", [lambda: tail(encoder_ffn_train_torch)(x, *p),
+                                      lambda: tail(encoder_ffn_train_fused)(x, *p)], 20, card)
+    times["encoder_ffn_train_bwd"] = plain_kernel_sdpa(
+        "encoder_ffn_train_bwd", [backward_only(tail(encoder_ffn_train_torch), (x, *p), cot2),
+                                  backward_only(tail(encoder_ffn_train_fused), (x, *p), cot2)],
+        20, card)
     bf = torch.bfloat16
     lse = b * s * 4
     io = nbytes(q, k, v, mask)
@@ -942,7 +959,7 @@ def phase_train_kernel_timing(g, card):
     times["mhsa_train_bwd"] = timing(plain, ms, bound(
         io + nbytes(cot) + b * s * c * 4 + 2 * lse + 3 * nbytes(q), attention_ops(mask, c, 5), bf),
         lib)
-    wts = 2 * c * f * 2 + (4 * c + f) * 4
+    wts = (2 * c * f + 4 * c + f) * 4  # f32, as the kernels take them
     times["encoder_ffn_train_fwd"] = timing(*times["encoder_ffn_train_fwd"], bound(
         2 * nbytes(x) + wts, 4.0 * b * s * c * f, bf))
     times["encoder_ffn_train_bwd"] = timing(*times["encoder_ffn_train_bwd"], bound(
@@ -951,8 +968,8 @@ def phase_train_kernel_timing(g, card):
         t = times[name]
         lib = "" if t["library_ms"] is None else (f", SDPA {t['library_ms'] * 1e3:.1f} us "
                                                   f"(kernel/SDPA {t['ms'] / t['library_ms']:.2f})")
-        log(f"  {name} B={b} S={s} C={c} bf16 seed mode ({clock(t)}): kernel {t['ms'] * 1e3:.1f} "
-            f"us, plain "
+        log(f"  {name} B={b} S={s} C={c} bf16 seed mode (device time): kernel "
+            f"{t['ms'] * 1e3:.1f} us, plain "
             f"{t['plain_ms'] * 1e3:.1f} us{lib}, bound {t['bound_ms'] * 1e3:.2f} us "
             f"({t['bound_by']}) [{card}]")
     # the plain forwards again with their bits drawn beforehand: their own
@@ -1019,11 +1036,13 @@ def phase_timing(model, cfg, g, card):
     reset_launches()
     wall, busy, launches, top = profile_steps(step(True), 2)
     a_ms = sum(t for name, t, _ in top if "mhsa_fwd" in name)
+    b_ms = sum(t for name, t, _ in top if any(k in name for k in KERNEL_B))
+    calls = launch_counts()
     log(f"  profile, kernels on: wall {wall:.2f} ms/step under the profiler, device busy "
         f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
-        f"launches/step; Kernel A {a_ms:.3f} ms/step in "
-        f"{launch_counts()['masked_mhsa'] // 3} launches/step; top kernels (ms/step, "
-        f"launches/step):")
+        f"launches/step; Kernel A {a_ms:.3f} ms/step in {calls['masked_mhsa'] // 3} "
+        f"launches/step; Kernel B {b_ms:.3f} ms/step in {calls['encoder_ffn'] // 3} "
+        f"launches/step; top kernels (ms/step, launches/step):")
     for name, t, c in top[:12]:
         log(f"    {t:8.3f} {c:6.0f}  {name[:110]}")
     times = phase_timing_mhsa(g, card)
@@ -1031,14 +1050,15 @@ def phase_timing(model, cfg, g, card):
     bf = torch.bfloat16
     x = randn(b * s, c, g=g, dtype=bf)
     p = ffn_params(c, f, g)
-    times["encoder_ffn"] = timing(*alternate(lambda: encoder_ffn_torch(x, *p),
-                                             lambda: encoder_ffn_fused(x, *p), 20),
-                                  bound(2 * nbytes(x) + 2 * c * f * 2 + (5 * c + f) * 4,
-                                        4.0 * b * s * c * f, bf))
+    with torch.no_grad():
+        plain, ms = plain_kernel_sdpa("encoder_ffn", [lambda: encoder_ffn_torch(x, *p),
+                                                 lambda: encoder_ffn_fused(x, *p)], 20, card)
+    times["encoder_ffn"] = timing(plain, ms, bound(2 * nbytes(x) + (2 * c * f + 5 * c + f) * 4,
+                                                   4.0 * b * s * c * f, bf))
     for name, t in times.items():
         lib = "" if t["library_ms"] is None else (f", SDPA {t['library_ms'] * 1e3:.1f} us "
                                                   f"(kernel/SDPA {t['ms'] / t['library_ms']:.2f})")
-        log(f"  {name} B={b} S={s} C={c} bf16 ({clock(t)}): kernel {t['ms'] * 1e3:.1f} us, plain "
+        log(f"  {name} B={b} S={s} C={c} bf16 (device time): kernel {t['ms'] * 1e3:.1f} us, plain "
             f"{t['plain_ms'] * 1e3:.1f} us{lib}, bound {t['bound_ms'] * 1e3:.2f} us "
             f"({t['bound_by']}) [{card}]")
     return times
@@ -1582,7 +1602,7 @@ def main() -> int:
     log("  one f32 step at dropout 0, kernels on vs off (2 images, 12 persons):")
     phase_train_on_off(raw)
     log(f"phase 11 training timing [{card}]:")
-    step_timing(train_cfg("bfloat16", True), raw, TRAIN_COUNTS, w48_kernels, card)
+    step_timing(train_cfg("bfloat16", True), raw, TRAIN_COUNTS, w48_kernels, card, KERNEL_D)
     times.update(phase_train_kernel_timing(g, card))
 
     torch.cuda.empty_cache()

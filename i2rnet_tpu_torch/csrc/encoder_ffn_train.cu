@@ -5,9 +5,9 @@
 //
 // Computes, per token row x of width C (F hidden units),
 //     n   = LN1(x)                              (f32 statistics, eps)
-//     h   = T(n) . W1^T + b1                    (f32 accumulation)
+//     h   = T(n) . T(W1)^T + b1                 (f32 accumulation)
 //     a   = T(drop1(relu(h)))                   (drop: keep ? v / (1 - rate) : 0)
-//     y   = drop2(a . W2^T + b2)
+//     y   = drop2(a . T(W2)^T + b2)
 //     out = T(LN2(n + y))                       (residual on the f32 n)
 // with T() the activation type, the casting points of encoder_ffn_train.py:
 // 84-119, and the backward dx plus the eight parameter gradients (LN1 and LN2
@@ -16,29 +16,52 @@
 //
 // What bounds it on the H100: at the main-path shape (rows = 8*1344 = 10752,
 // C = 96, F = 192) the forward's products are 0.79 GFLOP and the backward's
-// 2.4 GFLOP, against 4 MB of activations in bf16. Every row rereads all of
-// W1 and W2, so what bounds these simple kernels is shared-memory bandwidth;
-// the [R, F] hidden activations are what the fusion keeps out of device
-// memory in the forward.
+// 2.4 GFLOP (0.8 and 2.4 us on the tensor cores), against 4 MB of
+// activations in bf16 (1.3 us of device memory); the dropout bits, one
+// Philox word per element of [R, F] and [R, C] (3.1 M words a pass), are
+// integer work the bound does not count, and may set the pace.
 //
-// Design:
+// Design, bf16 (ffn_tile.cuh, shared with Kernel B): the forward is one
+// launch of the tile body (warps of 16 rows spread over every SM, W1 and W2
+// rounded to bf16 into shared memory once per block, both products on
+// mma.sync per 64-column chunk of F with the hidden activation kept in
+// registers). The backward is three launches, below:
+// * pass 1 (bwd_rows_kernel), the forward's blocks and units: the same walk
+//   recomputes h, a and LN2's statistics bit for bit (each chunk's ReLU gates
+//   and dropout keeps kept as bits), then LN2's backward, dy = drop2'(dz),
+//   per chunk da_c = T(dy) . W2[:, c] (ldmatrix.trans of the same W2 tile),
+//   drop1' and the gate, and dn += T(da_c) . W1_c on a 16 x CP accumulator
+//   that starts at dz (the residual), then LN1's backward; it writes dx, the
+//   rounded operands of the weight gradients T(n), T(a), T(dy), T(da) (rows of
+//   CP or FP, zero past C and F) and each block's f32 sums of the six vector
+//   gradients (a warp's over its 8 row groups by shuffles, the warps added in
+//   a fixed order);
+// * pass 2 (dw_kernel): dW1 = T(da)^T T(n) and dW2 = T(dy)^T T(a) on mma.sync
+//   with the rows as k (both operands by ldmatrix.trans from a 2-stage
+//   cp.async ring), a block per (product, 64 x 64 output tile, row slice);
+// * pass 3 (bwd_sum_kernel): the slices and the blocks' vector sums, each
+//   added in a fixed order. No atomics: two calls give the same bits.
+// The launch plan is ops/cuda/encoder_ffn.py::ffn_plan.
+//
+// Design, f32 (the first CUDA-core template; TF32 would not hold the f32
+// checks' 1e-4):
 // * W1 [F][C] and W2 [C][F] (torch layout) sit in dynamic shared memory as
 //   f32 with an odd row stride (C+1, F+1): the lanes of a warp read a column
 //   (forward: lane = output unit) or a row (backward: lane = input unit)
 //   without bank conflicts, from one copy (149 KB at C=96, F=192);
-// * one warp per row, as encoder_ffn.cu: LayerNorms with warp shuffles, the
-//   products with one output per lane and the row's vectors in a per-warp
-//   shared scratch, so any C and F whose weights fit are taken;
-// * dropout bits: explicit [R, F] and [R, C] uint32 tensors (tests, parity),
-//   or Philox4x32-10 (philox.cuh) keyed by (seed, offset) for the first site
-//   and (seed, offset + 1) for the second, counted by (column, row); the
-//   backward regenerates them;
-// * parameter gradients without atomics: the row kernel writes the rounded
-//   operands of the two weight products (T(n), T(a), T(dy), T(da)) and each
-//   block's f32 partial sums of the six vector gradients; dW = sum over rows
-//   of an outer product is then a hand-written tiled reduction over row
-//   slices with per-slice partials, and a last kernel adds the partials in a
-//   fixed order. Deterministic on a given grid.
+// * one warp per row: LayerNorms with warp shuffles, the products with one
+//   output per lane and the row's vectors in a per-warp shared scratch, so
+//   any C and F whose weights fit are taken;
+// * parameter gradients without atomics: the row kernel writes the operands
+//   of the two weight products (n, a, dy, da) and each block's partial sums
+//   of the six vector gradients; dW = sum over rows of an outer product is
+//   then common.cuh::outer_sum over row slices with per-slice partials, and
+//   a last kernel adds the partials in a fixed order. Deterministic on a
+//   given grid.
+// Dropout bits (both designs): explicit [R, F] and [R, C] uint32 tensors
+// (tests, parity), or Philox4x32-10 (philox.cuh) keyed by (seed, offset) for
+// the first site and (seed, offset + 1) for the second, counted by (column,
+// row); the backward regenerates them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,27 +69,16 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "ffn_tile.cuh"
 #include "philox.cuh"
 
 namespace {
-
-struct Dropout {
-  const uint32_t* bits1;  // [rows, f] (mode 1)
-  const uint32_t* bits2;  // [rows, c] (mode 1)
-  uint32_t seed, offset, threshold;
-  float inv;              // 1 / (1 - rate)
-  int mode;               // 0 none, 1 bits, 2 seed
-};
 
 // v after dropout site `site` (1: [rows, f] after the ReLU, 2: [rows, c] after linear2)
 __device__ __forceinline__ float drop(const Dropout& dp, int site, float v, int r, int col,
                                       int width) {
   if (dp.mode == 0) return v;
-  const uint32_t u =
-      dp.mode == 1 ? (site == 1 ? dp.bits1 : dp.bits2)[(size_t)r * width + col]
-                   : i2r::philox_word0(dp.seed, dp.offset + (uint32_t)(site - 1), (uint32_t)col,
-                                       (uint32_t)r, 0u);
-  return u < dp.threshold ? 0.f : v * dp.inv;
+  return kept(dp, site, r, col, width) ? v * dp.inv : 0.f;
 }
 
 // Shared layout common to both kernels: W1 [f][c+1], W2 [c][f+1], b1 [f],
@@ -328,10 +340,6 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-struct Params {
-  const float *ln1_w, *ln1_b, *w1, *b1, *w2, *b2, *ln2_w, *ln2_b;
-};
-
 template <typename T>
 cudaError_t launch_fwd(const void* x, const Params& p, void* out, int rows, int c, int f,
                        float eps, int grid, Dropout dp, cudaStream_t st) {
@@ -366,15 +374,414 @@ cudaError_t launch_bwd(const void* x, const void* dout, const Params& p, void* d
   return outer_sum<T>(dyb, ab, w_part, dw2, rows, c, f, 1.f, st);  // dW2 [c][f]
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the backward's three kernels on ffn_tile.cuh's body
+
+namespace ffn {
+
+// A fragment set (16 rows x 16 kk.. columns, acc_to_a's layout) into dst
+// [rows][ld] at column c0 + 16 kk, rows r0.. below `rows`
+template <int K>
+__device__ __forceinline__ void store_frags(bf16* dst, int ld, const uint32_t (&fr)[K][4], long r0,
+                                            int rows, int c0, int lane) {
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long row = r0 + g + 8 * (i & 1);
+      if (row < rows)
+        *reinterpret_cast<uint32_t*>(dst + row * ld + c0 + 16 * kk + 8 * (i >> 1) + t2) = fr[kk][i];
+    }
+}
+
+// The sum over the warp's 16 rows of a column value held as v (row g) and
+// w (row g + 8): the 8 row groups added by shuffles; every lane of a column
+// quad position gets it
+__device__ __forceinline__ float col_sum(float v, float w) {
+  float s = v + w;
+  s += __shfl_xor_sync(0xffffffffu, s, 4);
+  s += __shfl_xor_sync(0xffffffffu, s, 8);
+  return s + __shfl_xor_sync(0xffffffffu, s, 16);
+}
+
+// acc[col], acc[col + 1] += the column sums of a 16 x 8 n-tile's elements
+// (lanes of row group 0 add)
+__device__ __forceinline__ void add_cols(float* acc, int col, const float (&v)[4], int lane) {
+  const float s0 = col_sum(v[0], v[2]), s1 = col_sum(v[1], v[3]);
+  if (lane < 4) {
+    acc[col] += s0;
+    acc[col + 1] += s1;
+  }
+}
+
+// Backward pass 1: dx, the weight gradients' operands nb, dyb [rows][CP] =
+// T(n), T(dy) and ab, dab [rows][FP] = T(a), T(da) (zero past c and f), and
+// the block's sums of the vector gradients, vec_part [block][5c + f] =
+// (dln1_w, dln1_b, db1, db2, dln2_w, dln2_b).
+template <int CP>
+__global__ void __launch_bounds__(kTileThreads, 2)
+bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dout, Params p,
+                bf16* __restrict__ dx, bf16* __restrict__ nb, bf16* __restrict__ ab,
+                bf16* __restrict__ dyb, bf16* __restrict__ dab, float* __restrict__ vec_part,
+                int rows, int c, int f, float eps, int vec, Dropout dp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int NJ = CP / 8, NK = CP / 16;
+  const int fp = pad64(f), nch = fp / kChunk, nv = 5 * CP + fp;
+  const Tile s = load_weights<CP>(smem_raw, p, c, f, fp);
+  uint32_t* gates = reinterpret_cast<uint32_t*>(s.be2 + CP);  // [warps][nch][32]
+  float* vacc = reinterpret_cast<float*>(gates + kTileWarps * nch * 32);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  bf16* xw = s.xs + warp * kUnit * (CP + 8);
+  uint32_t* gw = gates + warp * nch * 32;
+  // this warp's sums: dln1_w [CP], dln1_b [CP], db1 [FP], db2, dln2_w, dln2_b [CP]
+  float* va = vacc + warp * nv;
+  float *v_g1 = va, *v_be1 = va + CP, *v_b1 = va + 2 * CP, *v_b2 = v_b1 + fp, *v_g2 = v_b2 + CP,
+        *v_be2 = v_g2 + CP;
+  for (int i = lane; i < nv; i += 32) va[i] = 0.f;
+  __syncwarp();
+  const float fc = (float)c;
+  const bool pairs = (c & 1) == 0;
+  const long units = (rows + kUnit - 1) / kUnit;
+  for (long u = blockIdx.x + (long)gridDim.x * warp; u < units; u += (long)gridDim.x * kTileWarps) {
+    const long r0 = u * kUnit;
+    load_x<CP>(xw, x, r0, rows, c, vec, lane);
+    float mean1[2], rstd1[2], rstd2[2];
+    uint32_t na[NK][4];
+    ln1<CP>(xw, s, c, eps, lane, mean1, rstd1, na);
+    store_frags(nb, CP, na, r0, rows, 0, lane);
+
+    // the forward again, the same loop: y, then z2 in its place
+    float y[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) y[j][0] = y[j][1] = y[j][2] = y[j][3] = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+      float h[8][4];
+      uint32_t af[4][4];
+      linear1<CP>(h, na, s.w1, ch, lane);
+      gw[ch * 32 + lane] = activate(h, af, s, dp, r0, rows, f, ch, lane);
+      store_frags(ab, fp, af, r0, rows, ch * kChunk, lane);
+      linear2<CP>(y, af, s.w2, fp, ch, lane);
+    }
+    const uint64_t keep2 = residual_ln2<CP>(y, xw, s, mean1, rstd1, dp, r0, rows, c, eps, lane,
+                                            rstd2);
+
+    // LN2 backward: dz into y (the residual hands it to dn), then dy = drop2'(dz)
+    float dzh[NJ][4];
+    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      float gv[4];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long row = r0 + g + 8 * hh;
+        const int col = 8 * j + t2;
+        gv[2 * hh] = gv[2 * hh + 1] = 0.f;
+        if (row < rows) {
+          if (pairs && col + 1 < c) {
+            const float2 v = ld2(dout + row * c + col);
+            gv[2 * hh] = v.x;
+            gv[2 * hh + 1] = v.y;
+          } else {
+            if (col < c) gv[2 * hh] = __bfloat162float(dout[row * c + col]);
+            if (col + 1 < c) gv[2 * hh + 1] = __bfloat162float(dout[row * c + col + 1]);
+          }
+        }
+      }
+      float gz[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + t2 + (e & 1);
+        gz[e] = gv[e] * y[j][e];
+        dzh[j][e] = gv[e] * s.g2[col];
+        s1[e >> 1] += dzh[j][e];
+        s2[e >> 1] += dzh[j][e] * y[j][e];
+      }
+      add_cols(v_g2, 8 * j + t2, gz, lane);
+      add_cols(v_be2, 8 * j + t2, gv, lane);
+    }
+    float m1[2], m2[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      m1[hh] = amma::quad_sum(s1[hh]) / fc;
+      m2[hh] = amma::quad_sum(s2[hh]) / fc;
+    }
+    uint32_t dya[NK][4];
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      float dy[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = 2 * kk + h;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + t2 + (e & 1);
+          const float dz =
+              col < c ? (dzh[j][e] - m1[e >> 1] - y[j][e] * m2[e >> 1]) * rstd2[e >> 1] : 0.f;
+          y[j][e] = dz;
+          dy[h][e] = dp.mode == 0 ? dz : ((keep2 >> (4 * j + e)) & 1u ? dz * dp.inv : 0.f);
+        }
+        add_cols(v_b2, 8 * j + t2, dy[h], lane);
+      }
+      amma::acc_to_a(dya[kk], dy[0], dy[1]);
+    }
+    store_frags(dyb, CP, dya, r0, rows, 0, lane);
+
+    // per chunk: da = drop1'(T(dy) . W2[:, c]) gated by the ReLU, then dn += T(da) . W1_c
+    for (int ch = 0; ch < nch; ++ch) {
+      float da[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) da[j][0] = da[j][1] = da[j][2] = da[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t kb[4];
+          amma::ldsm_x4_t(kb, s.w2 + amma::a_off(lane, kk * 16, ch * kChunk + np * 16, fp + 8));
+          amma::mma(da[2 * np], dya[kk], kb[0], kb[1]);
+          amma::mma(da[2 * np + 1], dya[kk], kb[2], kb[3]);
+        }
+      const uint32_t gate = gw[ch * 32 + lane];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float v = dp.mode == 0 ? da[j][e] : da[j][e] * dp.inv;
+          da[j][e] = (gate >> (4 * j + e)) & 1u ? v : 0.f;
+        }
+        add_cols(v_b1, ch * kChunk + 8 * j + t2, da[j], lane);
+      }
+      uint32_t daa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) amma::acc_to_a(daa[kk], da[2 * kk], da[2 * kk + 1]);
+      store_frags(dab, fp, daa, r0, rows, ch * kChunk, lane);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int np = 0; np < NK; ++np) {
+          uint32_t kb[4];
+          amma::ldsm_x4_t(kb, s.w1 + amma::a_off(lane, ch * kChunk + kk * 16, np * 16, CP + 8));
+          amma::mma(y[2 * np], daa[kk], kb[0], kb[1]);
+          amma::mma(y[2 * np + 1], daa[kk], kb[2], kb[3]);
+        }
+    }
+
+    // LN1 backward: dn is y; dzh = dn * g1
+    float q1[2] = {0.f, 0.f}, q2[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      float zn[4], dnz[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + t2 + (e & 1), hh = e >> 1;
+        zn[e] = __fmul_rn(x_at<CP>(xw, lane, j, e) - mean1[hh], rstd1[hh]);
+        dnz[e] = y[j][e] * zn[e];
+        const float d = y[j][e] * s.g1[col];
+        q1[hh] += d;
+        q2[hh] += d * zn[e];
+      }
+      add_cols(v_g1, 8 * j + t2, dnz, lane);
+      add_cols(v_be1, 8 * j + t2, y[j], lane);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      q1[hh] = amma::quad_sum(q1[hh]) / fc;
+      q2[hh] = amma::quad_sum(q2[hh]) / fc;
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long row = r0 + g + 8 * hh;
+        const int col = 8 * j + t2;
+        if (row >= rows || col >= c) continue;
+        float v[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int e = 2 * hh + i;
+          const float zn = __fmul_rn(x_at<CP>(xw, lane, j, e) - mean1[hh], rstd1[hh]);
+          v[i] = (y[j][e] * s.g1[col + i] - q1[hh] - zn * q2[hh]) * rstd1[hh];
+        }
+        store2(dx + row * c, col, c, v[0], v[1], pairs);
+      }
+    __syncwarp();  // xw is rewritten by the next unit
+  }
+
+  // the block's sums: the warps' in a fixed order, at the real columns
+  __syncthreads();
+  const int nreal = 5 * c + f;
+  for (int e = threadIdx.x; e < nreal; e += blockDim.x) {
+    int i;  // the padded index of real entry e
+    if (e < 2 * c)
+      i = e / c * CP + e % c;
+    else if (e < 2 * c + f)
+      i = 2 * CP + (e - 2 * c);
+    else
+      i = 2 * CP + fp + (e - 2 * c - f) / c * CP + (e - 2 * c - f) % c;
+    float acc = 0.f;
+    for (int w = 0; w < kTileWarps; ++w) acc += vacc[w * nv + i];
+    vec_part[(size_t)blockIdx.x * nreal + e] = acc;
+  }
+}
+
+// Backward pass 2: the two weight gradients over the token rows of one
+// slice, dW1 = T(da)^T . T(n) [FP][CP64] and dW2 = T(dy)^T . T(a) [CP64][FP]
+// (CP64: CP rounded up to 64), a block per (product, 64 x 64 output tile,
+// slice): blocks [0, FP/64 x CP64/64) dW1's tiles, the rest dW2's. Token rows
+// staged kWTile at a time in two cp.async stages, one in flight while the
+// other is multiplied; A^T by ldmatrix.trans as the A operand, B by
+// ldmatrix.trans as the B operand; warp (wm, wn) takes output rows 16 wm..
+// and columns 32 wn.. Writes the tile's f32 sums to part [slice][2][FP *
+// CP64] (dW1's block, then dW2's).
+__global__ void __launch_bounds__(kThreads, 2)
+dw_kernel(const bf16* __restrict__ dab, const bf16* __restrict__ nb, const bf16* __restrict__ dyb,
+          const bf16* __restrict__ ab, float* __restrict__ part, int rows, int cp, int fp,
+          int per) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kLd = kWTile + 8, kTileE = kWTile * kLd, kPerRow = kWTile / 8;
+  bf16* buf = reinterpret_cast<bf16*>(smem_raw);  // [2 stages][A, B][kWTile][kLd]
+  const int cpt = (cp + kWTile - 1) / kWTile, fpt = fp / kWTile, cp64 = cpt * kWTile;
+  const bool first = (int)blockIdx.x < fpt * cpt;
+  const int tile = first ? blockIdx.x : blockIdx.x - fpt * cpt, ntn = first ? cpt : fpt;
+  const int m0 = tile / ntn * kWTile, n0 = tile % ntn * kWTile;
+  const bf16* a = first ? dab : dyb;
+  const bf16* b = first ? nb : ab;
+  const int lda = first ? fp : cp, ldb = first ? cp : fp;
+  const long t0 = (long)blockIdx.y * per, t1 = min((long)rows, t0 + per);
+  auto stage = [&](int ch) {  // token rows of chunk ch into stage ch % 2
+    const long r = t0 + (long)ch * kWTile;
+    bf16* st = buf + (ch & 1) * 2 * kTileE;
+    for (int e = threadIdx.x; e < 2 * kWTile * kPerRow; e += kThreads) {
+      const int which = e / (kWTile * kPerRow), q = e % (kWTile * kPerRow);
+      const int t = q / kPerRow, i = q % kPerRow * 8;
+      const bf16* src = which ? b : a;
+      const int ld = which ? ldb : lda, col = (which ? n0 : m0) + i;
+      const bool in = r + t < t1 && col < ld;
+      amma::cp_async16(st + which * kTileE + t * kLd + i, in ? src + (size_t)(r + t) * ld + col : src,
+                       in);
+    }
+  };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c2 = 2 * (lane & 3), wm = warp & 3, wn = warp >> 2;
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const int chunks = t1 > t0 ? (int)((t1 - t0 + kWTile - 1) / kWTile) : 0;
+  if (chunks > 0) stage(0);
+  amma::cp_commit();
+  for (int ch = 0; ch < chunks; ++ch) {
+    amma::cp_wait<0>();  // chunk ch has landed
+    __syncthreads();     // ... for every thread; chunk ch - 1's stage is free
+    if (ch + 1 < chunks) stage(ch + 1);
+    amma::cp_commit();
+    const bf16* st = buf + (ch & 1) * 2 * kTileE;
+#pragma unroll
+    for (int kk = 0; kk < kWTile / 16; ++kk) {
+      uint32_t bfr[2][4], af[4];
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        amma::ldsm_x4_t(bfr[np], st + kTileE + amma::a_off(lane, kk * 16, wn * 32 + np * 16, kLd));
+      amma::ldsm_x4_t(af, st + amma::b_off(lane, kk * 16, wm * 16, kLd));
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        amma::mma(acc[2 * np], af, bfr[np][0], bfr[np][1]);
+        amma::mma(acc[2 * np + 1], af, bfr[np][2], bfr[np][3]);
+      }
+    }
+  }
+  const int nmax = first ? cp64 : fp;
+  float* out = part + (size_t)blockIdx.y * 2 * fp * cp64 + (first ? 0 : (size_t)fp * cp64) +
+               (size_t)(m0 + wm * 16) * nmax + n0 + wn * 32;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(out + (size_t)(g + 8 * hh) * nmax + j * 8 + c2) =
+          make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
+}
+
+// Backward pass 3, the sums, each in a fixed order: blocks [0, w_blocks) a
+// thread per element of dW1 [f][c] then dW2 [c][f] over the slices; the rest
+// a warp per vector element over the blocks' sums of pass 1, lane l adding
+// blocks l, l + 32, ... and the lanes in a fixed tree.
+__global__ void __launch_bounds__(kThreads)
+bwd_sum_kernel(const float* __restrict__ part, const float* __restrict__ vec_part,
+               float* __restrict__ d_vec, float* __restrict__ dw1, float* __restrict__ dw2,
+               int c, int f, int cp64, int fp, int slices, int blocks, int w_blocks) {
+  if ((int)blockIdx.x < w_blocks) {
+    const long fc = (long)f * c, e = (long)blockIdx.x * kThreads + threadIdx.x;
+    if (e >= 2 * fc) return;
+    size_t off;
+    float* dst;
+    if (e < fc) {
+      off = (size_t)(e / c) * cp64 + e % c;
+      dst = dw1 + e;
+    } else {
+      const long e2 = e - fc;
+      off = (size_t)fp * cp64 + (size_t)(e2 / f) * fp + e2 % f;
+      dst = dw2 + e2;
+    }
+    const size_t stride = 2 * (size_t)fp * cp64;
+    float acc = 0.f;
+    for (int z = 0; z < slices; ++z) acc += part[z * stride + off];
+    *dst = acc;
+    return;
+  }
+  const int lane = threadIdx.x & 31, nvec = 5 * c + f;
+  const int v = ((int)blockIdx.x - w_blocks) * kWarps + (threadIdx.x >> 5);
+  if (v >= nvec) return;
+  float acc = 0.f;
+  for (int z = lane; z < blocks; z += 32) acc += vec_part[(size_t)z * nvec + v];
+  acc = warp_sum(acc);
+  if (lane == 0) d_vec[v] = acc;
+}
+
+// The backward's three launches: pass 1 on `grid` blocks, pass 2 on row
+// slices of `slice_rows` rows (whole stages of kWTile rows), pass 3.
+inline cudaError_t launch_bwd(const void* x, const void* dout, const Params& p, void* dx,
+                              void* nb, void* ab, void* dyb, void* dab, float* vec_part,
+                              float* w_part, float* d_vec, float* dw1, float* dw2, int rows,
+                              int c, int f, float eps, int grid, int slice_rows,
+                              const Dropout& dp, cudaStream_t st) {
+  if (!fits_bwd(c, f) || grid < 1 || slice_rows < 1 || slice_rows % kWTile != 0 || rows < 1)
+    return cudaErrorInvalidValue;
+  const int cp = amma::pad16(c), fp = pad64(f), cp64 = pad64(cp);
+  const int nz = (rows + slice_rows - 1) / slice_rows;
+  const int vec = amma::copy_vec(c, {x});
+  cudaError_t err = with_cp(cp, [&](auto k) {
+    constexpr int CP = decltype(k)::value;
+    const size_t bytes = bwd_smem(CP, fp);
+    cudaError_t e = amma::allow_smem<bwd_rows_kernel<CP>>(bytes);
+    if (e != cudaSuccess) return e;
+    bwd_rows_kernel<CP><<<grid, kTileThreads, bytes, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(dout), p, static_cast<bf16*>(dx),
+        static_cast<bf16*>(nb), static_cast<bf16*>(ab), static_cast<bf16*>(dyb),
+        static_cast<bf16*>(dab), vec_part, rows, c, f, eps, vec, dp);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return err;
+  dw_kernel<<<dim3(2 * (fp / kWTile) * (cp64 / kWTile), nz), kThreads, dw_smem(), st>>>(
+      static_cast<const bf16*>(dab), static_cast<const bf16*>(nb), static_cast<const bf16*>(dyb),
+      static_cast<const bf16*>(ab), w_part, rows, cp, fp, slice_rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int w_blocks = (int)((2L * f * c + kThreads - 1) / kThreads);
+  bwd_sum_kernel<<<w_blocks + (5 * c + f + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+      w_part, vec_part, d_vec, dw1, dw2, c, f, cp64, fp, nz, grid, w_blocks);
+  return cudaGetLastError();
+}
+
+}  // namespace ffn
+
 }  // namespace
 
 // x, out: [rows, c] contiguous, type T (dtype 0 = float32, 1 = bfloat16). w1: [f, c]
 // and w2: [c, f] (torch Linear layout), b1 [f], b2 [c] and the LayerNorms' scales
-// and biases [c], all float32 (the weights already rounded to T). Dropout mode
-// 0 = none, 1 = bits (bits1 [rows, f], bits2 [rows, c] uint32), 2 = Philox from
-// (seed, offset) and (seed, offset + 1); dropped where bits < threshold,
-// survivors scaled by inv. grid: the number of blocks walking the rows.
-// Returns the cudaError_t of the launch.
+// and biases [c], all float32 (the bf16 body rounds the weights as it loads
+// them). Dropout mode 0 = none, 1 = bits (bits1 [rows, f], bits2 [rows, c]
+// uint32), 2 = Philox from (seed, offset) and (seed, offset + 1); dropped where
+// bits < threshold, survivors scaled by inv. grid: the number of blocks walking
+// the rows (bf16: ffn_plan's grid). Returns the cudaError_t of the launch.
 extern "C" int i2r_ffn_train_fwd(const void* x, const void* ln1_w, const void* ln1_b,
                                  const void* w1, const void* b1, const void* w2, const void* b2,
                                  const void* ln2_w, const void* ln2_b, void* out, int rows, int c,
@@ -392,23 +799,27 @@ extern "C" int i2r_ffn_train_fwd(const void* x, const void* ln1_w, const void* l
                    offset, threshold, inv, mode};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_fwd<float>(x, p, out, rows, c, f, eps, grid, dp, st);
-  if (dtype == 1) return (int)launch_fwd<__nv_bfloat16>(x, p, out, rows, c, f, eps, grid, dp, st);
+  if (dtype == 1) return (int)ffn::launch_fwd(x, p, out, rows, c, f, eps, grid, dp, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// dout, dx: [rows, c] of type T. Scratch of type T: nb, dyb [rows, c]; ab, dab
-// [rows, f]. Float32 scratch: vec_part [grid, 5c + f], w_part [16, f, c].
-// Outputs (float32): d_vec [5c + f] = (dln1_w, dln1_b, db1, db2, dln2_w,
-// dln2_b), dw1 [f, c], dw2 [c, f]. Other arguments as the forward.
+// dout, dx: [rows, c] of type T. Outputs (float32): d_vec [5c + f] = (dln1_w,
+// dln1_b, db1, db2, dln2_w, dln2_b), dw1 [f, c], dw2 [c, f]. Scratch, f32 (the
+// CUDA-core template; slice_rows = 0): nb, dyb [rows, c] and ab, dab [rows, f] in
+// T, vec_part [grid, 5c + f], w_part [16, f, c]. Scratch, bf16 (the tensor-core
+// body; grid and slice_rows from ffn_plan): nb, dyb [rows, CP] and ab, dab
+// [rows, FP] in bf16 (CP = c padded to 16, FP = f padded to 64), vec_part
+// [grid, 5c + f], w_part [slices, 2, FP * CP64] (slices = rows / slice_rows
+// rounded up, CP64 = CP padded to 64). Other arguments as the forward.
 extern "C" int i2r_ffn_train_bwd(const void* x, const void* dout, const void* ln1_w,
                                  const void* ln1_b, const void* w1, const void* b1,
                                  const void* w2, const void* b2, const void* ln2_w,
                                  const void* ln2_b, void* dx, void* nb, void* ab, void* dyb,
                                  void* dab, void* vec_part, void* w_part, void* d_vec, void* dw1,
                                  void* dw2, int rows, int c, int f, float eps, int dtype,
-                                 int grid, const void* bits1, const void* bits2, unsigned seed,
-                                 unsigned offset, unsigned threshold, float inv, int mode,
-                                 void* stream) {
+                                 int grid, int slice_rows, const void* bits1, const void* bits2,
+                                 unsigned seed, unsigned offset, unsigned threshold, float inv,
+                                 int mode, void* stream) {
   if (rows < 1 || c < 1 || f < 1 || grid < 1 || mode < 0 || mode > 2 ||
       (mode == 1 && (bits1 == nullptr || bits2 == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -424,11 +835,13 @@ extern "C" int i2r_ffn_train_bwd(const void* x, const void* dout, const void* ln
   float* dv = static_cast<float*>(d_vec);
   float* g1 = static_cast<float*>(dw1);
   float* g2 = static_cast<float*>(dw2);
-  if (dtype == 0)
+  if (dtype == 0) {
+    if (slice_rows != 0) return (int)cudaErrorInvalidValue;
     return (int)launch_bwd<float>(x, dout, p, dx, nb, ab, dyb, dab, vp, wp, dv, g1, g2, rows, c,
                                   f, eps, grid, dp, st);
+  }
   if (dtype == 1)
-    return (int)launch_bwd<__nv_bfloat16>(x, dout, p, dx, nb, ab, dyb, dab, vp, wp, dv, g1, g2,
-                                          rows, c, f, eps, grid, dp, st);
+    return (int)ffn::launch_bwd(x, dout, p, dx, nb, ab, dyb, dab, vp, wp, dv, g1, g2, rows, c, f,
+                                eps, grid, slice_rows, dp, st);
   return (int)cudaErrorInvalidValue;
 }

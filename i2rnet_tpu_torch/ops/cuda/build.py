@@ -40,9 +40,8 @@ SIGNATURES = {
                            _F, _I, _P, _U, _U, _U, _F, _I, _P, _P),
     "i2r_ffn_train_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
                           _P, _P, _U, _U, _U, _F, _I, _P),
-    "i2r_ffn_train_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _U, _U, _U, _F,
-                          _I, _P),
+    "i2r_ffn_train_bwd": (_P,) * 20 + (_I, _I, _I, _F, _I, _I, _I, _P, _P, _U, _U, _U, _F,
+                                        _I, _P),
     "i2r_window_attn_fwd": (_P,) * 11 + (_I,) * 7 + (_F, _I, _P),
     "i2r_window_attn_train_fwd": (_P,) * 13 + (_I,) * 7 + (_F, _I, _P),
     "i2r_window_attn_train_bwd": (_P,) * 19 + (_I,) * 8 + (_F, _F, _I, _P),

@@ -11,16 +11,105 @@ PyTorch version and mirrors ``_ffn_jnp`` (encoder_ffn.py:60-74) cast for cast:
 
 with T the activation dtype. Weights are in the torch ``nn.Linear`` layout
 (``w1`` [F, C], ``w2`` [C, F]); LayerNorm parameters and biases are f32.
+
+In bfloat16 the kernel runs the tensor-core tile body ``csrc/ffn_tile.cuh``,
+which Kernel D shares; :func:`ffn_plan` is its launch plan. The float32
+instance keeps the CUDA-core template.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from i2rnet_tpu_torch.ops.cuda import build
+from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import MAX_SMEM, sm_count
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ROWS_PER_BLOCK = 8  # one row per warp per step
+_ROWS_PER_BLOCK = 8  # the f32 template: one row per warp per step
+
+# the bf16 tile body's constants (csrc/ffn_tile.cuh; tests/test_torch_ffn_tiles.py
+# reads the same constants there)
+UNIT = 16  #: rows a warp takes at a time, the mma's m (kUnit)
+TILE_WARPS = 4  #: warps of a block of the forward and of the backward's pass 1 (kTileWarps)
+TILE_ROWS = UNIT * TILE_WARPS  #: rows of a block's x tile, a unit a warp (kRows)
+CHUNK = 64  #: hidden columns a step of the two products (kChunk)
+MAX_CP = 128  #: C padded to 16, at most (kMaxCp)
+W_TILE = 64  #: weight-gradient tile edge and token rows a stage of pass 2 (kWTile)
+TWO_PER_SM = 113 * 1024  #: shared memory of a block that still fits two per SM (kTwoPerSm)
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+@dataclass(frozen=True)
+class FfnPlan:
+    """The bf16 FFN tail's launches over ``rows`` rows of width ``c`` with
+    ``f`` hidden units: C padded to 16 (``cp``; ``cp64`` that rounded up to
+    64) and F to 64 (``fp``); ``grid`` blocks of the forward and ``bwd_grid``
+    of the backward's pass 1, whose warps take the ``units`` units of ``UNIT``
+    rows in turn (unit u to block u % grid, then to its next warp); pass 2's
+    ``slices`` row slices of ``slice_rows`` rows each."""
+
+    rows: int
+    c: int
+    f: int
+    cp: int
+    fp: int
+    cp64: int
+    units: int
+    fwd_smem: int
+    bwd_smem: int
+    grid: int
+    bwd_grid: int
+    slices: int
+    slice_rows: int
+
+    @property
+    def dw_blocks(self) -> int:
+        """Pass 2's blocks a slice: the 64 x 64 tiles of dW1 and dW2."""
+        return 2 * (self.fp // W_TILE) * (self.cp64 // W_TILE)
+
+    @property
+    def part_numel(self) -> int:
+        """f32 elements of pass 2's partial sums: [slices, 2, fp * cp64]."""
+        return self.slices * 2 * self.fp * self.cp64
+
+
+def ffn_smem(cp: int, fp: int, backward: bool) -> int:
+    """Shared memory of the forward (or of the backward's pass 1), as
+    ``fwd_smem``/``bwd_smem`` in ``csrc/ffn_tile.cuh``."""
+    fwd = 2 * (fp * (cp + 8) + cp * (fp + 8) + TILE_ROWS * (cp + 8)) + 4 * (fp + 5 * cp)
+    return fwd + (4 * TILE_WARPS * (fp // CHUNK) * 32 + 4 * TILE_WARPS * (5 * cp + fp)
+                  if backward else 0)
+
+
+def ffn_plan(rows: int, c: int, f: int, sms: int = 132, backward: bool = False) -> FfnPlan:
+    """The bf16 launch plan on a card with ``sms`` SMs: the forward and pass
+    1 as many blocks as units, up to two per SM where a block's shared
+    memory fits two (one otherwise), so that the units spread over every SM;
+    pass 2 row slices of whole ``W_TILE`` stages, as many as its grid needs
+    to hold two blocks per SM. Raises ValueError where C padded
+    to 16 exceeds ``MAX_CP`` or the forward's (with ``backward``, pass 1's)
+    shared memory exceeds ``MAX_SMEM``: the float32 template is no stand-in."""
+    cp, fp = _up(c, 16), _up(f, CHUNK)
+    fwd, bwd = ffn_smem(cp, fp, False), ffn_smem(cp, fp, True)
+    if cp > MAX_CP:
+        raise ValueError(f"the bf16 FFN kernel takes C up to {MAX_CP}, got C={c}")
+    need = bwd if backward else fwd
+    if need > MAX_SMEM:
+        raise ValueError(f"the bf16 FFN kernel does not fit C={c}, F={f}: {need} B of shared "
+                         f"memory, the limit is {MAX_SMEM} B")
+    units = -(-rows // UNIT)
+    cp64 = _up(cp, W_TILE)
+    dw_blocks = 2 * (fp // W_TILE) * (cp64 // W_TILE)
+    slice_rows = max(W_TILE, rows // -(-2 * sms // dw_blocks) // W_TILE * W_TILE)
+    return FfnPlan(rows, c, f, cp, fp, cp64, units, fwd, bwd,
+                   min(units, (2 if fwd <= TWO_PER_SM else 1) * sms),
+                   min(units, (2 if bwd <= TWO_PER_SM else 1) * sms),
+                   -(-rows // slice_rows), slice_rows)
 
 
 def _layer_norm(v, g, b, eps):
@@ -54,7 +143,7 @@ def encoder_ffn_fused(x, n1_weight, n1_bias, w1, b1, w2, b2, n2_weight, n2_bias,
     """The FFN tail through the CUDA kernel over the rows of ``x`` ``[..., C]``.
 
     CPU tensors take :func:`encoder_ffn_torch`; CUDA tensors launch the kernel
-    or raise.
+    or raise (in bfloat16 where :func:`ffn_plan` refuses C or F).
     """
     if x.device.type == "cpu":
         return encoder_ffn_torch(x, n1_weight, n1_bias, w1, b1, w2, b2,
@@ -70,20 +159,20 @@ def encoder_ffn_fused(x, n1_weight, n1_bias, w1, b1, w2, b2, n2_weight, n2_bias,
                          f"{tuple(w1.shape)} {tuple(w2.shape)} {tuple(b1.shape)}")
     if any(p.shape != (c,) for p in (n1_weight, n1_bias, b2, n2_weight, n2_bias)):
         raise ValueError(f"LayerNorm parameters and b2 must be [C={c}]")
-    g1, be1, b1f, b2f, g2, be2 = (p.detach().to(x.device, torch.float32).contiguous()
-                                  for p in (n1_weight, n1_bias, b1, b2, n2_weight, n2_bias))
-    w1t = w1.detach().to(x.device, x.dtype).contiguous()
-    w2t = w2.detach().to(x.device, x.dtype).contiguous()
+    # f32 as the kernel takes them (no copy where they already are; the bf16
+    # body rounds the weights as it loads them)
+    params = [p.detach().to(x.device, torch.float32).contiguous()
+              for p in (n1_weight, n1_bias, w1, b1, w2, b2, n2_weight, n2_bias)]
     x2 = x.reshape(-1, c).contiguous()
     rows = x2.shape[0]
     out = torch.empty_like(x2)
     if rows == 0:
         return out.reshape(x.shape)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid = min(-(-rows // _ROWS_PER_BLOCK), 2 * sms)
+    sms = sm_count(x.device.index or 0)
+    grid = (ffn_plan(rows, c, f, sms).grid if x.dtype == torch.bfloat16
+            else min(-(-rows // _ROWS_PER_BLOCK), 2 * sms))
     err = build.library().i2r_encoder_ffn_fwd(
-        x2.data_ptr(), g1.data_ptr(), be1.data_ptr(), w1t.data_ptr(), b1f.data_ptr(),
-        w2t.data_ptr(), b2f.data_ptr(), g2.data_ptr(), be2.data_ptr(), out.data_ptr(),
+        x2.data_ptr(), *(p.data_ptr() for p in params), out.data_ptr(),
         rows, c, f, float(eps), _DTYPE_CODES[x.dtype], grid,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "encoder_ffn kernel")

@@ -19,6 +19,11 @@ Dropout (``ops/cuda/dropout.py``): ``dropout_bits = (bits1 [R, F], bits2 [R,
 C])`` over the R rows, or ``dropout_seed`` with ``dropout_offset`` for the
 first site and ``dropout_offset + 1`` for the second (Philox counted by
 (column, row)).
+
+In bfloat16 the forward is one launch of the tensor-core tile body
+(``csrc/ffn_tile.cuh``, shared with Kernel B) and the backward three, both
+following :func:`~.encoder_ffn.ffn_plan`; the float32 instances keep the
+CUDA-core template.
 """
 
 from __future__ import annotations
@@ -30,9 +35,11 @@ import torch
 from i2rnet_tpu_torch.ops.cuda import build
 from i2rnet_tpu_torch.ops.cuda.dropout import (as_words, check_mode, kernel_args, keep_mask,
                                                philox_bits)
-from i2rnet_tpu_torch.ops.cuda.encoder_ffn import _DTYPE_CODES, _layer_norm
+from i2rnet_tpu_torch.ops.cuda.encoder_ffn import _DTYPE_CODES, _layer_norm, ffn_plan
+from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import sm_count
 
-_ROWS_PER_BLOCK = 8  # one row per warp per step
+_ROWS_PER_BLOCK = 8  # the f32 template: one row per warp per step
+_OUTER_SPLITS = 16  # the f32 template's row slices of a weight gradient (kOuterSplits)
 
 
 def ffn_bits(seed: int, offset: int, rows: int, width: int, device=None):
@@ -77,20 +84,26 @@ def _dropout_args(mode, rate, words, seed, offset):
     return (*ptrs, *kernel_args(mode, rate, seed, offset))
 
 
+def _sms(x2) -> int:
+    return sm_count(x2.device.index or 0)
+
+
 def _grid(x2):
-    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
-    return min(-(-x2.shape[0] // _ROWS_PER_BLOCK), sms)
+    """The f32 template's blocks: one row a warp, at most one block per SM."""
+    return min(-(-x2.shape[0] // _ROWS_PER_BLOCK), _sms(x2))
 
 
 def ffn_train_fwd(x2, params, eps: float, mode: str, rate: float, words, seed, offset):
     """Launch the forward kernel on ``[R, C]`` rows; ``params`` are the eight
-    f32 tensors (LN1 w/b, W1 rounded to T, b1, W2 rounded to T, b2, LN2 w/b)."""
+    f32 tensors (LN1 w/b, W1, b1, W2, b2, LN2 w/b; the bf16 body rounds the
+    weights as it loads them)."""
     rows, c = x2.shape
     f = params[2].shape[0]
     out = torch.empty_like(x2)
+    grid = ffn_plan(rows, c, f, _sms(x2)).grid if x2.dtype == torch.bfloat16 else _grid(x2)
     err = build.library().i2r_ffn_train_fwd(
         x2.data_ptr(), *(p.data_ptr() for p in params), out.data_ptr(), rows, c, f, float(eps),
-        _DTYPE_CODES[x2.dtype], _grid(x2), *_dropout_args(mode, rate, words, seed, offset),
+        _DTYPE_CODES[x2.dtype], grid, *_dropout_args(mode, rate, words, seed, offset),
         torch.cuda.current_stream(x2.device).cuda_stream)
     build.check(err, "encoder_ffn_train forward kernel")
     ffn_train_fwd.launches += 1
@@ -98,25 +111,33 @@ def ffn_train_fwd(x2, params, eps: float, mode: str, rate: float, words, seed, o
 
 
 def ffn_train_bwd(x2, gout, params, eps: float, mode: str, rate: float, words, seed, offset):
-    """Launch the backward kernels; returns ``(dx, dln1_w, dln1_b, dw1, db1, dw2,
-    db2, dln2_w, dln2_b)``, dx in x's dtype and the rest f32."""
+    """Launch the backward kernels (bf16: three, as :func:`~.encoder_ffn.ffn_plan`
+    says; f32: the CUDA-core template's six); returns ``(dx, dln1_w, dln1_b,
+    dw1, db1, dw2, db2, dln2_w, dln2_b)``, dx in x's dtype and the rest f32."""
     rows, c = x2.shape
     f = params[2].shape[0]
-    grid = _grid(x2)
     dev, dt = x2.device, x2.dtype
+    if dt == torch.bfloat16:
+        plan = ffn_plan(rows, c, f, _sms(x2), backward=True)
+        grid, slice_rows, cw, fw = plan.bwd_grid, plan.slice_rows, plan.cp, plan.fp
+        w_part = torch.empty(plan.part_numel, device=dev)
+    else:
+        grid, slice_rows, cw, fw = _grid(x2), 0, c, f
+        w_part = torch.empty(_OUTER_SPLITS, f, c, device=dev)
     dx = torch.empty_like(x2)
-    nb, dyb = torch.empty(rows, c, device=dev, dtype=dt), torch.empty(rows, c, device=dev, dtype=dt)
-    ab, dab = torch.empty(rows, f, device=dev, dtype=dt), torch.empty(rows, f, device=dev, dtype=dt)
+    # the rounded operands of the weight gradients: T(n), T(dy) [R, cw]; T(a), T(da) [R, fw]
+    nb, dyb = (torch.empty(rows, cw, device=dev, dtype=dt) for _ in range(2))
+    ab, dab = (torch.empty(rows, fw, device=dev, dtype=dt) for _ in range(2))
     nvec = 5 * c + f
     vec_part = torch.empty(grid, nvec, device=dev)
-    w_part = torch.empty(16, f, c, device=dev)
     d_vec = torch.empty(nvec, device=dev)
     dw1, dw2 = torch.empty(f, c, device=dev), torch.empty(c, f, device=dev)
     err = build.library().i2r_ffn_train_bwd(
         x2.data_ptr(), gout.data_ptr(), *(p.data_ptr() for p in params), dx.data_ptr(),
         nb.data_ptr(), ab.data_ptr(), dyb.data_ptr(), dab.data_ptr(), vec_part.data_ptr(),
         w_part.data_ptr(), d_vec.data_ptr(), dw1.data_ptr(), dw2.data_ptr(), rows, c, f,
-        float(eps), _DTYPE_CODES[dt], grid, *_dropout_args(mode, rate, words, seed, offset),
+        float(eps), _DTYPE_CODES[dt], grid, slice_rows,
+        *_dropout_args(mode, rate, words, seed, offset),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "encoder_ffn_train backward kernels")
     ffn_train_bwd.launches += 1
@@ -134,10 +155,9 @@ class _FfnTrain(torch.autograd.Function):
                 eps, mode, rate, words1, words2, seed, offset):
         c = x.shape[-1]
         x2 = x.reshape(-1, c).contiguous()
-        dt = x.dtype
-        params = [p.detach().to(x.device, torch.float32) for p in
-                  (n1_weight, n1_bias, w1.to(dt), b1, w2.to(dt), b2, n2_weight, n2_bias)]
-        params = [p.contiguous() for p in params]
+        # f32 as the kernels take them (no copy where they already are)
+        params = [p.detach().to(x.device, torch.float32).contiguous() for p in
+                  (n1_weight, n1_bias, w1, b1, w2, b2, n2_weight, n2_bias)]
         words = None if words1 is None else (words1, words2)
         out = ffn_train_fwd(x2, params, eps, mode, rate, words, seed, offset)
         ctx.save_for_backward(x2, *params, words1, words2)
@@ -165,7 +185,8 @@ def encoder_ffn_train_fused(x, n1_weight, n1_bias, w1, b1, w2, b2, n2_weight, n2
     the eight parameters.
 
     CPU tensors take :func:`encoder_ffn_train_torch`; CUDA tensors launch the
-    kernels or raise. Any C and F whose f32 weights fit shared memory.
+    kernels or raise: float32 any C and F whose f32 weights fit shared memory,
+    bfloat16 what :func:`~.encoder_ffn.ffn_plan` takes.
     """
     if x.device.type == "cpu":
         return encoder_ffn_train_torch(x, n1_weight, n1_bias, w1, b1, w2, b2, n2_weight,
