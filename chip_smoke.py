@@ -95,7 +95,25 @@ Phases, one line each (any failure exits non-zero):
     one-pass route, on E + F and kernels off, a ``torch.profiler`` breakdown
     of the one-pass step, and kernel 7 beside its plain version, E then F and
     its bound at each branch map, with kernel 7's and E then F's device time
-    per call beside.
+    per call beside;
+23. evaluation on the COCO-format fixture (``i2rnet_tpu_torch/data/fixtures/
+    coco_synth``, 32 images, up to 7 persons each) with W48-pure-en6 at full
+    width, B=16: every JPEG decoded by ``data/jpeg.py`` to the bytes
+    ``cv2.imread`` gives (SHA-256 against ``decoded.sha256``); ``validate``
+    with the GT-heatmap oracle (targets rendered and DARK-decoded on the
+    card) against the JAX validate's AP stats (``expected.json``, within
+    1e-3, AP > 0.95, the same results per image); ``validate`` with the
+    seeded, calibrated model in bf16, kernels on then off: Kernels A and B
+    launched 12 times a batch (6 layers, 2 forwards) with them on and never
+    with them off, the same result entries, keypoints within phase 6's bound;
+    and, for information, the time split per batch (JPEG decode,
+    ``make_raw_batch``, device time by CUDA events, ``evaluate``) and
+    persons/s including host IO.
+
+Every ``torch.profiler`` breakdown counts all device events but user
+annotations and step markers, and logs how many of them carry a ``#`` in
+their name (torch's lambda-named elementwise and copy kernels, which an
+earlier filter left out of the launches, busy time and idle share).
 
 Then a JSON line of the kernels (each with its main-path launches, its error
 against the plain version, its time, the plain version's, the bound the card
@@ -104,12 +122,14 @@ function, that call's time; device time per call for Kernels A-E and
 kernel 9, their plain versions and the SDPA calls, CUDA events for the
 rest), and last ``{"ok": true, "device": {...}}``.
 TF32 is off throughout, so the float32 parts (crops, decode) stay float32.
-Training writes its checkpoints under ``output/chip_smoke/`` of this checkout.
+Training writes its checkpoints, and validation its results JSONs, under
+``output/chip_smoke/`` of this checkout.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
 import math
 import re
@@ -126,6 +146,9 @@ from i2rnet_tpu_torch import presets
 from i2rnet_tpu_torch.core.train import compute_losses, make_train_step
 from i2rnet_tpu_torch.core.train_state import TrainState, make_optimizer
 from i2rnet_tpu_torch.core.trainer import raw_to_device, train_loop
+from i2rnet_tpu_torch.core.validate import validate
+from i2rnet_tpu_torch.data.coco import COCODataset
+from i2rnet_tpu_torch.data.jpeg import imread
 from i2rnet_tpu_torch.data.synthetic import synthetic_raw_batch
 from i2rnet_tpu_torch.models.interformer import build_model
 from i2rnet_tpu_torch.models.layers import MaskedBatchNorm
@@ -242,6 +265,11 @@ KERNEL9_BWD = (("pass 1", ("attn_bwd_mma_kernel",)), ("pass 2", ("dt2_mma_kernel
 KERNEL_B = ("ffn::fwd_kernel",)
 KERNEL_D = (("Kernel D forward", ("ffn::fwd_kernel",)),
             ("Kernel D backward", ("ffn::bwd_rows_kernel", "ffn::dw_kernel", "ffn::bwd_sum_kernel")))
+#: the COCO-format fixture validated in phase 23 (``tests/torch_fixture.py``)
+FIXTURE = Path(__file__).resolve().parent / "i2rnet_tpu_torch" / "data" / "fixtures" / "coco_synth"
+#: the oracle's AP stats against the JAX validate's (``expected.json``), and its least AP
+ORACLE_TOL, ORACLE_MIN_AP = 1e-3, 0.95
+VAL_BATCH = 16
 ZERO_GRADS = re.compile(r"(k_proj|mlp\.(fc1|dw3x3|fc2)|norm2|fuse_layers\.\d+\.\d+\.\d+\.1)\.bias$")
 
 
@@ -813,6 +841,21 @@ def phase_train_on_off(raw):
         raise AssertionError("f32 training step with kernels strays from the plain path")
 
 
+def busy_ms(events):
+    """ms in which at least one of ``events`` (profiler device events) ran."""
+    if not events:
+        return 0.0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    return (busy + cur_e - cur_s) / 1e3
+
+
 def profile_steps(fn, steps):
     """Device busy time, idle share, launches and the top kernels over
     ``steps`` calls of ``fn``, from ``torch.profiler``."""
@@ -828,23 +871,29 @@ def profile_steps(fn, steps):
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
+        # every device event but user annotations and the profiler's step
+        # markers: torch names its elementwise and copy kernels
+        # "...{lambda()#N}...", so a "#" does not mark a non-kernel
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False) and "#" not in e.name]
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.name.startswith("ProfilerStep#")]
         if kernels:
             break
     else:
         log(f"  torch.profiler recorded no device activity in {PROFILE_TRIES} tries: the "
             f"breakdown below is not measured (nan)")
         return wall / steps, math.nan, math.nan, []
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for a, b in spans[1:]:
-        if a > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    busy = (busy + cur_e - cur_s) / 1e3
+    hashed = {}
+    for e in kernels:
+        hashed[e.name] = hashed.get(e.name, 0) + ("#" in e.name)
+    hashed = sorted(((c, n) for n, c in hashed.items() if c), reverse=True)
+    busy = busy_ms(kernels)
+    unhashed = [e for e in kernels if "#" not in e.name]
+    log(f"  profile count: {len(kernels) / steps:.0f} device events/step, busy {busy / steps:.2f} "
+        f"ms/step; without the {sum(c for c, _ in hashed) / steps:.0f}/step in {len(hashed)} "
+        f"kernels whose name holds '#' (an earlier filter left them out): "
+        f"{len(unhashed) / steps:.0f}/step, busy {busy_ms(unhashed) / steps:.2f} ms/step; "
+        + "; ".join(f"{c / steps:.0f}x {n[:90]}" for c, n in hashed[:6]))
     by_name = {}
     for e in kernels:
         t, n = by_name.get(e.name, (0.0, 0))
@@ -1559,6 +1608,168 @@ def phase_onepass_timing(model, cfg, g, card):
     return times
 
 
+def fixture_cfg():
+    """W48-pure-en6 reading the fixture, B=16 (two batches of its 32 images)."""
+    cfg = presets.w48_pure_en6()
+    cfg["DATASET"]["ROOT"] = str(FIXTURE)
+    cfg["TEST"]["BATCH_SIZE_PER_GPU"] = VAL_BATCH
+    return cfg
+
+
+def phase_decode(card):
+    """Every fixture JPEG decoded by ``data/jpeg.py``; each digest must equal
+    cv2.imread's (``decoded.sha256``). Returns ms per image."""
+    import PIL
+
+    want = {}
+    for line in (FIXTURE / "decoded.sha256").read_text().splitlines():
+        digest, name = line.split()
+        want[name] = digest
+    paths = sorted((FIXTURE / "images" / "val2017").glob("*.jpg"))
+    if [p.name for p in paths] != sorted(want):
+        raise AssertionError(f"fixture images {[p.name for p in paths]} vs digests {sorted(want)}")
+    images = [imread(str(p)) for p in paths]
+    bad = [p.name for p, img in zip(paths, images)
+           if hashlib.sha256(img.tobytes()).hexdigest() != want[p.name]]
+    if bad:
+        raise AssertionError(f"decoded bytes differ from cv2.imread's: {bad}")
+    t0 = time.perf_counter()
+    for p in paths:  # again, the files read once
+        imread(str(p))
+    ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+    log(f"  {len(paths)} JPEGs of {images[0].shape[1]}x{images[0].shape[0]} decoded with Pillow "
+        f"{PIL.__version__}: every SHA-256 equals cv2.imread's; {ms:.3f} ms per image "
+        f"(host clock, second pass) [{card}]")
+    return ms
+
+
+def timed_evaluate(ds):
+    """Wrap ``ds.evaluate`` (NMS, results JSON, evaluator): its host seconds
+    are appended to the returned list."""
+    spent, evaluate = [], ds.evaluate
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = evaluate(*args)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    ds.evaluate = timed
+    return spent
+
+
+def validate_run(cfg, ds, model, name, **kw):
+    """``validate`` into ``OUT_DIR / name``: (name_value, results, host seconds
+    of the whole call, of its ``evaluate``)."""
+    out = OUT_DIR / name
+    shutil.rmtree(out, ignore_errors=True)
+    spent = timed_evaluate(ds)
+    t0 = time.perf_counter()
+    name_value, _ = validate(cfg, ds, model, str(out), device=DEV, **kw)
+    wall = time.perf_counter() - t0
+    del ds.evaluate
+    results = json.loads((out / "results" / "keypoints_val2017_results.json").read_text())
+    return name_value, results, wall, spent[0]
+
+
+def per_image(results):
+    counts = {}
+    for r in results:
+        counts[str(r["image_id"])] = counts.get(str(r["image_id"]), 0) + 1
+    return counts
+
+
+def phase_validate_oracle(cfg, ds):
+    """``validate`` with the GT-heatmap oracle (targets rendered and decoded on
+    the card) against the JAX validate's result on the fixture."""
+    expected = json.loads((FIXTURE / "expected.json").read_text())
+    name_value, results, _, _ = validate_run(cfg, ds, None, "validate_oracle",
+                                             eval_step_fn=lambda _model, batch: batch["target"])
+    diff = {k: abs(name_value[k] - v) for k, v in expected["stats"].items()}
+    log(f"  GT oracle: AP {name_value['AP']:.6f}, AR {name_value['AR']:.6f}, {len(results)} "
+        f"results; largest |stat - JAX stat| {max(diff.values()):.3g} (bound {ORACLE_TOL:g})")
+    if (set(name_value) != set(expected["stats"]) or max(diff.values()) > ORACLE_TOL
+            or name_value["AP"] <= ORACLE_MIN_AP
+            or per_image(results) != expected["results_per_image"]):
+        raise AssertionError(f"oracle validate {dict(name_value)} vs {expected['stats']}; "
+                             f"results per image {per_image(results)}")
+
+
+def phase_validate_model(cfg, ds, g, card):
+    """``validate`` with the seeded, calibrated W48 model in bf16, kernels on
+    then off: A and B launched 12 times a batch (6 layers, 2 forwards) with
+    them on, never with them off; the same results within phase 6's bound."""
+    model = random_model(cfg, g)
+    model.compute_dtype = torch.bfloat16
+    n_batches = len(list(ds.eval_batches(VAL_BATCH)))
+    want = 2 * len(model.global_encoder.layers) * n_batches
+    runs = {}
+    model.global_encoder.use_kernels = True
+    validate_run(cfg, ds, model, "validate_warmup")  # first calls at these shapes
+    for on in (True, False):
+        model.global_encoder.use_kernels = on
+        torch.cuda.synchronize()
+        reset_launches()
+        runs[on] = validate_run(cfg, ds, model, f"validate_{'on' if on else 'off'}")
+        torch.cuda.synchronize()
+        counts = {k: launch_counts()[k] for k in EVAL_KERNELS}
+        if counts != {k: want if on else 0 for k in EVAL_KERNELS}:
+            raise AssertionError(f"kernels {'on' if on else 'off'}: launches {counts}, want "
+                                 f"{want if on else 0} each ({n_batches} batches)")
+        runs[on] += (counts,)
+    (nv_on, res_on, wall, eval_s, counts), (nv_off, res_off, *_) = runs[True], runs[False]
+
+    def keyed(results):
+        return {(r["image_id"], *r["center"], *r["scale"]): r for r in results}
+
+    on, off = keyed(res_on), keyed(res_off)
+    if len(on) != len(res_on) or set(on) != set(off):
+        raise AssertionError(f"results JSONs hold other entries: {len(res_on)} on, "
+                             f"{len(res_off)} off, {len(set(on) ^ set(off))} differ")
+    kp_on = np.array([on[k]["keypoints"] for k in on]).reshape(len(on), -1, 3)
+    kp_off = np.array([off[k]["keypoints"] for k in on]).reshape(len(on), -1, 3)
+    conf_err = np.abs(kp_on[..., 2] - kp_off[..., 2]).max() / np.abs(kp_off[..., 2]).max()
+    xy_err = np.abs(kp_on[..., :2] - kp_off[..., :2]).max(-1)
+    persons = sum(len(r["annos"]) for r in ds.db)
+    log(f"  seeded model, bf16: {len(res_on)} results; launches per batch with the kernels on "
+        f"{ {k: v // n_batches for k, v in counts.items()} }, none off; AP kernels on "
+        f"{nv_on['AP']:.6f}, off {nv_off['AP']:.6f}; max|dconf|/max|conf| {conf_err:.3g}, "
+        f"|dxy| median {np.median(xy_err):.3g} px, share within 1 px {np.mean(xy_err <= 1.0):.3f}")
+    if conf_err > 0.05 or np.median(xy_err) > 1.0:
+        raise AssertionError("validate with the kernels strays from the plain path")
+    log(f"  validate, kernels on: {persons} persons in {wall * 1e3:.1f} ms, of which evaluate "
+        f"(NMS, results JSON, evaluator) {eval_s * 1e3:.1f} ms; {persons / (wall - eval_s):.1f} "
+        f"persons/s including host IO, evaluate excluded [{card}]")
+    return model
+
+
+def phase_validate_split(model, cfg, ds, decode_ms, card):
+    """The time per batch of the host and device parts of validate, kernels on."""
+    model.global_encoder.use_kernels = True
+    evaluate = make_eval_fn(cfg, model, ds.flip_pairs)
+    raw_ms, dev_ms = [], []
+    for items, nb in ds.eval_batches(VAL_BATCH):
+        t0 = time.perf_counter()
+        raw, meta = ds.make_raw_batch(items, nb)
+        raw_ms.append((time.perf_counter() - t0) * 1e3)
+        b, n = raw["person_valid"].shape
+        centers = torch.from_numpy(meta["center"].reshape(b * n, 2)).to(DEV)
+        scales = torch.from_numpy(meta["scale"].reshape(b * n, 2)).to(DEV)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        batch = ds.device_batch(raw, DEV)
+        evaluate(batch["images"], batch["pos_masks"], batch["person_valid"], centers, scales)
+        end.record()
+        torch.cuda.synchronize()
+        dev_ms.append(start.elapsed_time(end))
+    log(f"  per batch of {VAL_BATCH} images: JPEG decode {decode_ms * VAL_BATCH:.1f} ms "
+        f"({decode_ms:.3f} ms an image), make_raw_batch {np.mean(raw_ms):.1f} ms (decode "
+        f"included; {', '.join(f'{t:.1f}' for t in raw_ms)}), device {np.mean(dev_ms):.2f} ms "
+        f"by CUDA events (copy in, preprocess, 2 forwards, decode; "
+        f"{', '.join(f'{t:.2f}' for t in dev_ms)}) [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -1673,6 +1884,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 22 one-pass timing [{card}]:")
     times.update(phase_onepass_timing(model, cfg, g, card))
+
+    del model
+    torch.cuda.empty_cache()
+    log("phase 23 validate on the COCO-format fixture (W48-pure-en6, full width, B=16):")
+    decode_ms = phase_decode(card)
+    cfg = fixture_cfg()
+    ds = COCODataset(cfg, str(FIXTURE), "val2017", is_train=False)
+    phase_validate_oracle(cfg, ds)
+    model = phase_validate_model(cfg, ds, g, card)
+    phase_validate_split(model, cfg, ds, decode_ms, card)
 
     counts.update(train_counts)
     counts.update({k: hrt_train_counts[k] for k in ("window_attn_block_train_fwd",

@@ -11,9 +11,10 @@ the JAX trainer does every ``PRINT_FREQ`` steps, halts on a non-finite loss
 (``FloatingPointError``), and writes a checkpoint; the newest checkpoint is
 resumed under ``AUTO_RESUME``; the final state is written at the end.
 
-Not here yet: the dataset reader (``batches`` takes its place, below) and
-the validation after each epoch (COCO AP), which wait for the data and
-``validate`` slice; each epoch's ``perf`` is -1 until then.
+Given a validation dataset, each epoch ends with ``core/validate.py::
+validate`` (COCO AP), whose AP is the checkpoint's ``perf`` and picks
+``model_best.pth``; without one, ``perf`` is -1. Not here yet: the training
+data reader (``batches`` takes its place, below; ROADMAP queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 
 from i2rnet_tpu_torch.core.train import make_train_step
 from i2rnet_tpu_torch.core.train_state import TrainState, make_optimizer
+from i2rnet_tpu_torch.core.validate import validate
 from i2rnet_tpu_torch.models.interformer import build_model
 from i2rnet_tpu_torch.models.pure_multi import init_weights
 from i2rnet_tpu_torch.ops.preprocess import device_preprocess
@@ -81,8 +83,8 @@ def _record(metrics, loss_m, acc_m, epoch, i):
 
 def train_loop(cfg: Dict, output_dir: str, batches: Callable[[int], Iterable[Dict]],
                max_epochs: Optional[int] = None, max_steps_per_epoch: Optional[int] = None,
-               device="cuda", on_step: Optional[Callable[[int, int, Dict], None]] = None
-               ) -> TrainState:
+               device="cuda", on_step: Optional[Callable[[int, int, Dict], None]] = None,
+               val_dataset=None) -> TrainState:
     """Train the model of ``cfg`` on ``device``; returns the final TrainState.
 
     ``batches(epoch)`` yields the epoch's raw host batches (numpy dicts in
@@ -91,7 +93,9 @@ def train_loop(cfg: Dict, output_dir: str, batches: Callable[[int], Iterable[Dic
     trainer's ``train_batches`` + ``make_raw_batch`` until the dataset reader
     is ported. The schedule's steps per epoch are ``max_steps_per_epoch`` when
     given, else ``len(batches(epoch))``. ``on_step(epoch, i, metrics)``, when
-    given, sees each step's metrics (device tensors).
+    given, sees each step's metrics (device tensors). ``val_dataset`` (a
+    ``data/coco.py::COCODataset``), when given, is validated after every
+    epoch into ``output_dir``; its AP is the epoch's ``perf``.
     """
     m = cfg["MODEL"]
     # initialised on the CPU from a CPU generator (the same weights on any
@@ -154,7 +158,11 @@ def train_loop(cfg: Dict, output_dir: str, batches: Callable[[int], Iterable[Dic
             _record(mt, loss_m, acc_m, epoch, i)
         pending.clear()
 
-        perf = -1.0  # validation waits for the validate slice
+        perf = -1.0
+        if val_dataset is not None:
+            name_value, perf = validate(cfg, val_dataset, model, output_dir, device=device)
+            logger.info("=> epoch %d validation: %s", epoch,
+                        ", ".join(f"{k} {v:.4f}" for k, v in name_value.items()))
         is_best = perf > best_perf
         best_perf = max(best_perf, perf)
         save_checkpoint(output_dir, epoch, state, perf, is_best, model_name=m["NAME"],

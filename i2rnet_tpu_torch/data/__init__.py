@@ -1,1 +1,3 @@
-"""Host data for the port: synthetic raw batches (the dataset reader is not ported yet)."""
+"""Host data for the port: the COCO reader and evaluation batches (``coco.py``,
+``dataset.py``), image decode and resize, and synthetic raw training batches
+(the training data path is not ported yet)."""

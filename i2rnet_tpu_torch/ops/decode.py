@@ -6,9 +6,16 @@ zero-padded separable Gaussian blur with cv2's ``getGaussianKernel(k, 0)``
 coefficients, rescaled to each map's pre-blur max; log after clamping at
 1e-10; one 2nd-order Taylor step at interior maxima with a nonsingular
 Hessian; then the inverse crop affine.
+
+The log is written ``log2(x) * ln(2)``: on the CPU ``torch.log`` goes to
+MKL's vector math, as ``torch.exp`` does, whose first multi-threaded call in
+a process can be off (``ops/cuda/mlp_dwbn.py``); ``torch.log2`` runs torch's
+own kernel. The two agree within f32 rounding.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -110,6 +117,7 @@ def get_final_preds(heatmaps, centers, scales, blur_kernel: int = 11,
         heatmap_size = (w, h)
     coords, maxvals = get_max_preds(heatmaps)
     if post_process:
-        hm = torch.log(torch.clamp(gaussian_blur(heatmaps, blur_kernel), min=1e-10))
+        blurred = torch.clamp(gaussian_blur(heatmaps, blur_kernel), min=1e-10)
+        hm = torch.log2(blurred) * math.log(2)
         coords = taylor_refine(hm, coords)
     return transform_preds_batch(coords, centers, scales, heatmap_size), maxvals

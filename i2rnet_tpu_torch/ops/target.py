@@ -6,9 +6,16 @@ Port of ``i2rnet_tpu/ops/target.py::generate_targets`` (reference
 3-sigma support (int-truncated bounds, as the reference) falls wholly outside
 the heatmap; its heatmap is ``exp(-((x - mu_x)^2 + (y - mu_y)^2) / (2 sigma^2))``
 over the full grid where the weight exceeds 0.5, else zeros.
+
+The exponential is written ``exp2(d2 * (-log2(e) / (2 sigma^2)))``: on the
+CPU ``torch.exp`` goes to MKL's vector math, whose first multi-threaded call
+in a process can return values 9e-5 off (``ops/cuda/mlp_dwbn.py``), and
+``torch.exp2`` runs torch's own kernel. The two agree within f32 rounding.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -27,6 +34,7 @@ def generate_targets(joints, joints_vis, heatmap_size, sigma: float):
     weight = torch.where(out_of_bounds, 0.0, vis)
     gx = torch.arange(w, dtype=torch.float32, device=joints.device) - mu_x[..., None]
     gy = torch.arange(h, dtype=torch.float32, device=joints.device) - mu_y[..., None]
-    g = torch.exp(-(gx[..., None, :] ** 2 + gy[..., :, None] ** 2) / (2.0 * sigma ** 2))
+    g = torch.exp2((gx[..., None, :] ** 2 + gy[..., :, None] ** 2)
+                   * (-math.log2(math.e) / (2.0 * sigma ** 2)))
     target = torch.where((weight > 0.5)[..., None, None], g, 0.0)
     return target, weight

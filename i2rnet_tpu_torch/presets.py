@@ -20,7 +20,17 @@ port's own: ``MODEL.HRFORMER_ARCH``, the HRFormer architecture (the JAX
 builder's ``arch=`` argument; HRFormer-B when absent). The JAX gates
 ``TPU.MIN_FUSED_TRAIN_TOKENS`` and ``TPU.FUSED_TRAIN_MAX_BLOCKS`` are not
 carried: they cap what the TPU compiler is given, and every block takes
-kernel 9 when its route is on.
+kernel 9 when its route is on. ``DEVICE`` also carries the data path's
+``MAX_IMAGE_HW`` (the static raw-image raster, ``[h, w]``) and
+``EVAL_PIPELINE`` (the batches ``validate`` keeps in flight), the JAX
+``TPU.MAX_IMAGE_HW`` and ``TPU.EVAL_PIPELINE``.
+
+``DATASET``, ``TEST`` and ``WORKERS`` hold what the evaluation slice reads
+(``data/dataset.py``, ``data/coco.py``, ``core/validate.py``), the training
+augmentation's keys among them. ``w48_pure_en6`` and ``hrt_interformer``
+take their recipes' values, data location included (``ROOT``,
+``TRAIN_SET``, ``TEST_SET``, ``COCO_BBOX_FILE``), which the JAX presets
+leave at the config defaults; the tiny configs take the JAX presets'.
 """
 
 from __future__ import annotations
@@ -53,11 +63,21 @@ _MODEL_KEYS = ("NAME", "NUM_JOINTS", "IMAGE_SIZE", "HEATMAP_SIZE", "TRANS_SIZE",
                "USE_MULTI_POS", "MULTI_POS_EMBEDDING", "SIGMA", "LOSS_WEIGHTS",
                "SINGLEFORMER", "SINGLEFORMER_FIX", "INTER_SUPERVISION", "ENCODER_MULTI_LAYERS",
                "UPSAMPLE_TYPE", "ATTENTION_TYPE", "DOMAIN_TRANS")
-_TEST_KEYS = ("FLIP_TEST", "BLUR_KERNEL", "POST_PROCESS")
+_TEST_KEYS = ("FLIP_TEST", "BLUR_KERNEL", "POST_PROCESS", "BATCH_SIZE_PER_GPU", "USE_GT_BBOX",
+              "COCO_BBOX_FILE", "IMAGE_THRE", "IN_VIS_THRE", "OKS_THRE", "SOFT_NMS",
+              "DETAIL_EVAL")
+_DATASET_KEYS = ("DATASET", "ROOT", "TRAIN_SET", "TEST_SET", "PATCH_MODE", "COLOR_RGB",
+                 "USE_COCOMINI", "MAX_PATCH", "SELECT_DATA", "SCALE_FACTOR", "ROT_FACTOR",
+                 "FLIP", "PROB_HALF_BODY", "NUM_JOINTS_HALF_BODY")
 _TRAIN_KEYS = ("BATCH_SIZE_PER_GPU", "BEGIN_EPOCH", "END_EPOCH", "LR", "LR_END", "OPTIMIZER",
                "MOMENTUM", "WD", "NESTEROV")
 _LOSS_KEYS = ("USE_OHKM", "TOPK", "USE_TARGET_WEIGHT", "USE_DIFFERENT_JOINTS_WEIGHT")
-_TOP_KEYS = ("SEED", "AUTO_RESUME", "PRINT_FREQ")
+_TOP_KEYS = ("SEED", "AUTO_RESUME", "PRINT_FREQ", "WORKERS")
+#: the recipes' data location (``experiments/coco/*.yaml``, ``DATASET`` and
+#: ``TEST.COCO_BBOX_FILE``)
+COCO_RECIPE_DATA = {"ROOT": "data/coco/", "TRAIN_SET": "train2017", "TEST_SET": "val2017"}
+COCO_RECIPE_BBOX_FILE = ("data/coco/person_detection_results/"
+                         "COCO_val2017_detections_AP_H_56_person.json")
 
 
 def _device(dtype: str, use_kernels: bool, fused_block_train: bool = False) -> Dict:
@@ -65,7 +85,26 @@ def _device(dtype: str, use_kernels: bool, fused_block_train: bool = False) -> D
             "FUSED_FFN_TRAIN": True, "FUSED_BLOCK_EVAL": True,
             "FUSED_BLOCK_EVAL_ONEPASS": False, "FUSED_MLP_EVAL": False,
             "FUSED_BLOCK_TRAIN": fused_block_train, "FROZEN_STAGE_EVAL_MODE": False,
-            "REMAT": False}
+            "REMAT": False, "MAX_IMAGE_HW": [640, 640], "EVAL_PIPELINE": 2}
+
+
+def _dataset(name: str, max_patch: int, **location) -> Dict:
+    """``DATASET``: the JAX presets' values (``i2rnet_tpu/presets.py::_base``
+    and the config defaults), the data location from ``location``."""
+    return {"DATASET": name, "ROOT": "", "TRAIN_SET": "train", "TEST_SET": "valid",
+            "PATCH_MODE": "random", "COLOR_RGB": True, "USE_COCOMINI": False,
+            "MAX_PATCH": max_patch, "SELECT_DATA": False, "SCALE_FACTOR": 0.35,
+            "ROT_FACTOR": 45, "FLIP": True, "PROB_HALF_BODY": 0.3, "NUM_JOINTS_HALF_BODY": 8,
+            **location}
+
+
+def _test(batch: int, bbox_file: str = "") -> Dict:
+    """``TEST``: the eval protocol of every recipe (flip test, DARK with blur 11,
+    GT boxes, OKS-NMS at 0.9 after rescoring at 0.2)."""
+    return {"FLIP_TEST": True, "BLUR_KERNEL": 11, "POST_PROCESS": True,
+            "BATCH_SIZE_PER_GPU": batch, "USE_GT_BBOX": True, "COCO_BBOX_FILE": bbox_file,
+            "IMAGE_THRE": 0.0, "IN_VIS_THRE": 0.2, "OKS_THRE": 0.9, "SOFT_NMS": False,
+            "DETAIL_EVAL": False}
 
 
 def _training(batch: int, end_epoch: int, lr: float, lr_end: float, wd: float) -> Dict:
@@ -76,7 +115,8 @@ def _training(batch: int, end_epoch: int, lr: float, lr_end: float, wd: float) -
                   "NESTEROV": False},
         "LOSS": {"USE_OHKM": False, "TOPK": 8, "USE_TARGET_WEIGHT": True,
                  "USE_DIFFERENT_JOINTS_WEIGHT": False},
-        "SEED": 0, "AUTO_RESUME": True, "PRINT_FREQ": 100,
+        "SEED": 0, "AUTO_RESUME": True, "PRINT_FREQ": 100, "WORKERS": 8,
+        "DEBUG": {"DEBUG": False},
     }
 
 
@@ -99,8 +139,8 @@ def w48_pure_en6() -> Dict:
             "LOSS_WEIGHTS": [0.5, 0.5],
             "EXTRA": copy.deepcopy(HRNET_W48S_EXTRA),
         },
-        "DATASET": {"DATASET": "coco", "MAX_PATCH": 7},
-        "TEST": {"FLIP_TEST": True, "BLUR_KERNEL": 11, "POST_PROCESS": True},
+        "DATASET": _dataset("coco", 7, **COCO_RECIPE_DATA),
+        "TEST": _test(64, COCO_RECIPE_BBOX_FILE),
         "DEVICE": _device("bfloat16", True),
         **_training(batch=8, end_epoch=240, lr=5e-4, lr_end=5e-5, wd=0.1),
     }
@@ -146,12 +186,13 @@ def hrt_interformer(image_size=(192, 256)) -> Dict:
 
     ``TRAIN`` is the recipe's: ``BATCH_SIZE_PER_GPU`` 12 and ``WD`` 0.1 at
     256x192 (``interformer_coco_hrt_192_p2_b12.yaml:172,191``), 4 and 0.1 at
-    384x288. The JAX preset keeps 4 and 1e-4."""
+    384x288. The JAX preset keeps 4 and 1e-4. ``TEST.BATCH_SIZE_PER_GPU`` is
+    the recipe's 64 too (the JAX preset: 32)."""
     w, h = image_size
     return {
         "MODEL": _hrt_model(17, (w, h), (w // 4, h // 4), (h // 16, w // 16), 78, 192, 1, 2),
-        "DATASET": {"DATASET": "coco", "MAX_PATCH": 2},
-        "TEST": {"FLIP_TEST": True, "BLUR_KERNEL": 11, "POST_PROCESS": True},
+        "DATASET": _dataset("coco", 2, **COCO_RECIPE_DATA),
+        "TEST": _test(64, COCO_RECIPE_BBOX_FILE),
         "DEVICE": _device("bfloat16", True, fused_block_train=True),
         **_training(batch=12 if tuple(image_size) == (192, 256) else 4, end_epoch=240,
                     lr=1e-4, lr_end=1e-5, wd=0.1),
@@ -178,8 +219,8 @@ def tiny_hrt_config(num_joints: int = 5) -> Dict:
     return {
         "MODEL": {**_hrt_model(num_joints, (48, 64), (12, 16), (4, 3), 16, 32, 2, 2),
                   "HRFORMER_ARCH": copy.deepcopy(TINY_HRFORMER_ARCH)},
-        "DATASET": {"DATASET": "synthetic", "MAX_PATCH": 7},
-        "TEST": {"FLIP_TEST": True, "BLUR_KERNEL": 11, "POST_PROCESS": True},
+        "DATASET": _dataset("synthetic", 7),
+        "TEST": _test(32),
         "DEVICE": _device("float32", False),
         **_training(batch=2, end_epoch=2, lr=1e-4, lr_end=1e-5, wd=1e-4),
     }
@@ -216,8 +257,8 @@ def tiny_test_config(num_joints: int = 5) -> Dict:
                            "FUSE_METHOD": "SUM"},
             },
         },
-        "DATASET": {"DATASET": "synthetic", "MAX_PATCH": 7},
-        "TEST": {"FLIP_TEST": True, "BLUR_KERNEL": 11, "POST_PROCESS": True},
+        "DATASET": _dataset("synthetic", 7),
+        "TEST": _test(32),
         "DEVICE": _device("float32", False),
         **_training(batch=2, end_epoch=2, lr=1e-4, lr_end=1e-5, wd=1e-4),
     }
@@ -238,7 +279,7 @@ def from_config(cfg) -> Dict:
     return {
         "MODEL": {**{k: _plain(getattr(cfg.MODEL, k)) for k in _MODEL_KEYS},
                   "EXTRA": _plain(cfg.MODEL.EXTRA)},
-        "DATASET": {"DATASET": cfg.DATASET.DATASET, "MAX_PATCH": cfg.DATASET.MAX_PATCH},
+        "DATASET": {k: _plain(getattr(cfg.DATASET, k)) for k in _DATASET_KEYS},
         "TEST": {k: _plain(getattr(cfg.TEST, k)) for k in _TEST_KEYS},
         "DEVICE": {"COMPUTE_DTYPE": cfg.TPU.COMPUTE_DTYPE,
                    "USE_KERNELS": bool(cfg.TPU.USE_PALLAS_ATTENTION),
@@ -250,8 +291,11 @@ def from_config(cfg) -> Dict:
                    "FUSED_MLP_EVAL": bool(cfg.TPU.get("FUSED_MLP_EVAL", False)),
                    "FUSED_BLOCK_TRAIN": bool(cfg.TPU.get("FUSED_BLOCK_TRAIN", False)),
                    "FROZEN_STAGE_EVAL_MODE": bool(cfg.TPU.get("FROZEN_STAGE_EVAL_MODE", False)),
-                   "REMAT": _plain(cfg.TPU.get("REMAT", False))},
+                   "REMAT": _plain(cfg.TPU.get("REMAT", False)),
+                   "MAX_IMAGE_HW": _plain(list(cfg.TPU.get("MAX_IMAGE_HW", (640, 640)))),
+                   "EVAL_PIPELINE": int(cfg.TPU.get("EVAL_PIPELINE", 2))},
         "TRAIN": {k: _plain(getattr(cfg.TRAIN, k)) for k in _TRAIN_KEYS},
         "LOSS": {k: _plain(getattr(cfg.LOSS, k)) for k in _LOSS_KEYS},
+        "DEBUG": {"DEBUG": bool(cfg.DEBUG.DEBUG)},
         **{k: _plain(getattr(cfg, k)) for k in _TOP_KEYS},
     }

@@ -130,14 +130,30 @@ def test_port_imports_without_jax_yaml_cv2():
             "i2rnet_tpu_torch.data.synthetic", "i2rnet_tpu_torch.models.hrformer",
             "i2rnet_tpu_torch.models.interformer", "i2rnet_tpu_torch.ops.cuda.hrformer_block",
             "i2rnet_tpu_torch.ops.cuda.mlp_dwbn",
-            "i2rnet_tpu_torch.ops.cuda.hrformer_block_train"} <= set(mods)
+            "i2rnet_tpu_torch.ops.cuda.hrformer_block_train", "i2rnet_tpu_torch.core.validate",
+            "i2rnet_tpu_torch.data.coco", "i2rnet_tpu_torch.data.dataset",
+            "i2rnet_tpu_torch.data.coco_format", "i2rnet_tpu_torch.data.jpeg",
+            "i2rnet_tpu_torch.data.resize", "i2rnet_tpu_torch.data.prefetch",
+            "i2rnet_tpu_torch.ops.cocoeval", "i2rnet_tpu_torch.ops.nms"} <= set(mods)
+
+
+def with_recipe_data(jax_cfg):
+    """A JAX preset with its recipe's data location: the JAX presets leave
+    ``ROOT``, ``TRAIN_SET``, ``TEST_SET`` and ``COCO_BBOX_FILE`` at the
+    config defaults, the port's take the recipe's (held against the YAML by
+    ``test_presets_take_their_recipes_data_and_test_keys``)."""
+    cfg = jax_cfg.clone()
+    for k, v in presets.COCO_RECIPE_DATA.items():
+        setattr(cfg.DATASET, k, v)
+    cfg.TEST.COCO_BBOX_FILE = presets.COCO_RECIPE_BBOX_FILE
+    return cfg
 
 
 def test_from_config_matches_presets():
     from i2rnet_tpu.presets import w48_pure_en6
 
     for jax_cfg, port_cfg in ((tiny_test_config(5), presets.tiny_test_config(5)),
-                              (w48_pure_en6(), presets.w48_pure_en6())):
+                              (with_recipe_data(w48_pure_en6()), presets.w48_pure_en6())):
         got = presets.from_config(jax_cfg)
         for sec in ("MODEL", "TEST", "DEVICE", "DATASET", "TRAIN", "LOSS"):
             for k, v in port_cfg[sec].items():
@@ -146,8 +162,24 @@ def test_from_config_matches_presets():
                         assert got[sec][k][ek] == ev, (sec, k, ek)
                 else:
                     assert got[sec][k] == v, (sec, k)
-        for k in ("SEED", "AUTO_RESUME", "PRINT_FREQ"):
+        for k in ("SEED", "AUTO_RESUME", "PRINT_FREQ", "WORKERS", "DEBUG"):
             assert got[k] == port_cfg[k], k
+
+
+@pytest.mark.parametrize("preset,recipe", [
+    (presets.w48_pure_en6, "interformer_coco_w48_pure_en6.yaml"),
+    (presets.hrt_interformer, "interformer_coco_hrt_192_p2_b12.yaml")])
+def test_presets_take_their_recipes_data_and_test_keys(preset, recipe):
+    """Every ``DATASET`` and ``TEST`` key of the port's preset, and
+    ``WORKERS``, as the recipe sets it."""
+    import yaml
+
+    want = yaml.safe_load((REPO / "experiments" / "coco" / recipe).read_text())
+    got = preset()
+    for sec in ("DATASET", "TEST"):
+        for k, v in got[sec].items():
+            assert want[sec][k] == v, (sec, k)
+    assert got["WORKERS"] == want["WORKERS"]
 
 
 def test_host_helpers_match():
@@ -217,17 +249,22 @@ def test_bridge_covers_the_full_width_hrt_model():
 
 
 def test_from_config_matches_the_hrt_preset():
-    """Equal key for key, but ``DEVICE.FUSED_BLOCK_TRAIN``: the port's preset
-    turns on the kernel route the JAX recipe leaves off (``presets.
-    hrt_interformer``), and ``from_config`` carries the JAX value."""
+    """Equal key for key (the data location as in the recipe), but
+    ``DEVICE.FUSED_BLOCK_TRAIN``: the port's preset turns on the kernel
+    route the JAX recipe leaves off (``presets.hrt_interformer``), and
+    ``from_config`` carries the JAX value; and ``TEST.BATCH_SIZE_PER_GPU``,
+    which the port's preset takes from the recipe."""
     from i2rnet_tpu.presets import hrt_interformer
 
-    got, want = presets.from_config(hrt_interformer()), presets.hrt_interformer()
+    got = presets.from_config(with_recipe_data(hrt_interformer()))
+    want = presets.hrt_interformer()
     for sec in ("MODEL", "TEST", "DEVICE", "DATASET"):
         for k, v in want[sec].items():
-            if (sec, k) != ("DEVICE", "FUSED_BLOCK_TRAIN"):
+            if (sec, k) not in (("DEVICE", "FUSED_BLOCK_TRAIN"), ("TEST", "BATCH_SIZE_PER_GPU")):
                 assert got[sec][k] == v, (sec, k)
     assert want["DEVICE"]["FUSED_BLOCK_TRAIN"] and not got["DEVICE"]["FUSED_BLOCK_TRAIN"]
+    # the recipe's eval batch; the JAX preset keeps 32
+    assert (want["TEST"]["BATCH_SIZE_PER_GPU"], got["TEST"]["BATCH_SIZE_PER_GPU"]) == (64, 32)
     jcfg = hrt_interformer()
     jcfg.TPU.FUSED_BLOCK_TRAIN = True
     assert presets.from_config(jcfg)["DEVICE"]["FUSED_BLOCK_TRAIN"] is True
