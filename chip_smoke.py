@@ -56,7 +56,8 @@ Phases, one line each (any failure exits non-zero):
 12-14. Kernels E (HRFormer window-attention half block), F (its MlpDWBN half
     block) and G (MlpDWBN alone) against their plain versions, f32 and bf16,
     at HRFormer-B's four branch maps of a 256x192 input (P = 32 persons),
-    384x288's branch 0 and an odd small map;
+    384x288's branch 0 and an odd small map; two f32 calls of G at branch 0
+    bit-equal;
 15. the HRFormer-B I²R-Net (``hrt_interformer``) at full width, seeded and
     calibrated as phase 5: one f32 forward at B=8, N=4 with ragged counts,
     kernels on (E, F, A, B) vs off; the same on Kernel G's route
@@ -64,8 +65,9 @@ Phases, one line each (any failure exits non-zero):
     ``Predictor`` in bf16 (buckets 2/4/7), E and F launched in that run;
 16. timing, for information: its eval protocol at B=8, N=4, bf16, kernels on
     and off, a ``torch.profiler`` breakdown of the kernels-on step (E's and
-    F's ms and calls per step among them), and E, F and G beside their plain
-    versions at each branch map, by CUDA events, E's and F's device time per
+    F's ms and calls per step among them); the same step on Kernel G's route
+    with G's ms and calls per step; and E, F and G beside their plain
+    versions at each branch map, by CUDA events, with their device time per
     call and launch plans beside;
 17. kernel 9 (the HRFormer window-attention half block for training)
     forward and backward (dx and the ten parameter gradients) against its
@@ -169,8 +171,9 @@ from i2rnet_tpu_torch.ops.cuda.hrformer_block_train import (attn_bwd_plan,
 from i2rnet_tpu_torch.ops.cuda.mhsa import masked_mhsa_fused, masked_mhsa_torch
 from i2rnet_tpu_torch.ops.cuda.mhsa_train import (attention_bits, masked_mhsa_train_fused,
                                                   masked_mhsa_train_torch)
-from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import (DTYPE_CODES, device_plan, mlp_dwbn_fused,
-                                                mlp_dwbn_torch, mlp_plan, pack_mlp, sm_count)
+from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import (DTYPE_CODES, device_plan, mlp32_plan,
+                                                mlp_dwbn_fused, mlp_dwbn_torch, mlp_plan,
+                                                pack_mlp, pack_mlp32, sm_count)
 from i2rnet_tpu_torch.ops.preprocess import device_preprocess
 from i2rnet_tpu_torch.serving import Predictor, make_eval_fn
 from i2rnet_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
@@ -218,9 +221,11 @@ HRT_SHAPES = [(32, 64, 48, 78, 2), (32, 32, 24, 156, 4), (32, 16, 12, 312, 8),
 #: sums straddle a bf16 boundary (one bf16 step, 2^-8 of the value)
 HRT_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 #: the H100 SXM's published dense peaks (data sheet) for the bound: bytes/s
-#: of HBM3 and operations/s by input type (f32 outside the tensor cores)
+#: of HBM3 and operations/s by input type (f32 outside the tensor cores);
+#: TF32 on the tensor cores, which does f32-accurate products in three passes
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32 = 495e12
 #: device time per call (``device_ms``): the wait, in clock cycles (about
 #: 20 ms at the H100's 1.98 GHz), that holds the card while the host queues
 #: the timed calls
@@ -286,6 +291,17 @@ def bound(n_bytes, n_ops, dtype):
     ``n_bytes`` and do ``n_ops`` operations on inputs of ``dtype``."""
     t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_OPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_f32_products(n_bytes, mm_ops, other_ops):
+    """``bound`` of f32 work whose ``mm_ops`` matrix-product operations the
+    card can do either on the CUDA cores or as three TF32 passes on the
+    tensor cores (Kernel G), the ``other_ops`` on the CUDA cores: the bytes
+    time against the lesser of the two operation times."""
+    f32 = (mm_ops + other_ops) / PEAK_OPS[torch.float32] * 1e3
+    tf32x3 = (3 * mm_ops / PEAK_TF32 + other_ops / PEAK_OPS[torch.float32]) * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    return (t_bytes, "bytes") if t_bytes >= min(f32, tf32x3) else (min(f32, tf32x3), "operations")
 
 
 def timing(plain_ms, ms, bound_, library_ms=None):
@@ -1167,6 +1183,10 @@ def phase_hrt_kernels(g):
                 if shape == HRT_SHAPES[0] and dt == PATH_DTYPE[name]:
                     errs[name] = err
                 line.append(f"{name} {err:.3g} ({rel:.2g})")
+                if (name, shape, dt) == ("mlp_dwbn", HRT_SHAPES[0], torch.float32):
+                    if not torch.equal(kernel(x, *args), got):
+                        raise AssertionError(f"mlp_dwbn {shape}: two f32 calls differ")
+                    line[-1] += ", two calls bit-equal"
             log(f"  (P, H, W, C, heads) = {shape} {str(dt)[6:]}: max|err| (of max|ref|) "
                 + ", ".join(line) + f"; bound {HRT_TOL[dt]:g} of max|ref|")
     return errs
@@ -1227,16 +1247,21 @@ def hrt_bound(name, shape, dtype):
     """Bound of Kernel E, F, G or 7 at one map: the map read and written once
     plus the weights as the kernel takes them; the products' multiply-adds
     (E over the 7-padded windows, q/k/v/out projections and attention; F and
-    G the two 1x1 convolutions and the depthwise 3x3; 7 E's and F's)."""
+    G the two 1x1 convolutions and the depthwise 3x3; 7 E's and F's). G
+    computes in f32 whatever x's dtype: its 1x1 products count at the lesser
+    of the f32 and three-pass TF32 times (``bound_f32_products``)."""
     p, h, w, c, heads = shape
     el = torch.empty((), dtype=dtype).element_size()
     hw, d = h * w, 4 * c
     tp = (h + (-h) % 7) * (w + (-w) % 7)
     attn = (p * (8.0 * tp * c * c + 4.0 * 49 * tp * c), 4 * c * c * el + (6 * c) * 4)
-    mlp = (p * (4.0 * hw * c * d + 18.0 * hw * d),
-           2 * c * d * (4 if name == "mlp_dwbn" else el) + (11 * d + 3 * c) * 4)
+    mm, dwk = p * 4.0 * hw * c * d, p * 18.0 * hw * d
+    mlp = (mm + dwk, 2 * c * d * (8 if name == "mlp_dwbn" else el) + (11 * d + 3 * c) * 4)
     parts = {"window_attn_block": [attn], "full_block": [attn, mlp]}.get(name, [mlp])
-    return bound(2 * p * hw * c * el + sum(wb for _, wb in parts), sum(o for o, _ in parts), dtype)
+    n_bytes = 2 * p * hw * c * el + sum(wb for _, wb in parts)
+    if name == "mlp_dwbn":  # G's weights: TF32 hi and lo fragments
+        return bound_f32_products(n_bytes, mm, dwk)
+    return bound(n_bytes, sum(o for o, _ in parts), dtype)
 
 
 def plan_text(plan):
@@ -1259,15 +1284,37 @@ def e_plan_text(x, heads):
     return attn_plan_text(attn_plan(*x.shape, heads, sm_count(x.device.index or 0)))
 
 
+def phase_g_route_timing(model, cfg, g, card):
+    """The eval protocol at B=8, N=4 in bf16 on Kernel G's route
+    (FUSED_MLP_EVAL: A, B and G; the attention halves on modules), kernels
+    on and off, and a profile of the kernels-on step with G's ms and calls
+    per step."""
+    step = eval_steps(model, cfg, lambda on: model.set_kernels(on, False, on), 8, 4, g)
+    log("  Kernel G's route:")
+    eval_timing(step, 8, 4, 3, card)
+    reset_launches()
+    wall, busy, launches, top = profile_steps(step(True), 2)
+    g_ms = sum(t for name, t, _ in top if "mlp32_kernel" in name or "mlp32_finish" in name)
+    calls = launch_counts()
+    log(f"  profile, G's route, kernels on: wall {wall:.2f} ms/step under the profiler, device "
+        f"busy {busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
+        f"launches/step; Kernel G {g_ms:.3f} ms/step in {calls['mlp_dwbn'] // 3} calls/step "
+        f"(E {calls['window_attn_block']}, F {calls['mlp_block']} calls in all); top kernels "
+        f"(ms/step, launches/step):")
+    for name, t, c in top[:12]:
+        log(f"    {t:8.3f} {c:6.0f}  {name[:110]}")
+    if calls["mlp_dwbn"] < 3 or calls["window_attn_block"] or calls["mlp_block"]:
+        raise AssertionError(f"G's route launched other kernels than G's: {calls}")
+
+
 def phase_hrt_kernel_timing(g, card):
     """E, F and G beside their plain versions at 256x192's branch maps, each
     in its path's dtype (E, F bf16; G f32), with the kernels' weights packed
-    once as the model keeps them, by CUDA events. E's and F's device time per
-    call (``device_ms``, their plain versions' too) and launch plans are
-    logged beside them. E falls below 100 us a call, where events over a
-    loop of calls time the host: the kernels line takes E's (and its plain
-    version's) device time, and the events for F (at 0.2-0.5 ms a call the
-    two agree) and G."""
+    once as the model keeps them, by CUDA events, with their device time per
+    call (``device_ms``, their plain versions' too) and launch plans beside.
+    E falls below 100 us a call, where events over a loop of calls time the
+    host: the kernels line takes E's and G's (and their plain versions')
+    device time, and the events for F (at 0.2-0.5 ms a call the two agree)."""
     times = {}
     for shape in HRT_SHAPES[:4]:
         calls = hrt_kernel_calls(shape, g)
@@ -1275,23 +1322,23 @@ def phase_hrt_kernel_timing(g, card):
         for name, (kernel, plain, args) in calls.items():
             dt = PATH_DTYPE[name]
             x = randn(*shape[:4], g=g, dtype=dt)
+            d, sms = 4 * shape[3], sm_count(x.device.index or 0)
             if name == "window_attn_block":
                 packed = pack_attn(*args[2:], shape[4], dt, x.device)
+                plan = e_plan_text(x, shape[4])
+            elif name == "mlp_block":
+                packed, plan = pack_mlp(*args[-6:], dt, x.device), plan_text(device_plan(x, d))
             else:
-                packed = pack_mlp(*args[-6:], dt if name == "mlp_block" else torch.float32,
-                                  x.device)
+                packed = pack_mlp32(*args, x.device)
+                plan = plan_text(mlp32_plan(*shape[:4], d, sms))
             fns = (lambda: plain(x, *args), lambda: kernel(x, *args, packed=packed))
             with torch.no_grad():
                 t = timing(*alternate(*fns, 10), hrt_bound(name, shape, dt))
-                dev = [device_ms(f, 10) for f in fns] if name != "mlp_dwbn" else None
+                dev = [device_ms(f, 10) for f in fns]
             text = (f"{name} {str(dt)[6:]} kernel {t['ms'] * 1e3:.1f} us, plain "
-                    f"{t['plain_ms'] * 1e3:.1f} us by events")
-            if dev:
-                text += (f" (device time per call: kernel {dev[1] * 1e3:.1f} us, plain "
-                         f"{dev[0] * 1e3:.1f} us); plan ")
-                text += (e_plan_text(x, shape[4]) if name == "window_attn_block"
-                         else plan_text(device_plan(x, 4 * shape[3])))
-            if name == "window_attn_block":
+                    f"{t['plain_ms'] * 1e3:.1f} us by events (device time per call: kernel "
+                    f"{dev[1] * 1e3:.1f} us, plain {dev[0] * 1e3:.1f} us); plan {plan}")
+            if name != "mlp_block":
                 t.update(ms=dev[1], plain_ms=dev[0])
             if shape == HRT_SHAPES[0]:
                 times[name] = t
@@ -1844,6 +1891,7 @@ def main() -> int:
     log(f"  profile, kernels off: wall {wall:.2f} ms/step under the profiler, device busy "
         f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
         f"launches/step")
+    phase_g_route_timing(model, cfg, g, card)
     times.update(phase_hrt_kernel_timing(g, card))
     del model, step
     torch.cuda.empty_cache()

@@ -143,8 +143,8 @@ __device__ __noinline__ void mlp_phase(const T* xa, const float* __restrict__ ln
                    reinterpret_cast<const uint2*>(w2), b2, out, part, p, h, w, c, dh, eps, th, tw,
                    slices, i % ntile, (i / ntile) % slices, i / (ntile * slices), smem_raw);
     else
-      mlp_item<T, T, true>(xa, ln2_g, ln2_b, w1, b1, dwt, bdw, w2, b2, out, h, w, c, dh, eps, th,
-                           tw, i % ntile, i / ntile, smem_raw);
+      mlp_item<T>(xa, ln2_g, ln2_b, w1, b1, dwt, bdw, w2, b2, out, h, w, c, dh, eps, th, tw,
+                  i % ntile, i / ntile, smem_raw);
   }
 }
 

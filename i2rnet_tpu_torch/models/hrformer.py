@@ -56,7 +56,7 @@ from i2rnet_tpu_torch.ops.cuda.hrformer_block import (full_block_fused, mlp_bloc
                                                       pack_attn, window_attn_block_fused,
                                                       window_partition, window_unpartition)
 from i2rnet_tpu_torch.ops.cuda.hrformer_block_train import window_attn_block_train_fused
-from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import fold_bn, mlp_dwbn_fused, pack_mlp
+from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import fold_bn, mlp_dwbn_fused, pack_mlp, pack_mlp32
 
 #: the HRFormer-B architecture (reference factory ``hrformer.py:2487-2533``,
 #: ``i2rnet_tpu/models/hrformer.py:44``)
@@ -263,8 +263,8 @@ class HRFormerBlock(nn.Module):
         """The weights a kernel route takes, made once per (kind, dtype,
         device) and kept until a parameter or BN statistic changes (its
         version or storage): ``"folded"`` the BN-folded MLP weights,
-        ``"attn"``/``"mlp"``/``"mlp32"`` the kernels' packed layouts (in x's
-        dtype; ``mlp32`` f32 for Kernel G)."""
+        ``"attn"``/``"mlp"`` the kernels' packed layouts in x's dtype,
+        ``"mlp32"`` Kernel G's TF32 fragments."""
         tensors = list(self.parameters()) + list(self.mlp.buffers())
         stamp = tuple((t.data_ptr(), t._version) for t in tensors)
         key = (kind, x.dtype, x.device)
@@ -279,9 +279,10 @@ class HRFormerBlock(nn.Module):
                 val = pack_attn(a.q_proj.weight, a.q_proj.bias, a.k_proj.weight, a.k_proj.bias,
                                 a.v_proj.weight, a.v_proj.bias, a.out_proj.weight,
                                 a.out_proj.bias, self.num_heads, x.dtype, x.device)
+            elif kind == "mlp32":
+                val = pack_mlp32(*self._kernel_weights("folded", x), x.device)
             else:
-                wdt = torch.float32 if kind == "mlp32" else x.dtype
-                val = pack_mlp(*self._kernel_weights("folded", x), wdt, x.device)
+                val = pack_mlp(*self._kernel_weights("folded", x), x.dtype, x.device)
         self._packed[key] = (stamp, val)
         return val
 

@@ -46,7 +46,7 @@ SIGNATURES = {
     "i2r_window_attn_train_fwd": (_P,) * 13 + (_I,) * 7 + (_F, _I, _P),
     "i2r_window_attn_train_bwd": (_P,) * 19 + (_I,) * 8 + (_F, _F, _I, _P),
     "i2r_mlp_block_fwd": (_P,) * 11 + (_I,) * 8 + (_F, _I, _P),
-    "i2r_mlp_dwbn_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "i2r_mlp_dwbn_fwd": (_P,) * 9 + (_I,) * 9 + (_P,),
     "i2r_full_block_fwd": (_P,) * 21 + (_I,) * 11 + (_F, _I, _P),
     "i2r_full_block_plan": (_I,) * 12 + (_P,),
 }

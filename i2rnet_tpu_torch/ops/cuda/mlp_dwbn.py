@@ -10,7 +10,9 @@ is its plain PyTorch version and follows the Pallas kernel's numerics
     out = T(gelu(h . W2^T + b2))              1x1 contract, D -> C
 
 with the Abramowitz-Stegun erf GELU (:func:`gelu_exact`) and one cast to the
-input dtype T at the end. Also here, shared with Kernel F and kernel 7:
+input dtype T at the end. The kernel runs both products on the tensor cores
+in three TF32 passes (:func:`tf32_rna`, :func:`pack_tf32x3`) under its launch
+plan (:func:`mlp32_plan`). Also here, shared with Kernel F and kernel 7:
 :func:`fold_bn`, the tanh-form GELU :func:`gelu_tanh_erf` (constants copied
 from the JAX module), the weight packing of the shared source and F's launch
 plan (:func:`mlp_plan`).
@@ -47,6 +49,8 @@ HIDDEN_CHUNK = 64  #: hidden channels per chunk (kHC)
 TILE = 8  #: output tile edge before it is evened out over the map (at most kMaxTw)
 TWO_PER_SM = 113 * 1024  #: shared memory that still fits two blocks per SM (kTwoPerSm)
 MAX_SMEM = 232448  #: shared memory of one block (kMaxSmem)
+#: row padding (floats) of G's f32 buffers (kPad32)
+PAD32 = 4
 #: the f32 sums of the hidden slices stay in the H100's 50 MB of L2
 PARTIAL_LIMIT = 32 << 20
 
@@ -118,6 +122,41 @@ def pad16(n: int) -> int:
     return -(-n // 16) * 16
 
 
+def pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def tf32_rna(x):
+    """``x`` rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: f32 values whose 13 low mantissa
+    bits are 0. Infinities and NaN pass; a value that rounds past the
+    largest finite one becomes infinite."""
+    x = x.float()
+    bits = (x.contiguous().view(torch.int32) + 0x1000) & -0x2000
+    return torch.where(torch.isfinite(x), bits.view(torch.float32), x)
+
+
+def pack_tf32x3(m, n_pad: int, k_pad: int):
+    """``m`` [N, K] as the B operand of ``mma.sync.m16n8k8`` in TF32 (K x N,
+    "col"), split into hi = tf32(m) and lo = tf32(m - hi), fragment by
+    fragment: ``[n_pad / 8, k_pad / 8, 32 lanes, 4]`` f32, where lane l of
+    n-tile j and k-step kk holds ``(hi[r, q], hi[r, q + 4], lo[r, q], lo[r,
+    q + 4])`` for r = 8j + l // 4, q = 8kk + l % 4 (registers b0, b1 of the
+    two passes), zero past ``m``. A warp loads one fragment as 32
+    consecutive 16-byte words."""
+    n, k = m.shape
+    padded = torch.zeros(n_pad, k_pad, dtype=torch.float32, device=m.device)
+    padded[:n, :k] = m
+    hi = tf32_rna(padded)
+    lo = tf32_rna(padded - hi)
+
+    def frag(a):  # [j, g, kk, half, t] -> [j, kk, g, t, half]
+        a = a.reshape(n_pad // 8, 8, k_pad // 8, 2, 4).permute(0, 2, 1, 4, 3)
+        return a.reshape(n_pad // 8, k_pad // 8, 32, 2)
+
+    return torch.cat([frag(hi), frag(lo)], -1).contiguous()
+
+
 def pack_fragments(m, n_pad: int, k_pad: int):
     """``m`` [..., N, K] bf16 as the B operand of ``mma.sync.m16n8k16`` (K x N,
     "col") fragment by fragment: ``[..., n_pad / 8, k_pad / 16, 32 lanes, 4]``,
@@ -146,15 +185,34 @@ def pack_mlp(w1, b1, dw, bdw, w2, b2, wdtype, device):
     else:
         w1p = w1.detach().to(device, wdtype).t().contiguous()
         w2p = w2.detach().to(device, wdtype).t().contiguous()
+    b1f, dwt, bdwf, b2f = _f32_vectors(b1, dw, bdw, b2, device)
+    return w1p, b1f, dwt, bdwf, w2p, b2f
+
+
+def _f32_vectors(b1, dw, bdw, b2, device):
+    """b1, the taps [3, 3, D], bdw and b2 in f32 on ``device``."""
     dwt = dw.detach().to(device, torch.float32).permute(1, 2, 0).contiguous()
     b1f, bdwf, b2f = (t.detach().to(device, torch.float32).contiguous() for t in (b1, bdw, b2))
+    return b1f, dwt, bdwf, b2f
+
+
+def pack_mlp32(w1, b1, dw, bdw, w2, b2, device):
+    """Kernel G's weight layout on ``device``, in :func:`pack_mlp`'s order:
+    W1 [D, C] and W2 [C, D] as TF32 hi/lo fragments (:func:`pack_tf32x3`; D
+    padded to a multiple of ``HIDDEN_CHUNK``, C to 8), the taps [3, 3, D] and
+    the biases in f32."""
+    d, c = w1.shape
+    dp = -(-d // HIDDEN_CHUNK) * HIDDEN_CHUNK
+    w1p = pack_tf32x3(w1.detach().to(device, torch.float32), dp, pad8(c))
+    w2p = pack_tf32x3(w2.detach().to(device, torch.float32), pad8(c), dp)
+    b1f, dwt, bdwf, b2f = _f32_vectors(b1, dw, bdw, b2, device)
     return w1p, b1f, dwt, bdwf, w2p, b2f
 
 
 @dataclass(frozen=True)
 class MlpPlan:
-    """Kernel F's launch over one ``[P, H, W, C]`` map with D hidden channels
-    (kernel 7's second phase takes the same): output tiles ``th`` x ``tw``,
+    """Kernel F's or G's launch over one ``[P, H, W, C]`` map with D hidden
+    channels (kernel 7's second phase takes F's): output tiles ``th`` x ``tw``,
     row-major; ``slices`` hidden slices, each summed by its own block; grid
     (tiles, slices, P); ``smem`` bytes of shared memory a block; ``partial_bytes``
     of f32 slice sums in device memory (0 with one slice)."""
@@ -208,6 +266,45 @@ def _mma_smem(c, h, w, th, tw, dh, slices):
                 + pad16(th * tw) * (per * HIDDEN_CHUNK + 8))
 
 
+def _mma32_smem(c, h, w, th, tw, dh, slices):
+    """``mlp_dwbn.cuh::mlp32_smem_bytes``: G's x of tile + halo (cut to the
+    map, channels padded to 8), the expanded chunk, the slice after the
+    depthwise conv; f32 rows padded by ``PAD32``."""
+    box, chunks = pad16(min(th + 2, h) * min(tw + 2, w)), -(-dh // HIDDEN_CHUNK)
+    per = -(-chunks // slices)  # chunks of the largest slice
+    return 4 * (box * (pad8(c) + PAD32) + box * (HIDDEN_CHUNK + PAD32)
+                + pad16(th * tw) * (per * HIDDEN_CHUNK + PAD32))
+
+
+#: (shared-memory limit, tile height, tile width) in the order the plans try
+#: them: F's, and G's, which keeps two blocks per SM with half-height tiles
+#: before it settles for one (on the H100, branch 1 of 256x192 at P=32:
+#: 837.5 us against 958.4 with 8x8 tiles at one block per SM,
+#: probes/mlp32_probe.py), and takes 4x4 tiles where its f32 box of 8x8
+#: fits no block (C = 624 on a 16x12 map)
+F_TILES = ((TWO_PER_SM, TILE, TILE), (MAX_SMEM, TILE, TILE))
+G_TILES = ((TWO_PER_SM, TILE, TILE), (TWO_PER_SM, TILE // 2, TILE), (MAX_SMEM, TILE, TILE),
+           (MAX_SMEM, TILE // 2, TILE // 2))
+
+
+def _plan(p, h, w, c, dh, sms, smem, tiles, what):
+    """The launch plan both bodies share (:func:`mlp_plan`) with the body's
+    shared memory ``smem(c, h, w, th, tw, dh, slices)`` and its ``tiles``."""
+    chunks = -(-dh // HIDDEN_CHUNK)
+    for limit, eh, ew in tiles:
+        th, tw = -(-h // -(-h // eh)), -(-w // -(-w // ew))  # eh x ew tiles, evened out
+        fits = [s for s in range(1, chunks + 1) if smem(c, h, w, th, tw, dh, s) <= limit]
+        if fits:
+            break
+    else:
+        raise ValueError(f"the {what} MlpDWBN kernel does not fit C={c} in {MAX_SMEM} B")
+    slices = fits[0]
+    while (-(-h // th) * -(-w // tw) * slices * p < 2 * sms and slices < chunks
+           and 4 * (slices + 1) * p * h * w * c <= PARTIAL_LIMIT):
+        slices += 1
+    return MlpPlan(p, h, w, c, dh, th, tw, slices, smem(c, h, w, th, tw, dh, slices))
+
+
 @functools.lru_cache(maxsize=None)
 def mlp_plan(p: int, h: int, w: int, c: int, dh: int, sms: int = 132) -> MlpPlan:
     """Kernel F's bf16 launch plan for ``p`` maps ``[h, w, c]`` with ``dh``
@@ -217,23 +314,21 @@ def mlp_plan(p: int, h: int, w: int, c: int, dh: int, sms: int = 132) -> MlpPlan
     where two never fit), then one more slice at a time while the grid holds
     fewer than two blocks per SM, up to one slice per chunk and
     ``PARTIAL_LIMIT`` bytes of slice sums. Raises ValueError where one block
-    does not fit (a width of about a thousand channels). The float32
-    instances keep the CUDA-core template, which picks its own tile
-    (``mlp_dwbn.cuh::mlp_tile``) and takes one slice.
+    does not fit (a width of about a thousand channels). The float32 instances keep the CUDA-core template, which
+    picks its own tile (``mlp_dwbn.cuh::mlp_tile``) and takes one slice.
     """
-    th, tw = -(-h // -(-h // TILE)), -(-w // -(-w // TILE))  # 8x8 tiles, evened out
-    chunks = -(-dh // HIDDEN_CHUNK)
-    for limit in (TWO_PER_SM, MAX_SMEM):
-        fits = [s for s in range(1, chunks + 1) if _mma_smem(c, h, w, th, tw, dh, s) <= limit]
-        if fits:
-            break
-    else:
-        raise ValueError(f"the bf16 MlpDWBN kernel does not fit C={c} in {MAX_SMEM} B")
-    slices = fits[0]
-    while (-(-h // th) * -(-w // tw) * slices * p < 2 * sms and slices < chunks
-           and 4 * (slices + 1) * p * h * w * c <= PARTIAL_LIMIT):
-        slices += 1
-    return MlpPlan(p, h, w, c, dh, th, tw, slices, _mma_smem(c, h, w, th, tw, dh, slices))
+    return _plan(p, h, w, c, dh, sms, _mma_smem, F_TILES, "bf16")
+
+
+@functools.lru_cache(maxsize=None)
+def mlp32_plan(p: int, h: int, w: int, c: int, dh: int, sms: int = 132) -> MlpPlan:
+    """Kernel G's launch plan, as :func:`mlp_plan` with G's f32 buffers
+    (:func:`_mma32_smem`) and ``G_TILES``, which tries 4x8 tiles at two
+    blocks per SM before 8x8 at one: at 256x192's four branch maps (P=32)
+    8x8 tiles with 3 slices, 4x8 with 2, 4x6 with 4 (all two blocks per
+    SM), then 8x6 with 8 slices at one block per SM. Raises ValueError where
+    one block does not fit (C past about 1100)."""
+    return _plan(p, h, w, c, dh, sms, _mma32_smem, G_TILES, "TF32")
 
 
 @functools.lru_cache(maxsize=None)
@@ -277,22 +372,30 @@ def mlp_dwbn_fused(x, w1, b1, dw, bdw, w2, b2, packed=None):
     """MlpDWBN (folded BNs) through Kernel G over ``x`` ``[P, H, W, C]``.
 
     CPU tensors take :func:`mlp_dwbn_torch`; CUDA tensors launch the kernel
-    or raise. ``packed``, when given, is :func:`pack_mlp` of the same weights
-    in f32 on x's device (a caller's cache).
+    (under :func:`mlp32_plan`) or raise. ``packed``, when given, is
+    :func:`pack_mlp32` of the same weights on x's device (a caller's cache).
     """
     if x.device.type == "cpu":
         return mlp_dwbn_torch(x, w1, b1, dw, bdw, w2, b2)
     check_cuda_mlp(x, w1, dw, w2, "mlp_dwbn_fused")
     if x.numel() == 0:
         return torch.empty_like(x)
-    if packed is None:
-        packed = pack_mlp(w1, b1, dw, bdw, w2, b2, torch.float32, x.device)
     p, h, w, c = x.shape
+    d = w1.shape[0]
+    if packed is None:
+        packed = pack_mlp32(w1, b1, dw, bdw, w2, b2, x.device)
+    n1, n2 = -(-d // HIDDEN_CHUNK) * HIDDEN_CHUNK // 8, pad8(c) // 8
+    if (tuple(packed[0].shape), tuple(packed[4].shape)) != ((n1, n2, 32, 4), (n2, n1, 32, 4)):
+        raise ValueError("mlp_dwbn_fused: packed weights are not pack_mlp32's layout for "
+                         f"C={c}, D={d}")
+    plan = mlp32_plan(p, h, w, c, d, sm_count(x.device.index or 0))
     xc = x.contiguous()
     out = torch.empty_like(xc)
+    part = torch.empty(plan.partial_bytes // 4, dtype=torch.float32, device=x.device)
     err = build.library().i2r_mlp_dwbn_fwd(
-        xc.data_ptr(), *(t.data_ptr() for t in packed), out.data_ptr(), p, h, w, c,
-        packed[1].shape[0], DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        xc.data_ptr(), *(t.data_ptr() for t in packed), out.data_ptr(), part.data_ptr(), p, h, w,
+        c, d, plan.th, plan.tw, plan.slices, DTYPE_CODES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "mlp_dwbn kernel")
     mlp_dwbn_fused.launches += 1
     return out
