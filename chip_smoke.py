@@ -110,7 +110,25 @@ Phases, one line each (any failure exits non-zero):
     with them off, the same result entries, keypoints within phase 6's bound;
     and, for information, the time split per batch (JPEG decode,
     ``make_raw_batch``, device time by CUDA events, ``evaluate``) and
-    persons/s including host IO.
+    persons/s including host IO; then ``validate`` with the seeded, calibrated
+    TPH I²R-Net (``tph_interformer``) likewise, A and B launched 20 times a
+    batch (6 intra + 4 inter layers, 2 forwards);
+24. Kernels A and B at the TransPose-H intra encoder's shapes against their
+    plain versions, f32 and bf16: A over [P, S, 96] with no key mask at P=64,
+    S=3072 (64x48 tokens), at a ragged S=3000, and at the recipe's test batch
+    P=448 held per 64-person chunk; B at R=64*3072 rows; then, bf16, each
+    shape's device time per call beside its plain version's, its bound, and
+    for A one SDPA call without a mask;
+25. the TPH I²R-Net at full width (``tph_interformer``, 256x192, seeded and
+    calibrated as phase 5): one f32 forward at B=2, N=4 with ragged counts,
+    kernels on vs off within phase 15's bound, A and B launched 10 times each
+    (6 intra + 4 inter layers) and nothing else; requests served through
+    ``Predictor`` in bf16 (buckets 2/4), A and B launched 20 times a serve
+    call (the flip test's second forward);
+26. timing, for information: the TPH eval protocol at B=16, N=4, bf16,
+    kernels on and off in turns, and a ``torch.profiler`` breakdown of the
+    kernels-on step with Kernels A's and B's ms and launches per step split
+    between the intra and the inter encoder.
 
 Every ``torch.profiler`` breakdown counts all device events but user
 annotations and step markers, and logs how many of them carry a ``#`` in
@@ -275,6 +293,23 @@ FIXTURE = Path(__file__).resolve().parent / "i2rnet_tpu_torch" / "data" / "fixtu
 #: the oracle's AP stats against the JAX validate's (``expected.json``), and its least AP
 ORACLE_TOL, ORACLE_MIN_AP = 1e-3, 0.95
 VAL_BATCH = 16
+#: persons per image of the TPH model's f32 check: B=2 images x N=4 slots
+TPH_COUNTS = [4, 2]
+#: Kernels A and B at the TPH intra encoder's shapes (phase 24): A over
+#: [P, S, 96] with no key mask at P = 64 persons (the eval protocol's B=16 x
+#: N=4) of S = 3072 tokens (64x48), at a ragged S = 3000, and at the recipe's
+#: test batch P = 448 (64 images x 7 persons), held against its plain version
+#: per chunk of TPH_CHUNK persons; B over R = 64 * 3072 rows of C = 96, F = 192
+TPH_ATTN = [(64, 3072), (64, 3000), (448, 3072)]
+TPH_CHUNK = 64
+#: deviation of the TPH checks' logits q.k/sqrt(C): a softmax peaked on a few
+#: of S keys, so outputs are of order |v| and every key tile moves some rows
+TPH_PEAK = 4.0
+#: keys per tile of Kernel A (``csrc/attn_mma.cuh::kTile``, ``mhsa.cu::kBlockK``)
+KEY_TILE = 64
+TPH_FFN = (64 * 3072, 96, 192)
+#: Kernels A's and B's launches in one TPH forward: 6 intra + 4 inter layers
+TPH_LAUNCHES = 10
 ZERO_GRADS = re.compile(r"(k_proj|mlp\.(fc1|dw3x3|fc2)|norm2|fuse_layers\.\d+\.\d+\.\d+\.1)\.bias$")
 
 
@@ -633,16 +668,12 @@ def requests(rng, n_images=12):
     return images, boxes
 
 
-def w48_kernels(model):
-    """Kernels A and B on or off in the W48 model."""
-    return lambda on: setattr(model.global_encoder, "use_kernels", on)
-
-
 def phase_serve(model, cfg, set_kernels, kernels=EVAL_KERNELS, batch_images=8,
-                n_buckets=(2, 4, 7), absent=()):
+                n_buckets=(2, 4, 7), absent=(), per_call=None):
     """Requests served in bf16 with the kernels on: each of ``kernels``
-    launched and none of ``absent`` in the counted run; the results against
-    the same requests served with the kernels off."""
+    launched (``per_call`` times a serve call, where given) and none of
+    ``absent`` in the counted run; the results against the same requests
+    served with the kernels off."""
     rng = np.random.RandomState(SEED)
     images, boxes = requests(rng)
     model.compute_dtype = torch.bfloat16
@@ -651,11 +682,19 @@ def phase_serve(model, cfg, set_kernels, kernels=EVAL_KERNELS, batch_images=8,
                      raw_hw=(480, 640))
     pred.predict(images[:2], boxes[:2])  # warm-up, outside the counted run
     torch.cuda.synchronize()
+    calls, serve = [], pred.serve
+
+    def counted(*args):
+        calls.append(1)
+        return serve(*args)
+
+    pred.serve = counted
     reset_launches()
     t0 = time.perf_counter()
     out = pred.predict(images, boxes)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    pred.serve = serve
     counts = {k: launch_counts()[k] for k in kernels}
     stray = {k: launch_counts()[k] for k in absent if launch_counts()[k]}
     for i, (kp, bxs) in enumerate(zip(out, boxes)):
@@ -663,6 +702,9 @@ def phase_serve(model, cfg, set_kernels, kernels=EVAL_KERNELS, batch_images=8,
             raise AssertionError(f"image {i}: result {kp.shape}, finite {np.isfinite(kp).all()}")
     if min(counts.values()) < 1:
         raise AssertionError(f"the served path launched a kernel no time: {counts}")
+    if per_call is not None and counts != dict.fromkeys(kernels, per_call * len(calls)):
+        raise AssertionError(f"the served path launched {counts} in {len(calls)} serve calls, "
+                             f"want {per_call} a call")
     if stray:
         raise AssertionError(f"the served path launched kernels of another route: {stray}")
     set_kernels(False)
@@ -674,7 +716,7 @@ def phase_serve(model, cfg, set_kernels, kernels=EVAL_KERNELS, batch_images=8,
     log(f"  {len(images)} images, {sum(map(len, boxes))} persons -> results "
         f"[n_i, {cfg['MODEL']['NUM_JOINTS']}, 3], "
         f"finite; host clock {dt * 1e3:.1f} ms (with host packing and copies); "
-        f"launches {counts}")
+        f"launches {counts} in {len(calls)} serve calls")
     log(f"  bf16 kernels vs bf16 plain on the same requests: max|dconf|/max|conf| "
         f"{conf_err:.3g}, |dxy| median {np.median(xy_err):.3g} px, "
         f"share within 1 px {np.mean(xy_err <= 1.0):.3f}")
@@ -845,7 +887,7 @@ def phase_train_on_off(raw):
     cfg = train_cfg("float32", True)
     model = seeded_model(cfg)
     model.global_encoder.dropout_rate = 0.0
-    (l_on, g_on, _), (l_off, g_off, _) = grads_on_off(model, cfg, raw, 2, w48_kernels(model))
+    (l_on, g_on, _), (l_off, g_off, _) = grads_on_off(model, cfg, raw, 2, model.set_kernels)
     loss_rel = abs(l_on["loss"] - l_off["loss"]) / abs(l_off["loss"])
     grad_rel = {n: ((g_on[n] - g_off[n]).abs().max() / g_off[n].abs().max().clamp_min(1e-30)).item()
                 for n in g_off}
@@ -872,9 +914,10 @@ def busy_ms(events):
     return (busy + cur_e - cur_s) / 1e3
 
 
-def profile_steps(fn, steps):
+def profile_steps(fn, steps, keep=None):
     """Device busy time, idle share, launches and the top kernels over
-    ``steps`` calls of ``fn``, from ``torch.profiler``."""
+    ``steps`` calls of ``fn``, from ``torch.profiler``; the device events
+    themselves appended to ``keep``, where given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -894,6 +937,8 @@ def profile_steps(fn, steps):
                    and not getattr(e, "is_user_annotation", False)
                    and not e.name.startswith("ProfilerStep#")]
         if kernels:
+            if keep is not None:
+                keep.extend(kernels)
             break
     else:
         log(f"  torch.profiler recorded no device activity in {PROFILE_TRIES} tries: the "
@@ -1096,7 +1141,7 @@ def phase_timing_mhsa(g, card, b=16, s=1344, c=96):
 
 def phase_timing(model, cfg, g, card):
     b, n = 16, 7
-    step = eval_steps(model, cfg, w48_kernels(model), b, n, g)
+    step = eval_steps(model, cfg, model.set_kernels, b, n, g)
     eval_timing(step, b, n, 3, card)
     reset_launches()
     wall, busy, launches, top = profile_steps(step(True), 2)
@@ -1742,22 +1787,25 @@ def phase_validate_oracle(cfg, ds):
                              f"results per image {per_image(results)}")
 
 
-def phase_validate_model(cfg, ds, g, card):
-    """``validate`` with the seeded, calibrated W48 model in bf16, kernels on
-    then off: A and B launched 12 times a batch (6 layers, 2 forwards) with
-    them on, never with them off; the same results within phase 6's bound."""
+def phase_validate_model(cfg, ds, g, card, name="validate"):
+    """``validate`` with the seeded, calibrated model of ``cfg`` in bf16,
+    kernels on then off: A and B launched once a layer of each encoder and
+    forward (W48: 12 times a batch, 6 layers and 2 forwards; TPH: 20, 6 + 4
+    layers) with them on, never with them off; the same results within phase
+    6's bound."""
     model = random_model(cfg, g)
     model.compute_dtype = torch.bfloat16
     n_batches = len(list(ds.eval_batches(VAL_BATCH)))
-    want = 2 * len(model.global_encoder.layers) * n_batches
+    switch = model.set_kernels
+    want = 2 * sum(len(encoder.layers) for encoder in model.encoders()) * n_batches
     runs = {}
-    model.global_encoder.use_kernels = True
-    validate_run(cfg, ds, model, "validate_warmup")  # first calls at these shapes
+    switch(True)
+    validate_run(cfg, ds, model, f"{name}_warmup")  # first calls at these shapes
     for on in (True, False):
-        model.global_encoder.use_kernels = on
+        switch(on)
         torch.cuda.synchronize()
         reset_launches()
-        runs[on] = validate_run(cfg, ds, model, f"validate_{'on' if on else 'off'}")
+        runs[on] = validate_run(cfg, ds, model, f"{name}_{'on' if on else 'off'}")
         torch.cuda.synchronize()
         counts = {k: launch_counts()[k] for k in EVAL_KERNELS}
         if counts != {k: want if on else 0 for k in EVAL_KERNELS}:
@@ -1817,6 +1865,191 @@ def phase_validate_split(model, cfg, ds, decode_ms, card):
         f"{', '.join(f'{t:.2f}' for t in dev_ms)}) [{card}]")
 
 
+def device_randn(*shape, seed, dtype):
+    """Normal values made on the card from ``seed`` (the larger inputs)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randn(*shape, generator=g, device=DEV).to(dtype)
+
+
+def chunked(fn, p):
+    """``fn(q, k, v)`` over persons in chunks of TPH_CHUNK (where the plain
+    version's [P, S, S] logits would not fit at once)."""
+    return lambda q, k, v: torch.cat([fn(q[i:i + TPH_CHUNK], k[i:i + TPH_CHUNK],
+                                         v[i:i + TPH_CHUNK]) for i in range(0, p, TPH_CHUNK)])
+
+
+def tail_tile_matters(q, k, v, ref, dt, what):
+    """Raises unless the plain version with the last tile of keys (KEY_TILE,
+    or the ragged rest of S) masked out differs from ``ref`` by more than
+    TOL: a kernel that dropped that tile would fail ``compare``."""
+    s = q.shape[1]
+    tail = s - (s - 1) // KEY_TILE * KEY_TILE
+    dropped = torch.zeros(q.shape[:2], dtype=torch.bool, device=q.device)
+    dropped[:, -tail:] = True
+    atol, rtol = TOL[dt]
+    miss = masked_mhsa_torch(q, k, v, 1, dropped).float()
+    caught = int(((miss - ref.float()).abs() > atol + rtol * ref.float().abs()).sum())
+    if caught == 0:
+        raise AssertionError(f"{what}: dropping the last {tail} keys stays within the bound, "
+                             "so the check could not see it")
+
+
+def phase_tph_kernels(card):
+    """Kernels A and B at the TPH intra encoder's shapes against their plain
+    versions, f32 and bf16 (A without a key mask, held per TPH_CHUNK persons);
+    then, in bf16, each shape's device time per call beside its plain
+    version's, its bound and, for A, one SDPA call (no mask). Returns
+    {shape label: timing}."""
+    c, f = 96, 192
+    times = {}
+    for p, s in TPH_ATTN:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (device_randn(p, s, c, seed=SEED + i, dtype=dt) for i in range(3))
+            q = q * TPH_PEAK  # logits of deviation TPH_PEAK: outputs of order |v|
+            got = masked_mhsa_fused(q, k, v, 1)
+            torch.cuda.synchronize()
+            err, ref_max = 0.0, 0.0
+            for i in range(0, p, TPH_CHUNK):
+                qi, ki, vi = q[i:i + TPH_CHUNK], k[i:i + TPH_CHUNK], v[i:i + TPH_CHUNK]
+                ref = masked_mhsa_torch(qi, ki, vi, 1)
+                what = f"masked_mhsa P={p} S={s} {dt} persons {i}.."
+                err = max(err, compare(got[i:i + TPH_CHUNK], ref, dt, what))
+                ref_max = max(ref_max, ref.abs().max().item())
+                if i == 0:
+                    tail_tile_matters(qi, ki, vi, ref, dt, what)
+                del ref
+            log(f"  masked_mhsa P={p} S={s} C={c} no mask {str(dt)[6:]}: max|err| {err:.3g}, "
+                f"max|ref| {ref_max:.3g}, bound atol {TOL[dt][0]:g} + rtol {TOL[dt][1]:g}*|ref|"
+                + (f" per {TPH_CHUNK}-person chunk" if p > TPH_CHUNK else "")
+                + "; the plain version without the last key tile breaks that bound; finite")
+            del q, k, v, got
+        torch.cuda.empty_cache()
+    rows = TPH_FFN[0]
+    p_ffn = ffn_params(c, f, gen(SEED))
+    for dt in (torch.float32, torch.bfloat16):
+        x = (2 * device_randn(rows, c, seed=SEED + 3, dtype=torch.float32) + 0.5).to(dt)
+        got = encoder_ffn_fused(x, *p_ffn)
+        torch.cuda.synchronize()
+        err = compare(got, encoder_ffn_torch(x, *p_ffn), dt, f"encoder_ffn rows={rows} {dt}")
+        log(f"  encoder_ffn rows={rows} C={c} F={f} {str(dt)[6:]}: max|err| {err:.3g} "
+            f"(atol/rtol {TOL[dt][0]:g}/{TOL[dt][1]:g}), finite")
+    bf = torch.bfloat16
+    for p, s in TPH_ATTN:
+        q, k, v = (device_randn(p, s, c, seed=SEED + 4 + i, dtype=bf) for i in range(3))
+        heads = [t.view(p, s, 1, c).transpose(1, 2) for t in (q, k, v)]
+        plain = chunked(lambda *a: masked_mhsa_torch(*a, 1), p)
+        with torch.no_grad():
+            t_plain, ms, lib = plain_kernel_sdpa(
+                f"masked_mhsa P={p} S={s} no mask", [
+                    lambda: plain(q, k, v), lambda: masked_mhsa_fused(q, k, v, 1),
+                    lambda: torch.nn.functional.scaled_dot_product_attention(*heads)],
+                10 if p <= TPH_CHUNK else 3, card)
+        no_mask = torch.zeros(p, s, dtype=torch.bool)
+        times[f"A P={p} S={s}"] = timing(t_plain, ms, bound(4 * nbytes(q),
+                                                            attention_ops(no_mask, c, 2), bf), lib)
+        del q, k, v, heads
+        torch.cuda.empty_cache()
+    x = device_randn(rows, c, seed=SEED + 7, dtype=bf)
+    with torch.no_grad():
+        t_plain, ms = plain_kernel_sdpa(f"encoder_ffn rows={rows}",
+                                        [lambda: encoder_ffn_torch(x, *p_ffn),
+                                         lambda: encoder_ffn_fused(x, *p_ffn)], 10, card)
+    times[f"B R={rows}"] = timing(t_plain, ms, bound(2 * nbytes(x) + (2 * c * f + 5 * c + f) * 4,
+                                                     4.0 * rows * c * f, bf))
+    for name, t in times.items():
+        lib = "" if t["library_ms"] is None else (f", SDPA {t['library_ms'] * 1e3:.1f} us "
+                                                  f"(kernel/SDPA {t['ms'] / t['library_ms']:.2f})")
+        log(f"  {name} C={c} bf16 (device time): kernel {t['ms'] * 1e3:.1f} us, plain "
+            f"{t['plain_ms'] * 1e3:.1f} us{lib}, bound {t['bound_ms'] * 1e3:.2f} us "
+            f"({t['bound_by']}) [{card}]")
+    return times
+
+
+def phase_tph_model(cfg, g):
+    """The full-width TPH I²R-Net in f32, B=2 x N=4 with ragged persons:
+    kernels on vs off, heatmaps multi and single within phase 15's bound, A and
+    B launched TPH_LAUNCHES times each in the forward and nothing else."""
+    model = random_model(cfg, g)
+    images, pos, valid = person_inputs(cfg, 2, 4, TPH_COUNTS, g)
+    with torch.no_grad():
+        model.set_kernels(False)
+        off = model(images, pos, valid)
+        reset_launches()
+        model.set_kernels(True)
+        on = model(images, pos, valid)
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    check_heatmaps(on, off, valid, "A + B", counts)
+    if counts != dict.fromkeys(EVAL_KERNELS, TPH_LAUNCHES):
+        raise AssertionError(f"the TPH forward launched {counts}, want {TPH_LAUNCHES} of each "
+                             f"of {EVAL_KERNELS}")
+    return model
+
+
+def encoder_order(model, fn):
+    """Which encoder made each Kernel A launch of ``fn()`` (one call), in
+    launch order: "intra" or "inter"."""
+    order, start, hooks = [], {}, []
+    for label, encoder in zip(("intra", "inter"), model.encoders()):
+        def pre(_m, _a, label=label):
+            start[label] = masked_mhsa_fused.launches
+
+        def post(_m, _a, _o, label=label):
+            order.extend([label] * (masked_mhsa_fused.launches - start[label]))
+
+        hooks += [encoder.register_forward_pre_hook(pre), encoder.register_forward_hook(post)]
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return order
+
+
+def phase_tph_timing(model, cfg, g, card):
+    """The TPH eval protocol at B=16 x N=4 in bf16, kernels on and off in
+    turns; a profile of the kernels-on step with Kernels A's and B's ms and
+    launches per step split between the intra and the inter encoder (each
+    launch labelled by the encoder that made it, in launch order; A and B
+    alternate one each a layer)."""
+    b, n = 16, 4
+    step = eval_steps(model, cfg, model.set_kernels, b, n, g)
+    eval_timing(step, b, n, 3, card)
+    order = encoder_order(model, step(True))
+    events, steps = [], 2
+    wall, busy, launches, top = profile_steps(step(True), steps, events)
+    log(f"  profile, kernels on: wall {wall:.2f} ms/step under the profiler, device busy "
+        f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
+        f"launches/step; top kernels (ms/step, launches/step):")
+    for name, t, c in top[:12]:
+        log(f"    {t:8.3f} {c:6.0f}  {name[:110]}")
+    if not events:
+        return
+    events.sort(key=lambda e: e.time_range.start)
+    for kernel, parts in (("Kernel A", ("mhsa_fwd",)), ("Kernel B", KERNEL_B)):
+        calls = [e for e in events if any(part in e.name for part in parts)]
+        if len(calls) != steps * len(order):
+            log(f"  {kernel}: {len(calls)} profiled launches for {steps} steps of {len(order)}: "
+                "the split below is not measured")
+            continue
+        split = {}
+        for e, label in zip(calls, order * steps):
+            ms, cnt = split.get(label, (0.0, 0))
+            split[label] = (ms + e.time_range.elapsed_us() / 1e3, cnt + 1)
+        log(f"  {kernel} per step: " + "; ".join(
+            f"{label} encoder {ms / steps:.3f} ms in {cnt / steps:.0f} launches"
+            for label, (ms, cnt) in split.items()) + f" [{card}]")
+
+
+def tph_fixture_cfg():
+    """The TPH recipe reading the fixture, B=16."""
+    cfg = presets.tph_interformer()
+    cfg["DATASET"]["ROOT"] = str(FIXTURE)
+    cfg["TEST"]["BATCH_SIZE_PER_GPU"] = VAL_BATCH
+    return cfg
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -1844,7 +2077,7 @@ def main() -> int:
     log("phase 5 W48-pure-en6 full width, f32, B=8 N=7, kernels on vs off:")
     phase_model(model, cfg, g)
     log("phase 6 serving through Predictor (bf16, batch 8, buckets 2/4/7):")
-    counts = phase_serve(model, cfg, w48_kernels(model))
+    counts = phase_serve(model, cfg, model.set_kernels)
     log(f"phase 7 timing [{card}]:")
     times = phase_timing(model, cfg, g, card)
     del model
@@ -1860,7 +2093,8 @@ def main() -> int:
     log("  one f32 step at dropout 0, kernels on vs off (2 images, 12 persons):")
     phase_train_on_off(raw)
     log(f"phase 11 training timing [{card}]:")
-    step_timing(train_cfg("bfloat16", True), raw, TRAIN_COUNTS, w48_kernels, card, KERNEL_D)
+    step_timing(train_cfg("bfloat16", True), raw, TRAIN_COUNTS, lambda m: m.set_kernels, card,
+                KERNEL_D)
     times.update(phase_train_kernel_timing(g, card))
 
     torch.cuda.empty_cache()
@@ -1942,6 +2176,27 @@ def main() -> int:
     phase_validate_oracle(cfg, ds)
     model = phase_validate_model(cfg, ds, g, card)
     phase_validate_split(model, cfg, ds, decode_ms, card)
+    del model
+    torch.cuda.empty_cache()
+    log("  the TPH I²R-Net (full width, B=16) on the same fixture:")
+    cfg = tph_fixture_cfg()
+    ds = COCODataset(cfg, str(FIXTURE), "val2017", is_train=False)
+    phase_validate_model(cfg, ds, g, card, "validate_tph")
+    torch.cuda.empty_cache()
+
+    log("phase 24 Kernels A and B at the TPH intra encoder's shapes vs plain:")
+    phase_tph_kernels(card)
+    torch.cuda.empty_cache()
+    cfg = presets.tph_interformer()
+    log("phase 25 TPH I²R-Net full width, f32, B=2 N=4, kernels on vs off:")
+    model = phase_tph_model(cfg, g)
+    log("  serving through Predictor (bf16, batch 8, buckets 2/4):")
+    phase_serve(model, cfg, model.set_kernels, batch_images=8, n_buckets=(2, 4),
+                per_call=2 * TPH_LAUNCHES)
+    log(f"phase 26 TPH timing [{card}]:")
+    phase_tph_timing(model, cfg, g, card)
+    del model
+    torch.cuda.empty_cache()
 
     counts.update(train_counts)
     counts.update({k: hrt_train_counts[k] for k in ("window_attn_block_train_fwd",

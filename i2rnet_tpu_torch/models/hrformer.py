@@ -403,6 +403,9 @@ class HRFormer(nn.Module):
     [P, 78, H/4, W/4], heatmaps [P, K, H/4, W/4] f32)``, the first-stage
     contract (reference ``hrformer.py:2470-2480``)."""
 
+    #: a training forward of the two-stage model is ported
+    training_unported = None
+
     def __init__(self, arch: Dict, num_joints: int = 17):
         super().__init__()
         self.backbone = HRFormerBackbone(arch)
@@ -417,6 +420,10 @@ class HRFormer(nn.Module):
             blk.use_kernels, blk.fused_block = use_kernels, fused_block
             blk.fused_mlp, blk.fused_train = fused_mlp, fused_train
             blk.fused_onepass = fused_onepass
+
+    def encoders(self):
+        """No transformer encoder: the blocks run their own kernels."""
+        return []
 
     def forward(self, x, dropout_seed: Optional[int] = None, drop_path_scales=None):
         """``x`` ``[P, 3, H, W]`` in the compute dtype. In training the blocks'

@@ -1,30 +1,45 @@
-"""Two-stage I²R-Net (``interformer``) with the HRFormer-B first stage.
+"""Two-stage I²R-Net (``interformer``, ``interformer_2stage``).
 
-Port of ``i2rnet_tpu/models/interformer.py:59-231`` for the released HRT
-recipe (``experiments/coco/interformer_coco_hrt_192_p2_b12.yaml``):
+Port of ``i2rnet_tpu/models/interformer.py:76-231`` for the released
+two-stage recipes: the HRFormer-B first stage
+(``experiments/coco/interformer_coco_hrt_192_p2_b12.yaml``) and the
+TransPose-H one (``interformer_coco_tph_192_p4_b4.yaml``):
 
-* the first stage (``singleformer``, :class:`~.hrformer.HRFormer`) runs per
+* the first stage (``singleformer``: :class:`~.hrformer.HRFormer` or
+  :class:`~.transpose_h.TransPoseH`, on ``MODEL.SINGLEFORMER``) runs per
   person on the flattened [B*N] axis -> (features, single heatmaps);
 * the features are max-pooled (3x3/s2) floor(log2(W/4 / TRANS_W)) times; the
   pooled map is the token grid (64x48 -> 16x12 at 256x192);
+* with ``USE_MULTI_POS`` the box-mask position embedding
+  (``multi_position_embedding``, modes ``conv``/``res``) on that grid;
 * the inter encoder (``multi_global_encoder``, Kernels A and B with
   ``DEVICE.USE_KERNELS``) over all persons' tokens of an image, key-padding
-  mask from ``person_valid``, no position embedding;
-* two separate deconv blocks back to the heatmap size
-  (``upsample_layer.deconv_layers.{i}``), the residual on the first-stage
-  features, the 1x1 ``final_layer``, padded persons zeroed;
+  mask from ``person_valid``, the position embedding added to q and k;
+* back to the heatmap size on ``UPSAMPLE_TYPE``: ``deconv`` (separate deconv
+  blocks, ``upsample_layer.deconv_layers.{i}``), ``multiplex`` (one block
+  applied each step, ``deconv_layers``) or ``upconv`` (:class:`UpConv`,
+  ``upsample_layer``);
+* the residual on the first-stage features (with ``DOMAIN_TRANS`` a 1x1 conv
+  on each operand, ``domain_trans_{1,2}``), the 1x1 ``final_layer``, padded
+  persons zeroed;
 * returns ``{"single", "multi"}`` heatmaps ``[B, N, K, H/4, W/4]`` (f32;
   ``single`` None unless inter-supervision is on and the first stage trains).
+
+Both model names build the same composition, as in the JAX package (its
+``interformer_2stage`` builder reduces to it for the released configs). The
+state-dict names are the main ``interformer``'s, so
+``convert_state_dict(model.state_dict(), name)`` takes them under either name.
 
 ``forward(..., train=True, dropout_seed=...)`` is the JAX ``train=True`` as
 :class:`~.pure_multi.PureMultiInterFormer` has it: training mode for the call,
 every BatchNorm (first stage, deconvs) over the valid persons, the first
 stage's DropPath and the encoder's dropout keyed by the seed. A frozen first
-stage (``SINGLEFORMER_FIX``, ``DEVICE.FROZEN_STAGE_EVAL_MODE``) and
-``DEVICE.REMAT`` are not ported: a training forward with them raises.
+stage (``SINGLEFORMER_FIX``, ``DEVICE.FROZEN_STAGE_EVAL_MODE``),
+``DEVICE.REMAT`` and training the TransPose-H model (ROADMAP queue 1, item 4's
+training half) are not ported: a training forward with them raises.
 
-:func:`build_model` builds either ported model from a port config, on the
-card unless asked otherwise.
+:func:`build_model` builds every ported model from a port config, on the card
+unless asked otherwise.
 """
 
 from __future__ import annotations
@@ -35,10 +50,19 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from i2rnet_tpu_torch.models.encoder import TransformerEncoder
+from i2rnet_tpu_torch.models.encoder import TransformerEncoder, flatten_person_tokens
 from i2rnet_tpu_torch.models.hrformer import HRFORMER_B_ARCH, HRFormer
-from i2rnet_tpu_torch.models.layers import Conv2d, DeconvBlock, max_pool_3x3_s2, training_call
+from i2rnet_tpu_torch.models.layers import (Conv2d, ConvBN, DeconvBlock, max_pool_3x3_s2,
+                                            training_call, upsample_nearest)
+from i2rnet_tpu_torch.models.position import PositionEmbeddingImage
 from i2rnet_tpu_torch.models.pure_multi import DTYPES, build_pure_multi, set_train_routes
+from i2rnet_tpu_torch.models.transpose_h import TransPoseH
+
+#: the model names this module builds, and the first stages it ports
+TWO_STAGE_NAMES = ("interformer", "interformer_2stage")
+FIRST_STAGES = ("hrformer", "transpose_h")
+#: MODEL.UPSAMPLE_TYPE values ported
+UPSAMPLE_TYPES = ("deconv", "multiplex", "upconv")
 
 
 class DeconvUpsample(nn.Module):
@@ -53,62 +77,109 @@ class DeconvUpsample(nn.Module):
         return self.deconv_layers(x)
 
 
-class InterFormer(nn.Module):
-    """``forward(images [B,N,H,W,3], pos_masks, person_valid [B,N], train=False,
-    dropout_seed=None) -> {"single", "multi"}`` (``pos_masks`` unused without a
-    multi-person position embedding). ``compute_dtype`` is
-    ``DEVICE.COMPUTE_DTYPE``; :meth:`set_kernels` switches every kernel route
-    at once."""
+class UpConv(nn.Module):
+    """1x1 ConvBN, nearest upsampling by ``scale``, two 3x3 ConvBN + ReLU
+    (the JAX ``UpConv``, reference ``interformer.py:25-64``)."""
 
-    def __init__(self, arch: Dict, extra: Dict, num_joints: int = 17, d_model: int = 78,
-                 dim_feedforward: int = 192, n_head: int = 1, encoder_layers: int = 2,
-                 trans_size=(16, 12), heatmap_size=(48, 64), inter_supervision: bool = True,
-                 singleformer_fix: bool = False, frozen_stage_eval: bool = False,
-                 remat=False, compute_dtype: torch.dtype = torch.float32):
+    def __init__(self, d_model: int, scale: int):
+        super().__init__()
+        self.scale = scale
+        self.fuse = ConvBN(d_model, d_model, 1, relu=False)
+        self.conv1 = ConvBN(d_model, d_model, 3)
+        self.conv2 = ConvBN(d_model, d_model, 3)
+
+    def forward(self, x):
+        return self.conv2(self.conv1(upsample_nearest(self.fuse(x), self.scale)))
+
+
+class InterFormer(nn.Module):
+    """``forward(images [B,N,H,W,3], pos_masks [B,N,H,W,1], person_valid [B,N],
+    train=False, dropout_seed=None) -> {"single", "multi"}`` (``pos_masks``
+    unused without ``use_multi_pos``). ``singleformer`` is the first stage,
+    :class:`~.hrformer.HRFormer` or :class:`~.transpose_h.TransPoseH`.
+    ``compute_dtype`` is ``DEVICE.COMPUTE_DTYPE``; :meth:`set_kernels` switches
+    every kernel route at once."""
+
+    def __init__(self, singleformer: nn.Module, extra: Dict, num_joints: int = 17,
+                 d_model: int = 78, dim_feedforward: int = 192, n_head: int = 1,
+                 encoder_layers: int = 2, trans_size=(16, 12), heatmap_size=(48, 64),
+                 use_multi_pos: bool = False, multi_pos_mode: str = "conv",
+                 upsample_type: str = "deconv", domain_trans: bool = False,
+                 inter_supervision: bool = True, singleformer_fix: bool = False,
+                 frozen_stage_eval: bool = False, remat=False,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.trans_size = tuple(trans_size)
         self.d_model = d_model
         self.compute_dtype = compute_dtype
+        self.upsample_type = upsample_type
         self.return_single = inter_supervision and not singleformer_fix
         # training options not ported: (config key, value) pairs that are set
         self.unported_training = [(k, v) for k, v in (
             ("MODEL.SINGLEFORMER_FIX", singleformer_fix),
             ("DEVICE.FROZEN_STAGE_EVAL_MODE", frozen_stage_eval),
             ("DEVICE.REMAT", remat)) if v not in (False, None, "none")]
-        self.singleformer = HRFormer(arch, num_joints)
+        if singleformer.training_unported:
+            self.unported_training.append(("MODEL.SINGLEFORMER", singleformer.training_unported))
+        self.singleformer = singleformer
+        # the token grid, as the JAX model reads it off the pooled map (3x3/s2
+        # pools with padding 1 take w to ceil(w / 2))
+        th, tw = heatmap_size[1], heatmap_size[0]
+        for _ in range(int(math.log2(heatmap_size[0] // self.trans_size[1]))):
+            th, tw = (th + 1) // 2, (tw + 1) // 2
+        if use_multi_pos:
+            self.multi_position_embedding = PositionEmbeddingImage((th, tw), d_model,
+                                                                   multi_pos_mode)
+        else:
+            self.multi_position_embedding = None
         self.multi_global_encoder = TransformerEncoder(encoder_layers, d_model, n_head,
                                                        dim_feedforward)
-        # the deconv steps from the pooled width, as the JAX model reads it off
-        # the pooled map (3x3/s2 pools with padding 1 take w to ceil(w / 2))
-        tw = heatmap_size[0]
-        for _ in range(int(math.log2(heatmap_size[0] // self.trans_size[1]))):
-            tw = (tw + 1) // 2
         steps = int(math.log2(heatmap_size[0] // tw))
         filters = extra["NUM_DECONV_FILTERS"][0]
-        self.upsample_layer = DeconvUpsample(d_model, filters, extra["NUM_DECONV_KERNELS"][0],
-                                             steps, extra.get("DECONV_WITH_BIAS", False))
+        kernel, bias = extra["NUM_DECONV_KERNELS"][0], extra.get("DECONV_WITH_BIAS", False)
+        self.up_steps = steps
+        if upsample_type == "deconv":
+            self.upsample_layer = DeconvUpsample(d_model, filters, kernel, steps, bias)
+        elif upsample_type == "multiplex":  # ONE block applied each step (shared weights)
+            self.deconv_layers = DeconvBlock(d_model, filters, kernel, bias)
+        else:
+            self.upsample_layer = UpConv(d_model, 2 ** steps)
+            filters = d_model
+        if domain_trans:
+            self.domain_trans_1 = Conv2d(d_model, d_model, 1)
+            self.domain_trans_2 = Conv2d(filters, d_model, 1)
+            filters = d_model
+        self.domain_trans = domain_trans
         k = extra.get("FINAL_CONV_KERNEL", 1)
         self.final_layer = Conv2d(filters, num_joints, k, 1, k // 2)
 
     def set_kernels(self, use_kernels: bool, fused_block: bool = True,
                     fused_mlp: bool = False, fused_train: bool = False,
                     fused_onepass: bool = False) -> None:
-        """``DEVICE.USE_KERNELS`` (all routes), ``FUSED_BLOCK_EVAL`` (Kernels
-        E + F), ``FUSED_MLP_EVAL`` (Kernel G, where E + F are off),
-        ``FUSED_BLOCK_TRAIN`` (kernel 9 in training) and
+        """``DEVICE.USE_KERNELS`` (all routes: the encoders' Kernels A and B,
+        C and D in training), and for the HRFormer first stage
+        ``FUSED_BLOCK_EVAL`` (Kernels E + F), ``FUSED_MLP_EVAL`` (Kernel G,
+        where E + F are off), ``FUSED_BLOCK_TRAIN`` (kernel 9 in training) and
         ``FUSED_BLOCK_EVAL_ONEPASS`` (kernel 7 in place of E + F)."""
         self.multi_global_encoder.use_kernels = use_kernels
         self.singleformer.set_routes(use_kernels, fused_block, fused_mlp, fused_train,
                                      fused_onepass)
+
+    def encoders(self):
+        """The transformer encoders whose layers run Kernels A and B: the
+        TransPose-H intra encoder (where that is the first stage), then the
+        inter encoder."""
+        return self.singleformer.encoders() + [self.multi_global_encoder]
 
     def forward(self, images, pos_masks, person_valid, train: bool = False,
                 dropout_seed: Optional[int] = None, drop_path_scales=None):
         if (train or self.training) and self.unported_training:
             raise NotImplementedError(f"training with {self.unported_training} is not ported")
         with training_call(self, train, person_valid):
-            return self._forward(images, person_valid, dropout_seed, drop_path_scales)
+            return self._forward(images, pos_masks, person_valid, dropout_seed,
+                                 drop_path_scales)
 
-    def _forward(self, images, person_valid, dropout_seed, drop_path_scales):
+    def _forward(self, images, pos_masks, person_valid, dropout_seed, drop_path_scales):
         b, n, h, w, _ = images.shape
         x = images.reshape(b * n, h, w, 3).permute(0, 3, 1, 2).to(self.compute_dtype)
         feat, single_heat = self.singleformer(x, dropout_seed, drop_path_scales)
@@ -118,9 +189,21 @@ class InterFormer(nn.Module):
         th, tw = feat.shape[2], feat.shape[3]
         tokens = feat.permute(0, 2, 3, 1).reshape(b, n * th * tw, self.d_model)
         key_pad = (~person_valid).repeat_interleave(th * tw, dim=1)
-        out = self.multi_global_encoder(tokens, key_pad, None, dropout_seed)
+        pos = None
+        if self.multi_position_embedding is not None:
+            pos = flatten_person_tokens(self.multi_position_embedding(
+                pos_masks.to(self.compute_dtype))).to(tokens.dtype)
+        out = self.multi_global_encoder(tokens, key_pad, pos, dropout_seed)
         out = out.reshape(b * n, th, tw, self.d_model).permute(0, 3, 1, 2)
-        out = single_res + self.upsample_layer(out)
+        if self.upsample_type == "multiplex":
+            for _ in range(self.up_steps):
+                out = self.deconv_layers(out)
+        else:
+            out = self.upsample_layer(out)
+        if self.domain_trans:
+            out = self.domain_trans_1(single_res) + self.domain_trans_2(out)
+        else:
+            out = single_res + out
         heat = self.final_layer(out)
         vmask = person_valid[:, :, None, None, None]
         heat = heat.reshape(b, n, *heat.shape[1:])
@@ -131,24 +214,43 @@ class InterFormer(nn.Module):
         return {"single": single, "multi": multi}
 
 
+def build_singleformer(cfg: Dict) -> nn.Module:
+    """The first stage of ``MODEL.SINGLEFORMER``: HRFormer (``HRFORMER_ARCH``,
+    HRFormer-B when absent) or TransPose-H."""
+    m = cfg["MODEL"]
+    name = m.get("SINGLEFORMER")
+    if name == "hrformer":
+        return HRFormer(m.get("HRFORMER_ARCH") or HRFORMER_B_ARCH, m["NUM_JOINTS"])
+    if name == "transpose_h":
+        # the recipes add the embedding in every layer; none sets these
+        for key, value in (("PE_ONLY_AT_BEGIN", True), ("POS_EMBEDDING", "none")):
+            if m.get(key) == value:
+                raise NotImplementedError(f"MODEL.{key}={value!r} is not ported "
+                                          "(ROADMAP queue 1)")
+        return TransPoseH(
+            m["EXTRA"], m["NUM_JOINTS"], m["DIM_MODEL"], m["DIM_FEEDFORWARD"], m["N_HEAD"],
+            m["ENCODER_LAYERS"], tuple(m["IMAGE_SIZE"]), m.get("POS_EMBEDDING", "sine"),
+            m.get("HRNET_RES_LAYER", 0), m["EXTRA"].get("FINAL_CONV_KERNEL", 1))
+    raise NotImplementedError(f"MODEL.SINGLEFORMER={name!r}: only {FIRST_STAGES} are ported")
+
+
 def build_interformer(cfg: Dict, use_kernels: Optional[bool] = None,
                       device="cuda") -> InterFormer:
-    """The HRFormer two-stage model from a port config, in eval mode, on
-    ``device``. ``use_kernels`` defaults to ``DEVICE.USE_KERNELS``."""
+    """The two-stage model from a port config, in eval mode, on ``device``.
+    ``use_kernels`` defaults to ``DEVICE.USE_KERNELS``."""
     m, dev = cfg["MODEL"], cfg["DEVICE"]
-    if m.get("SINGLEFORMER") != "hrformer":
-        raise NotImplementedError(f"MODEL.SINGLEFORMER={m.get('SINGLEFORMER')!r}: only "
-                                  "'hrformer' is ported")
-    for key, ported in (("UPSAMPLE_TYPE", "deconv"), ("ATTENTION_TYPE", "default"),
-                        ("DOMAIN_TRANS", False), ("USE_MULTI_POS", False)):
-        if m.get(key, ported) != ported:
-            raise NotImplementedError(f"MODEL.{key}={m[key]!r} is not ported")
+    if m.get("ATTENTION_TYPE", "default") != "default":
+        raise NotImplementedError(f"MODEL.ATTENTION_TYPE={m['ATTENTION_TYPE']!r} is not ported")
+    upsample = m.get("UPSAMPLE_TYPE", "deconv")
+    if upsample not in UPSAMPLE_TYPES:
+        raise ValueError(f"MODEL.UPSAMPLE_TYPE={upsample!r}: expected one of {UPSAMPLE_TYPES}")
     model = InterFormer(
-        arch=m.get("HRFORMER_ARCH") or HRFORMER_B_ARCH, extra=m["EXTRA"],
-        num_joints=m["NUM_JOINTS"], d_model=m["DIM_MODEL"],
-        dim_feedforward=m["DIM_FEEDFORWARD"], n_head=m["N_HEAD"],
+        build_singleformer(cfg), extra=m["EXTRA"], num_joints=m["NUM_JOINTS"],
+        d_model=m["DIM_MODEL"], dim_feedforward=m["DIM_FEEDFORWARD"], n_head=m["N_HEAD"],
         encoder_layers=m["ENCODER_MULTI_LAYERS"], trans_size=tuple(m["TRANS_SIZE"]),
-        heatmap_size=tuple(m["HEATMAP_SIZE"]), inter_supervision=m["INTER_SUPERVISION"],
+        heatmap_size=tuple(m["HEATMAP_SIZE"]), use_multi_pos=m.get("USE_MULTI_POS", False),
+        multi_pos_mode=m.get("MULTI_POS_EMBEDDING", "conv"), upsample_type=upsample,
+        domain_trans=m.get("DOMAIN_TRANS", False), inter_supervision=m["INTER_SUPERVISION"],
         singleformer_fix=m["SINGLEFORMER_FIX"],
         frozen_stage_eval=dev.get("FROZEN_STAGE_EVAL_MODE", False),
         remat=dev.get("REMAT", False), compute_dtype=DTYPES[dev["COMPUTE_DTYPE"]])
@@ -156,16 +258,18 @@ def build_interformer(cfg: Dict, use_kernels: Optional[bool] = None,
                       dev.get("FUSED_BLOCK_EVAL", True), dev.get("FUSED_MLP_EVAL", False),
                       dev.get("FUSED_BLOCK_TRAIN", False),
                       dev.get("FUSED_BLOCK_EVAL_ONEPASS", False))
-    set_train_routes(model.multi_global_encoder, dev)
+    for encoder in model.encoders():
+        set_train_routes(encoder, dev)
     return model.to(device).eval()
 
 
 def build_model(cfg: Dict, use_kernels: Optional[bool] = None, device="cuda"):
-    """The ported model of ``MODEL.NAME`` (``interformer_pureMulti`` or
-    ``interformer``) on ``device`` (the card unless asked), in eval mode."""
+    """The ported model of ``MODEL.NAME`` (``interformer_pureMulti``,
+    ``interformer`` or ``interformer_2stage``) on ``device`` (the card unless
+    asked), in eval mode."""
     name = cfg["MODEL"]["NAME"]
     if name == "interformer_pureMulti":
         return build_pure_multi(cfg, use_kernels, device)
-    if name == "interformer":
+    if name in TWO_STAGE_NAMES:
         return build_interformer(cfg, use_kernels, device)
     raise ValueError(f"model {name!r} is not ported")

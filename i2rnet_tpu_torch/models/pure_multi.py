@@ -67,6 +67,14 @@ class PureMultiInterFormer(HRNetTrunk):
         self.final_layer = Conv2d(filters, num_joints, final_conv_kernel, 1,
                                   final_conv_kernel // 2)
 
+    def set_kernels(self, use_kernels: bool) -> None:
+        """``DEVICE.USE_KERNELS``: Kernels A and B (C and D in training)."""
+        self.global_encoder.use_kernels = use_kernels
+
+    def encoders(self):
+        """The transformer encoders whose layers run Kernels A and B."""
+        return [self.global_encoder]
+
     def forward(self, images, pos_masks, person_valid, train: bool = False,
                 dropout_seed: Optional[int] = None):
         if (train or self.training) and self.unported_training:

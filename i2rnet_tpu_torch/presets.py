@@ -1,8 +1,9 @@
 """Model configurations as plain dicts (no YAML, no config package).
 
-Mirrors ``i2rnet_tpu/presets.py:70,141,190`` and the recipes
-``experiments/coco/interformer_coco_w48_pure_en6.yaml`` and
-``interformer_coco_hrt_192_p2_b12.yaml``, keeping only the keys the ported
+Mirrors ``i2rnet_tpu/presets.py:70,104,141,190`` and the recipes
+``experiments/coco/interformer_coco_w48_pure_en6.yaml``,
+``interformer_coco_hrt_192_p2_b12.yaml`` and
+``interformer_coco_tph_192_p4_b4.yaml``, keeping only the keys the ported
 paths read, under the JAX config's section and key names. The one renamed
 section is ``DEVICE``: ``COMPUTE_DTYPE``, ``USE_KERNELS`` (the JAX
 ``TPU.COMPUTE_DTYPE`` and ``TPU.USE_PALLAS_ATTENTION``, the master switch of
@@ -27,8 +28,8 @@ kernel 9 when its route is on. ``DEVICE`` also carries the data path's
 
 ``DATASET``, ``TEST`` and ``WORKERS`` hold what the evaluation slice reads
 (``data/dataset.py``, ``data/coco.py``, ``core/validate.py``), the training
-augmentation's keys among them. ``w48_pure_en6`` and ``hrt_interformer``
-take their recipes' values, data location included (``ROOT``,
+augmentation's keys among them. ``w48_pure_en6``, ``hrt_interformer`` and
+``tph_interformer`` take their recipes' values, data location included (``ROOT``,
 ``TRAIN_SET``, ``TEST_SET``, ``COCO_BBOX_FILE``), which the JAX presets
 leave at the config defaults; the tiny configs take the JAX presets'.
 """
@@ -62,7 +63,8 @@ _MODEL_KEYS = ("NAME", "NUM_JOINTS", "IMAGE_SIZE", "HEATMAP_SIZE", "TRANS_SIZE",
                "DIM_MODEL", "DIM_FEEDFORWARD", "N_HEAD", "ENCODER_LAYERS",
                "USE_MULTI_POS", "MULTI_POS_EMBEDDING", "SIGMA", "LOSS_WEIGHTS",
                "SINGLEFORMER", "SINGLEFORMER_FIX", "INTER_SUPERVISION", "ENCODER_MULTI_LAYERS",
-               "UPSAMPLE_TYPE", "ATTENTION_TYPE", "DOMAIN_TRANS")
+               "UPSAMPLE_TYPE", "ATTENTION_TYPE", "DOMAIN_TRANS", "POS_EMBEDDING",
+               "PE_ONLY_AT_BEGIN", "HRNET_RES_LAYER", "MULTI_POS_EMBEDDING_DIM")
 _TEST_KEYS = ("FLIP_TEST", "BLUR_KERNEL", "POST_PROCESS", "BATCH_SIZE_PER_GPU", "USE_GT_BBOX",
               "COCO_BBOX_FILE", "IMAGE_THRE", "IN_VIS_THRE", "OKS_THRE", "SOFT_NMS",
               "DETAIL_EVAL")
@@ -199,6 +201,42 @@ def hrt_interformer(image_size=(192, 256)) -> Dict:
     }
 
 
+def _tph_model(num_joints, image_size, heatmap_size, trans_size, d_model, dim_ff, n_head,
+               layers, multi_layers, extra) -> Dict:
+    return {
+        "NAME": "interformer_2stage", "SINGLEFORMER": "transpose_h", "SINGLEFORMER_FIX": False,
+        "INTER_SUPERVISION": True, "NUM_JOINTS": num_joints, "IMAGE_SIZE": list(image_size),
+        "HEATMAP_SIZE": list(heatmap_size), "TRANS_SIZE": list(trans_size),
+        "DIM_MODEL": d_model, "DIM_FEEDFORWARD": dim_ff, "N_HEAD": n_head,
+        "ENCODER_LAYERS": layers, "ENCODER_MULTI_LAYERS": multi_layers,
+        "POS_EMBEDDING": "sine", "PE_ONLY_AT_BEGIN": False, "HRNET_RES_LAYER": 0,
+        "USE_MULTI_POS": True, "MULTI_POS_EMBEDDING": "conv", "MULTI_POS_EMBEDDING_DIM": d_model,
+        "UPSAMPLE_TYPE": "multiplex", "ATTENTION_TYPE": "default", "DOMAIN_TRANS": False,
+        "SIGMA": 2, "LOSS_WEIGHTS": [0.5, 0.5], "EXTRA": extra,
+    }
+
+
+def tph_interformer() -> Dict:
+    """I²R-Net with the TransPose-H first stage on COCO, 256x192
+    (``experiments/coco/interformer_coco_tph_192_p4_b4.yaml``): the HRNet-W48-S
+    trunk (stages 2-3), its 64x48 branch 0 reduced to DIM_MODEL 96 and a
+    6-layer intra encoder over the 3072 tokens of each person with a sine
+    position embedding in every layer; then a 4-layer inter encoder
+    (``ENCODER_MULTI_LAYERS`` 4, the YAML's value, which the JAX builder
+    reads; the JAX preset keeps 2) over the 16x12-pooled tokens of up to
+    MAX_PATCH 4 persons with the box-mask ``conv`` position embedding, and one
+    deconv block applied twice (``multiplex``). ``TEST.BATCH_SIZE_PER_GPU`` 64
+    and ``TRAIN.BATCH_SIZE_PER_GPU`` 4, as the recipe."""
+    return {
+        "MODEL": _tph_model(17, (192, 256), (48, 64), (16, 12), 96, 192, 1, 6, 4,
+                            copy.deepcopy(HRNET_W48S_EXTRA)),
+        "DATASET": _dataset("coco", 4, **COCO_RECIPE_DATA),
+        "TEST": _test(64, COCO_RECIPE_BBOX_FILE),
+        "DEVICE": _device("bfloat16", True),
+        **_training(batch=4, end_epoch=240, lr=1e-4, lr_end=1e-5, wd=0.1),
+    }
+
+
 #: a small HRFormer for CPU tests (``tests/test_hrformer.py:21`` of the JAX package)
 TINY_HRFORMER_ARCH = {
     "drop_path_rate": 0.1,
@@ -219,6 +257,24 @@ def tiny_hrt_config(num_joints: int = 5) -> Dict:
     return {
         "MODEL": {**_hrt_model(num_joints, (48, 64), (12, 16), (4, 3), 16, 32, 2, 2),
                   "HRFORMER_ARCH": copy.deepcopy(TINY_HRFORMER_ARCH)},
+        "DATASET": _dataset("synthetic", 7),
+        "TEST": _test(32),
+        "DEVICE": _device("float32", False),
+        **_training(batch=2, end_epoch=2, lr=1e-4, lr_end=1e-5, wd=1e-4),
+    }
+
+
+def tiny_tph_config(num_joints: int = 5) -> Dict:
+    """Small TransPose-H two-stage config for CPU tests, as the JAX tests'
+    ``tests/test_interformer.py::tiny_interformer_cfg`` (64x48 input, d_model
+    16, two heads, one intra and one inter layer, the tiny HRNet trunk) in
+    the recipe's composition (multiplex upsampling, the ``conv`` box-mask
+    position embedding of dim 8)."""
+    extra = copy.deepcopy(tiny_test_config()["MODEL"]["EXTRA"])
+    model = _tph_model(num_joints, (48, 64), (12, 16), (4, 3), 16, 32, 2, 1, 1, extra)
+    model["MULTI_POS_EMBEDDING_DIM"] = 8
+    return {
+        "MODEL": model,
         "DATASET": _dataset("synthetic", 7),
         "TEST": _test(32),
         "DEVICE": _device("float32", False),

@@ -52,7 +52,7 @@ def main() -> None:
     cs.phase_validate_oracle(cfg, ds)
     model = cs.phase_validate_model(cfg, ds, g, card)
     cs.phase_validate_split(model, cfg, ds, decode_ms, card)
-    step = cs.eval_steps(model, cfg, cs.w48_kernels(model), 16, 7, g)
+    step = cs.eval_steps(model, cfg, model.set_kernels, 16, 7, g)
     wall, busy, launches, top = cs.profile_steps(step(True), 2)
     cs.log(f"W48 eval step B=16 N=7 bf16: wall {wall:.2f} ms under the profiler, busy "
            f"{busy:.2f} ms, {launches:.0f} launches a step [{card}]")

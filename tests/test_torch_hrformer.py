@@ -299,7 +299,11 @@ def test_build_model_dispatches_on_the_name():
     assert isinstance(model, InterFormer) and not model.training
     assert len(model.singleformer.blocks()) == 9
     for key, value in (("UPSAMPLE_TYPE", "upconv"), ("UPSAMPLE_TYPE", "multiplex"),
-                       ("DOMAIN_TRANS", True), ("ATTENTION_TYPE", "window")):
+                       ("DOMAIN_TRANS", True), ("USE_MULTI_POS", True)):
+        cfg = presets.tiny_hrt_config(5)
+        cfg["MODEL"][key] = value
+        assert isinstance(build_model(cfg, device="cpu").singleformer, HRFormer)
+    for key, value in (("ATTENTION_TYPE", "window"), ("SINGLEFORMER", "hrnet")):
         cfg = presets.tiny_hrt_config(5)
         cfg["MODEL"][key] = value
         with pytest.raises(NotImplementedError, match=key):
