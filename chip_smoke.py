@@ -128,6 +128,29 @@ Phases, one line each (any failure exits non-zero):
 26. timing, for information: the TPH eval protocol at B=16, N=4, bf16,
     kernels on and off in turns, and a ``torch.profiler`` breakdown of the
     kernels-on step with Kernels A's and B's ms and launches per step split
+    between the intra and the inter encoder;
+27. Kernels C and D at the TPH training shapes against their plain
+    versions, f32 and bf16, bits and seed mode, forward and backward: C over
+    [P, 3072, 96] with no key mask at P=16 (the COCO recipe's 4 x 4) and
+    P=24 (the CrowdPose and OCHuman recipes' 4 x 6 and 8 x 3), q scaled so
+    outputs are of order 1, held per 8-person chunk, and at the inter shape
+    [4, 768, 96] with a ragged person mask; the plain version without its
+    last key tile breaks the bound at each; the seed-mode keep fraction over
+    a whole [16, 3072, 3072] draw; D at R = 16 * 3072 and 24 * 3072 rows;
+    then, bf16 seed mode, C at P=16 and D at R=49152 as device time per call
+    beside their plain versions, their bounds and, for C, SDPA with dropout
+    0.1, forward and backward;
+28. the TPH I²R-Net's training path: ``train_loop`` on ``tph_interformer``
+    at full width and depth, seeded as the JAX package initialises it,
+    bf16, B=4 images x N=4 slots with ragged counts, 8 steps on one repeated
+    synthetic raw batch: losses finite and falling, Kernels C and D launched
+    by both encoders (each launch labelled by the encoder that made it, its
+    forward by module hooks, its backward by tensor hooks), the checkpoint
+    resumed; then one f32 step at dropout 0 with the kernels on vs off, each
+    route twice, every gradient within TPH_GRAD_BOUND;
+29. timing, for information: the TPH train step kernels on and off, its
+    peak memory and a ``torch.profiler`` breakdown of the kernels-on step,
+    with C's and D's forward and backward ms and launches per step split
     between the intra and the inter encoder.
 
 Every ``torch.profiler`` breakdown counts all device events but user
@@ -140,7 +163,8 @@ against the plain version, its time, the plain version's, the bound the card
 sets for the same work and, where one PyTorch call computes the same
 function, that call's time; device time per call for Kernels A-E and
 kernel 9, their plain versions and the SDPA calls, CUDA events for the
-rest), and last ``{"ok": true, "device": {...}}``.
+rest; for C and D also ``tph``: the same fields at phase 27's P=16 shape and
+phase 28's launches by encoder), and last ``{"ok": true, "device": {...}}``.
 TF32 is off throughout, so the float32 parts (crops, decode) stay float32.
 Training writes its checkpoints, and validation its results JSONs, under
 ``output/chip_smoke/`` of this checkout.
@@ -148,6 +172,7 @@ Training writes its checkpoints, and validation its results JSONs, under
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -170,6 +195,7 @@ from i2rnet_tpu_torch.core.validate import validate
 from i2rnet_tpu_torch.data.coco import COCODataset
 from i2rnet_tpu_torch.data.jpeg import imread
 from i2rnet_tpu_torch.data.synthetic import synthetic_raw_batch
+from i2rnet_tpu_torch.models.encoder import INTRA_OFFSET_BASE, TransformerEncoder
 from i2rnet_tpu_torch.models.interformer import build_model
 from i2rnet_tpu_torch.models.layers import MaskedBatchNorm
 from i2rnet_tpu_torch.models.pure_multi import init_weights
@@ -250,6 +276,8 @@ PEAK_TF32 = 495e12
 QUEUE_CYCLES = 40_000_000
 #: profiles taken again where ``torch.profiler`` came back without device work
 PROFILE_TRIES = 3
+#: train steps under the profiler in ``step_timing``
+PROFILED_STEPS = 2
 TRAIN_KERNELS = ("mhsa_train_fwd", "mhsa_train_bwd", "encoder_ffn_train_fwd",
                  "encoder_ffn_train_bwd")
 OUT_DIR = Path(__file__).resolve().parent / "output" / "chip_smoke"
@@ -310,6 +338,32 @@ KEY_TILE = 64
 TPH_FFN = (64 * 3072, 96, 192)
 #: Kernels A's and B's launches in one TPH forward: 6 intra + 4 inter layers
 TPH_LAUNCHES = 10
+#: the TPH intra encoder's tokens a person (64x48 at 256x192)
+TPH_TOKENS = 3072
+#: Kernel C at the TPH training shapes (phase 27), [P, S, 96]: the intra
+#: encoder's, unmasked, at the COCO recipe's P = 16 (4 images x 4 slots) and
+#: the CrowdPose and OCHuman recipes' P = 24 (4 x 6, 8 x 3); the inter
+#: encoder's 4 images of 4 slots x 192 tokens, with its person mask of
+#: TPH_TRAIN_COUNTS persons an image
+TPH_TRAIN_ATTN = [(16, TPH_TOKENS), (24, TPH_TOKENS), (4, 768)]
+TPH_TRAIN_COUNTS = [4, 2, 3, 1]
+#: persons a chunk of Kernel C's plain version ([P, S, S] logits, bits and
+#: Philox rounds in int64)
+TPH_TRAIN_CHUNK = 8
+#: Kernel D at the TPH intra encoder's rows, P = 16 and 24 persons
+TPH_TRAIN_FFN = (16 * TPH_TOKENS, 24 * TPH_TOKENS)
+#: the seed-mode key of phase 27's draws (an intra encoder's offset)
+TPH_SEED, TPH_OFFSET = 1234, 130
+#: persons per image of the TPH training batch: B=4 images x N=4 slots
+TPH_TRAIN_PERSONS = [4, 2, 3, 1]
+#: the f32 TPH training step kernels on vs off (phase 28), as HRT_GRAD_BOUND.
+#: Measured on the card at full width: the two routes differ by 1.5e-4 (max),
+#: 1.0e-4 (L2) at the worst leaf and 4.8e-5 overall (C's and D's f32 sums
+#: over 3072 keys in another order than the plain version's, carried through
+#: the trunk's BatchNorms), where two runs of one route differ by 2.2e-5,
+#: 8.5e-6 and 2.0e-6; the bounds sit about 5 times above the routes'
+#: difference. Kernels C and D themselves are held at TRAIN_TOL in phase 27
+TPH_GRAD_BOUND = {"max": 1e-3, "l2": 5e-4, "all_l2": 2.5e-4}
 ZERO_GRADS = re.compile(r"(k_proj|mlp\.(fc1|dw3x3|fc2)|norm2|fuse_layers\.\d+\.\d+\.\d+\.1)\.bias$")
 
 
@@ -798,8 +852,8 @@ def alternate(a, b, iters):
     return tuple(in_turns((a, b), iters))
 
 
-def train_cfg(dtype: str, use_kernels: bool):
-    cfg = presets.w48_pure_en6()
+def train_cfg(dtype: str, use_kernels: bool, preset=presets.w48_pure_en6):
+    cfg = preset()
     cfg["DEVICE"].update(COMPUTE_DTYPE=dtype, USE_KERNELS=use_kernels)
     cfg["PRINT_FREQ"] = 1
     return cfg
@@ -964,12 +1018,13 @@ def profile_steps(fn, steps, keep=None):
                                                                for n, (t, c) in ranked]
 
 
-def step_timing(cfg, raw, persons, set_kernels, card, breakdown=()):
+def step_timing(cfg, raw, persons, set_kernels, card, breakdown=(), keep=None):
     """The train step at full width (the config's dtype, dropout and drop
     path) kernels on and off, in ms and persons/s, their peak memory, and a
     profile of the kernels-on step with its kernel calls; ``breakdown``:
     (label, name substrings) of kernels whose ms and launches per step the
-    profile also sums."""
+    profile also sums. The profile's device events of its PROFILED_STEPS
+    are appended to ``keep``, where given; returns the kernels-on step."""
     model = seeded_model(cfg)
     state = TrainState(model, *make_optimizer(cfg, model.parameters(), 1000))
     step = make_train_step(state, cfg["MODEL"]["LOSS_WEIGHTS"])
@@ -993,8 +1048,9 @@ def step_timing(cfg, raw, persons, set_kernels, card, breakdown=()):
         f"{cfg['DEVICE']['COMPUTE_DTYPE']}: kernels on {t_on:.2f} ms = {n / t_on * 1e3:.1f} "
         f"persons/s; kernels off {t_off:.2f} ms = {n / t_off * 1e3:.1f} persons/s [{card}]")
     reset_launches()
-    wall, busy, launches, top = profile_steps(run(True), 2)
-    per_step = {k: v // 3 for k, v in launch_counts().items() if v}  # warm-up + 2 steps
+    wall, busy, launches, top = profile_steps(run(True), PROFILED_STEPS, keep)
+    per_step = {k: v // (PROFILED_STEPS + 1) for k, v in launch_counts().items()
+                if v}  # warm-up + the profiled steps
     log(f"  profile, kernels on: wall {wall:.2f} ms/step under the profiler, device busy "
         f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
         f"launches/step; peak memory over the timed steps {peak:.1f} GiB; kernel calls per "
@@ -1005,6 +1061,7 @@ def step_timing(cfg, raw, persons, set_kernels, card, breakdown=()):
         hits = [(t, c) for name, t, c in top if any(p in name for p in parts)]
         log(f"  {label}: {sum(t for t, _ in hits):.3f} ms/step in {sum(c for _, c in hits):.0f} "
             f"launches/step")
+    return run(True)
 
 
 def backward_only(fn, inputs, cot):
@@ -1871,27 +1928,31 @@ def device_randn(*shape, seed, dtype):
     return torch.randn(*shape, generator=g, device=DEV).to(dtype)
 
 
-def chunked(fn, p):
-    """``fn(q, k, v)`` over persons in chunks of TPH_CHUNK (where the plain
-    version's [P, S, S] logits would not fit at once)."""
-    return lambda q, k, v: torch.cat([fn(q[i:i + TPH_CHUNK], k[i:i + TPH_CHUNK],
-                                         v[i:i + TPH_CHUNK]) for i in range(0, p, TPH_CHUNK)])
+def chunked(fn, p, size=TPH_CHUNK):
+    """``fn(q, k, v, first)`` over persons in chunks of ``size`` from person
+    ``first`` (where the plain version's [P, S, S] logits would not fit at
+    once)."""
+    return lambda q, k, v: torch.cat([fn(q[i:i + size], k[i:i + size], v[i:i + size], i)
+                                      for i in range(0, p, size)])
 
 
-def tail_tile_matters(q, k, v, ref, dt, what):
-    """Raises unless the plain version with the last tile of keys (KEY_TILE,
-    or the ragged rest of S) masked out differs from ``ref`` by more than
-    TOL: a kernel that dropped that tile would fail ``compare``."""
-    s = q.shape[1]
+def tail_tile_matters(plain, ref, check, mask, what):
+    """Raises unless ``plain(key mask)``, the plain version with the last tile
+    of keys (KEY_TILE, or the ragged rest of S) masked besides ``mask``,
+    fails ``check`` (a comparison with ``ref`` that raises): a kernel that
+    dropped that tile would fail it too."""
+    p, s = ref.shape[:2]
     tail = s - (s - 1) // KEY_TILE * KEY_TILE
-    dropped = torch.zeros(q.shape[:2], dtype=torch.bool, device=q.device)
+    dropped = torch.zeros(p, s, dtype=torch.bool, device=ref.device)
     dropped[:, -tail:] = True
-    atol, rtol = TOL[dt]
-    miss = masked_mhsa_torch(q, k, v, 1, dropped).float()
-    caught = int(((miss - ref.float()).abs() > atol + rtol * ref.float().abs()).sum())
-    if caught == 0:
-        raise AssertionError(f"{what}: dropping the last {tail} keys stays within the bound, "
-                             "so the check could not see it")
+    if mask is not None:
+        dropped |= mask
+    try:
+        check(plain(dropped))
+    except AssertionError:
+        return
+    raise AssertionError(f"{what}: dropping the last {tail} keys stays within the bound, so "
+                         "the check could not see it")
 
 
 def phase_tph_kernels(card):
@@ -1916,7 +1977,8 @@ def phase_tph_kernels(card):
                 err = max(err, compare(got[i:i + TPH_CHUNK], ref, dt, what))
                 ref_max = max(ref_max, ref.abs().max().item())
                 if i == 0:
-                    tail_tile_matters(qi, ki, vi, ref, dt, what)
+                    tail_tile_matters(lambda m: masked_mhsa_torch(qi, ki, vi, 1, m), ref,
+                                      lambda miss: compare(miss, ref, dt, what), None, what)
                 del ref
             log(f"  masked_mhsa P={p} S={s} C={c} no mask {str(dt)[6:]}: max|err| {err:.3g}, "
                 f"max|ref| {ref_max:.3g}, bound atol {TOL[dt][0]:g} + rtol {TOL[dt][1]:g}*|ref|"
@@ -1937,7 +1999,7 @@ def phase_tph_kernels(card):
     for p, s in TPH_ATTN:
         q, k, v = (device_randn(p, s, c, seed=SEED + 4 + i, dtype=bf) for i in range(3))
         heads = [t.view(p, s, 1, c).transpose(1, 2) for t in (q, k, v)]
-        plain = chunked(lambda *a: masked_mhsa_torch(*a, 1), p)
+        plain = chunked(lambda q_, k_, v_, _: masked_mhsa_torch(q_, k_, v_, 1), p)
         with torch.no_grad():
             t_plain, ms, lib = plain_kernel_sdpa(
                 f"masked_mhsa P={p} S={s} no mask", [
@@ -1986,37 +2048,17 @@ def phase_tph_model(cfg, g):
     return model
 
 
-def encoder_order(model, fn):
-    """Which encoder made each Kernel A launch of ``fn()`` (one call), in
-    launch order: "intra" or "inter"."""
-    order, start, hooks = [], {}, []
-    for label, encoder in zip(("intra", "inter"), model.encoders()):
-        def pre(_m, _a, label=label):
-            start[label] = masked_mhsa_fused.launches
-
-        def post(_m, _a, _o, label=label):
-            order.extend([label] * (masked_mhsa_fused.launches - start[label]))
-
-        hooks += [encoder.register_forward_pre_hook(pre), encoder.register_forward_hook(post)]
-    try:
-        fn()
-        torch.cuda.synchronize()
-    finally:
-        for hk in hooks:
-            hk.remove()
-    return order
-
-
 def phase_tph_timing(model, cfg, g, card):
     """The TPH eval protocol at B=16 x N=4 in bf16, kernels on and off in
     turns; a profile of the kernels-on step with Kernels A's and B's ms and
-    launches per step split between the intra and the inter encoder (each
-    launch labelled by the encoder that made it, in launch order; A and B
-    alternate one each a layer)."""
+    launches per step split between the intra and the inter encoder
+    (``split_by_encoder``)."""
     b, n = 16, 4
     step = eval_steps(model, cfg, model.set_kernels, b, n, g)
     eval_timing(step, b, n, 3, card)
-    order = encoder_order(model, step(True))
+    with encoder_launches(EVAL_KERNELS) as order:
+        step(True)()
+        torch.cuda.synchronize()
     events, steps = [], 2
     wall, busy, launches, top = profile_steps(step(True), steps, events)
     log(f"  profile, kernels on: wall {wall:.2f} ms/step under the profiler, device busy "
@@ -2024,22 +2066,340 @@ def phase_tph_timing(model, cfg, g, card):
         f"launches/step; top kernels (ms/step, launches/step):")
     for name, t, c in top[:12]:
         log(f"    {t:8.3f} {c:6.0f}  {name[:110]}")
+    split_by_encoder(events, order, (("masked_mhsa", ("mhsa_fwd",)), ("encoder_ffn", KERNEL_B)),
+                     steps, card)
+
+
+def person_key_mask(counts, tokens):
+    """[B, N * tokens] key-padding mask of images with ``counts`` valid
+    persons of N slots (the inter encoder's, ``models/interformer.py``)."""
+    n = len(counts)
+    valid = torch.arange(n)[None, :] < torch.as_tensor(counts)[:, None]
+    return (~valid).repeat_interleave(tokens, dim=1).to(DEV)
+
+
+def check_tph_attention_train(p, s, mask, dt, bits):
+    """Kernel C forward and backward on [P, S, 96] (q scaled by TPH_PEAK)
+    against its plain version per TPH_TRAIN_CHUNK persons, in bits and seed
+    mode; the plain version without the last key tile breaks the bound.
+    Returns {mode: (max|err| out, its share of max|ref|, max over dq/dk/dv)}."""
+    c = 96
+    q, k, v, cot = (device_randn(p, s, c, seed=SEED + 10 + i, dtype=dt) for i in range(4))
+    q = q * TPH_PEAK  # logits of deviation TPH_PEAK: outputs of order |v|
+    res = {}
+    for mode in ("bits", "seed"):
+        kw = ({"dropout_bits": bits} if mode == "bits"
+              else {"dropout_seed": TPH_SEED, "dropout_offset": TPH_OFFSET})
+        got, gk = fwd_bwd(lambda *a: masked_mhsa_train_fused(*a, 1, mask, RATE, **kw),
+                          (q, k, v), cot)
+        torch.cuda.synchronize()
+        e_f, r_f, e_b = 0.0, 0.0, 0.0
+        for i in range(0, p, TPH_TRAIN_CHUNK):
+            j = min(p, i + TPH_TRAIN_CHUNK)
+            cb = (bits[i:j] if mode == "bits"
+                  else attention_bits(TPH_SEED, TPH_OFFSET, j - i, s, DEV, first=i))
+            mk = None if mask is None else mask[i:j]
+            ref, gr = fwd_bwd(lambda *a: masked_mhsa_train_torch(*a, 1, mk, RATE, dropout_bits=cb),
+                              (q[i:j], k[i:j], v[i:j]), cot[i:j])
+            what = f"mhsa_train P={p} S={s} {str(dt)[6:]} {mode} persons {i}..{j - 1}"
+            e, r = compare_scaled(got[i:j], ref, dt, what + " out")
+            e_f, r_f = max(e_f, e), max(r_f, r)
+            e_b = max([e_b] + [compare_scaled(x[i:j], y, dt, f"{what} d{n}")[0]
+                               for n, x, y in zip("qkv", gk, gr)])
+            if i == 0:
+                tail_tile_matters(
+                    lambda m: masked_mhsa_train_torch(q[i:j], k[i:j], v[i:j], 1, m, RATE,
+                                                      dropout_bits=cb),
+                    ref, lambda miss: compare_scaled(miss, ref, dt, what), mk, what)
+            del ref, gr, cb
+        res[mode] = (e_f, r_f, e_b)
+        del got, gk
+    return res
+
+
+def phase_tph_train_kernels(card):
+    """Kernels C and D at the TPH training shapes against their plain
+    versions, f32 and bf16, bits and seed mode (C per TPH_TRAIN_CHUNK
+    persons); the seed-mode keep fraction over a whole intra-encoder draw;
+    then, bf16 seed mode, C at P=16 and D at P=16 x 3072 rows as device time
+    per call beside their plain versions, their bounds and, for C, SDPA with
+    dropout 0.1. Returns ({kernel: TPH-shape fields for the kernels line},
+    {kernel: max|err| in bf16 seed mode at P=16})."""
+    c, f = 96, 192
+    dgen = torch.Generator(device=DEV).manual_seed(SEED)
+    errs = {}
+    for p, s in TPH_TRAIN_ATTN:
+        mask = None if s == TPH_TOKENS else person_key_mask(TPH_TRAIN_COUNTS, s // 4)
+        bits = torch.randint(0, 2 ** 32, (p, s, s), generator=dgen, device=DEV,
+                             dtype=torch.int64)
+        for dt in (torch.float32, torch.bfloat16):
+            res = check_tph_attention_train(p, s, mask, dt, bits)
+            for mode, (e_f, r_f, e_b) in res.items():
+                log(f"  mhsa_train P={p} S={s} C={c} "
+                    f"{'no mask' if mask is None else 'person mask ' + str(TPH_TRAIN_COUNTS)} "
+                    f"{str(dt)[6:]} {mode}: out max|err| {e_f:.3g} ({r_f:.2g} of max|ref|), "
+                    f"dq/dk/dv max|err| {e_b:.3g}; bound {TRAIN_TOL[dt][0]:g}*max|ref| + "
+                    f"{TRAIN_TOL[dt][1]:g}*|ref|; the plain version without the last key tile "
+                    "breaks it")
+            if (p, dt) == (TPH_TRAIN_ATTN[0][0], torch.bfloat16):
+                errs["mhsa_train_fwd"], _, errs["mhsa_train_bwd"] = res["seed"]
+        del bits
+        torch.cuda.empty_cache()
+    kept, total = 0, 0
+    p0, s0 = TPH_TRAIN_ATTN[0]
+    for i in range(0, p0, TPH_TRAIN_CHUNK):
+        b = attention_bits(TPH_SEED, TPH_OFFSET, min(p0 - i, TPH_TRAIN_CHUNK), s0, DEV, first=i)
+        kept += int((b >= threshold(RATE)).sum())
+        total += b.numel()
+        del b
+    log(f"  seed-mode keep fraction over the [{p0}, {s0}, {s0}] draw ({total} bits): "
+        f"{kept / total:.6f} (1 - rate = {1 - RATE})")
+    if abs(kept / total - (1 - RATE)) > 1e-3:
+        raise AssertionError(f"keep fraction {kept / total} strays from {1 - RATE}")
+    g = gen(SEED + 5)
+    for rows in TPH_TRAIN_FFN:
+        prm = ffn_params(c, f, g)
+        bits = (torch.randint(0, 2 ** 32, (rows, f), generator=dgen, device=DEV, dtype=torch.int64),
+                torch.randint(0, 2 ** 32, (rows, c), generator=dgen, device=DEV, dtype=torch.int64))
+        for dt in (torch.float32, torch.bfloat16):
+            x = away_from_kink((2 * randn(rows, c, g=g) + 0.5).to(dt), prm, g)
+            cot = randn(rows, c, g=g, dtype=dt)
+            for mode in ("bits", "seed"):
+                kw = ({"dropout_bits": bits} if mode == "bits"
+                      else {"dropout_seed": TPH_SEED, "dropout_offset": TPH_OFFSET + 2})
+
+                def run(fn):
+                    return fwd_bwd(lambda *a: fn(*a, dropout_rate=RATE, **kw), (x, *prm), cot)
+
+                got, gk = run(encoder_ffn_train_fused)
+                torch.cuda.synchronize()
+                ref, gr = run(encoder_ffn_train_torch)
+                what = f"encoder_ffn_train rows={rows} C={c} F={f} {str(dt)[6:]} {mode}"
+                e_f, r_f = compare_scaled(got, ref, dt, what + " out")
+                names = ("x", "ln1_w", "ln1_b", "w1", "b1", "w2", "b2", "ln2_w", "ln2_b")
+                e_b = [compare_scaled(a, r, dt, f"{what} d{n}") for n, a, r in zip(names, gk, gr)]
+                if (rows, dt, mode) == (TPH_TRAIN_FFN[0], torch.bfloat16, "seed"):
+                    errs["encoder_ffn_train_fwd"] = e_f
+                    errs["encoder_ffn_train_bwd"] = max(e for e, _ in e_b)
+                log(f"  {what}: out max|err| {e_f:.3g} ({r_f:.2g}), grads max of "
+                    f"max|err|/max|ref| {max(r for _, r in e_b):.2g}")
+        del bits
+    torch.cuda.empty_cache()
+    return tph_train_kernel_timing(card), errs
+
+
+def tph_train_kernel_timing(card):
+    """C over [16, 3072, 96] unmasked and D over 16 x 3072 rows, bf16, seed
+    mode: device time per call of the kernel, its plain version (C per
+    TPH_TRAIN_CHUNK persons, its bits drawn per chunk) and, for C, SDPA with
+    dropout 0.1 (its own bits), forward and backward; with their bounds."""
+    p, s = TPH_TRAIN_ATTN[0]
+    c, f = 96, 192
+    bf = torch.bfloat16
+    q, k, v, cot = (device_randn(p, s, c, seed=SEED + 20 + i, dtype=bf) for i in range(4))
+    kw = {"dropout_seed": TPH_SEED, "dropout_offset": TPH_OFFSET}
+
+    def kernel(q_, k_, v_):
+        return masked_mhsa_train_fused(q_, k_, v_, 1, None, RATE, **kw)
+
+    # its seed-mode bits drawn a chunk at a time, as phase 27 checks it
+    plain = chunked(lambda q_, k_, v_, first: masked_mhsa_train_torch(
+        q_, k_, v_, 1, None, RATE,
+        dropout_bits=attention_bits(TPH_SEED, TPH_OFFSET, q_.shape[0], s, DEV, first=first)),
+        p, TPH_TRAIN_CHUNK)
+
+    def sdpa(q_, k_, v_):
+        heads = [t.view(p, s, 1, c).transpose(1, 2) for t in (q_, k_, v_)]
+        return torch.nn.functional.scaled_dot_product_attention(*heads, dropout_p=RATE)
+
+    times = {}
+    with torch.no_grad():
+        times["mhsa_train_fwd"] = plain_kernel_sdpa(
+            f"mhsa_train_fwd P={p} S={s} no mask", [lambda: plain(q, k, v), lambda: kernel(q, k, v),
+                                                   lambda: sdpa(q, k, v)], 3, card)
+    times["mhsa_train_bwd"] = plain_kernel_sdpa(
+        f"mhsa_train_bwd P={p} S={s} no mask",
+        [backward_only(plain, (q, k, v), cot), backward_only(kernel, (q, k, v), cot),
+         backward_only(sdpa, (q, k, v), cot.view(p, s, 1, c).transpose(1, 2))], 3, card)
+    rows = TPH_TRAIN_FFN[0]
+    prm = ffn_params(c, f, gen(SEED + 6))
+    x = device_randn(rows, c, seed=SEED + 30, dtype=bf)
+    cot2 = device_randn(rows, c, seed=SEED + 31, dtype=bf)
+
+    def tail(fn):
+        return lambda *a: fn(*a, dropout_rate=RATE, dropout_seed=TPH_SEED,
+                             dropout_offset=TPH_OFFSET + 2)
+
+    with torch.no_grad():
+        times["encoder_ffn_train_fwd"] = plain_kernel_sdpa(
+            f"encoder_ffn_train_fwd rows={rows}", [lambda: tail(encoder_ffn_train_torch)(x, *prm),
+                                                   lambda: tail(encoder_ffn_train_fused)(x, *prm)],
+            10, card)
+    times["encoder_ffn_train_bwd"] = plain_kernel_sdpa(
+        f"encoder_ffn_train_bwd rows={rows}",
+        [backward_only(tail(encoder_ffn_train_torch), (x, *prm), cot2),
+         backward_only(tail(encoder_ffn_train_fused), (x, *prm), cot2)], 10, card)
+    lse = p * s * 4
+    io = nbytes(q, k, v)
+    no_mask = torch.zeros(p, s, dtype=torch.bool)
+    wts = (2 * c * f + 4 * c + f) * 4
+    bounds = {
+        "mhsa_train_fwd": bound(io + nbytes(q) + p * s * c * 4 + 2 * lse,
+                                attention_ops(no_mask, c, 2), bf),
+        "mhsa_train_bwd": bound(io + nbytes(cot) + p * s * c * 4 + 2 * lse + 3 * nbytes(q),
+                                attention_ops(no_mask, c, 5), bf),
+        "encoder_ffn_train_fwd": bound(2 * nbytes(x) + wts, 4.0 * rows * c * f, bf),
+        "encoder_ffn_train_bwd": bound(3 * nbytes(x) + 2 * wts, 12.0 * rows * c * f, bf)}
+    out = {}
+    for name in TRAIN_KERNELS:
+        t = timing(*times[name][:2], bounds[name], *times[name][2:])
+        shape = f"P={p} S={s} C={c}" if name.startswith("mhsa") else f"R={rows} C={c} F={f}"
+        lib = "" if t["library_ms"] is None else (f", SDPA {t['library_ms'] * 1e3:.1f} us "
+                                                  f"(kernel/SDPA {t['ms'] / t['library_ms']:.2f})")
+        log(f"  {name} {shape} bf16 seed mode (device time): kernel {t['ms'] * 1e3:.1f} us, "
+            f"plain {t['plain_ms'] * 1e3:.1f} us{lib}, bound {t['bound_ms'] * 1e3:.2f} us "
+            f"({t['bound_by']}) [{card}]")
+        out[name] = {"shape": shape, **t}
+    return out
+
+
+@contextlib.contextmanager
+def encoder_launches(kernels):
+    """Which encoder made each launch of ``kernels`` inside the block, for
+    every ``TransformerEncoder`` that runs (global module hooks; the TPH
+    intra encoder is the one whose dropout offsets start at
+    INTRA_OFFSET_BASE): yields {kernel: [label, ...]} in launch order. A
+    forward's launches fall between the encoder's forward hooks; its
+    backward's between the gradient reaching its output and leaving its
+    input (tensor hooks), one encoder's backward after the other's."""
+    from torch.nn.modules.module import (register_module_forward_hook,
+                                         register_module_forward_pre_hook)
+
+    order = {k: [] for k in kernels}
+    marks = {}
+
+    def begin(key):
+        marks[key] = launch_counts()
+
+    def end(key, label):
+        start, now = marks.pop(key), launch_counts()
+        for k in kernels:
+            order[k].extend([label] * (now[k] - start[k]))
+
+    def label(module):
+        return "intra" if module.offset_base == INTRA_OFFSET_BASE else "inter"
+
+    def pre(module, args):
+        if isinstance(module, TransformerEncoder):
+            begin(("fwd", id(module)))
+            if torch.is_grad_enabled() and args[0].requires_grad:
+                args[0].register_hook(lambda g, m=module: end(("bwd", id(m)), label(m)))
+
+    def post(module, args, out):
+        if isinstance(module, TransformerEncoder):
+            end(("fwd", id(module)), label(module))
+            if out.requires_grad:
+                out.register_hook(lambda g, m=module: begin(("bwd", id(m))))
+
+    hooks = [register_module_forward_pre_hook(pre), register_module_forward_hook(post)]
+    try:
+        yield order
+    finally:
+        for hk in hooks:
+            hk.remove()
+
+
+def split_by_encoder(events, order, parts, steps, card):
+    """Each kernel's profiled ms and launches per step split between the
+    intra and the inter encoder: ``parts`` are (kernel, name substrings of
+    its device kernels, each launched once a call); the launches of each
+    part, in time order over ``steps`` steps, take the labels of
+    ``encoder_launches``' ``order`` of one step."""
     if not events:
+        log("  the intra/inter split is not measured (no profile)")
         return
-    events.sort(key=lambda e: e.time_range.start)
-    for kernel, parts in (("Kernel A", ("mhsa_fwd",)), ("Kernel B", KERNEL_B)):
-        calls = [e for e in events if any(part in e.name for part in parts)]
-        if len(calls) != steps * len(order):
-            log(f"  {kernel}: {len(calls)} profiled launches for {steps} steps of {len(order)}: "
-                "the split below is not measured")
-            continue
+    events = sorted(events, key=lambda e: e.time_range.start)
+    for kernel, names in parts:
         split = {}
-        for e, label in zip(calls, order * steps):
-            ms, cnt = split.get(label, (0.0, 0))
-            split[label] = (ms + e.time_range.elapsed_us() / 1e3, cnt + 1)
+        for part in names:
+            calls = [e for e in events if part in e.name]
+            if len(calls) != steps * len(order[kernel]):
+                log(f"  {kernel} {part}: {len(calls)} profiled launches for {steps} steps of "
+                    f"{len(order[kernel])} calls: its split is not measured")
+                continue
+            for e, label in zip(calls, order[kernel] * steps):
+                ms, cnt = split.get(label, (0.0, 0))
+                split[label] = (ms + e.time_range.elapsed_us() / 1e3, cnt + 1)
         log(f"  {kernel} per step: " + "; ".join(
-            f"{label} encoder {ms / steps:.3f} ms in {cnt / steps:.0f} launches"
-            for label, (ms, cnt) in split.items()) + f" [{card}]")
+            f"{label} encoder {ms / steps:.3f} ms in {cnt / steps:.0f} device launches "
+            f"({order[kernel].count(label)} calls)"
+            for label, (ms, cnt) in sorted(split.items(), reverse=True)) + f" [{card}]")
+
+
+def phase_tph_train(raw_persons):
+    """``train_loop`` on the TPH recipe at full width (bf16, kernels on,
+    dropout 0.1) through ``phase_train``, Kernels C and D launched by each
+    encoder counted from zero over the run."""
+    cfg = train_cfg("bfloat16", True, presets.tph_interformer)
+    with encoder_launches(TRAIN_KERNELS) as order:
+        counts, raw = phase_train(cfg, raw_persons, TRAIN_KERNELS, "train_tph")
+    split = {k: {label: labels.count(label) for label in ("intra", "inter")}
+             for k, labels in order.items()}
+    log(f"  launches by encoder over the run: {split}")
+    if any(n < 1 for per in split.values() for n in per.values()):
+        raise AssertionError(f"an encoder launched a training kernel no time: {split}")
+    if {k: sum(v.values()) for k, v in split.items()} != counts:
+        raise AssertionError(f"the encoders' launches {split} do not add up to {counts}")
+    return counts, split, raw
+
+
+def phase_tph_train_on_off(raw):
+    """One f32 TPH training step at dropout 0 (2 images, their persons) with
+    the kernels on and off, each route twice: the losses, and every gradient
+    against TPH_GRAD_BOUND, beside the spread of two runs of one route."""
+    cfg = train_cfg("float32", True, presets.tph_interformer)
+    model = seeded_model(cfg)
+    for encoder in model.encoders():
+        encoder.dropout_rate = 0.0
+    (l_on, g_on, c_on), (l_off, g_off, c_off), (_, g_off2, _), (_, g_on2, _) = grads_on_off(
+        model, cfg, raw, 2, model.set_kernels, routes=(True, False, False, True))
+    if min(c_on[k] for k in TRAIN_KERNELS) < 1 or any(c_off[k] for k in TRAIN_KERNELS):
+        raise AssertionError(f"Kernels C and D with the kernels on {c_on}, off {c_off}")
+    loss_rel = max(abs(l_on[k] - l_off[k]) / abs(l_off[k]) for k in l_off)
+    diff = grad_diff(g_on, g_off)
+    log(f"  losses on {l_on} vs off {l_off} (worst rel {loss_rel:.3g}, bound {TRAIN_LOSS_REL:g}); "
+        f"{len(g_off)} gradients, on vs off: " + describe_diff(diff)
+        + f" (bounds {TPH_GRAD_BOUND}); two runs off: " + describe_diff(grad_diff(g_off2, g_off))
+        + "; two runs on: " + describe_diff(grad_diff(g_on2, g_on)))
+    if loss_rel > TRAIN_LOSS_REL or any(diff[k][0] > TPH_GRAD_BOUND[k] for k in diff):
+        raise AssertionError("f32 TPH training step with kernels strays from the plain path")
+
+
+#: Kernels C's and D's bf16 device kernels, each launched once a call:
+#: (kernel, name substrings), for the TPH step's intra/inter split
+TRAIN_KERNEL_PARTS = (("mhsa_train_fwd", ("keep_bits_kernel", "mhsa_train_fwd_mma")),
+                      ("mhsa_train_bwd", ("rowdot_kernel", "mhsa_train_dkdv_mma",
+                                          "mhsa_train_dq_mma")),
+                      ("encoder_ffn_train_fwd", ("ffn::fwd_kernel",)),
+                      ("encoder_ffn_train_bwd", ("ffn::bwd_rows_kernel", "ffn::dw_kernel",
+                                                 "ffn::bwd_sum_kernel")))
+
+
+def phase_tph_train_timing(raw, persons, card):
+    """The TPH train step (``step_timing``: kernels on and off in turns, peak
+    memory, the profile of the kernels-on step with C's and D's ms and
+    launches per step), then C's and D's ms and launches per step split
+    between the intra and the inter encoder (``split_by_encoder``)."""
+    events = []
+    step = step_timing(train_cfg("bfloat16", True, presets.tph_interformer), raw, persons,
+                       lambda m: m.set_kernels, card,
+                       [(f"Kernel {'C' if k.startswith('mhsa') else 'D'} "
+                         f"{'forward' if k.endswith('fwd') else 'backward'}", parts)
+                        for k, parts in TRAIN_KERNEL_PARTS], keep=events)
+    with encoder_launches(TRAIN_KERNELS) as order:
+        step()
+        torch.cuda.synchronize()
+    split_by_encoder(events, order, TRAIN_KERNEL_PARTS, PROFILED_STEPS, card)
 
 
 def tph_fixture_cfg():
@@ -2198,6 +2558,19 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    log("phase 27 Kernels C and D at the TPH training shapes vs plain:")
+    tph_times, tph_errs = phase_tph_train_kernels(card)
+    torch.cuda.empty_cache()
+    log("phase 28 training the TPH I²R-Net through train_loop (bf16, B=4 N=4, kernels on):")
+    _, tph_split, tph_raw = phase_tph_train(TPH_TRAIN_PERSONS)
+    log(f"  one f32 step at dropout 0, kernels on vs off (2 images, "
+        f"{sum(TPH_TRAIN_PERSONS[:2])} persons):")
+    phase_tph_train_on_off(tph_raw)
+    torch.cuda.empty_cache()
+    log(f"phase 29 TPH training timing [{card}]:")
+    phase_tph_train_timing(tph_raw, TPH_TRAIN_PERSONS, card)
+    torch.cuda.empty_cache()
+
     counts.update(train_counts)
     counts.update({k: hrt_train_counts[k] for k in ("window_attn_block_train_fwd",
                                                     "window_attn_block_train_bwd")})
@@ -2206,9 +2579,14 @@ def main() -> int:
     errs.update({"masked_mhsa": mhsa_err, "encoder_ffn": ffn_err,
                  "mhsa_train_fwd": c_err["fwd"], "mhsa_train_bwd": c_err["bwd"],
                  "encoder_ffn_train_fwd": d_err["fwd"], "encoder_ffn_train_bwd": d_err["bwd"]})
+    # Kernels C and D at the TPH shapes (phases 27-28): their times, error and
+    # the launches of each encoder in phase 28's run
+    tph = {name: {**tph_times[name], "max_abs_err": tph_errs[name], "launches": tph_split[name]}
+           for name in TRAIN_KERNELS}
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": counts[name],
-                "max_abs_err": errs[name], **times[name]}
+                "max_abs_err": errs[name], **times[name],
+                **({"tph": tph[name]} if name in tph else {})}
                for name in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,9 +17,16 @@ versions:
   ``fused_ffn_train`` is on too (``TPU.FUSED_FFN_TRAIN``), as the JAX encoder
   routes them (``i2rnet_tpu/models/encoder.py:54,145``).
 
-Training dropout is keyed by one seed per forward: layer i uses the offsets
-4i (attention weights), 4i + 1 (attention output, a ``bernoulli_`` draw from a
-generator seeded with ``seed * 2^8 + offset``) and 4i + 2, 4i + 3 (the tail).
+Training dropout is keyed by one seed per forward: layer i of an encoder
+whose ``offset_base`` is b uses the offsets b + 4i (attention weights),
+b + 4i + 1 (attention output, a ``bernoulli_`` draw from a generator seeded
+with ``seed * 2^8 + offset``) and b + 4i + 2, b + 4i + 3 (the tail). Two
+encoders of one model that share the step's seed take disjoint offset
+ranges (the TransPose-H intra encoder starts at ``INTRA_OFFSET_BASE``, the
+inter encoder at 0), so they draw independent bits, as the JAX encoders draw
+from their own module RNG streams. Every offset stays below
+``OFFSET_LIMIT``: the generator seed keeps 8 bits for it, and the HRFormer's
+DropPath takes 255.
 """
 
 from __future__ import annotations
@@ -37,6 +44,11 @@ from i2rnet_tpu_torch.ops.cuda.encoder_ffn_train import (encoder_ffn_train_fused
                                                          encoder_ffn_train_torch)
 
 OFFSETS_PER_LAYER = 4
+#: the dropout offsets an encoder may use are below this (module docstring)
+OFFSET_LIMIT = 255
+#: the first offset of the TransPose-H intra encoder; the inter encoder's
+#: offsets stay below it
+INTRA_OFFSET_BASE = 128
 
 
 def dropout(x, rate: float, seed: int, offset: int):
@@ -110,12 +122,17 @@ class TransformerEncoderLayer(nn.Module):
 class TransformerEncoder(nn.Module):
     """Stack of encoder layers over flat tokens ``[B, S, C]``. ``use_kernels``,
     ``flash_train``, ``fused_ffn_train`` and ``dropout_rate`` are settable; a
-    training forward with a dropout rate above 0 needs ``dropout_seed``."""
+    training forward with a dropout rate above 0 needs ``dropout_seed``.
+    Its dropout sites take the offsets :meth:`offsets` (from ``offset_base``)."""
 
     def __init__(self, num_layers: int, d_model: int, num_heads: int,
                  dim_feedforward: int, use_kernels: bool = False, dropout_rate: float = 0.1,
-                 flash_train: bool = True, fused_ffn_train: bool = True):
+                 flash_train: bool = True, fused_ffn_train: bool = True, offset_base: int = 0):
         super().__init__()
+        if not 0 <= offset_base <= OFFSET_LIMIT - OFFSETS_PER_LAYER * num_layers:
+            raise ValueError(f"{num_layers} layers from dropout offset {offset_base} pass "
+                             f"the limit {OFFSET_LIMIT}")
+        self.offset_base = offset_base
         self.use_kernels = use_kernels
         self.flash_train = flash_train
         self.fused_ffn_train = fused_ffn_train
@@ -131,8 +148,13 @@ class TransformerEncoder(nn.Module):
         out = src
         for i, layer in enumerate(self.layers):
             out = layer(out, key_padding_mask, pos, self.use_kernels, rate, dropout_seed,
-                        OFFSETS_PER_LAYER * i, self.flash_train, self.fused_ffn_train)
+                        self.offset_base + OFFSETS_PER_LAYER * i, self.flash_train,
+                        self.fused_ffn_train)
         return out
+
+    def offsets(self) -> range:
+        """The dropout offsets of this encoder's sites."""
+        return range(self.offset_base, self.offset_base + OFFSETS_PER_LAYER * len(self.layers))
 
 
 def flatten_person_tokens(x):

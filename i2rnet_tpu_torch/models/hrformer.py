@@ -403,9 +403,6 @@ class HRFormer(nn.Module):
     [P, 78, H/4, W/4], heatmaps [P, K, H/4, W/4] f32)``, the first-stage
     contract (reference ``hrformer.py:2470-2480``)."""
 
-    #: a training forward of the two-stage model is ported
-    training_unported = None
-
     def __init__(self, arch: Dict, num_joints: int = 17):
         super().__init__()
         self.backbone = HRFormerBackbone(arch)

@@ -31,12 +31,13 @@ state-dict names are the main ``interformer``'s, so
 ``convert_state_dict(model.state_dict(), name)`` takes them under either name.
 
 ``forward(..., train=True, dropout_seed=...)`` is the JAX ``train=True`` as
-:class:`~.pure_multi.PureMultiInterFormer` has it: training mode for the call,
-every BatchNorm (first stage, deconvs) over the valid persons, the first
-stage's DropPath and the encoder's dropout keyed by the seed. A frozen first
-stage (``SINGLEFORMER_FIX``, ``DEVICE.FROZEN_STAGE_EVAL_MODE``),
-``DEVICE.REMAT`` and training the TransPose-H model (ROADMAP queue 1, item 4's
-training half) are not ported: a training forward with them raises.
+:class:`~.pure_multi.PureMultiInterFormer` has it, with either first stage:
+training mode for the call, every BatchNorm (first stage, deconvs) over the
+valid persons, the HRFormer's DropPath and every encoder's dropout keyed by
+the seed (the TransPose-H intra encoder and the inter encoder on disjoint
+offsets, ``models/encoder.py``). A frozen first stage (``SINGLEFORMER_FIX``,
+``DEVICE.FROZEN_STAGE_EVAL_MODE``) and ``DEVICE.REMAT`` are not ported: a
+training forward with them raises.
 
 :func:`build_model` builds every ported model from a port config, on the card
 unless asked otherwise.
@@ -119,8 +120,6 @@ class InterFormer(nn.Module):
             ("MODEL.SINGLEFORMER_FIX", singleformer_fix),
             ("DEVICE.FROZEN_STAGE_EVAL_MODE", frozen_stage_eval),
             ("DEVICE.REMAT", remat)) if v not in (False, None, "none")]
-        if singleformer.training_unported:
-            self.unported_training.append(("MODEL.SINGLEFORMER", singleformer.training_unported))
         self.singleformer = singleformer
         # the token grid, as the JAX model reads it off the pooled map (3x3/s2
         # pools with padding 1 take w to ceil(w / 2))
@@ -134,6 +133,10 @@ class InterFormer(nn.Module):
             self.multi_position_embedding = None
         self.multi_global_encoder = TransformerEncoder(encoder_layers, d_model, n_head,
                                                        dim_feedforward)
+        taken = [o for e in singleformer.encoders() for o in e.offsets()]
+        if set(taken) & set(self.multi_global_encoder.offsets()):
+            raise ValueError(f"{encoder_layers} inter layers take dropout offsets of the "
+                             "first stage's encoder")
         steps = int(math.log2(heatmap_size[0] // tw))
         filters = extra["NUM_DECONV_FILTERS"][0]
         kernel, bias = extra["NUM_DECONV_KERNELS"][0], extra.get("DECONV_WITH_BIAS", False)
@@ -166,9 +169,9 @@ class InterFormer(nn.Module):
                                      fused_onepass)
 
     def encoders(self):
-        """The transformer encoders whose layers run Kernels A and B: the
-        TransPose-H intra encoder (where that is the first stage), then the
-        inter encoder."""
+        """The transformer encoders whose layers run Kernels A and B (C and D
+        in training): the TransPose-H intra encoder (where that is the first
+        stage), then the inter encoder."""
         return self.singleformer.encoders() + [self.multi_global_encoder]
 
     def forward(self, images, pos_masks, person_valid, train: bool = False,

@@ -7,7 +7,15 @@ a 1x1 ``reduce`` on branch ``HRNET_RES_LAYER`` (branch 0: 64x48 at 256x192,
 over all h/4 * w/4 tokens of each person (3072 at 256x192) with the sine (or
 learnable) position embedding added to q and k in every layer, and a 1x1
 ``final_layer`` on the encoder output. With ``global_encoder.use_kernels`` the
-encoder runs Kernels A and B, else their plain versions.
+encoder runs Kernels A and B in eval and Kernels C and D in training (each
+where its training route is on), else their plain versions.
+
+Training (the two-stage model's ``train=True``): the trunk's BatchNorms
+normalise over the valid persons (the model sets their ``person_mask``), and
+the encoder's dropout is keyed by the step's seed from
+``INTRA_OFFSET_BASE`` on, apart from the inter encoder's offsets
+(``models/encoder.py``). The sine table is a buffer and gets no gradient;
+the learnable embedding is a parameter like any other.
 
 State-dict names are the reference's (``conv1``, ``layer1``, ``stage2``...,
 ``reduce``, ``global_encoder.layers.{i}``, ``final_layer``; the learnable
@@ -23,7 +31,7 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
-from i2rnet_tpu_torch.models.encoder import TransformerEncoder
+from i2rnet_tpu_torch.models.encoder import INTRA_OFFSET_BASE, TransformerEncoder
 from i2rnet_tpu_torch.models.hrnet import HRNetTrunk
 from i2rnet_tpu_torch.models.layers import Conv2d
 from i2rnet_tpu_torch.models.position import sine_position_embedding_2d
@@ -34,9 +42,6 @@ class TransPoseH(HRNetTrunk):
     heatmaps [P, K, H/4, W/4] f32)``, the first-stage contract the two-stage
     model composes on (reference ``transpose_h.py:649-655``). ``x`` is in the
     compute dtype; the features stay in it."""
-
-    #: why a training forward of the two-stage model raises
-    training_unported = "transpose_h: ROADMAP queue 1, item 4's training half"
 
     def __init__(self, extra: Dict, num_joints: int = 17, d_model: int = 96,
                  dim_feedforward: int = 192, n_head: int = 1, encoder_layers: int = 6,
@@ -60,21 +65,24 @@ class TransPoseH(HRNetTrunk):
             raise ValueError(f"MODEL.POS_EMBEDDING={pos_embedding!r}: expected 'sine' or "
                              "'learnable'")
         self.global_encoder = TransformerEncoder(encoder_layers, d_model, n_head,
-                                                 dim_feedforward)
+                                                 dim_feedforward, offset_base=INTRA_OFFSET_BASE)
         self.final_layer = Conv2d(d_model, num_joints, final_conv_kernel, 1,
                                   final_conv_kernel // 2)
 
     def set_routes(self, use_kernels: bool, *fused) -> None:
         """``DEVICE.USE_KERNELS`` for the encoder; the HRFormer block routes
-        in ``fused`` have nothing to switch here."""
+        in ``fused`` have nothing to switch here, and the encoder's training
+        routes (``flash_train``, ``fused_ffn_train``) stay as ``build_interformer`` set
+        them."""
         self.global_encoder.use_kernels = use_kernels
 
     def encoders(self):
         return [self.global_encoder]
 
     def forward(self, x, dropout_seed=None, drop_path_scales=None):
-        """``dropout_seed`` and ``drop_path_scales`` are training arguments
-        (the first-stage contract); eval takes neither."""
+        """``dropout_seed`` keys the encoder's dropout in training (unused in
+        eval); ``drop_path_scales`` is the first-stage contract's, with no
+        DropPath here to take it."""
         p = x.shape[0]
         fh, fw = self.feat_hw
         feat = self.reduce(self.forward_trunk(x)[self.res_layer])
@@ -83,6 +91,6 @@ class TransPoseH(HRNetTrunk):
                              "configured IMAGE_SIZE")
         pos = self.pos_embedding[None].to(feat.dtype)
         tokens = feat.permute(0, 2, 3, 1).reshape(p, fh * fw, self.d_model)
-        out = self.global_encoder(tokens, None, pos)
+        out = self.global_encoder(tokens, None, pos, dropout_seed)
         out = out.reshape(p, fh, fw, self.d_model).permute(0, 3, 1, 2)
         return out, self.final_layer(out).float()

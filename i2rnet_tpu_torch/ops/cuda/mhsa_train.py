@@ -28,11 +28,12 @@ from i2rnet_tpu_torch.ops.cuda.mhsa import _DTYPE_CODES, fold_heads, key_mask, u
 NEG_INF = -1e30
 
 
-def attention_bits(seed: int, offset: int, bh: int, s: int, device=None):
-    """The seed-mode dropout bits ``[bh, s, s]`` (int64), as the kernel draws them."""
+def attention_bits(seed: int, offset: int, bh: int, s: int, device=None, first: int = 0):
+    """The seed-mode dropout bits ``[bh, s, s]`` (int64) of heads ``first``
+    .. ``first + bh - 1`` (index b*H + h), as the kernel draws them."""
     idx = torch.arange(s, device=device)
     return philox_bits(seed, offset, idx[None, None, :], idx[None, :, None],
-                       torch.arange(bh, device=device)[:, None, None])
+                       torch.arange(first, first + bh, device=device)[:, None, None])
 
 
 def masked_mhsa_train_torch(q, k, v, num_heads: int,

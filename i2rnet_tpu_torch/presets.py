@@ -226,7 +226,13 @@ def tph_interformer() -> Dict:
     reads; the JAX preset keeps 2) over the 16x12-pooled tokens of up to
     MAX_PATCH 4 persons with the box-mask ``conv`` position embedding, and one
     deconv block applied twice (``multiplex``). ``TEST.BATCH_SIZE_PER_GPU`` 64
-    and ``TRAIN.BATCH_SIZE_PER_GPU`` 4, as the recipe."""
+    and ``TRAIN.BATCH_SIZE_PER_GPU`` 4, as the recipe.
+
+    Served, evaluated and trained: ``TRAIN`` and ``LOSS`` are the JAX
+    preset's merged with the YAML (Adam at LR 1e-4 down to 1e-5 over 240
+    epochs, ``WD`` 0.1, target weights), and training runs Kernels C and D in
+    both encoders (``FLASH_TRAIN_ATTENTION``, ``FUSED_FFN_TRAIN``), dropout
+    0.1, with inter-supervision at ``LOSS_WEIGHTS`` [0.5, 0.5]."""
     return {
         "MODEL": _tph_model(17, (192, 256), (48, 64), (16, 12), 96, 192, 1, 6, 4,
                             copy.deepcopy(HRNET_W48S_EXTRA)),

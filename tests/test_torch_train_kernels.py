@@ -161,6 +161,7 @@ def test_seed_bits_are_a_pure_function():
     assert (a != attention_bits(8, 3, 4, 50)).float().mean() > 0.99
     assert (a != attention_bits(7, 4, 4, 50)).float().mean() > 0.99
     assert torch.equal(attention_bits(7, 3, 6, 80)[:4, :50, :50], a)
+    assert torch.equal(attention_bits(7, 3, 2, 50, first=2), a[2:])
     assert a.min() >= 0 and a.max() < 2 ** 32
     f = ffn_bits(7, 3, 30, 16)
     assert torch.equal(f, ffn_bits(7, 3, 40, 16)[:30])

@@ -245,17 +245,24 @@ def test_build_model_dispatches_on_the_name_and_first_stage():
 
 
 def test_training_forward_raises():
-    """Training the TransPose-H model is not ported (ROADMAP queue 1, item 4's
-    training half): a training forward raises, an eval forward runs."""
-    model = build_model(presets.tiny_tph_config(5), device="cpu")
+    """A TPH model trains (``tests/test_torch_transpose_h_train.py``), but
+    not with the options still unported (ROADMAP queue 1, item 6): a frozen
+    first stage (``SINGLEFORMER_FIX``, ``FROZEN_STAGE_EVAL_MODE``) and
+    ``DEVICE.REMAT`` raise on a training forward; an eval forward runs."""
     z = torch.zeros(1, 2, 64, 48, 3)
     args = (z, z[..., :1], torch.ones(1, 2, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="item 4's training half"):
-        model(*args, train=True, dropout_seed=0)
-    with pytest.raises(NotImplementedError, match="transpose_h"):
-        model.train()(*args)
-    with torch.no_grad():
-        assert model.eval()(*args)["multi"].shape == (1, 2, 5, 16, 12)
+    for sec, key, value in (("MODEL", "SINGLEFORMER_FIX", True),
+                            ("DEVICE", "FROZEN_STAGE_EVAL_MODE", True),
+                            ("DEVICE", "REMAT", "layers")):
+        cfg = presets.tiny_tph_config(5)
+        cfg[sec][key] = value
+        model = build_model(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match=key):
+            model(*args, train=True, dropout_seed=0)
+        with pytest.raises(NotImplementedError, match=key):
+            model.train()(*args)
+        with torch.no_grad():
+            assert model.eval()(*args)["multi"].shape == (1, 2, 5, 16, 12)
 
 
 FLIP_PAIRS = [[1, 2], [3, 4]]
