@@ -151,7 +151,38 @@ Phases, one line each (any failure exits non-zero):
 29. timing, for information: the TPH train step kernels on and off, its
     peak memory and a ``torch.profiler`` breakdown of the kernels-on step,
     with C's and D's forward and backward ms and launches per step split
-    between the intra and the inter encoder.
+    between the intra and the inter encoder;
+30. the training data path on the training fixtures of the COCO, CrowdPose
+    and OCHuman W48 recipes (``i2rnet_tpu_torch/data/fixtures``, written by
+    ``tests/torch_fixture.py``): every training JPEG decoded to cv2.imread's
+    bytes (one wider than the recipe's 640x640 raster, so it is pre-scaled);
+    the first batches of epoch 0 as ``train_loop`` composes them at WORKERS
+    0 equal to the JAX package's (``expected_train.json``: the items, the
+    SHA-256 of images, person_valid and joints_vis, the float arrays within
+    RECORD_ATOL); ``device_batch`` of a rotated, flipped batch on the card
+    against the same call on the CPU (crops within CROP_ATOL); for
+    information, host images/s of the batch assembly at WORKERS 0 and 8;
+31. W48 COCO trained from those JPEGs by the dataset-driven ``train_loop``
+    (bf16, kernels on, WORKERS 8, the recipe's B=8 x N=7) for one epoch and
+    validated on the fixture's val2017 at its end: finite losses, Kernels C
+    and D launched in training and A and B 12 times a validation batch
+    (counts from zero over the run), the checkpoint resumed bit for bit; then
+    two more epochs, with the step's wait on the prefetch queue beside the
+    step's time;
+32. the CrowdPose W48 recipe (14 joints, B=32 x N=5): Kernels C and D against
+    their plain versions at [32, 960, 96] with a ragged person mask and
+    R=30720 rows, f32 and bf16, bits and seed mode, within phases 8-9's
+    tolerances, then timed beside SDPA with dropout 0.1; A and B likewise at
+    the test batch's [64, 960, 96] and R=61440; ``train_loop`` from the
+    fixture for TRAIN_EPOCHS one-step epochs at the recipe's batch (halved,
+    and the cut logged, where the card runs out of memory), validated at the
+    end, the launches counted from zero, peak memory and step time;
+    ``validate`` on the test split with the GT oracle against the JAX stats
+    (AP and AP easy, medium and hard) and with the seeded model kernels on
+    vs off within phase 6's bound;
+33. the OCHuman W48 recipe (``USE_MULTI_POS`` false: no position
+    embedding, B=32 x N=3) likewise at [32, 576, 96], R=18432 and the test
+    batch's [128, 576, 96].
 
 Every ``torch.profiler`` breakdown counts all device events but user
 annotations and step markers, and logs how many of them carry a ``#`` in
@@ -164,7 +195,10 @@ sets for the same work and, where one PyTorch call computes the same
 function, that call's time; device time per call for Kernels A-E and
 kernel 9, their plain versions and the SDPA calls, CUDA events for the
 rest; for C and D also ``tph``: the same fields at phase 27's P=16 shape and
-phase 28's launches by encoder), and last ``{"ok": true, "device": {...}}``.
+phase 28's launches by encoder; for A-D ``coco_jpeg``: phase 31's launches,
+and ``crowdpose`` and ``ochuman``: the same fields at phases 32-33's shapes
+with the launches of their ``train_loop``), and last
+``{"ok": true, "device": {...}}``.
 TF32 is off throughout, so the float32 parts (crops, decode) stay float32.
 Training writes its checkpoints, and validation its results JSONs, under
 ``output/chip_smoke/`` of this checkout.
@@ -190,11 +224,12 @@ import torch
 from i2rnet_tpu_torch import presets
 from i2rnet_tpu_torch.core.train import compute_losses, make_train_step
 from i2rnet_tpu_torch.core.train_state import TrainState, make_optimizer
-from i2rnet_tpu_torch.core.trainer import raw_to_device, train_loop
+from i2rnet_tpu_torch.core.trainer import epoch_batches, raw_to_device, train_loop
 from i2rnet_tpu_torch.core.validate import validate
 from i2rnet_tpu_torch.data.coco import COCODataset
 from i2rnet_tpu_torch.data.jpeg import imread
 from i2rnet_tpu_torch.data.synthetic import synthetic_raw_batch
+from i2rnet_tpu_torch.data.train_record import compare_records, train_records
 from i2rnet_tpu_torch.models.encoder import INTRA_OFFSET_BASE, TransformerEncoder
 from i2rnet_tpu_torch.models.interformer import build_model
 from i2rnet_tpu_torch.models.layers import MaskedBatchNorm
@@ -219,6 +254,7 @@ from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import (DTYPE_CODES, device_plan, mlp32_
                                                 mlp_dwbn_fused, mlp_dwbn_torch, mlp_plan,
                                                 pack_mlp, pack_mlp32, sm_count)
 from i2rnet_tpu_torch.ops.preprocess import device_preprocess
+from i2rnet_tpu_torch.registry import get_dataset_class
 from i2rnet_tpu_torch.serving import Predictor, make_eval_fn
 from i2rnet_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
 
@@ -364,6 +400,24 @@ TPH_TRAIN_PERSONS = [4, 2, 3, 1]
 #: 8.5e-6 and 2.0e-6; the bounds sit about 5 times above the routes'
 #: difference. Kernels C and D themselves are held at TRAIN_TOL in phase 27
 TPH_GRAD_BOUND = {"max": 1e-3, "l2": 5e-4, "all_l2": 2.5e-4}
+#: the training fixtures of phases 30-33 (``tests/torch_fixture.py``): each
+#: dataset's tree, its training split's decoded digests and image folder
+FIXTURES = FIXTURE.parent
+TRAIN_TREES = {"coco": ("coco_synth", "decoded_train2017.sha256", "images/train2017"),
+               "crowdpose": ("crowdpose_synth", "decoded.sha256", "images"),
+               "OCHuman": ("ochuman_synth", "decoded.sha256", "images")}
+#: the JAX records' floats (``expected_train.json``) against the port's
+RECORD_ATOL = 1e-5
+#: ``device_batch`` on the card against the CPU: the crops' atol, as
+#: ``tests/test_torch_train_data.py::CROP_ATOL`` (1e-4 plus a float32 ulp of a
+#: source coordinate on a 640-pixel raster times a full-range step over the
+#: least ImageNet std: the two devices may round the inverse affine apart)
+CROP_ATOL = 1e-4 + 2.0 ** -14 / 0.224
+#: host batch assembly (phase 30): epochs of the fixture timed at each WORKERS
+HOST_WORKERS, HOST_EPOCHS = (0, 8), 4
+#: epochs of phases 32-33's train_loop (one step each: a fixture split holds
+#: fewer images than the recipe's batch, so its one batch wraps)
+TRAIN_EPOCHS = 3
 ZERO_GRADS = re.compile(r"(k_proj|mlp\.(fc1|dw3x3|fc2)|norm2|fuse_layers\.\d+\.\d+\.\d+\.1)\.bias$")
 
 
@@ -476,9 +530,16 @@ def attention_masks(b, s, g):
     return masks
 
 
-def phase_mhsa(g):
+#: Kernel A vs plain (B, S, C, heads): W48's (ragged, none and scattered
+#: masks), HRT's, and a small multi-head shape
+MHSA_SHAPES = ((8, 1344, 96, 1), (8, 768, 78, 1), (2, 130, 24, 8))
+
+
+def phase_mhsa(g, shapes=MHSA_SHAPES):
+    """Kernel A against its plain version at ``shapes``, f32 and bf16; returns
+    the bf16 max |err| of the first shape's ragged mask."""
     main_err = None
-    for b, s, c, h in ((8, 1344, 96, 1), (8, 768, 78, 1), (2, 130, 24, 8)):
+    for b, s, c, h in shapes:
         for kind, mask in attention_masks(b, s, g):
             for dt in (torch.float32, torch.bfloat16):
                 q, k, v = (randn(b, s, c, g=g, dtype=dt) for _ in range(3))
@@ -486,7 +547,7 @@ def phase_mhsa(g):
                 torch.cuda.synchronize()
                 err = compare(got, masked_mhsa_torch(q, k, v, h, mask), dt,
                               f"masked_mhsa {(b, s, c, h)} {kind} {dt}")
-                if (b, s, kind, dt) == (8, 1344, "ragged", torch.bfloat16):
+                if (b, s, kind, dt) == (*shapes[0][:2], "ragged", torch.bfloat16):
                     main_err = err
                 log(f"  masked_mhsa B={b} S={s} C={c} H={h} {kind} mask {str(dt)[6:]}: max|err| "
                     f"{err:.3g} (atol/rtol {TOL[dt][0]:g}/{TOL[dt][1]:g}), finite")
@@ -505,16 +566,18 @@ def ffn_params(c, f, g):
 FFN_SHAPES = ((8 * 1344, 96, 192), (8 * 768, 78, 192), (1003, 16, 32))
 
 
-def phase_ffn(g):
+def phase_ffn(g, shapes=FFN_SHAPES):
+    """Kernel B against its plain version at ``shapes``, f32 and bf16; returns
+    the bf16 max |err| of the first shape."""
     main_err = None
-    for rows, c, f in FFN_SHAPES:
+    for rows, c, f in shapes:
         p = ffn_params(c, f, g)
         for dt in (torch.float32, torch.bfloat16):
             x = (2 * randn(rows, c, g=g) + 0.5).to(dt)
             got = encoder_ffn_fused(x, *p)
             torch.cuda.synchronize()
             err = compare(got, encoder_ffn_torch(x, *p), dt, f"encoder_ffn {(rows, c, f)} {dt}")
-            if (rows, dt) == (8 * 1344, torch.bfloat16):
+            if (rows, dt) == (shapes[0][0], torch.bfloat16):
                 main_err = err
             log(f"  encoder_ffn rows={rows} C={c} F={f} {str(dt)[6:]}: max|err| {err:.3g} "
                 f"(atol/rtol {TOL[dt][0]:g}/{TOL[dt][1]:g}), finite")
@@ -552,10 +615,16 @@ def fwd_bwd(fn, inputs, cot):
     return out.detach(), grads
 
 
-def phase_mhsa_train(g):
-    """Kernel C forward and backward vs plain: bits and seed modes, f32 and bf16."""
+#: Kernel C vs plain (B, S, C, heads): W48's, HRT's and a small multi-head shape
+MHSA_TRAIN_SHAPES = ((8, 1344, 96, 1), (12, 384, 78, 1), (2, 130, 24, 8))
+
+
+def phase_mhsa_train(g, shapes=MHSA_TRAIN_SHAPES, keep_fraction=True):
+    """Kernel C forward and backward vs plain at ``shapes``: bits and seed
+    modes, f32 and bf16; returns the bf16 seed-mode max |err| of the first
+    shape's ragged mask; the seed-mode keep fraction where asked."""
     errs = {}
-    for b, s, c, h in ((8, 1344, 96, 1), (12, 384, 78, 1), (2, 130, 24, 8)):
+    for b, s, c, h in shapes:
         bits = torch.randint(0, 2 ** 32, (b * h, s, s), generator=g, dtype=torch.int64).to(DEV)
         for kind, mask in attention_masks(b, s, g):
             for dt in (torch.float32, torch.bfloat16):
@@ -577,10 +646,13 @@ def phase_mhsa_train(g):
                            for n, x, y in zip("qkv", gk, gr)]
                     if mask is not None and mask[0].all() and not torch.isfinite(got[0]).all():
                         raise AssertionError(f"{what}: the fully padded image is not finite")
-                    if (b, s, kind, dt, mode) == (8, 1344, "ragged", torch.bfloat16, "seed"):
+                    if (b, s, kind, dt, mode) == (*shapes[0][:2], "ragged", torch.bfloat16,
+                                                  "seed"):
                         errs = {"fwd": e_f, "bwd": max(e for e, _ in e_b)}
                     log(f"  {what}: out max|err| {e_f:.3g} ({r_f:.2g} of max), dq/dk/dv "
                         + " ".join(f"{e:.3g} ({r:.2g})" for e, r in e_b))
+    if not keep_fraction:
+        return errs
     bits = attention_bits(1234, 7, 8, 1344, DEV)
     keep = (bits >= threshold(RATE)).float().mean().item()
     log(f"  seed-mode keep fraction over {bits.numel()} draws: {keep:.5f} (1 - rate = {1 - RATE})")
@@ -603,11 +675,12 @@ def away_from_kink(x, p, g, eps=1e-4):
     raise AssertionError("could not draw rows away from the ReLU kink")
 
 
-def phase_ffn_train(g):
-    """Kernel D forward and backward (dx + 8 parameter grads) vs plain, and
-    two bf16 backward calls bit-equal (seed mode, the main-path shape)."""
+def phase_ffn_train(g, shapes=FFN_SHAPES):
+    """Kernel D forward and backward (dx + 8 parameter grads) vs plain at
+    ``shapes``, and two bf16 backward calls bit-equal (seed mode, the first
+    shape); returns the bf16 seed-mode max |err| of the first shape."""
     errs = {}
-    for rows, c, f in FFN_SHAPES:
+    for rows, c, f in shapes:
         p = ffn_params(c, f, g)
         bits = (torch.randint(0, 2 ** 32, (rows, f), generator=g, dtype=torch.int64).to(DEV),
                 torch.randint(0, 2 ** 32, (rows, c), generator=g, dtype=torch.int64).to(DEV))
@@ -625,7 +698,7 @@ def phase_ffn_train(g):
                 torch.cuda.synchronize()
                 ref, gr = run(encoder_ffn_train_torch)
                 what = f"encoder_ffn_train rows={rows} C={c} F={f} {str(dt)[6:]} {mode}"
-                if rows == FFN_SHAPES[0][0] and dt == torch.bfloat16 and mode == "seed":
+                if rows == shapes[0][0] and dt == torch.bfloat16 and mode == "seed":
                     again = run(encoder_ffn_train_fused)[1]
                     if not all(torch.equal(a, b) for a, b in zip(gk, again)):
                         raise AssertionError(f"{what}: two backward calls differ")
@@ -633,7 +706,7 @@ def phase_ffn_train(g):
                 e_f, r_f = compare_scaled(got, ref, dt, what + " out")
                 names = ("x", "ln1_w", "ln1_b", "w1", "b1", "w2", "b2", "ln2_w", "ln2_b")
                 e_b = [compare_scaled(a, r, dt, f"{what} d{n}") for n, a, r in zip(names, gk, gr)]
-                if rows == 8 * 1344 and dt == torch.bfloat16 and mode == "seed":
+                if rows == shapes[0][0] and dt == torch.bfloat16 and mode == "seed":
                     errs = {"fwd": e_f, "bwd": max(e for e, _ in e_b)}
                 log(f"  {what}: out max|err| {e_f:.3g} ({r_f:.2g}), grads max of max|err|/max|ref| "
                     f"{max(r for _, r in e_b):.2g}")
@@ -894,21 +967,29 @@ def phase_train(cfg, persons, kernels, name):
         raise AssertionError(f"the loss does not fall on a repeated batch: {total}")
     if min(counts.values()) < 1:
         raise AssertionError(f"the training path launched a kernel no time: {counts}")
+    check_resume(cfg, out, state, lambda epoch: [raw] * TRAIN_STEPS)
+    return counts, raw
+
+
+def check_resume(cfg, out, state, batches=None, epochs=1):
+    """AUTO_RESUME from the newest checkpoint under ``out`` after ``epochs``
+    epochs: a ``train_loop`` with nothing left to train restores the
+    trained weights, optimizer state and step bit for bit."""
     ckpt = latest_checkpoint(str(out))
     payload = load_checkpoint(ckpt)
-    resumed = train_loop(cfg, str(out), lambda epoch: [raw] * TRAIN_STEPS, max_epochs=1,
-                         device=DEV)
+    resumed = train_loop(cfg, str(out), batches, max_epochs=epochs, device=DEV)
     same = all(torch.equal(v.cpu(), payload["state_dict"][k])
                for k, v in resumed.model.state_dict().items())
+    same &= all(torch.equal(v.cpu(), state.model.state_dict()[k].cpu())
+                for k, v in resumed.model.state_dict().items())
     same &= all(torch.equal(a.cpu(), b.cpu()) for k in state.optimizer.state_dict()["state"]
                 for a, b in zip(state.optimizer.state_dict()["state"][k].values(),
                                 resumed.optimizer.state_dict()["state"][k].values()))
-    if (not same or resumed.step != state.step or payload["epoch"] != 0
+    if (not same or resumed.step != state.step or payload["epoch"] != epochs - 1
             or payload["meta"]["model"] != cfg["MODEL"]["NAME"]):
         raise AssertionError(f"AUTO_RESUME from {ckpt} did not restore the trained state")
     log(f"  checkpoint {Path(ckpt).name} written; AUTO_RESUME restores its weights, optimizer "
-        f"state and step {resumed.step}")
-    return counts, raw
+        f"state and step {resumed.step} bit for bit")
 
 
 def grads_on_off(model, cfg, raw, images, set_kernels, routes=(True, False)):
@@ -1072,10 +1153,11 @@ def backward_only(fn, inputs, cot):
     return lambda: torch.autograd.grad(out, xs, cot, retain_graph=True)
 
 
-def phase_train_kernel_timing(g, card):
-    """Kernels C and D forward and backward beside their plain versions at the
-    main-path shapes, bf16, seed mode; ms as (plain, kernel) pairs."""
-    b, s, c, f = 8, 1344, 96, 192
+def phase_train_kernel_timing(g, card, b=8, s=1344):
+    """Kernels C and D forward and backward beside their plain versions at
+    (B, S) (the main path's by default), a ragged person mask, D over B * S
+    rows, bf16, seed mode; ms as (plain, kernel) pairs."""
+    c, f = 96, 192
     q, k, v, cot = (randn(b, s, c, g=g, dtype=torch.bfloat16) for _ in range(4))
     mask = ragged_mask(b, s, 192, g)
     kw = {"dropout_seed": 5, "dropout_offset": 0}
@@ -1212,23 +1294,35 @@ def phase_timing(model, cfg, g, card):
         f"launches/step; top kernels (ms/step, launches/step):")
     for name, t, c in top[:12]:
         log(f"    {t:8.3f} {c:6.0f}  {name[:110]}")
-    times = phase_timing_mhsa(g, card)
-    s, c, f = n * 192, 96, 192
+    s = n * 192
+    times = {**phase_timing_mhsa(g, card, b, s), **ffn_timing(g, card, b * s)}
+    log_eval_times(times, b, s, card)
+    return times
+
+
+def ffn_timing(g, card, rows, c=96, f=192):
+    """Kernel B over ``rows`` rows, bf16, beside its plain version (device
+    time per call) and its bound."""
     bf = torch.bfloat16
-    x = randn(b * s, c, g=g, dtype=bf)
+    x = randn(rows, c, g=g, dtype=bf)
     p = ffn_params(c, f, g)
     with torch.no_grad():
-        plain, ms = plain_kernel_sdpa("encoder_ffn", [lambda: encoder_ffn_torch(x, *p),
-                                                 lambda: encoder_ffn_fused(x, *p)], 20, card)
-    times["encoder_ffn"] = timing(plain, ms, bound(2 * nbytes(x) + (2 * c * f + 5 * c + f) * 4,
-                                                   4.0 * b * s * c * f, bf))
+        plain, ms = plain_kernel_sdpa(f"encoder_ffn rows={rows}",
+                                      [lambda: encoder_ffn_torch(x, *p),
+                                       lambda: encoder_ffn_fused(x, *p)], 20, card)
+    return {"encoder_ffn": timing(plain, ms, bound(2 * nbytes(x) + (2 * c * f + 5 * c + f) * 4,
+                                                   4.0 * rows * c * f, bf))}
+
+
+def log_eval_times(times, b, s, card, c=96):
+    """Kernels A and B at an eval shape (B images of S tokens) beside their
+    plain versions, bounds and, for A, SDPA."""
     for name, t in times.items():
         lib = "" if t["library_ms"] is None else (f", SDPA {t['library_ms'] * 1e3:.1f} us "
                                                   f"(kernel/SDPA {t['ms'] / t['library_ms']:.2f})")
         log(f"  {name} B={b} S={s} C={c} bf16 (device time): kernel {t['ms'] * 1e3:.1f} us, plain "
             f"{t['plain_ms'] * 1e3:.1f} us{lib}, bound {t['bound_ms'] * 1e3:.2f} us "
             f"({t['bound_by']}) [{card}]")
-    return times
 
 
 def hrt_kernel_args(c, heads, g):
@@ -1765,16 +1859,16 @@ def fixture_cfg():
     return cfg
 
 
-def phase_decode(card):
-    """Every fixture JPEG decoded by ``data/jpeg.py``; each digest must equal
-    cv2.imread's (``decoded.sha256``). Returns ms per image."""
+def phase_decode(card, digests=FIXTURE / "decoded.sha256", folder=FIXTURE / "images" / "val2017"):
+    """Every fixture JPEG under ``folder`` decoded by ``data/jpeg.py``; each
+    digest must equal cv2.imread's (``digests``). Returns ms per image."""
     import PIL
 
     want = {}
-    for line in (FIXTURE / "decoded.sha256").read_text().splitlines():
+    for line in digests.read_text().splitlines():
         digest, name = line.split()
         want[name] = digest
-    paths = sorted((FIXTURE / "images" / "val2017").glob("*.jpg"))
+    paths = sorted(folder.glob("*.jpg"))
     if [p.name for p in paths] != sorted(want):
         raise AssertionError(f"fixture images {[p.name for p in paths]} vs digests {sorted(want)}")
     images = [imread(str(p)) for p in paths]
@@ -1786,9 +1880,10 @@ def phase_decode(card):
     for p in paths:  # again, the files read once
         imread(str(p))
     ms = (time.perf_counter() - t0) * 1e3 / len(paths)
-    log(f"  {len(paths)} JPEGs of {images[0].shape[1]}x{images[0].shape[0]} decoded with Pillow "
-        f"{PIL.__version__}: every SHA-256 equals cv2.imread's; {ms:.3f} ms per image "
-        f"(host clock, second pass) [{card}]")
+    sizes = sorted({f"{img.shape[1]}x{img.shape[0]}" for img in images})
+    log(f"  {len(paths)} JPEGs of {', '.join(sizes)} under {folder.relative_to(FIXTURE.parent)} "
+        f"decoded with Pillow {PIL.__version__}: every SHA-256 equals cv2.imread's; {ms:.3f} ms "
+        f"per image (host clock, second pass) [{card}]")
     return ms
 
 
@@ -1817,7 +1912,7 @@ def validate_run(cfg, ds, model, name, **kw):
     name_value, _ = validate(cfg, ds, model, str(out), device=DEV, **kw)
     wall = time.perf_counter() - t0
     del ds.evaluate
-    results = json.loads((out / "results" / "keypoints_val2017_results.json").read_text())
+    results = json.loads((out / "results" / f"keypoints_{ds.image_set}_results.json").read_text())
     return name_value, results, wall, spent[0]
 
 
@@ -1828,15 +1923,18 @@ def per_image(results):
     return counts
 
 
-def phase_validate_oracle(cfg, ds):
+def phase_validate_oracle(cfg, ds, fixture=FIXTURE, name="validate_oracle"):
     """``validate`` with the GT-heatmap oracle (targets rendered and decoded on
     the card) against the JAX validate's result on the fixture."""
-    expected = json.loads((FIXTURE / "expected.json").read_text())
-    name_value, results, _, _ = validate_run(cfg, ds, None, "validate_oracle",
+    expected = json.loads((fixture / "expected.json").read_text())
+    name_value, results, _, _ = validate_run(cfg, ds, None, name,
                                              eval_step_fn=lambda _model, batch: batch["target"])
     diff = {k: abs(name_value[k] - v) for k, v in expected["stats"].items()}
-    log(f"  GT oracle: AP {name_value['AP']:.6f}, AR {name_value['AR']:.6f}, {len(results)} "
-        f"results; largest |stat - JAX stat| {max(diff.values()):.3g} (bound {ORACLE_TOL:g})")
+    bands = "".join(f", {k} {name_value[k]:.6f}" for k in ("AP (easy)", "AP (medium)", "AP (hard)")
+                    if k in name_value)
+    log(f"  GT oracle: AP {name_value['AP']:.6f}, AR {name_value['AR']:.6f}{bands}, "
+        f"{len(results)} results; largest |stat - JAX stat| {max(diff.values()):.3g} "
+        f"(bound {ORACLE_TOL:g})")
     if (set(name_value) != set(expected["stats"]) or max(diff.values()) > ORACLE_TOL
             or name_value["AP"] <= ORACLE_MIN_AP
             or per_image(results) != expected["results_per_image"]):
@@ -2402,6 +2500,240 @@ def phase_tph_train_timing(raw, persons, card):
     split_by_encoder(events, order, TRAIN_KERNEL_PARTS, PROFILED_STEPS, card)
 
 
+def dataset_cfg(dataset):
+    """The W48 recipe of ``dataset`` reading its training fixture (phases
+    30-33): the recipe's batch, MAX_PATCH, WORKERS, bf16 and kernels on,
+    ``TEST.BATCH_SIZE_PER_GPU`` VAL_BATCH, a step's loss read at every step."""
+    cfg = presets.w48_pure_en6(dataset)
+    cfg["DATASET"]["ROOT"] = str(FIXTURES / TRAIN_TREES[dataset][0])
+    cfg["TEST"]["BATCH_SIZE_PER_GPU"] = VAL_BATCH
+    cfg["PRINT_FREQ"] = 1
+    return cfg
+
+
+def fixture_dataset(cfg, split):
+    """The dataset of ``cfg``'s ``split`` ("TRAIN_SET" or "TEST_SET")."""
+    d = cfg["DATASET"]
+    return get_dataset_class(d["DATASET"])(cfg, d["ROOT"], d[split],
+                                           is_train=split == "TRAIN_SET")
+
+
+def host_rate(cfg, ds, batch_images, workers, epochs=HOST_EPOCHS):
+    """Images a second that ``epoch_batches`` assembles on the host (decode,
+    pre-scale, augmentation, raster) at ``workers`` threads, over ``epochs``."""
+    images = 0
+    t0 = time.perf_counter()
+    for epoch in range(epochs):
+        for raw in epoch_batches({**cfg, "WORKERS": workers}, ds, epoch, batch_images):
+            images += raw["images"].shape[0]
+    return images / (time.perf_counter() - t0)
+
+
+def phase_train_data(card):
+    """The training data path: each training split's JPEGs decoded to
+    cv2.imread's bytes; its first batches of epoch 0 (``train_loop``'s
+    composition at WORKERS 0) equal to the JAX package's
+    (``expected_train.json``); ``device_batch`` of a rotated batch on the
+    card against the same call on the CPU; host images/s at WORKERS 0 and 8."""
+    for dataset, (tree, digests, folder) in TRAIN_TREES.items():
+        root = FIXTURES / tree
+        phase_decode(card, root / digests, root / folder)
+        cfg = dataset_cfg(dataset)
+        ds = fixture_dataset(cfg, "TRAIN_SET")
+        want = json.loads((root / "expected_train.json").read_text())
+        got = train_records(cfg, ds, want["batch_images"], len(want["batches"]))
+        worst = compare_records(got, want["batches"], atol=RECORD_ATOL)
+        log(f"  {dataset} {ds.image_set}: {len(ds)} images; the first {len(got)} batches of "
+            f"epoch 0 at B={want['batch_images']} equal JAX's: items, buckets, SHA-256 of images, "
+            f"person_valid and joints_vis; floats within {worst:.3g} (bound {RECORD_ATOL:g})")
+    cfg = dataset_cfg("coco")
+    ds = fixture_dataset(cfg, "TRAIN_SET")
+    items, nb = next(ds.train_batches(8, np.random.RandomState(SEED)))
+    for seed in range(20):  # the first augmentation that rotates and flips
+        raw, meta = ds.make_raw_batch(items, nb, np.random.RandomState(seed))
+        if (np.abs(meta["rotation"]).max() > 1
+                and (raw["crop_affines"][raw["person_valid"]][:, 0, 0] < 0).any()):
+            break
+    on_card = ds.device_batch(raw, DEV)
+    on_cpu = ds.device_batch(raw, "cpu")
+    errs = {}
+    for k, ref in on_cpu.items():
+        got = on_card[k].cpu()
+        if ref.dtype == torch.bool:
+            if not torch.equal(got, ref):
+                raise AssertionError(f"device_batch {k}: the card's differs from the CPU's")
+            continue
+        atol = CROP_ATOL if k == "images" else 1e-5
+        err = (got - ref).abs()
+        errs[k] = err.max().item()
+        if not torch.isfinite(got).all() or (err > atol + 1e-4 * ref.abs()).any():
+            raise AssertionError(f"device_batch {k}: card vs CPU max |err| {errs[k]:.3g} "
+                                 f"(atol {atol:.3g}, rtol 1e-4)")
+    log(f"  device_batch of a rotated, flipped batch (B=8 N={nb}, rotations "
+        f"{np.round(meta['rotation'], 1).tolist()}), card vs CPU: max|err| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (crops atol {CROP_ATOL:.3g}, the rest 1e-5; rtol 1e-4); validity equal")
+    for dataset, batch_images in (("coco", 8), ("crowdpose", 32)):
+        cfg = dataset_cfg(dataset)
+        ds = fixture_dataset(cfg, "TRAIN_SET")
+        rates = {w: host_rate(cfg, ds, batch_images, w) for w in HOST_WORKERS}
+        log(f"  make_raw_batch via epoch_batches, {dataset} B={batch_images}: "
+            + ", ".join(f"WORKERS {w} {r:.1f} images/s" for w, r in rates.items())
+            + f" (host clock, {HOST_EPOCHS} epochs of the fixture) [{card}]")
+
+
+def run_train_loop(cfg, name, max_epochs, validate_every=1, fresh=True):
+    """``train_loop`` from the dataset of ``cfg`` into ``OUT_DIR / name`` on the
+    card, the launches counted from zero over the run: (state, per-step
+    (loss, data ms, step ms, index in its epoch), launch counts, peak GiB,
+    host seconds)."""
+    out = OUT_DIR / name
+    if fresh:
+        shutil.rmtree(out, ignore_errors=True)
+    steps = []
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_loop(cfg, str(out), max_epochs=max_epochs, device=DEV,
+                       validate_every=validate_every,
+                       on_step=lambda e, i, m: steps.append(
+                           (float(m["loss"]), m["data_time"] * 1e3, m["batch_time"] * 1e3, i)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (state, steps, launch_counts(), torch.cuda.max_memory_allocated() / 2 ** 30, wall)
+
+
+def check_train_run(cfg, steps, counts, val_batches, what):
+    """Finite losses, Kernels C and D launched, A and B launched once a layer
+    and forward of each validation batch (6 layers, 2 forwards)."""
+    want_eval = 2 * cfg["MODEL"]["ENCODER_LAYERS"] * val_batches
+    got = {k: counts[k] for k in TRAIN_KERNELS + EVAL_KERNELS}
+    if not steps or not all(math.isfinite(step[0]) for step in steps):
+        raise AssertionError(f"{what}: training losses {[s[0] for s in steps]}")
+    if min(got[k] for k in TRAIN_KERNELS) < 1 or any(got[k] != want_eval for k in EVAL_KERNELS):
+        raise AssertionError(f"{what}: launches {got}; want C and D > 0, A and B {want_eval} "
+                             f"each ({val_batches} validation batches)")
+    return got
+
+
+def step_ms_text(steps):
+    """The steps' host times after the run's first: the step's ms and its wait
+    on the prefetch queue, the wait split between an epoch's first step (its
+    batch assembled after the epoch began) and the others (assembled while
+    earlier steps ran)."""
+    later = steps[1:] or steps
+    ahead = [d for _, d, _, i in later if i > 0]
+    return (f"step {np.mean([b for _, _, b, _ in later]):.2f} ms, waiting on the prefetch "
+            f"queue {np.mean([d for _, d, _, _ in later]):.2f} ms (mean of steps "
+            f"2-{len(steps)}: an epoch's first step "
+            f"{np.mean([d for _, d, _, i in later if i == 0] or [math.nan]):.2f} ms, the "
+            + (f"others {np.mean(ahead):.2f} ms" if ahead else "others not measured: none")
+            + f"; the run's first step {steps[0][2]:.2f} ms, of it {steps[0][1]:.2f} waiting)")
+
+
+def phase_train_jpegs(card):
+    """W48 COCO trained from the fixture's JPEGs by the dataset-driven
+    ``train_loop`` (bf16, kernels on, WORKERS 8, B=8 x N=7) for one epoch,
+    validated at its end; the checkpoint resumed; then two more epochs for
+    the step's wait on the prefetch queue beside its time."""
+    cfg = dataset_cfg("coco")
+    val_batches = len(list(fixture_dataset(cfg, "TEST_SET").eval_batches(VAL_BATCH)))
+    state, steps, counts, peak, wall = run_train_loop(cfg, "train_jpeg", 1)
+    got = check_train_run(cfg, steps, counts, val_batches, "W48 COCO from JPEGs")
+    perf = load_checkpoint(latest_checkpoint(str(OUT_DIR / "train_jpeg")))["perf"]
+    log(f"  1 epoch, {len(steps)} steps of B={cfg['TRAIN']['BATCH_SIZE_PER_GPU']} x "
+        f"N={cfg['DATASET']['MAX_PATCH']}: losses " + " ".join(f"{s[0]:.6f}" for s in steps)
+        + f"; validation AP {perf:.6f}; launches {got} (C and D in training, A and B in "
+        f"validate: {val_batches} batches); peak {peak:.1f} GiB; host clock {wall:.2f} s")
+    check_resume(cfg, OUT_DIR / "train_jpeg", state)
+    _, steps, *_ = run_train_loop(cfg, "train_jpeg", 3, validate_every=1000, fresh=False)
+    log(f"  epochs 1-2 resumed, {len(steps)} steps, WORKERS {cfg['WORKERS']}: "
+        f"{step_ms_text(steps)} [{card}]")
+    return got
+
+
+def hold_kernels(b, s, tb, g):
+    """Kernels C and D against their plain versions at Kernel C's [B, S, 96]
+    with a ragged person mask and D's B * S rows (phases 8-9's checks and
+    tolerances), and A and B at the test batch's [TB, S, 96] and TB * S rows
+    (phases 3-4's): {kernel: its bf16 max |err|} (C and D in seed mode)."""
+    c_err = phase_mhsa_train(g, ((b, s, 96, 1),), keep_fraction=False)
+    d_err = phase_ffn_train(g, ((b * s, 96, 192),))
+    return {"mhsa_train_fwd": c_err["fwd"], "mhsa_train_bwd": c_err["bwd"],
+            "encoder_ffn_train_fwd": d_err["fwd"], "encoder_ffn_train_bwd": d_err["bwd"],
+            "masked_mhsa": phase_mhsa(g, ((tb, s, 96, 1),)),
+            "encoder_ffn": phase_ffn(g, ((tb * s, 96, 192),))}
+
+
+def train_largest_batch(cfg, name, epochs, card):
+    """``run_train_loop`` at the recipe's batch, halved while the card runs out
+    of memory (each cut logged, CUT in the line): (batch, its run)."""
+    batch = cfg["TRAIN"]["BATCH_SIZE_PER_GPU"]
+    while True:
+        cfg["TRAIN"]["BATCH_SIZE_PER_GPU"] = batch
+        try:
+            return batch, run_train_loop(cfg, name, epochs, validate_every=epochs)
+        except torch.cuda.OutOfMemoryError as e:
+            torch.cuda.empty_cache()
+            log(f"  CUT: B={batch} x N={cfg['DATASET']['MAX_PATCH']} does not fit the card "
+                f"({str(e).splitlines()[0][:160]}); trying B={batch // 2} [{card}]")
+            if batch == 1:
+                raise
+            batch //= 2
+
+
+def phase_dataset_recipe(dataset, g, card):
+    """A W48 recipe of another dataset at its own shapes (phases 32-33):
+    Kernels C and D against their plain versions at the training batch's
+    [B, N * 192, 96] with a ragged mask and B * N * 192 rows, A and B at the
+    test batch's shapes (``hold_kernels``), then timed beside their plain
+    versions, their bounds and SDPA (with dropout 0.1 for C); ``train_loop``
+    from the fixture for TRAIN_EPOCHS epochs of one step, validated at the
+    end, launches counted from zero, the peak memory and step time;
+    ``validate`` on the test split with the GT oracle (against
+    ``expected.json``) and with the seeded model kernels on vs off.
+    Returns {kernel: the fields of these shapes for the kernels line}."""
+    cfg = dataset_cfg(dataset)
+    b, n = cfg["TRAIN"]["BATCH_SIZE_PER_GPU"], cfg["DATASET"]["MAX_PATCH"]
+    s = n * 192
+    tb = presets.w48_pure_en6(dataset)["TEST"]["BATCH_SIZE_PER_GPU"]
+    errs = hold_kernels(b, s, tb, g)
+    torch.cuda.empty_cache()
+    times = phase_train_kernel_timing(g, card, b, s)
+    torch.cuda.empty_cache()
+    eval_times = {**phase_timing_mhsa(g, card, tb, s), **ffn_timing(g, card, tb * s)}
+    log_eval_times(eval_times, tb, s, card)
+    times.update(eval_times)
+    torch.cuda.empty_cache()
+
+    test_ds = fixture_dataset(cfg, "TEST_SET")
+    val_batches = len(list(test_ds.eval_batches(VAL_BATCH)))
+    batch, (state, steps, counts, peak, wall) = train_largest_batch(cfg, f"train_{dataset}",
+                                                                    TRAIN_EPOCHS, card)
+    got = check_train_run(cfg, steps, counts, val_batches, f"W48 {dataset}")
+    has_pos = state.model.position_embedding is not None
+    if has_pos != cfg["MODEL"]["USE_MULTI_POS"]:
+        raise AssertionError(f"{dataset}: the model has a position embedding: {has_pos}")
+    perf = load_checkpoint(latest_checkpoint(str(OUT_DIR / f"train_{dataset}")))["perf"]
+    cut = "" if batch == b else f", CUT from the recipe's B={b}"
+    log(f"  train_loop, {len(steps)} steps of B={batch} x N={n}{cut} "
+        f"({'with' if has_pos else 'without'} a position embedding): losses "
+        + " ".join(f"{x[0]:.6f}" for x in steps) + f"; validation AP {perf:.6f}; launches {got}; "
+        f"peak memory {peak:.1f} GiB; {step_ms_text(steps)}; host clock {wall:.2f} s [{card}]")
+    del state
+    torch.cuda.empty_cache()
+    phase_validate_oracle(cfg, test_ds, FIXTURES / TRAIN_TREES[dataset][0],
+                          f"validate_oracle_{dataset}")
+    phase_validate_model(cfg, test_ds, g, card, f"validate_{dataset}")
+    torch.cuda.empty_cache()
+    c_shape, d_shape = f"B={b} S={s} C=96 ragged mask", f"R={b * s} C=96 F=192"
+    shapes = {"mhsa_train_fwd": c_shape, "mhsa_train_bwd": c_shape,
+              "encoder_ffn_train_fwd": d_shape, "encoder_ffn_train_bwd": d_shape,
+              "masked_mhsa": f"B={tb} S={s} C=96 ragged mask", "encoder_ffn": f"R={tb * s} C=96"}
+    return {k: {"shape": shapes[k], **times[k], "max_abs_err": errs[k], "launches": got[k],
+                "train_batch": batch} for k in shapes}
+
+
 def tph_fixture_cfg():
     """The TPH recipe reading the fixture, B=16."""
     cfg = presets.tph_interformer()
@@ -2571,6 +2903,16 @@ def main() -> int:
     phase_tph_train_timing(tph_raw, TPH_TRAIN_PERSONS, card)
     torch.cuda.empty_cache()
 
+    log("phase 30 the training data path on the COCO, CrowdPose and OCHuman fixtures:")
+    phase_train_data(card)
+    log("phase 31 training W48 COCO from JPEGs through train_loop (bf16, B=8 N=7, WORKERS 8):")
+    jpeg_counts = phase_train_jpegs(card)
+    torch.cuda.empty_cache()
+    log("phase 32 the CrowdPose W48 recipe (B=32 N=5, 14 joints):")
+    recipes = {"crowdpose": phase_dataset_recipe("crowdpose", g, card)}
+    log("phase 33 the OCHuman W48 recipe without a position embedding (B=32 N=3):")
+    recipes["ochuman"] = phase_dataset_recipe("OCHuman", g, card)
+
     counts.update(train_counts)
     counts.update({k: hrt_train_counts[k] for k in ("window_attn_block_train_fwd",
                                                     "window_attn_block_train_bwd")})
@@ -2583,10 +2925,14 @@ def main() -> int:
     # the launches of each encoder in phase 28's run
     tph = {name: {**tph_times[name], "max_abs_err": tph_errs[name], "launches": tph_split[name]}
            for name in TRAIN_KERNELS}
+    # phases 31-33: the launches of W48 COCO trained from JPEGs and validated,
+    # and each kernel of the CrowdPose and OCHuman recipes at their shapes
+    new_shapes = {name: {"coco_jpeg": {"launches": jpeg_counts[name]},
+                         **{k: v[name] for k, v in recipes.items()}} for name in jpeg_counts}
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": counts[name],
                 "max_abs_err": errs[name], **times[name],
-                **({"tph": tph[name]} if name in tph else {})}
+                **({"tph": tph[name]} if name in tph else {}), **new_shapes.get(name, {})}
                for name in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -29,7 +29,8 @@ from i2rnet_tpu_torch.data.coco_format import CocoJson
 from i2rnet_tpu_torch.data.dataset import PoseDataset
 from i2rnet_tpu_torch.ops.cocoeval import KeypointEval
 from i2rnet_tpu_torch.ops.nms import oks_nms, soft_oks_nms
-from i2rnet_tpu_torch.presets import COCO_FLIP_PAIRS, COCO_JOINTS_WEIGHT
+from i2rnet_tpu_torch.presets import (COCO_FLIP_PAIRS, COCO_JOINTS_WEIGHT,
+                                      COCO_LOWER_BODY_IDS, COCO_UPPER_BODY_IDS)
 
 logger = logging.getLogger(__name__)
 
@@ -39,7 +40,12 @@ _DETAIL_EVAL = "TEST.DETAIL_EVAL (the crowd-stratified AP report) is not ported:
 
 class COCODataset(PoseDataset):
     num_joints = 17
+    # TEST.DETAIL_EVAL's crowd bands (reference KeypointEvaluator.py:482
+    # default), kept as data while that report is not ported
+    detail_cluster_mode = (1, 2, 6, 10)
     flip_pairs = COCO_FLIP_PAIRS
+    upper_body_ids = COCO_UPPER_BODY_IDS
+    lower_body_ids = COCO_LOWER_BODY_IDS
     joints_weight = COCO_JOINTS_WEIGHT
 
     def __init__(self, cfg: Dict, root: str, image_set: str, is_train: bool):
@@ -58,6 +64,8 @@ class COCODataset(PoseDataset):
         self.coco = CocoJson(self._ann_file())
         self.person_cat = self.coco.person_cat_id()
         self.db = self._get_db()
+        if is_train and cfg["DATASET"]["SELECT_DATA"]:
+            self.db = self.select_data(self.db)
         logger.info("=> coco %s: %d records", image_set, len(self.db))
 
     # --------------------------------------------------------------- paths
@@ -74,7 +82,7 @@ class COCODataset(PoseDataset):
 
     # ------------------------------------------------------------------ db
     def _get_db(self):
-        if self.use_gt_bbox:
+        if self.is_train or self.use_gt_bbox:
             return self._load_gt_db()
         return self._load_detection_db()
 

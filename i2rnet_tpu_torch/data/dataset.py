@@ -1,27 +1,31 @@
-"""Base multi-person pose dataset and static-shape batcher, evaluation half.
+"""Base multi-person pose dataset and static-shape batcher.
 
 Port of ``i2rnet_tpu/data/dataset.py``. The host does the cheap numpy work:
 decode images (``data/jpeg.py``, in place of ``cv2.imread``), shrink one that
 does not fit the static raster (``data/resize.py``, in place of
-``cv2.resize``), build each person's affine matrices and joint coordinates,
-and group persons into ``[B, N_bucket]`` batches. The pixel work (crop warp,
-position masks, normalisation, targets) runs on the device
+``cv2.resize``), draw the training augmentation, build each person's affine
+matrices and joint coordinates, select persons by the patch modes and group
+them into ``[B, N_bucket]`` batches. The pixel work (crop warp, position
+masks, normalisation, targets) runs on the device
 (``ops/preprocess.py::device_preprocess``).
 
 Reference counterparts: ``JointsDataset.__getitem__`` (``lib/dataset/
-JointsDataset.py:207-357``) without its augmentation, and the ragged concat
-with a ``length`` meta, replaced by ``[B, N_bucket, ...]`` plus
-``person_valid``.
+JointsDataset.py:207-357``: augmentation, per-person warps), the
+``collater`` patch modes (``lib/dataset/collater.py:28-95``: ``random``,
+``random_totally``, ``window``, ``main_target``), and the ragged concat with
+a ``length`` meta, replaced by ``[B, N_bucket, ...]`` plus ``person_valid``.
 
-Only evaluation is ported: a dataset built with ``is_train`` raises. The
-training augmentation (rotation, scale jitter, half-body, flips), the patch
-modes of ``train_batches`` and ``select_data`` are ROADMAP queue 1, item 3.
+The draws are the JAX package's, call for call: ``train_batches`` takes the
+epoch's order and the patch choices from its ``rng``, ``make_raw_batch``
+each image's rotation, scale, half-body flag and flip from its own, and
+``half_body_transform`` its upper/lower choice from the global
+``np.random`` stream, as the reference does (``JointsDataset.py:71-114``).
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,9 +59,18 @@ def _compose(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return (a3 @ b3)[:2].astype(np.float32)
 
 
-def _max_off_diagonal(crop_affines: np.ndarray) -> float:
-    return max(float(np.abs(crop_affines[..., 0, 1]).max()),
-               float(np.abs(crop_affines[..., 1, 0]).max()))
+def _check_axis_aligned(crop_affines: np.ndarray) -> None:
+    """Evaluation crop affines are axis-aligned (no rotation; the pre-scale
+    and the flip fold into the diagonal), which the device's separable crop
+    relies on. A rot=0 composition leaves ~1e-16 trig residue in the
+    off-diagonals; anything above float noise means a rotation."""
+    if not crop_affines.size:
+        return
+    off_diag = max(float(np.abs(crop_affines[..., 0, 1]).max()),
+                   float(np.abs(crop_affines[..., 1, 0]).max()))
+    if off_diag >= 1e-6:
+        raise AssertionError("eval batch has rotated crop affines; axis-aligned crop "
+                             f"invariant broken (max off-diagonal {off_diag})")
 
 
 class PoseDataset:
@@ -67,24 +80,25 @@ class PoseDataset:
 
     num_joints = 17
     flip_pairs: List[List[int]] = []
+    upper_body_ids: Tuple[int, ...] = ()
+    lower_body_ids: Tuple[int, ...] = ()
     # per-joint loss weights (limb up-weighting), applied when
     # LOSS.USE_DIFFERENT_JOINTS_WEIGHT (reference JointsDataset.py:432-433)
     joints_weight: Tuple[float, ...] = ()
     pixel_std = 200
 
     def __init__(self, cfg: Dict, root: str, image_set: str, is_train: bool):
-        if is_train:
-            raise NotImplementedError(
-                "the training data path (augmentation, train_batches, select_data) is not "
-                "ported: ROADMAP queue 1, item 3")
         self.root = root
         self.image_set = image_set
+        self.is_train = is_train
         m, d = cfg["MODEL"], cfg["DATASET"]
 
         # joint count follows the config (tiny synthetic sets use fewer)
         self.num_joints = m["NUM_JOINTS"]
         self.flip_pairs = [p for p in type(self).flip_pairs
                            if p[0] < self.num_joints and p[1] < self.num_joints]
+        self.upper_body_ids = tuple(j for j in type(self).upper_body_ids if j < self.num_joints)
+        self.lower_body_ids = tuple(j for j in type(self).lower_body_ids if j < self.num_joints)
         jw = tuple(type(self).joints_weight)[:self.num_joints]
         use_jw = cfg["LOSS"]["USE_DIFFERENT_JOINTS_WEIGHT"] and len(jw) == self.num_joints
         self.joints_weight = jw if use_jw else None
@@ -93,7 +107,14 @@ class PoseDataset:
         self.heatmap_width, self.heatmap_height = m["HEATMAP_SIZE"]
         self.aspect_ratio = self.image_width / self.image_height
         self.sigma = m["SIGMA"]
+
+        self.scale_factor = d["SCALE_FACTOR"]
+        self.rotation_factor = d["ROT_FACTOR"]
+        self.flip = d["FLIP"]
+        self.prob_half_body = d["PROB_HALF_BODY"]
+        self.num_joints_half_body = d["NUM_JOINTS_HALF_BODY"]
         self.color_rgb = d["COLOR_RGB"]
+
         self.max_patch = d["MAX_PATCH"]
         self.patch_mode = d["PATCH_MODE"]
         # static raw-image raster (the device's crop source)
@@ -119,14 +140,105 @@ class PoseDataset:
             scale = scale * 1.25
         return center, scale
 
+    def half_body_transform(self, joints, joints_vis):
+        """Reference ``JointsDataset.py:71-114``. The upper/lower choice draws
+        from the global ``np.random`` stream, not from the batch's ``rng``, as
+        the JAX package and the reference do."""
+        upper, lower = [], []
+        for j in range(self.num_joints):
+            if joints_vis[j, 0] > 0:
+                (upper if j in self.upper_body_ids else lower).append(joints[j])
+        if np.random.randn() < 0.5 and len(upper) > 2:
+            selected = upper
+        else:
+            selected = lower if len(lower) > 2 else upper
+        if len(selected) < 2:
+            return None, None
+        selected = np.array(selected, np.float32)
+        center = selected.mean(axis=0)[:2]
+        lt = selected.min(axis=0)
+        rb = selected.max(axis=0)
+        w = rb[0] - lt[0] + 1
+        h = rb[1] - lt[1] + 1
+        if w > self.aspect_ratio * h:
+            h = w / self.aspect_ratio
+        elif w < self.aspect_ratio * h:
+            w = h * self.aspect_ratio
+        scale = np.array([w / self.pixel_std, h / self.pixel_std], np.float32) * 1.5
+        return center, scale
+
+    def select_data(self, db: List[Dict]) -> List[Dict]:
+        """``DATASET.SELECT_DATA`` quality filter (reference
+        ``JointsDataset.py:360-391``): keep persons whose joint centroid is
+        close to the box center relative to the box area (an OKS-style
+        ks > metric(num_visible) test). Image records left empty are dropped."""
+        out = []
+        kept = dropped = 0
+        for rec in db:
+            annos = []
+            for a in rec["annos"]:
+                joints = np.asarray(a["joints_3d"], np.float32)
+                vis = np.asarray(a["joints_3d_vis"], np.float32)
+                sel = vis[:, 0] > 0
+                num_vis = int(np.count_nonzero(sel))
+                if num_vis == 0:
+                    dropped += 1
+                    continue
+                joints_center = joints[sel, :2].mean(axis=0)
+                bbox_center = np.asarray(a["center"], np.float32)
+                scale = np.asarray(a["scale"], np.float32)
+                area = scale[0] * scale[1] * (self.pixel_std ** 2)
+                diff = np.linalg.norm(joints_center - bbox_center)
+                ks = np.exp(-(diff ** 2) / (0.2 ** 2 * 2.0 * area))
+                metric = (0.2 / 16) * num_vis + 0.45 - 0.2 / 16
+                if ks > metric:
+                    annos.append(a)
+                    kept += 1
+                else:
+                    dropped += 1
+            if annos:
+                out.append({**rec, "annos": annos})
+        logger.info("select_data: kept %d persons, dropped %d", kept, dropped)
+        return out
+
+    # ------------------------------------------------------- patch modes
+    def _select_patches(self, annos: List[Dict], rng: np.random.RandomState) -> List[List[int]]:
+        """The person-index groups of one training image (reference
+        ``collater.get_max_patch``, ``collater.py:28-95``)."""
+        n = len(annos)
+        mode = self.patch_mode
+        mp = self.max_patch
+        if mp <= 0:
+            return [list(range(n))]
+        origins = np.array([[a["box"][0], a["box"][1]] for a in annos], np.float32)
+
+        def nearest(target_idx, count):
+            d = np.linalg.norm(origins - origins[target_idx], axis=1)
+            return list(np.argsort(d, kind="stable")[:count])
+
+        if mode == "main_target":
+            if n <= 1:
+                return [list(range(n))]
+            return [nearest(t, min(n, mp)) for t in range(n)]
+        if n <= mp:
+            return [list(range(n))]
+        if mode == "random_totally":
+            return [list(rng.choice(n, mp, replace=False))]
+        if mode == "window":
+            return [list(range(i, min(i + mp, n))) for i in range(0, n, mp)]
+        # 'random': the mp persons nearest to a random target person
+        return [nearest(rng.randint(n), mp)]
+
     # --------------------------------------------------------- batching
     def _load_image(self, path: str) -> np.ndarray:
         return imread(path, rgb=self.color_rgb)
 
-    def make_raw_batch(self, items: Sequence[Tuple[int, List[int]]], n_max: int):
+    def make_raw_batch(self, items: Sequence[Tuple[int, Optional[List[int]]]], n_max: int,
+                       rng: Optional[np.random.RandomState] = None):
         """Assemble a host batch.
 
-        items: list of (db_index, person_indices or None=all).
+        items: list of (db_index, person_indices or None=all). A training
+        dataset given ``rng`` draws the image-level augmentation from it.
         Returns (raw dict for ``device_preprocess``, meta dict).
         """
         b = len(items)
@@ -170,9 +282,31 @@ class PoseDataset:
             idxs = person_idx if person_idx is not None else list(range(len(annos)))
             idxs = idxs[:n_max]
 
-            # evaluation samples no augmentation: raster -> source is 1/f
-            raster_to_work = np.array([[1.0 / f, 0, 0], [0, 1.0 / f, 0]], np.float32)
-            mask_aff_base = np_rotate_bound_resize_affine(src_w, src_h, 0.0, iw, ih)
+            # image-level augmentation, shared by all persons (reference
+            # JointsDataset.py:235-249)
+            r = 0.0
+            sf_ratio = 1.0
+            half_flag = False
+            flipped = False
+            if self.is_train and rng is not None:
+                rf = self.rotation_factor
+                r = float(np.clip(rng.randn() * rf, -rf * 2, rf * 2)) \
+                    if rng.rand() <= 0.6 else 0.0
+                sf = self.scale_factor
+                sf_ratio = float(np.clip(rng.randn() * sf + 1, 1 - sf, 1 + sf))
+                half_flag = rng.rand() < self.prob_half_body
+                flipped = self.flip and rng.rand() <= 0.5
+            meta["rotation"][bi] = r
+
+            # working coords = (possibly flipped) source image coords; raster
+            # coords = unflipped, pre-scaled. raster -> working:
+            #   x_w = W-1 - x_r/f (flip) or x_r/f
+            if flipped:
+                raster_to_work = np.array([[-1.0 / f, 0, src_w - 1], [0, 1.0 / f, 0]], np.float32)
+            else:
+                raster_to_work = np.array([[1.0 / f, 0, 0], [0, 1.0 / f, 0]], np.float32)
+
+            mask_aff_base = np_rotate_bound_resize_affine(src_w, src_h, r, iw, ih)
 
             for pi, ai in enumerate(idxs):
                 a = annos[ai]
@@ -183,8 +317,26 @@ class PoseDataset:
                 box = np.array(a["box"][:4], np.float32)  # xywh
                 score = float(a.get("score", 1))
 
-                trans = np_get_affine_transform(c, s, 0.0, (iw, ih))
-                trans_hm = np_get_affine_transform(c, s, 0.0, (hw_, hh_))
+                if flipped:
+                    joints[:, 0] = src_w - joints[:, 0] - 1
+                    perm = np.arange(k)
+                    for p0, p1 in self.flip_pairs:
+                        perm[p0], perm[p1] = perm[p1], perm[p0]
+                    joints = (joints * vis)[perm]
+                    vis = vis[perm]
+                    c[0] = src_w - c[0] - 1
+                    bx1 = src_w - 1 - (box[0] + box[2])
+                    box = np.array([bx1, box[1], box[2], box[3]], np.float32)
+
+                if self.is_train:
+                    s = s * sf_ratio
+                    if np.sum(vis[:, 0]) > self.num_joints_half_body and half_flag:
+                        c_h, s_h = self.half_body_transform(joints, vis)
+                        if c_h is not None:
+                            c, s = c_h, s_h
+
+                trans = np_get_affine_transform(c, s, r, (iw, ih))
+                trans_hm = np_get_affine_transform(c, s, r, (hw_, hh_))
 
                 jx = joints[:, :2].copy()
                 jhm = jx.copy()
@@ -229,29 +381,23 @@ class PoseDataset:
             "joints_vis": joints_vis,
             "person_valid": person_valid,
         }
-        # evaluation crop affines are axis-aligned (no rotation; the
-        # pre-scale folds into the diagonal), which the device's separable
-        # crop relies on. A rot=0 composition leaves ~1e-16 trig residue in
-        # the off-diagonals; anything above float noise means a rotation.
-        if crop_affines.size and _max_off_diagonal(crop_affines) >= 1e-6:
-            raise AssertionError(
-                "eval batch has rotated crop affines; axis-aligned crop invariant broken "
-                f"(max off-diagonal {_max_off_diagonal(crop_affines)})")
+        if not self.is_train:
+            _check_axis_aligned(crop_affines)
         return raw, meta
 
     def device_batch(self, raw, device) -> Dict[str, torch.Tensor]:
         """A raw host batch -> the model's batch on ``device`` (crops, position
-        masks, targets and validity; ``device_preprocess``, axis-aligned)."""
-        ca = raw["crop_affines"]
-        if isinstance(ca, np.ndarray) and ca.size and _max_off_diagonal(ca) >= 1e-6:
-            raise AssertionError(
-                "eval batch has rotated crop affines; axis-aligned crop invariant broken "
-                f"(max off-diagonal {_max_off_diagonal(ca)})")
+        masks, targets and validity; ``device_preprocess``). Evaluation
+        batches take the axis-aligned crop, training batches (rotated) the
+        gather crop."""
+        axis_aligned = not self.is_train
+        if axis_aligned and isinstance(raw["crop_affines"], np.ndarray):
+            _check_axis_aligned(raw["crop_affines"])
         return device_preprocess(raw_to_device(raw, device),
                                  (self.image_width, self.image_height),
                                  (self.heatmap_width, self.heatmap_height),
                                  self.sigma, joints_weight=self.joints_weight,
-                                 axis_aligned=True)
+                                 axis_aligned=axis_aligned)
 
     # --------------------------------------------------------- iteration
     def eval_batches(self, batch_images: int):
@@ -285,3 +431,36 @@ class PoseDataset:
             chunk = items[i:i + batch_images]
             nb = bucket_persons(max(len(it[1]) for it in chunk))
             yield chunk, nb
+
+    def train_batches(self, batch_images: int, rng: np.random.RandomState,
+                      shard_index: int = 0, num_shards: int = 1):
+        """Yield training (items, n_bucket), the patch mode applied to each
+        image of the epoch's order. ``num_shards``/``shard_index`` give
+        DistributedSampler-style sharding (reference
+        ``tools/ddp_train.py:191``). The bucket is ``MAX_PATCH``'s, so every
+        batch has one shape; a trailing partial batch is padded by wrapping
+        to the epoch's first items."""
+        order = rng.permutation(len(self.db))
+        order = order[shard_index::num_shards]
+        items: List[Tuple[int, List[int]]] = []
+        first_batch: List[Tuple[int, List[int]]] = []
+        n_bucket = bucket_persons(min(self.max_patch, 64)) if self.max_patch > 0 else None
+        for dbi in order:
+            groups = self._select_patches(self.db[dbi]["annos"], rng)
+            for g in groups:
+                items.append((int(dbi), g))
+                if len(first_batch) < batch_images:
+                    first_batch.append((int(dbi), g))
+                if len(items) == batch_images:
+                    nb = n_bucket or bucket_persons(max(len(it[1]) for it in items))
+                    yield items, nb
+                    items = []
+        if items:
+            # the static-shape analogue of DistributedSampler's wrap-around
+            # padding
+            i = 0
+            while len(items) < batch_images and first_batch:
+                items.append(first_batch[i % len(first_batch)])
+                i += 1
+            nb = n_bucket or bucket_persons(max(len(it[1]) for it in items))
+            yield items, nb

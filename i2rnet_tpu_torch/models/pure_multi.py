@@ -1,10 +1,11 @@
 """Vanilla I²R-Net (``interformer_pureMulti``).
 
 Port of ``i2rnet_tpu/models/pure_multi.py``: HRNet-W48-S trunk, a 1x1
-reduce, the conv position embedding, one inter-human transformer encoder over
-all persons' tokens of an image, one deconv block applied twice (shared
-weights, faithful to the reference quirk), a 1x1 heatmap head, and padded
-persons' heatmaps zeroed. The state-dict names are the original PyTorch
+reduce, the conv position embedding (none under ``USE_MULTI_POS`` false, as
+the OCHuman recipe sets: the encoder then takes no ``pos``), one
+inter-human transformer encoder over all persons' tokens of an image, one
+deconv block applied twice (shared weights, faithful to the reference
+quirk), a 1x1 heatmap head, and padded persons' heatmaps zeroed. The state-dict names are the original PyTorch
 repo's, so ``convert_state_dict(model.state_dict(), "interformer_pureMulti")``
 gives the JAX variable tree. :func:`init_weights` is the JAX package's
 initialisation of this model and of the HRFormer two-stage model (convs
@@ -47,9 +48,9 @@ class PureMultiInterFormer(HRNetTrunk):
 
     def __init__(self, extra: Dict, num_joints: int = 17, d_model: int = 96,
                  dim_feedforward: int = 192, n_head: int = 1, encoder_layers: int = 6,
-                 trans_size=(16, 12), multi_pos_mode: str = "conv",
-                 final_conv_kernel: int = 1, use_kernels: bool = False,
-                 remat=False, compute_dtype: torch.dtype = torch.float32):
+                 trans_size=(16, 12), use_multi_pos: bool = True,
+                 multi_pos_mode: str = "conv", final_conv_kernel: int = 1,
+                 use_kernels: bool = False, remat=False, compute_dtype: torch.dtype = torch.float32):
         super().__init__(extra)
         self.trans_size = tuple(trans_size)
         self.d_model = d_model
@@ -58,7 +59,8 @@ class PureMultiInterFormer(HRNetTrunk):
         self.unported_training = [] if remat in (False, None, "none") else [("DEVICE.REMAT",
                                                                               remat)]
         self.reduce = Conv2d(self.trunk_channels[-1], d_model, 1, bias=False)
-        self.position_embedding = PositionEmbeddingImage(trans_size, d_model, multi_pos_mode)
+        self.position_embedding = (PositionEmbeddingImage(trans_size, d_model, multi_pos_mode)
+                                   if use_multi_pos else None)
         self.global_encoder = TransformerEncoder(encoder_layers, d_model, n_head,
                                                  dim_feedforward, use_kernels)
         filters = extra["NUM_DECONV_FILTERS"][0]
@@ -89,9 +91,11 @@ class PureMultiInterFormer(HRNetTrunk):
         x = images.reshape(b * n, h, w, 3).permute(0, 3, 1, 2).to(dt)
         feat = self.reduce(self.forward_trunk(x)[-1])            # [B*N, C, th, tw]
         tokens = feat.permute(0, 2, 3, 1).reshape(b, n * th * tw, self.d_model)
-        pos = flatten_person_tokens(self.position_embedding(pos_masks.to(dt)))
+        pos = None
+        if self.position_embedding is not None:
+            pos = flatten_person_tokens(self.position_embedding(pos_masks.to(dt))).to(dt)
         key_pad = (~person_valid).repeat_interleave(th * tw, dim=1)
-        out = self.global_encoder(tokens, key_pad, pos.to(tokens.dtype), dropout_seed)
+        out = self.global_encoder(tokens, key_pad, pos, dropout_seed)
         out = out.reshape(b * n, th, tw, self.d_model).permute(0, 3, 1, 2)
         out = self.deconv_layers(self.deconv_layers(out))
         heat = self.final_layer(out)
@@ -148,14 +152,12 @@ def build_pure_multi(cfg: Dict, use_kernels=None, device="cuda") -> PureMultiInt
     m = cfg["MODEL"]
     if m["NAME"] != "interformer_pureMulti":
         raise ValueError(f"model {m['NAME']!r} is not ported")
-    if not m.get("USE_MULTI_POS", True):
-        raise NotImplementedError("MODEL.USE_MULTI_POS=false is not ported")
     dev = cfg["DEVICE"]
     model = PureMultiInterFormer(
         extra=m["EXTRA"], num_joints=m["NUM_JOINTS"], d_model=m["DIM_MODEL"],
         dim_feedforward=m["DIM_FEEDFORWARD"], n_head=m["N_HEAD"],
         encoder_layers=m["ENCODER_LAYERS"], trans_size=tuple(m["TRANS_SIZE"]),
-        multi_pos_mode=m["MULTI_POS_EMBEDDING"],
+        use_multi_pos=m.get("USE_MULTI_POS", True), multi_pos_mode=m["MULTI_POS_EMBEDDING"],
         final_conv_kernel=m["EXTRA"].get("FINAL_CONV_KERNEL", 1),
         use_kernels=dev["USE_KERNELS"] if use_kernels is None else use_kernels,
         remat=dev.get("REMAT", False), compute_dtype=DTYPES[dev["COMPUTE_DTYPE"]])

@@ -1,8 +1,9 @@
 """Model configurations as plain dicts (no YAML, no config package).
 
 Mirrors ``i2rnet_tpu/presets.py:70,104,141,190`` and the recipes
-``experiments/coco/interformer_coco_w48_pure_en6.yaml``,
-``interformer_coco_hrt_192_p2_b12.yaml`` and
+``experiments/coco/interformer_coco_w48_pure_en6.yaml`` (and its CrowdPose
+and OCHuman variants under ``experiments/crowdpose`` and
+``experiments/OCHuman``), ``interformer_coco_hrt_192_p2_b12.yaml`` and
 ``interformer_coco_tph_192_p4_b4.yaml``, keeping only the keys the ported
 paths read, under the JAX config's section and key names. The one renamed
 section is ``DEVICE``: ``COMPUTE_DTYPE``, ``USE_KERNELS`` (the JAX
@@ -46,6 +47,17 @@ COCO_FLIP_PAIRS = [[1, 2], [3, 4], [5, 6], [7, 8], [9, 10], [11, 12],
 #: COCO limb up-weighting (``i2rnet_tpu/data/coco.py:42``, reference coco.py:106-112)
 COCO_JOINTS_WEIGHT = (1., 1., 1., 1., 1., 1., 1., 1.2, 1.2,
                       1.5, 1.5, 1., 1., 1.2, 1.2, 1.5, 1.5)
+#: COCO's half-body split (``i2rnet_tpu/data/coco.py:39-40``)
+COCO_UPPER_BODY_IDS = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
+COCO_LOWER_BODY_IDS = (11, 12, 13, 14, 15, 16)
+
+#: CrowdPose's 14-joint skeleton (``i2rnet_tpu/data/crowdpose.py:25-31``,
+#: reference crowdpose.py:104-110): flip pairs, half-body split, limb weights
+CROWDPOSE_FLIP_PAIRS = [[0, 1], [2, 3], [4, 5], [6, 7], [8, 9], [10, 11]]
+CROWDPOSE_UPPER_BODY_IDS = (0, 1, 2, 3, 4, 5, 12, 13)
+CROWDPOSE_LOWER_BODY_IDS = (6, 7, 8, 9, 10, 11)
+CROWDPOSE_JOINTS_WEIGHT = (1., 1., 1.2, 1.2, 1.5, 1.5, 1., 1., 1.2,
+                           1.2, 1.5, 1.5, 1., 1.)
 
 HRNET_W48S_EXTRA = {
     "DECONV_WITH_BIAS": False,
@@ -76,8 +88,24 @@ _TRAIN_KEYS = ("BATCH_SIZE_PER_GPU", "BEGIN_EPOCH", "END_EPOCH", "LR", "LR_END",
 _LOSS_KEYS = ("USE_OHKM", "TOPK", "USE_TARGET_WEIGHT", "USE_DIFFERENT_JOINTS_WEIGHT")
 _TOP_KEYS = ("SEED", "AUTO_RESUME", "PRINT_FREQ", "WORKERS")
 #: the recipes' data location (``experiments/coco/*.yaml``, ``DATASET`` and
-#: ``TEST.COCO_BBOX_FILE``)
+#: ``TEST.COCO_BBOX_FILE``; every recipe names the COCO detections file)
 COCO_RECIPE_DATA = {"ROOT": "data/coco/", "TRAIN_SET": "train2017", "TEST_SET": "val2017"}
+#: the W48 recipe of each dataset (``experiments/{coco,crowdpose,OCHuman}/
+#: interformer_*_w48_pure_en6.yaml``): joints, data location, MAX_PATCH, the
+#: position embedding, the test batch, and TRAIN's batch, LR and LR_END
+W48_RECIPES = {
+    "coco": {"joints": 17, "data": COCO_RECIPE_DATA, "max_patch": 7, "multi_pos": True,
+             "test_batch": 64, "batch": 8, "lr": 5e-4, "lr_end": 5e-5},
+    "crowdpose": {"joints": 14, "data": {"ROOT": "data/crowdpose/", "TRAIN_SET": "trainval",
+                                         "TEST_SET": "test"},
+                  "max_patch": 5, "multi_pos": True, "test_batch": 64, "batch": 32,
+                  "lr": 1e-4, "lr_end": 1e-5},
+    "OCHuman": {"joints": 17, "data": {
+        "ROOT": "data/OCHuman/", "TRAIN_SET": "ochuman_coco_format_val_range_0.00_1.00.json",
+        "TEST_SET": "ochuman_coco_format_test_range_0.00_1.00.json"},
+        "max_patch": 3, "multi_pos": False, "test_batch": 128, "batch": 32, "lr": 1e-4,
+        "lr_end": 1e-5},
+}
 COCO_RECIPE_BBOX_FILE = ("data/coco/person_detection_results/"
                          "COCO_val2017_detections_AP_H_56_person.json")
 
@@ -122,12 +150,20 @@ def _training(batch: int, end_epoch: int, lr: float, lr_end: float, wd: float) -
     }
 
 
-def w48_pure_en6() -> Dict:
-    """Vanilla I²R-Net on COCO: HRNet-W48-S + 6-layer inter encoder, 256x192."""
+def w48_pure_en6(dataset: str = "coco") -> Dict:
+    """Vanilla I²R-Net: HRNet-W48-S + 6-layer inter encoder, 256x192, on
+    ``dataset`` (``"coco"``, ``"crowdpose"`` or ``"OCHuman"``), as the JAX
+    preset of that name (14 joints for CrowdPose) with its recipe's YAML
+    merged over it: MAX_PATCH 7, 5 and 3; ``TRAIN.BATCH_SIZE_PER_GPU`` 8, 32
+    and 32 at LR 5e-4, 1e-4 and 1e-4 (to 5e-5, 1e-5, 1e-5); OCHuman's
+    ``USE_MULTI_POS`` false (no position embedding) and test batch 128."""
+    if dataset not in W48_RECIPES:
+        raise KeyError(f"unknown dataset {dataset!r}; have {sorted(W48_RECIPES)}")
+    r = W48_RECIPES[dataset]
     return {
         "MODEL": {
             "NAME": "interformer_pureMulti",
-            "NUM_JOINTS": 17,
+            "NUM_JOINTS": r["joints"],
             "IMAGE_SIZE": [192, 256],     # [w, h]
             "HEATMAP_SIZE": [48, 64],     # [w, h]
             "TRANS_SIZE": [16, 12],       # [h, w] token grid
@@ -135,16 +171,16 @@ def w48_pure_en6() -> Dict:
             "DIM_FEEDFORWARD": 192,
             "N_HEAD": 1,
             "ENCODER_LAYERS": 6,
-            "USE_MULTI_POS": True,
+            "USE_MULTI_POS": r["multi_pos"],
             "MULTI_POS_EMBEDDING": "conv",
             "SIGMA": 2,
             "LOSS_WEIGHTS": [0.5, 0.5],
             "EXTRA": copy.deepcopy(HRNET_W48S_EXTRA),
         },
-        "DATASET": _dataset("coco", 7, **COCO_RECIPE_DATA),
-        "TEST": _test(64, COCO_RECIPE_BBOX_FILE),
+        "DATASET": _dataset(dataset, r["max_patch"], **r["data"]),
+        "TEST": _test(r["test_batch"], COCO_RECIPE_BBOX_FILE),
         "DEVICE": _device("bfloat16", True),
-        **_training(batch=8, end_epoch=240, lr=5e-4, lr_end=5e-5, wd=0.1),
+        **_training(batch=r["batch"], end_epoch=240, lr=r["lr"], lr_end=r["lr_end"], wd=0.1),
     }
 
 

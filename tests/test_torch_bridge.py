@@ -134,7 +134,9 @@ def test_port_imports_without_jax_yaml_cv2():
             "i2rnet_tpu_torch.data.coco", "i2rnet_tpu_torch.data.dataset",
             "i2rnet_tpu_torch.data.coco_format", "i2rnet_tpu_torch.data.jpeg",
             "i2rnet_tpu_torch.data.resize", "i2rnet_tpu_torch.data.prefetch",
-            "i2rnet_tpu_torch.ops.cocoeval", "i2rnet_tpu_torch.ops.nms"} <= set(mods)
+            "i2rnet_tpu_torch.ops.cocoeval", "i2rnet_tpu_torch.ops.nms",
+            "i2rnet_tpu_torch.registry", "i2rnet_tpu_torch.data.crowdpose",
+            "i2rnet_tpu_torch.data.ochuman", "i2rnet_tpu_torch.data.train_record"} <= set(mods)
 
 
 def with_recipe_data(jax_cfg):

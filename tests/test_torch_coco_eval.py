@@ -192,9 +192,18 @@ def test_evaluate_matches_jax(synth_root, tmp_path, soft):
 
 
 def test_unported_evaluation_options_raise(synth_root):
+    """``TEST.DETAIL_EVAL`` raises. A training dataset, ported since, reads
+    the GT boxes even where evaluation would take a detector's (as the JAX
+    one does): its db equals JAX's."""
     _, tcfg = coco_cfgs(synth_root, DETAIL_EVAL=True)
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         COCODataset(tcfg, synth_root, "val2017", is_train=False)
-    _, tcfg = coco_cfgs(synth_root)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        COCODataset(tcfg, synth_root, "val2017", is_train=True)
+    jcfg, tcfg = coco_cfgs(synth_root, USE_GT_BBOX=False, COCO_BBOX_FILE="missing.json")
+    train = COCODataset(tcfg, synth_root, "val2017", is_train=True)
+    want = JaxCOCO(jcfg, synth_root, "val2017", is_train=True).db
+    assert len(train.db) == len(want) > 0
+    for got, ref in zip(train.db, want):
+        assert got["image"] == ref["image"] and len(got["annos"]) == len(ref["annos"])
+        for a, b in zip(got["annos"], ref["annos"]):
+            np.testing.assert_array_equal(a["joints_3d"], b["joints_3d"])
+            assert a["box"] == b["box"]

@@ -112,8 +112,14 @@ def assert_grads_close(g_tree, jgrads):
 def test_train_step_matches_jax(jax_dropout_zero):
     jcfg, jmodel = tiny_jax_model(use_pallas=True)
     variables = random_variables(jmodel, jcfg, seed=3)
+    check_train_step(jcfg, jmodel, variables, _raw(presets.from_config(jcfg)))
+
+
+def check_train_step(jcfg, jmodel, variables, raw):
+    """One Adam step of the port against JAX ``make_train_step`` on ``raw``
+    (the module docstring's comparisons and tolerances); the caller patches
+    the JAX dropout sites to rate 0 (``jax_dropout_zero``)."""
     cfg = presets.from_config(jcfg)
-    raw = _raw(cfg)
     m = cfg["MODEL"]
     prep = (tuple(m["IMAGE_SIZE"]), tuple(m["HEATMAP_SIZE"]), m["SIGMA"])
 
