@@ -182,7 +182,34 @@ Phases, one line each (any failure exits non-zero):
     vs off within phase 6's bound;
 33. the OCHuman W48 recipe (``USE_MULTI_POS`` false: no position
     embedding, B=32 x N=3) likewise at [32, 576, 96], R=18432 and the test
-    batch's [128, 576, 96].
+    batch's [128, 576, 96];
+34. the ten recipes under ``experiments/`` read by the port's own YAML
+    reader and config merge (``config/config.py::load_config``, no PyYAML
+    here) as the port config the JAX reader gives
+    (``i2rnet_tpu_torch/config/expected_recipes.json``);
+35-39. the five recipes no earlier phase ran, each from its YAML through
+    ``tools.train.main`` and ``tools.test.main`` at full width and depth:
+    the CrowdPose and OCHuman TPH recipes, the CrowdPose and OCHuman HRT
+    recipes and COCO HRT at 384x288, with ``DATASET.ROOT`` at a fixture,
+    ``MODEL.SINGLE_MODEL`` a first stage of another seed written by the
+    phase (loaded into the first stage bit for bit), one epoch of at most
+    RECIPE_STEPS steps, and ``TEST.MODEL_FILE`` the run's final state:
+    finite losses, each step's ms, peak memory, AP, and the launches counted
+    from zero (TPH: A, B, C, D; HRT: C and D in training, E and F in the
+    test, kernel 9 only under ``TPU.FUSED_BLOCK_TRAIN True``, which the
+    384x288 run sets). Before its recipe, each new kernel shape is held
+    against its plain version and timed: A and B at the CrowdPose TPH test
+    batch [96, 3072, 96] and R=96*3072 (phase 35), E and F and kernel 9 at
+    P=16 on the HRT maps (phase 37, which also times one step on modules
+    and on kernel 9 in turns), kernel 9 forward and backward at P=8 on the
+    four 384x288 branch maps (phase 39), and in each HRT phase (37-39) C
+    and D at its inter encoder's training shapes: C over [4, 768, 78],
+    [8, 576, 78] and [4, 864, 78] (a ragged last key tile) with a person
+    mask, f32 and bf16, the plain version without the last key tile
+    breaking the bound, and D over their 3072, 4608 and 3456 rows;
+40. MPII (``i2rnet_tpu_torch/data/fixtures/mpii_synth``): ``validate`` with
+    the GT-heatmap oracle against the JAX PCKh table, and a seeded 16-joint
+    W48 in bf16 kernels on vs off within phase 6's bound, A and B launched.
 
 Every ``torch.profiler`` breakdown counts all device events but user
 annotations and step markers, and logs how many of them carry a ``#`` in
@@ -197,7 +224,12 @@ kernel 9, their plain versions and the SDPA calls, CUDA events for the
 rest; for C and D also ``tph``: the same fields at phase 27's P=16 shape and
 phase 28's launches by encoder; for A-D ``coco_jpeg``: phase 31's launches,
 and ``crowdpose`` and ``ochuman``: the same fields at phases 32-33's shapes
-with the launches of their ``train_loop``), and last
+with the launches of their ``train_loop``; ``crowdpose_tph_test`` for A and
+B, ``crowdpose_hrt_p16`` for E, F and kernel 9, ``coco_hrt_288`` for kernel 9
+and ``{crowdpose_hrt,ochuman_hrt,coco_hrt_288}_inter`` for C and D: the
+fields at phases 35-39's new shapes; for every kernel ``recipes``: its
+launches in each recipe run's training and test, and MPII's ``validate``
+for A and B), and last
 ``{"ok": true, "device": {...}}``.
 TF32 is off throughout, so the float32 parts (crops, decode) stay float32.
 Training writes its checkpoints, and validation its results JSONs, under
@@ -222,6 +254,9 @@ import numpy as np
 import torch
 
 from i2rnet_tpu_torch import presets
+from i2rnet_tpu_torch.config.config import load_config, to_port
+from i2rnet_tpu_torch.core import trainer as trainer_module
+from i2rnet_tpu_torch.core.pretrained import NOT_LOADED
 from i2rnet_tpu_torch.core.train import compute_losses, make_train_step
 from i2rnet_tpu_torch.core.train_state import TrainState, make_optimizer
 from i2rnet_tpu_torch.core.trainer import epoch_batches, raw_to_device, train_loop
@@ -232,7 +267,7 @@ from i2rnet_tpu_torch.data.synthetic import synthetic_raw_batch
 from i2rnet_tpu_torch.data.train_record import compare_records, train_records
 from i2rnet_tpu_torch.models.encoder import INTRA_OFFSET_BASE, TransformerEncoder
 from i2rnet_tpu_torch.models.interformer import build_model
-from i2rnet_tpu_torch.models.layers import MaskedBatchNorm
+from i2rnet_tpu_torch.models.layers import MaskedBatchNorm, max_pool_3x3_s2
 from i2rnet_tpu_torch.models.pure_multi import init_weights
 from i2rnet_tpu_torch.ops.cuda import KERNELS, build, launch_counts, reset_launches
 from i2rnet_tpu_torch.ops.cuda.dropout import threshold
@@ -256,6 +291,8 @@ from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import (DTYPE_CODES, device_plan, mlp32_
 from i2rnet_tpu_torch.ops.preprocess import device_preprocess
 from i2rnet_tpu_torch.registry import get_dataset_class
 from i2rnet_tpu_torch.serving import Predictor, make_eval_fn
+from i2rnet_tpu_torch.tools.test import main as test_main
+from i2rnet_tpu_torch.tools.train import main as train_main
 from i2rnet_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
 
 SEED = 0
@@ -418,6 +455,42 @@ HOST_WORKERS, HOST_EPOCHS = (0, 8), 4
 #: epochs of phases 32-33's train_loop (one step each: a fixture split holds
 #: fewer images than the recipe's batch, so its one batch wraps)
 TRAIN_EPOCHS = 3
+#: the recipes (phase 34 reads all ten; ``tests/torch_fixture.py`` wrote the
+#: port configs the JAX reader gives them)
+EXPERIMENTS = Path(__file__).resolve().parent / "experiments"
+RECIPES_JSON = Path(__file__).resolve().parent / "i2rnet_tpu_torch" / "config" / "expected_recipes.json"
+#: the five recipes trained and tested from their YAML (phases 35-39): phase,
+#: YAML under experiments/, fixture tree, TEST.BATCH_SIZE_PER_GPU (the
+#: fixture's test split where it holds fewer images than the recipe's batch)
+#: and further overrides
+RECIPE_RUNS = (
+    (35, "crowdpose/interformer_crowdpose_tph_192_p6_b4.yaml", "crowdpose_synth", 6, ()),
+    (36, "OCHuman/interformer_ochuman_tph_192_p3_b8.yaml", "ochuman_synth", 6, ()),
+    (37, "crowdpose/interformer_crowdpose_hrt_192_p4_b4.yaml", "crowdpose_synth", 6, ()),
+    (38, "OCHuman/interformer_ochuman_hrt_192_p3_b8.yaml", "ochuman_synth", 6, ()),
+    (39, "coco/interformer_coco_hrt_288_p2_b4.yaml", "coco_synth", 32,
+     ("TPU.FUSED_BLOCK_TRAIN", "True")),
+)
+#: each recipe run: one epoch of at most RECIPE_STEPS steps (``--max-epochs``,
+#: ``--max-steps-per-epoch``), then ``tools.test``
+RECIPE_STEPS = 2
+#: the seed of the first stage written as each run's MODEL.SINGLE_MODEL (the
+#: trainer initialises the model from SEED before it loads the file)
+SINGLE_MODEL_SEED = SEED + 100
+#: new shapes held before their recipe trains: A and B at the CrowdPose TPH
+#: test batch (16 images x MAX_PATCH 6 persons of 3072 tokens); E and F at
+#: P = 16 on the HRT maps at 256x192 (CrowdPose HRT, 4 x 4); kernel 9 at P = 8
+#: (4 x 2) on the four 384x288 branch maps
+CROWDPOSE_TPH_ATTN = [(96, TPH_TOKENS)]
+HRT_P16_SHAPES = [(16,) + shape[1:] for shape in HRT_SHAPES[:4]]
+HRT288_TRAIN_SHAPES = [(8, 96, 72, 78, 2), (8, 48, 36, 156, 4), (8, 24, 18, 312, 8),
+                       (8, 12, 9, 624, 16)]
+#: the HRT recipe phases, whose inter encoder's C and D shapes are held
+#: before they train, and the label of those shapes in the kernels line
+HRT_RECIPES = {37: "crowdpose_hrt_inter", 38: "ochuman_hrt_inter", 39: "coco_hrt_288_inter"}
+#: the MPII fixture (phase 40) and its batch
+MPII = FIXTURES / "mpii_synth"
+MPII_BATCH = 4
 ZERO_GRADS = re.compile(r"(k_proj|mlp\.(fc1|dw3x3|fc2)|norm2|fuse_layers\.\d+\.\d+\.\d+\.1)\.bias$")
 
 
@@ -1153,13 +1226,13 @@ def backward_only(fn, inputs, cot):
     return lambda: torch.autograd.grad(out, xs, cot, retain_graph=True)
 
 
-def phase_train_kernel_timing(g, card, b=8, s=1344):
+def phase_train_kernel_timing(g, card, b=8, s=1344, c=96, f=192, per_person=192):
     """Kernels C and D forward and backward beside their plain versions at
-    (B, S) (the main path's by default), a ragged person mask, D over B * S
-    rows, bf16, seed mode; ms as (plain, kernel) pairs."""
-    c, f = 96, 192
+    (B, S, C) (the main path's by default), a ragged mask of ``per_person``
+    tokens a person, D over B * S rows of C and hidden F, bf16, seed mode;
+    ms as (plain, kernel) pairs."""
     q, k, v, cot = (randn(b, s, c, g=g, dtype=torch.bfloat16) for _ in range(4))
-    mask = ragged_mask(b, s, 192, g)
+    mask = ragged_mask(b, s, per_person, g)
     kw = {"dropout_seed": 5, "dropout_offset": 0}
 
     def attn(fn):
@@ -1357,15 +1430,19 @@ PATH_DTYPE = {"window_attn_block": torch.bfloat16, "mlp_block": torch.bfloat16,
               "mlp_dwbn": torch.float32}
 
 
-def phase_hrt_kernels(g):
-    """Kernels E, F and G vs their plain versions, f32 and bf16, at each map."""
+def phase_hrt_kernels(g, shapes=HRT_SHAPES, names=None):
+    """Kernels E, F and G (or those of ``names``) vs their plain versions,
+    f32 and bf16, at each map: {kernel: max |err| at the first map in its
+    path's dtype}."""
     errs = {}
-    for shape in HRT_SHAPES:
+    for shape in shapes:
         calls = hrt_kernel_calls(shape, g)
         for dt in (torch.float32, torch.bfloat16):
             x = (2 * randn(*shape[:4], g=g)).to(dt)
             line = []
             for name, (kernel, plain, args) in calls.items():
+                if names is not None and name not in names:
+                    continue
                 got = kernel(x, *args)
                 torch.cuda.synchronize()
                 ref = plain(x, *args).float()
@@ -1376,7 +1453,7 @@ def phase_hrt_kernels(g):
                 if rel > HRT_TOL[dt]:
                     raise AssertionError(f"{name} {shape} {dt}: max|err|/max|ref| {rel:.3g} "
                                          f"(bound {HRT_TOL[dt]:g})")
-                if shape == HRT_SHAPES[0] and dt == PATH_DTYPE[name]:
+                if shape == shapes[0] and dt == PATH_DTYPE[name]:
                     errs[name] = err
                 line.append(f"{name} {err:.3g} ({rel:.2g})")
                 if (name, shape, dt) == ("mlp_dwbn", HRT_SHAPES[0], torch.float32):
@@ -1503,7 +1580,7 @@ def phase_g_route_timing(model, cfg, g, card):
         raise AssertionError(f"G's route launched other kernels than G's: {calls}")
 
 
-def phase_hrt_kernel_timing(g, card):
+def phase_hrt_kernel_timing(g, card, shapes=HRT_SHAPES[:4], names=None):
     """E, F and G beside their plain versions at 256x192's branch maps, each
     in its path's dtype (E, F bf16; G f32), with the kernels' weights packed
     once as the model keeps them, by CUDA events, with their device time per
@@ -1512,10 +1589,12 @@ def phase_hrt_kernel_timing(g, card):
     host: the kernels line takes E's and G's (and their plain versions')
     device time, and the events for F (at 0.2-0.5 ms a call the two agree)."""
     times = {}
-    for shape in HRT_SHAPES[:4]:
+    for shape in shapes:
         calls = hrt_kernel_calls(shape, g)
         line = []
         for name, (kernel, plain, args) in calls.items():
+            if names is not None and name not in names:
+                continue
             dt = PATH_DTYPE[name]
             x = randn(*shape[:4], g=g, dtype=dt)
             d, sms = 4 * shape[3], sm_count(x.device.index or 0)
@@ -1536,21 +1615,21 @@ def phase_hrt_kernel_timing(g, card):
                     f"{dev[1] * 1e3:.1f} us, plain {dev[0] * 1e3:.1f} us); plan {plan}")
             if name != "mlp_block":
                 t.update(ms=dev[1], plain_ms=dev[0])
-            if shape == HRT_SHAPES[0]:
+            if shape == shapes[0]:
                 times[name] = t
             line.append(f"{text}, bound {t['bound_ms'] * 1e3:.2f} us ({t['bound_by']})")
         log(f"  {shape}: " + "; ".join(line) + f" [{card}]")
     return times
 
 
-def phase_hrt_train_kernels(g):
+def phase_hrt_train_kernels(g, shapes=HRT_TRAIN_SHAPES):
     """Kernel 9 forward and backward vs its plain version, f32 and bf16, at
     each map: max |err| / max |ref| of out, dx and the ten parameter
     gradients (dbk, 0 in exact arithmetic, over the scale of dbq); a sample
     with s = 0 exactly x and dy; in bf16 two backward calls on the same
     inputs bit-equal (every sum in a fixed order, no atomics)."""
     errs = {}
-    for shape in HRT_TRAIN_SHAPES:
+    for shape in shapes:
         p, h, w, c, heads = shape
         ln, attn, _ = hrt_kernel_args(c, heads, g)
         s = torch.tensor([(0.0 if i % 4 == 1 else 1.25) for i in range(p)], device=DEV)
@@ -1581,7 +1660,7 @@ def phase_hrt_train_kernels(g):
                                      f"{rels[worst]:.3g} (bound {HRT_TOL[dt]:g})")
             if not (torch.equal(got[1], x[1]) and torch.equal(gk[0][1], cot[1])):
                 raise AssertionError(f"kernel 9 {shape} {dt}: a sample with s = 0 is not x, dy")
-            if shape == HRT_TRAIN_SHAPES[0] and dt == torch.bfloat16:
+            if shape == shapes[0] and dt == torch.bfloat16:
                 errs = {"window_attn_block_train_fwd": abs_errs["out"],
                         "window_attn_block_train_bwd": max(v for k, v in abs_errs.items()
                                                            if k != "out")}
@@ -1667,7 +1746,7 @@ def bwd_plan_text(plan):
             f"{plan.grid_w[1]} row slices, {plan.blocks_w} blocks")
 
 
-def phase_hrt_train_kernel_timing(g, card):
+def phase_hrt_train_kernel_timing(g, card, shapes=HRT_TRAIN_SHAPES[:4]):
     """Kernel 9 forward and backward beside its plain version at 256x192's
     branch maps (bf16, P=24): device time per call (``device_ms``) of each
     and of its plain version, CUDA events over back-to-back calls beside
@@ -1675,7 +1754,7 @@ def phase_hrt_train_kernel_timing(g, card):
     takes the device times (both fall where events over a loop of Python
     calls time the host)."""
     times = {}
-    for shape in HRT_TRAIN_SHAPES[:4]:
+    for shape in shapes:
         p, h, w, c, heads = shape
         ln, attn, _ = hrt_kernel_args(c, heads, g)
         x = randn(p, h, w, c, g=g, dtype=torch.bfloat16)
@@ -1704,7 +1783,7 @@ def phase_hrt_train_kernel_timing(g, card):
             f"{bwd['bound_ms'] * 1e3:.2f} us ({bwd['bound_by']}) [{card}]")
         fwd.update(ms=dev[1], plain_ms=dev[0])
         bwd.update(ms=dev_b[1], plain_ms=dev_b[0])
-        if shape == HRT_TRAIN_SHAPES[0]:
+        if shape == shapes[0]:
             times = {"window_attn_block_train_fwd": fwd, "window_attn_block_train_bwd": bwd}
     return times
 
@@ -2053,15 +2132,16 @@ def tail_tile_matters(plain, ref, check, mask, what):
                          "the check could not see it")
 
 
-def phase_tph_kernels(card):
+def phase_tph_kernels(card, attn=TPH_ATTN, rows=TPH_FFN[0]):
     """Kernels A and B at the TPH intra encoder's shapes against their plain
-    versions, f32 and bf16 (A without a key mask, held per TPH_CHUNK persons);
-    then, in bf16, each shape's device time per call beside its plain
-    version's, its bound and, for A, one SDPA call (no mask). Returns
-    {shape label: timing}."""
+    versions, f32 and bf16 (A over [P, S, 96] for each (P, S) of ``attn``
+    without a key mask, held per TPH_CHUNK persons; B at ``rows``); then, in
+    bf16, each shape's device time per call beside its plain version's, its
+    bound and, for A, one SDPA call (no mask). Returns ({shape label:
+    timing}, {shape label: bf16 max |err|})."""
     c, f = 96, 192
-    times = {}
-    for p, s in TPH_ATTN:
+    times, errs = {}, {}
+    for p, s in attn:
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = (device_randn(p, s, c, seed=SEED + i, dtype=dt) for i in range(3))
             q = q * TPH_PEAK  # logits of deviation TPH_PEAK: outputs of order |v|
@@ -2078,23 +2158,24 @@ def phase_tph_kernels(card):
                     tail_tile_matters(lambda m: masked_mhsa_torch(qi, ki, vi, 1, m), ref,
                                       lambda miss: compare(miss, ref, dt, what), None, what)
                 del ref
+            errs[f"A P={p} S={s}"] = err
             log(f"  masked_mhsa P={p} S={s} C={c} no mask {str(dt)[6:]}: max|err| {err:.3g}, "
                 f"max|ref| {ref_max:.3g}, bound atol {TOL[dt][0]:g} + rtol {TOL[dt][1]:g}*|ref|"
                 + (f" per {TPH_CHUNK}-person chunk" if p > TPH_CHUNK else "")
                 + "; the plain version without the last key tile breaks that bound; finite")
             del q, k, v, got
         torch.cuda.empty_cache()
-    rows = TPH_FFN[0]
     p_ffn = ffn_params(c, f, gen(SEED))
     for dt in (torch.float32, torch.bfloat16):
         x = (2 * device_randn(rows, c, seed=SEED + 3, dtype=torch.float32) + 0.5).to(dt)
         got = encoder_ffn_fused(x, *p_ffn)
         torch.cuda.synchronize()
         err = compare(got, encoder_ffn_torch(x, *p_ffn), dt, f"encoder_ffn rows={rows} {dt}")
+        errs[f"B R={rows}"] = err
         log(f"  encoder_ffn rows={rows} C={c} F={f} {str(dt)[6:]}: max|err| {err:.3g} "
             f"(atol/rtol {TOL[dt][0]:g}/{TOL[dt][1]:g}), finite")
     bf = torch.bfloat16
-    for p, s in TPH_ATTN:
+    for p, s in attn:
         q, k, v = (device_randn(p, s, c, seed=SEED + 4 + i, dtype=bf) for i in range(3))
         heads = [t.view(p, s, 1, c).transpose(1, 2) for t in (q, k, v)]
         plain = chunked(lambda q_, k_, v_, _: masked_mhsa_torch(q_, k_, v_, 1), p)
@@ -2122,7 +2203,7 @@ def phase_tph_kernels(card):
         log(f"  {name} C={c} bf16 (device time): kernel {t['ms'] * 1e3:.1f} us, plain "
             f"{t['plain_ms'] * 1e3:.1f} us{lib}, bound {t['bound_ms'] * 1e3:.2f} us "
             f"({t['bound_by']}) [{card}]")
-    return times
+    return times, errs
 
 
 def phase_tph_model(cfg, g):
@@ -2168,20 +2249,20 @@ def phase_tph_timing(model, cfg, g, card):
                      steps, card)
 
 
-def person_key_mask(counts, tokens):
-    """[B, N * tokens] key-padding mask of images with ``counts`` valid
-    persons of N slots (the inter encoder's, ``models/interformer.py``)."""
-    n = len(counts)
+def person_key_mask(counts, tokens, n=None):
+    """[B, N * tokens] key-padding mask of B = len(counts) images with
+    ``counts`` valid persons of N slots (N = B unless given; the inter
+    encoder's, ``models/interformer.py``)."""
+    n = len(counts) if n is None else n
     valid = torch.arange(n)[None, :] < torch.as_tensor(counts)[:, None]
     return (~valid).repeat_interleave(tokens, dim=1).to(DEV)
 
 
-def check_tph_attention_train(p, s, mask, dt, bits):
-    """Kernel C forward and backward on [P, S, 96] (q scaled by TPH_PEAK)
+def check_tph_attention_train(p, s, mask, dt, bits, c=96):
+    """Kernel C forward and backward on [P, S, C] (q scaled by TPH_PEAK)
     against its plain version per TPH_TRAIN_CHUNK persons, in bits and seed
     mode; the plain version without the last key tile breaks the bound.
     Returns {mode: (max|err| out, its share of max|ref|, max over dq/dk/dv)}."""
-    c = 96
     q, k, v, cot = (device_randn(p, s, c, seed=SEED + 10 + i, dtype=dt) for i in range(4))
     q = q * TPH_PEAK  # logits of deviation TPH_PEAK: outputs of order |v|
     res = {}
@@ -2742,6 +2823,331 @@ def tph_fixture_cfg():
     return cfg
 
 
+def phase_read_recipes():
+    """Every recipe under ``experiments/`` read by ``config.load_config`` (the
+    port's YAML reader) as the port config the JAX reader gives
+    (``expected_recipes.json``)."""
+    want = json.loads(RECIPES_JSON.read_text())
+    paths = sorted(EXPERIMENTS.glob("*/*.yaml"))
+    names = [str(p.relative_to(EXPERIMENTS)) for p in paths]
+    if names != sorted(want):
+        raise AssertionError(f"recipes {names} vs {sorted(want)} in {RECIPES_JSON.name}")
+    t0 = time.perf_counter()
+    for path, name in zip(paths, names):
+        got = json.loads(json.dumps(to_port(load_config(str(path)))))
+        if got != want[name]:
+            bad = [sec for sec in want[name] if got.get(sec) != want[name][sec]]
+            raise AssertionError(f"{name}: the port's config differs from JAX's in {bad}")
+    log(f"  {len(paths)} recipes read with yaml_lite and merged over the defaults: every port "
+        f"config equals the JAX reader's ({RECIPES_JSON.name}); "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms in all (host clock)")
+
+
+def write_first_stage(cfg, path):
+    """A first-stage checkpoint for MODEL.SINGLE_MODEL: the ``singleformer``
+    state dict of the model of ``cfg`` initialised from SINGLE_MODEL_SEED."""
+    model = build_model(cfg, device="cpu")
+    init_weights(model, gen(SINGLE_MODEL_SEED))
+    sd = {k: v.clone() for k, v in model.singleformer.state_dict().items()}
+    torch.save(sd, path)
+    return sd
+
+
+@contextlib.contextmanager
+def first_stage_checked(want, seen):
+    """Within the block, every ``load_pretrained`` of the trainer is checked:
+    the model's first stage must equal ``want`` bit for bit once it returns
+    (the entries the loader does not take left out); ``seen`` counts them."""
+    original = trainer_module.load_pretrained
+
+    def checked(cfg, model):
+        out = original(cfg, model)
+        got = model.singleformer.state_dict()
+        keys = [k for k in want if not k.endswith(NOT_LOADED)]
+        bad = [k for k in keys if not torch.equal(got[k].cpu(), want[k])]
+        if set(got) != set(want) or bad:
+            raise AssertionError(f"SINGLE_MODEL not loaded bit for bit: {bad[:5]}, "
+                                 f"{sorted(set(got) ^ set(want))[:5]}")
+        seen.append(len(keys))
+        return out
+
+    trainer_module.load_pretrained = checked
+    try:
+        yield
+    finally:
+        trainer_module.load_pretrained = original
+
+
+def recipe_opts(tree, single_model, test_batch, extra):
+    return ["DATASET.ROOT", str(FIXTURES / tree), "MODEL.SINGLE_MODEL", str(single_model),
+            "TEST.BATCH_SIZE_PER_GPU", str(test_batch), "PRINT_FREQ", "1", *extra]
+
+
+def fused_train_timing(cfg, card):
+    """One train step of the recipe's model (bf16, kernels on) on the
+    fixture's first batch with ``FUSED_BLOCK_TRAIN`` off (the HRFormer
+    blocks on modules) and on (their attention halves on kernel 9), in the
+    order off, on, on, off: (off ms, on ms)."""
+    model = seeded_model(cfg)
+    state = TrainState(model, *make_optimizer(cfg, model.parameters(), 1000))
+    step = make_train_step(state, cfg["MODEL"]["LOSS_WEIGHTS"])
+    ds = fixture_dataset(cfg, "TRAIN_SET")
+    b = cfg["TRAIN"]["BATCH_SIZE_PER_GPU"]
+    batch = ds.device_batch(next(iter(epoch_batches({**cfg, "WORKERS": 0}, ds, 0, b))), DEV)
+    dropout_gen = gen(SEED + 1)
+
+    def run(fused):
+        def go():
+            model.set_kernels(True, True, False, fused)
+            step(batch, dropout_gen)
+        return go
+
+    t_off, t_on = alternate(run(False), run(True), 3)
+    n = int(batch["person_valid"].sum())
+    log(f"  train step B={b} x N={cfg['DATASET']['MAX_PATCH']} ({n} persons), bf16, kernels "
+        f"on: FUSED_BLOCK_TRAIN false (modules) {t_off:.2f} ms, true (kernel 9) {t_on:.2f} ms; "
+        f"faster on the card: {'kernel 9' if t_on < t_off else 'modules'} (CUDA events, in "
+        f"turns) [{card}]")
+    return t_off, t_on
+
+
+def phase_recipe(number, recipe, tree, test_batch, extra, g, card):
+    """A recipe from its YAML: the first stage of another seed written as its
+    MODEL.SINGLE_MODEL, ``tools.train.main`` for one epoch of at most
+    RECIPE_STEPS steps (the file loaded bit for bit, finite losses, the step
+    ms, peak memory, launches counted from zero), then ``tools.test.main`` with
+    TEST.MODEL_FILE the run's ``final_state.pth`` (the recipe's names a
+    released file the repository does not hold): AP and launches. TPH: A, B, C and D launched; HRT: C and
+    D in training, E and F in the test, kernel 9 only under the
+    FUSED_BLOCK_TRAIN override. Returns {"train": counts, "test": counts,
+    "step_ms": [...], "peak_gib", "ap"}."""
+    path = EXPERIMENTS / recipe
+    out = OUT_DIR / "recipes" / path.stem
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    opts = recipe_opts(tree, out / "first_stage.pth", test_batch, extra)
+    cfg = to_port(load_config(str(path), opts))
+    want = write_first_stage(cfg, out / "first_stage.pth")
+    dirs = ["--modelDir", str(out / "output"), "--logDir", str(out / "log"), "--device", DEV]
+    steps, seen = [], []
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with first_stage_checked(want, seen):
+        state, output_dir = train_main(
+            ["--cfg", str(path), *dirs, "--max-epochs", "1", "--max-steps-per-epoch",
+             str(RECIPE_STEPS), *opts],
+            on_step=lambda e, i, m: steps.append((float(m["loss"]), m["batch_time"] * 1e3)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    train_counts = {k: v for k, v in launch_counts().items() if v}
+    if len(seen) != 1:
+        raise AssertionError(f"{recipe}: load_pretrained ran {len(seen)} times")
+    if not steps or not all(math.isfinite(x) for x, _ in steps):
+        raise AssertionError(f"{recipe}: training losses {steps}")
+    del state
+    torch.cuda.empty_cache()
+    reset_launches()
+    t1 = time.perf_counter()
+    model_file = Path(output_dir) / "final_state.pth"  # the recipe names a released file
+    name_value, perf = test_main(["--cfg", str(path), *dirs, *opts, "TEST.MODEL_FILE",
+                                  str(model_file)])
+    torch.cuda.synchronize()
+    test_wall = time.perf_counter() - t1
+    test_counts = {k: v for k, v in launch_counts().items() if v}
+    m = cfg["MODEL"]
+    tph = m["SINGLEFORMER"] == "transpose_h"
+    fused_train = cfg["DEVICE"]["FUSED_BLOCK_TRAIN"]
+    need_train = TRAIN_KERNELS + (("window_attn_block_train_fwd", "window_attn_block_train_bwd")
+                                  if fused_train else ())
+    need_test = EVAL_KERNELS + (() if tph else ("window_attn_block", "mlp_block"))
+    absent = () if tph or fused_train else ("window_attn_block_train_fwd",
+                                            "window_attn_block_train_bwd")
+    if (any(train_counts.get(k, 0) < 1 for k in need_train)
+            or any(test_counts.get(k, 0) < 1 for k in need_test)
+            or any(train_counts.get(k, 0) for k in absent)):
+        raise AssertionError(f"{recipe}: launches in training {train_counts}, in the test "
+                             f"{test_counts}; want {need_train} > 0 in training, {need_test} in "
+                             f"the test, {absent} never")
+    stats = json.loads((FIXTURES / tree / "expected.json").read_text())["stats"]
+    if not math.isfinite(perf) or set(name_value) != set(stats):
+        raise AssertionError(f"{recipe}: test metrics {dict(name_value)}")
+    b, n = cfg["TRAIN"]["BATCH_SIZE_PER_GPU"], cfg["DATASET"]["MAX_PATCH"]
+    log(f"  {recipe} ({m['NAME']}, first stage {m['SINGLEFORMER']}, {m['NUM_JOINTS']} joints, "
+        f"{m['IMAGE_SIZE'][0]}x{m['IMAGE_SIZE'][1]}, upsampling {m['UPSAMPLE_TYPE']}, position "
+        f"embedding {m['MULTI_POS_EMBEDDING'] if m['USE_MULTI_POS'] else 'none'}, "
+        f"FUSED_BLOCK_TRAIN {fused_train}): SINGLE_MODEL (seed {SINGLE_MODEL_SEED}) loaded into "
+        f"the first stage bit for bit ({seen[0]} tensors); tools.train.main {len(steps)} steps of "
+        f"B={b} x N={n}: losses " + " ".join(f"{x:.6f}" for x, _ in steps)
+        + "; step ms " + " ".join(f"{t:.2f}" for _, t in steps)
+        + f" (the first with its first calls); peak memory {peak:.1f} GiB; host clock "
+        f"{wall:.2f} s with build, load and the epoch's validation; launches {train_counts}")
+    log(f"  tools.test.main with TEST.MODEL_FILE {Path(output_dir).name}/{model_file.name}, "
+        f"TEST.BATCH_SIZE_PER_GPU {test_batch}: AP {perf:.6f} ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in name_value.items())
+        + f"); launches {test_counts}; host clock {test_wall:.2f} s [{card}]")
+    return {"train": train_counts, "test": test_counts, "step_ms": [t for _, t in steps],
+            "peak_gib": peak, "ap": float(perf), "cfg": cfg}
+
+
+def inter_tokens(cfg):
+    """Tokens a person in the inter encoder of ``cfg``'s model: the
+    heatmap-sized first-stage map pooled as ``models/interformer.py`` pools it."""
+    w, h = cfg["MODEL"]["HEATMAP_SIZE"]
+    feat = torch.zeros(1, 1, h, w)
+    for _ in range(int(math.log2(w // cfg["MODEL"]["TRANS_SIZE"][1]))):
+        feat = max_pool_3x3_s2(feat)
+    return feat.shape[2] * feat.shape[3]
+
+
+def phase_inter_train_kernels(cfg, g, card):
+    """Kernels C and D at the training shapes of the inter encoder of an HRT
+    recipe (``cfg``): C over [B, N * tokens, DIM_MODEL] with a person mask of
+    ragged counts, forward and backward, f32 and bf16, bits and seed mode,
+    the plain version without the last key tile (ragged at 384x288) breaking
+    the bound (``check_tph_attention_train``); D over its B * N * tokens rows
+    (phase 9's checks); then both timed beside their plain versions, their
+    bounds and SDPA (``phase_train_kernel_timing``). Returns {kernel: its
+    fields for the kernels line}."""
+    m = cfg["MODEL"]
+    if m["N_HEAD"] != 1:
+        raise AssertionError(f"the inter encoder has {m['N_HEAD']} heads; the check holds one")
+    b, n = cfg["TRAIN"]["BATCH_SIZE_PER_GPU"], cfg["DATASET"]["MAX_PATCH"]
+    tokens, c, f = inter_tokens(cfg), m["DIM_MODEL"], m["DIM_FEEDFORWARD"]
+    s = n * tokens
+    counts = [n - i % n for i in range(b)]
+    mask = person_key_mask(counts, tokens, n)
+    dgen = torch.Generator(device=DEV).manual_seed(SEED)
+    bits = torch.randint(0, 2 ** 32, (b, s, s), generator=dgen, device=DEV, dtype=torch.int64)
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        res = check_tph_attention_train(b, s, mask, dt, bits, c)
+        for mode, (e_f, r_f, e_b) in res.items():
+            log(f"  mhsa_train B={b} S={s} C={c} person mask {counts} ({tokens} tokens a person) "
+                f"{str(dt)[6:]} {mode}: out max|err| {e_f:.3g} ({r_f:.2g} of max|ref|), dq/dk/dv "
+                f"max|err| {e_b:.3g}; bound {TRAIN_TOL[dt][0]:g}*max|ref| + {TRAIN_TOL[dt][1]:g}"
+                f"*|ref|; the plain version without the last {s - (s - 1) // KEY_TILE * KEY_TILE} "
+                "keys breaks it")
+        if dt == torch.bfloat16:
+            errs["mhsa_train_fwd"], _, errs["mhsa_train_bwd"] = res["seed"]
+    del bits
+    d_err = phase_ffn_train(g, ((b * s, c, f),))
+    errs.update(encoder_ffn_train_fwd=d_err["fwd"], encoder_ffn_train_bwd=d_err["bwd"])
+    torch.cuda.empty_cache()
+    times = phase_train_kernel_timing(g, card, b, s, c, f, tokens)
+    labels = {"mhsa_train": f"B={b} S={s} C={c} person mask",
+              "encoder_ffn_train": f"R={b * s} C={c} F={f}"}
+    return {k: {"shape": labels[k.rsplit("_", 1)[0]], **times[k], "max_abs_err": errs[k]}
+            for k in TRAIN_KERNELS}
+
+
+def phase_recipes(g, card, recipe_runs=RECIPE_RUNS):
+    """Phases 35-39: the new kernel shapes held (and timed) before the
+    recipe that runs them, then each recipe from its YAML. Returns (the
+    runs by YAML stem, {kernel: {label: fields for the kernels line}})."""
+    runs, shapes = {}, {}
+
+    def held(label, errs, times, shape):
+        for name in errs:
+            shapes.setdefault(name, {})[label] = {"shape": shape, **times[name],
+                                                  "max_abs_err": errs[name]}
+
+    for number, recipe, tree, test_batch, extra in recipe_runs:
+        stem = Path(recipe).stem
+        log(f"phase {number} {recipe} from its YAML through tools.train and tools.test"
+            + (f" ({' '.join(extra)})" if extra else "") + ":")
+        if number == 35:
+            log("  Kernels A and B at the CrowdPose TPH test batch, [96, 3072, 96] unmasked "
+                f"and R={96 * TPH_TOKENS}:")
+            times, errs = phase_tph_kernels(card, CROWDPOSE_TPH_ATTN, 96 * TPH_TOKENS)
+            a, b = f"A P=96 S={TPH_TOKENS}", f"B R={96 * TPH_TOKENS}"
+            held("crowdpose_tph_test", {"masked_mhsa": errs[a]}, {"masked_mhsa": times[a]},
+                 f"P=96 S={TPH_TOKENS} C=96 no mask")
+            held("crowdpose_tph_test", {"encoder_ffn": errs[b]}, {"encoder_ffn": times[b]},
+                 f"R={96 * TPH_TOKENS} C=96 F=192")
+        elif number == 37:
+            log("  Kernels E and F at P=16 on the HRT maps (CrowdPose HRT, 4 x 4):")
+            names = ("window_attn_block", "mlp_block")
+            held("crowdpose_hrt_p16", phase_hrt_kernels(g, HRT_P16_SHAPES, names),
+                 phase_hrt_kernel_timing(g, card, HRT_P16_SHAPES, names),
+                 "P=16 H=64 W=48 C=78 heads 2")
+            log("  kernel 9 forward and backward at P=16 on the same maps (the step timed with "
+                "FUSED_BLOCK_TRAIN after the recipe):")
+            held("crowdpose_hrt_p16", phase_hrt_train_kernels(g, HRT_P16_SHAPES),
+                 phase_hrt_train_kernel_timing(g, card, HRT_P16_SHAPES),
+                 "P=16 H=64 W=48 C=78 heads 2")
+        elif number == 39:
+            log("  kernel 9 forward and backward at P=8 on the four 384x288 branch maps:")
+            held("coco_hrt_288", phase_hrt_train_kernels(g, HRT288_TRAIN_SHAPES),
+                 phase_hrt_train_kernel_timing(g, card, HRT288_TRAIN_SHAPES),
+                 "P=8 H=96 W=72 C=78 heads 2")
+        torch.cuda.empty_cache()
+        if number in HRT_RECIPES:
+            log("  Kernels C and D at the recipe's inter encoder in training:")
+            cfg = to_port(load_config(str(EXPERIMENTS / recipe), list(extra)))
+            for name, fields in phase_inter_train_kernels(cfg, g, card).items():
+                shapes.setdefault(name, {})[HRT_RECIPES[number]] = fields
+            torch.cuda.empty_cache()
+        runs[stem] = phase_recipe(number, recipe, tree, test_batch, extra, g, card)
+        torch.cuda.empty_cache()
+        if number == 37:
+            runs[stem]["fused_block_train_ms"] = fused_train_timing(runs[stem]["cfg"], card)
+            torch.cuda.empty_cache()
+    return runs, shapes
+
+
+def phase_mpii(g, card):
+    """MPII (phase 40): ``validate`` with the GT-heatmap oracle against the
+    JAX PCKh table (``expected.json``), then a seeded 16-joint W48 in bf16
+    kernels on vs off: A and B launched 12 times a batch on and never off,
+    the predictions (every joint's position and confidence) within phase
+    6's bound."""
+    cfg = presets.w48_pure_en6()
+    cfg["MODEL"]["NUM_JOINTS"] = 16
+    cfg["DATASET"].update(DATASET="mpii", ROOT=str(MPII), TEST_SET="valid")
+    cfg["TEST"]["BATCH_SIZE_PER_GPU"] = MPII_BATCH
+    ds = get_dataset_class("mpii")(cfg, str(MPII), "valid", is_train=False)
+    expected = json.loads((MPII / "expected.json").read_text())["stats"]
+    nv, _ = validate(cfg, ds, None, str(OUT_DIR / "mpii_oracle"), device=DEV,
+                     eval_step_fn=lambda _model, batch: batch["target"])
+    diff = {k: abs(float(nv[k]) - v) for k, v in expected.items()}
+    log(f"  GT oracle on {len(ds)} images: PCKh " + ", ".join(f"{k} {float(v):.4f}"
+                                                             for k, v in nv.items())
+        + f"; largest |stat - JAX stat| {max(diff.values()):.3g} (bound {ORACLE_TOL:g})")
+    if set(nv) != set(expected) or max(diff.values()) > ORACLE_TOL:
+        raise AssertionError(f"MPII oracle {dict(nv)} vs {expected}")
+    model = random_model(cfg, g)
+    model.compute_dtype = torch.bfloat16
+    n_batches = len(list(ds.eval_batches(MPII_BATCH)))
+    want = 2 * len(model.global_encoder.layers) * n_batches
+    preds, evaluate = {}, ds.evaluate
+    runs = {}
+    for on in (True, False):
+        model.set_kernels(on)
+        ds.evaluate = lambda c, p, *a, on=on: (preds.__setitem__(on, np.asarray(p)),
+                                               evaluate(c, p, *a))[1]
+        reset_launches()
+        runs[on] = validate(cfg, ds, model, str(OUT_DIR / f"mpii_{'on' if on else 'off'}"),
+                            device=DEV)
+        torch.cuda.synchronize()
+        counts = {k: launch_counts()[k] for k in EVAL_KERNELS}
+        if counts != {k: want if on else 0 for k in EVAL_KERNELS}:
+            raise AssertionError(f"MPII kernels {'on' if on else 'off'}: launches {counts}, "
+                                 f"want {want if on else 0} each")
+    del ds.evaluate
+    conf_err = (np.abs(preds[True][..., 2] - preds[False][..., 2]).max()
+                / np.abs(preds[False][..., 2]).max())
+    xy_err = np.abs(preds[True][..., :2] - preds[False][..., :2]).max(-1)
+    log(f"  seeded 16-joint W48, bf16: A and B {want // n_batches} launches a batch with the "
+        f"kernels on, none off; PCKh Mean on {float(runs[True][1]):.4f}, off "
+        f"{float(runs[False][1]):.4f}; max|dconf|/max|conf| {conf_err:.3g}, |dxy| median "
+        f"{np.median(xy_err):.3g} px, share within 1 px {np.mean(xy_err <= 1.0):.3f} [{card}]")
+    if conf_err > 0.05 or np.median(xy_err) > 1.0:
+        raise AssertionError("MPII validate with the kernels strays from the plain path")
+    return want
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -2912,6 +3318,13 @@ def main() -> int:
     recipes = {"crowdpose": phase_dataset_recipe("crowdpose", g, card)}
     log("phase 33 the OCHuman W48 recipe without a position embedding (B=32 N=3):")
     recipes["ochuman"] = phase_dataset_recipe("OCHuman", g, card)
+    torch.cuda.empty_cache()
+
+    log("phase 34 the ten recipes read from their YAML:")
+    phase_read_recipes()
+    recipe_runs, recipe_shapes = phase_recipes(g, card)
+    log("phase 40 MPII (PCKh):")
+    mpii_launches = phase_mpii(g, card)
 
     counts.update(train_counts)
     counts.update({k: hrt_train_counts[k] for k in ("window_attn_block_train_fwd",
@@ -2929,6 +3342,16 @@ def main() -> int:
     # and each kernel of the CrowdPose and OCHuman recipes at their shapes
     new_shapes = {name: {"coco_jpeg": {"launches": jpeg_counts[name]},
                          **{k: v[name] for k, v in recipes.items()}} for name in jpeg_counts}
+    # phases 35-40: each kernel's launches in each recipe's training and test
+    # runs (and MPII's validate), and the fields of the new shapes held there
+    for name, fields in recipe_shapes.items():
+        new_shapes.setdefault(name, {}).update(fields)
+    for name in KERNELS:
+        new_shapes.setdefault(name, {})["recipes"] = {
+            stem: {"train": run["train"].get(name, 0), "test": run["test"].get(name, 0)}
+            for stem, run in recipe_runs.items()}
+    for name in EVAL_KERNELS:
+        new_shapes[name]["recipes"]["mpii_validate"] = mpii_launches
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": counts[name],
                 "max_abs_err": errs[name], **times[name],

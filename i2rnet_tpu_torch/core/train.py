@@ -5,8 +5,10 @@ Port of ``i2rnet_tpu/core/train.py`` (reference ``lib/core/function.py:
 optimizer step, BatchNorm running statistics updated by the forward.
 The model returns its heatmaps (``interformer_pureMulti``) or the
 ``{"single", "multi"}`` dict (``interformer``), whose ``single`` adds the
-inter-supervision loss. ``TPU.REMAT`` and ``frozen_predicate`` are not ported
-(no recipe of these slices uses them; ROADMAP).
+inter-supervision loss. Frozen parameters (``frozen_predicate``) are the
+ones without ``requires_grad`` (``core/pretrained.py::freeze``), which the
+trainer keeps out of the optimizer. ``TPU.REMAT`` is not ported (no recipe
+uses it; ROADMAP).
 """
 
 from __future__ import annotations

@@ -4,9 +4,12 @@ Port of ``i2rnet_tpu/core/trainer.py::train_loop`` (reference
 ``tools/ddp_train.py:101-263``) on one device. The model of ``MODEL.NAME``
 (``build_model``: the vanilla or the HRFormer two-stage I²R-Net) is built
 from the config and initialised as the JAX package initialises it
-(``init_weights``, seed ``SEED``); pretrained weights (``MODEL.PRETRAINED``,
-the two-stage recipes' ``SINGLE_MODEL``) wait until such files are in the
-repository. Each epoch runs its steps, logs as
+(``init_weights``, seed ``SEED``), then takes its pretrained weights as the
+JAX trainer does (``core/pretrained.py::load_pretrained``: a two-stage
+recipe's ``SINGLE_MODEL`` into its first stage, ``PRETRAINED`` under
+``INIT_WEIGHTS``) and freezes what ``SINGLEFORMER_FIX`` and
+``BACKBONE_FIX`` name; the optimizer gets the trainable parameters only.
+Each epoch runs its steps, logs as
 the JAX trainer does every ``PRINT_FREQ`` steps, halts on a non-finite loss
 (``FloatingPointError``), and writes a checkpoint; the newest checkpoint is
 resumed under ``AUTO_RESUME``; the final state is written at the end.
@@ -36,6 +39,7 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from i2rnet_tpu_torch.core.pretrained import freeze, load_pretrained
 from i2rnet_tpu_torch.core.train import make_train_step
 from i2rnet_tpu_torch.core.train_state import TrainState, make_optimizer
 from i2rnet_tpu_torch.core.validate import validate
@@ -170,9 +174,12 @@ def train_loop(cfg: Dict, output_dir: str,
     # device), then moved
     model = build_model(cfg, device="cpu")
     init_weights(model, torch.Generator().manual_seed(cfg["SEED"]))
+    load_pretrained(cfg, model)
+    freeze(cfg, model)
     model.to(device)
 
-    optimizer, schedule = make_optimizer(cfg, model.parameters(), steps_per_epoch)
+    optimizer, schedule = make_optimizer(cfg, [p for p in model.parameters() if p.requires_grad],
+                                         steps_per_epoch)
     state = TrainState(model, optimizer, schedule)
 
     best_perf = -1.0

@@ -45,7 +45,7 @@ def _refuse_unported(cfg: Dict, mesh) -> None:
 
 def validate(cfg: Dict, dataset, model, output_dir: str,
              eval_step_fn: Optional[Callable] = None, main_target: Optional[bool] = None,
-             mesh=None, device=None):
+             mesh=None, device=None, max_batches: Optional[int] = None):
     """Run the full evaluation in batches of ``TEST.BATCH_SIZE_PER_GPU``
     images; returns ``(name_value, perf)``.
 
@@ -63,6 +63,8 @@ def validate(cfg: Dict, dataset, model, output_dir: str,
     default, else CUDA. ``DEVICE.EVAL_PIPELINE`` batches' outputs stay on
     the device before they are copied back, so the host assembles the next
     batch while the card runs this one (0: copy each batch back at once).
+    ``max_batches`` stops after that many batches and scores what they gave
+    (``tools/test.py --max-batches``).
     """
     _refuse_unported(cfg, mesh)
     if main_target is None:
@@ -131,7 +133,10 @@ def validate(cfg: Dict, dataset, model, output_dir: str,
         return raw, meta
 
     workers = max(0, cfg.get("WORKERS", 0))
-    for raw, meta in prefetch_batches(batches, assemble, num_workers=workers):
+    batch_iter = prefetch_batches(batches, assemble, num_workers=workers)
+    for i, (raw, meta) in enumerate(batch_iter):
+        if max_batches is not None and i >= max_batches:
+            break
         batch = dataset.device_batch(raw, device)
         b, n = raw["person_valid"].shape
         centers = meta["center"].reshape(b * n, 2)
@@ -151,6 +156,8 @@ def validate(cfg: Dict, dataset, model, output_dir: str,
         if len(in_flight) > pipeline_depth:
             finish(in_flight.pop(0))
 
+    if hasattr(batch_iter, "close"):  # stop the threads left ahead of the loop
+        batch_iter.close()
     for entry in in_flight:
         finish(entry)
     dt = time.time() - t0

@@ -35,9 +35,13 @@ state-dict names are the main ``interformer``'s, so
 training mode for the call, every BatchNorm (first stage, deconvs) over the
 valid persons, the HRFormer's DropPath and every encoder's dropout keyed by
 the seed (the TransPose-H intra encoder and the inter encoder on disjoint
-offsets, ``models/encoder.py``). A frozen first stage (``SINGLEFORMER_FIX``,
-``DEVICE.FROZEN_STAGE_EVAL_MODE``) and ``DEVICE.REMAT`` are not ported: a
-training forward with them raises.
+offsets, ``models/encoder.py``). With ``SINGLEFORMER_FIX`` the first stage
+runs without autograd in a training forward (the JAX ``stop_gradient``;
+``core/pretrained.py::freeze`` takes its parameters out of training), its
+BatchNorm statistics still updating, and ``single`` is None; with
+``DEVICE.FROZEN_STAGE_EVAL_MODE`` too it runs in eval mode (running
+statistics, no dropout or DropPath, the eval kernels), as the JAX model
+does. ``DEVICE.REMAT`` is not ported: a training forward with it raises.
 
 :func:`build_model` builds every ported model from a port config, on the card
 unless asked otherwise.
@@ -53,8 +57,9 @@ from torch import nn
 
 from i2rnet_tpu_torch.models.encoder import TransformerEncoder, flatten_person_tokens
 from i2rnet_tpu_torch.models.hrformer import HRFORMER_B_ARCH, HRFormer
-from i2rnet_tpu_torch.models.layers import (Conv2d, ConvBN, DeconvBlock, max_pool_3x3_s2,
-                                            training_call, upsample_nearest)
+from i2rnet_tpu_torch.models.layers import (Conv2d, ConvBN, DeconvBlock, MaskedBatchNorm,
+                                            max_pool_3x3_s2, training_call,
+                                            upsample_nearest)
 from i2rnet_tpu_torch.models.position import PositionEmbeddingImage
 from i2rnet_tpu_torch.models.pure_multi import DTYPES, build_pure_multi, set_train_routes
 from i2rnet_tpu_torch.models.transpose_h import TransPoseH
@@ -115,11 +120,11 @@ class InterFormer(nn.Module):
         self.compute_dtype = compute_dtype
         self.upsample_type = upsample_type
         self.return_single = inter_supervision and not singleformer_fix
+        self.singleformer_fix = singleformer_fix
+        self.frozen_stage_eval = frozen_stage_eval
         # training options not ported: (config key, value) pairs that are set
-        self.unported_training = [(k, v) for k, v in (
-            ("MODEL.SINGLEFORMER_FIX", singleformer_fix),
-            ("DEVICE.FROZEN_STAGE_EVAL_MODE", frozen_stage_eval),
-            ("DEVICE.REMAT", remat)) if v not in (False, None, "none")]
+        self.unported_training = [] if remat in (False, None, "none") else [("DEVICE.REMAT",
+                                                                              remat)]
         self.singleformer = singleformer
         # the token grid, as the JAX model reads it off the pooled map (3x3/s2
         # pools with padding 1 take w to ceil(w / 2))
@@ -182,10 +187,32 @@ class InterFormer(nn.Module):
             return self._forward(images, pos_masks, person_valid, dropout_seed,
                                  drop_path_scales)
 
+    def _first_stage(self, x, dropout_seed, drop_path_scales):
+        """The first stage; frozen (``SINGLEFORMER_FIX``) in training, without
+        autograd, and in eval mode under ``FROZEN_STAGE_EVAL_MODE``."""
+        stage = self.singleformer
+        if not (self.singleformer_fix and stage.training):
+            return stage(x, dropout_seed, drop_path_scales)
+        if not self.frozen_stage_eval:
+            with torch.no_grad():
+                return stage(x, dropout_seed, drop_path_scales)
+        bns = [m for m in stage.modules() if isinstance(m, MaskedBatchNorm)]
+        masks = [bn.person_mask for bn in bns]
+        stage.eval()
+        for bn in bns:
+            bn.person_mask = None
+        try:
+            with torch.no_grad():
+                return stage(x)
+        finally:
+            stage.train()
+            for bn, mask in zip(bns, masks):
+                bn.person_mask = mask
+
     def _forward(self, images, pos_masks, person_valid, dropout_seed, drop_path_scales):
         b, n, h, w, _ = images.shape
         x = images.reshape(b * n, h, w, 3).permute(0, 3, 1, 2).to(self.compute_dtype)
-        feat, single_heat = self.singleformer(x, dropout_seed, drop_path_scales)
+        feat, single_heat = self._first_stage(x, dropout_seed, drop_path_scales)
         single_res = feat
         for _ in range(int(math.log2(feat.shape[3] // self.trans_size[1]))):
             feat = max_pool_3x3_s2(feat)

@@ -40,6 +40,8 @@ from __future__ import annotations
 import copy
 from typing import Dict
 
+from i2rnet_tpu_torch.config.config import to_port
+
 #: COCO left/right joint pairs (``i2rnet_tpu/data/coco.py:37``)
 COCO_FLIP_PAIRS = [[1, 2], [3, 4], [5, 6], [7, 8], [9, 10], [11, 12],
                    [13, 14], [15, 16]]
@@ -71,22 +73,6 @@ HRNET_W48S_EXTRA = {
                "NUM_BLOCKS": [4, 4, 4], "NUM_CHANNELS": [48, 96, 192], "FUSE_METHOD": "SUM"},
 }
 
-_MODEL_KEYS = ("NAME", "NUM_JOINTS", "IMAGE_SIZE", "HEATMAP_SIZE", "TRANS_SIZE",
-               "DIM_MODEL", "DIM_FEEDFORWARD", "N_HEAD", "ENCODER_LAYERS",
-               "USE_MULTI_POS", "MULTI_POS_EMBEDDING", "SIGMA", "LOSS_WEIGHTS",
-               "SINGLEFORMER", "SINGLEFORMER_FIX", "INTER_SUPERVISION", "ENCODER_MULTI_LAYERS",
-               "UPSAMPLE_TYPE", "ATTENTION_TYPE", "DOMAIN_TRANS", "POS_EMBEDDING",
-               "PE_ONLY_AT_BEGIN", "HRNET_RES_LAYER", "MULTI_POS_EMBEDDING_DIM")
-_TEST_KEYS = ("FLIP_TEST", "BLUR_KERNEL", "POST_PROCESS", "BATCH_SIZE_PER_GPU", "USE_GT_BBOX",
-              "COCO_BBOX_FILE", "IMAGE_THRE", "IN_VIS_THRE", "OKS_THRE", "SOFT_NMS",
-              "DETAIL_EVAL")
-_DATASET_KEYS = ("DATASET", "ROOT", "TRAIN_SET", "TEST_SET", "PATCH_MODE", "COLOR_RGB",
-                 "USE_COCOMINI", "MAX_PATCH", "SELECT_DATA", "SCALE_FACTOR", "ROT_FACTOR",
-                 "FLIP", "PROB_HALF_BODY", "NUM_JOINTS_HALF_BODY")
-_TRAIN_KEYS = ("BATCH_SIZE_PER_GPU", "BEGIN_EPOCH", "END_EPOCH", "LR", "LR_END", "OPTIMIZER",
-               "MOMENTUM", "WD", "NESTEROV")
-_LOSS_KEYS = ("USE_OHKM", "TOPK", "USE_TARGET_WEIGHT", "USE_DIFFERENT_JOINTS_WEIGHT")
-_TOP_KEYS = ("SEED", "AUTO_RESUME", "PRINT_FREQ", "WORKERS")
 #: the recipes' data location (``experiments/coco/*.yaml``, ``DATASET`` and
 #: ``TEST.COCO_BBOX_FILE``; every recipe names the COCO detections file)
 COCO_RECIPE_DATA = {"ROOT": "data/coco/", "TRAIN_SET": "train2017", "TEST_SET": "val2017"}
@@ -225,12 +211,12 @@ def hrt_interformer(image_size=(192, 256)) -> Dict:
     ``TRAIN`` is the recipe's: ``BATCH_SIZE_PER_GPU`` 12 and ``WD`` 0.1 at
     256x192 (``interformer_coco_hrt_192_p2_b12.yaml:172,191``), 4 and 0.1 at
     384x288. The JAX preset keeps 4 and 1e-4. ``TEST.BATCH_SIZE_PER_GPU`` is
-    the recipe's 64 too (the JAX preset: 32)."""
+    the recipe's too: 64 at 256x192, 32 at 384x288 (the JAX preset: 32)."""
     w, h = image_size
     return {
         "MODEL": _hrt_model(17, (w, h), (w // 4, h // 4), (h // 16, w // 16), 78, 192, 1, 2),
         "DATASET": _dataset("coco", 2, **COCO_RECIPE_DATA),
-        "TEST": _test(64, COCO_RECIPE_BBOX_FILE),
+        "TEST": _test(64 if tuple(image_size) == (192, 256) else 32, COCO_RECIPE_BBOX_FILE),
         "DEVICE": _device("bfloat16", True, fused_block_train=True),
         **_training(batch=12 if tuple(image_size) == (192, 256) else 4, end_epoch=240,
                     lr=1e-4, lr_end=1e-5, wd=0.1),
@@ -362,38 +348,6 @@ def tiny_test_config(num_joints: int = 5) -> Dict:
     }
 
 
-def _plain(v):
-    if hasattr(v, "to_dict"):
-        v = v.to_dict()
-    if isinstance(v, dict):
-        return {k: _plain(x) for k, x in v.items()}
-    if isinstance(v, (list, tuple)):
-        return [_plain(x) for x in v]
-    return v
-
-
 def from_config(cfg) -> Dict:
-    """A port config from a JAX ``Config`` (read by attribute access only)."""
-    return {
-        "MODEL": {**{k: _plain(getattr(cfg.MODEL, k)) for k in _MODEL_KEYS},
-                  "EXTRA": _plain(cfg.MODEL.EXTRA)},
-        "DATASET": {k: _plain(getattr(cfg.DATASET, k)) for k in _DATASET_KEYS},
-        "TEST": {k: _plain(getattr(cfg.TEST, k)) for k in _TEST_KEYS},
-        "DEVICE": {"COMPUTE_DTYPE": cfg.TPU.COMPUTE_DTYPE,
-                   "USE_KERNELS": bool(cfg.TPU.USE_PALLAS_ATTENTION),
-                   "FLASH_TRAIN_ATTENTION": bool(cfg.TPU.get("FLASH_TRAIN_ATTENTION", True)),
-                   "FUSED_FFN_TRAIN": bool(cfg.TPU.get("FUSED_FFN_TRAIN", True)),
-                   "FUSED_BLOCK_EVAL": bool(cfg.TPU.get("FUSED_BLOCK_EVAL", True)),
-                   "FUSED_BLOCK_EVAL_ONEPASS": bool(cfg.TPU.get("FUSED_BLOCK_EVAL_ONEPASS",
-                                                                False)),
-                   "FUSED_MLP_EVAL": bool(cfg.TPU.get("FUSED_MLP_EVAL", False)),
-                   "FUSED_BLOCK_TRAIN": bool(cfg.TPU.get("FUSED_BLOCK_TRAIN", False)),
-                   "FROZEN_STAGE_EVAL_MODE": bool(cfg.TPU.get("FROZEN_STAGE_EVAL_MODE", False)),
-                   "REMAT": _plain(cfg.TPU.get("REMAT", False)),
-                   "MAX_IMAGE_HW": _plain(list(cfg.TPU.get("MAX_IMAGE_HW", (640, 640)))),
-                   "EVAL_PIPELINE": int(cfg.TPU.get("EVAL_PIPELINE", 2))},
-        "TRAIN": {k: _plain(getattr(cfg.TRAIN, k)) for k in _TRAIN_KEYS},
-        "LOSS": {k: _plain(getattr(cfg.LOSS, k)) for k in _LOSS_KEYS},
-        "DEBUG": {"DEBUG": bool(cfg.DEBUG.DEBUG)},
-        **{k: _plain(getattr(cfg, k)) for k in _TOP_KEYS},
-    }
+    """A port config from a JAX ``Config`` (a dict of dicts): ``config.to_port``."""
+    return to_port(cfg)

@@ -1,1 +1,1 @@
-"""Utilities of the port (checkpoints)."""
+"""Utilities of the port: checkpoints, and the entry points' logger and metric table."""

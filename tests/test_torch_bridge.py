@@ -136,7 +136,11 @@ def test_port_imports_without_jax_yaml_cv2():
             "i2rnet_tpu_torch.data.resize", "i2rnet_tpu_torch.data.prefetch",
             "i2rnet_tpu_torch.ops.cocoeval", "i2rnet_tpu_torch.ops.nms",
             "i2rnet_tpu_torch.registry", "i2rnet_tpu_torch.data.crowdpose",
-            "i2rnet_tpu_torch.data.ochuman", "i2rnet_tpu_torch.data.train_record"} <= set(mods)
+            "i2rnet_tpu_torch.data.ochuman", "i2rnet_tpu_torch.data.train_record",
+            "i2rnet_tpu_torch.config.yaml_lite", "i2rnet_tpu_torch.config.config",
+            "i2rnet_tpu_torch.core.pretrained", "i2rnet_tpu_torch.utils.logging",
+            "i2rnet_tpu_torch.tools.train", "i2rnet_tpu_torch.tools.test",
+            "i2rnet_tpu_torch.data.mpii", "i2rnet_tpu_torch.probes.recipes_probe"} <= set(mods)
 
 
 def with_recipe_data(jax_cfg):

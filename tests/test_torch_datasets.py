@@ -134,14 +134,16 @@ def test_validate_with_the_gt_oracle_matches_jax(regenerated, tmp_path, dataset,
 
 def test_registry_names_and_error():
     for name, cls in (("coco", "COCODataset"), ("crowdpose", "CROWDPOSEDataset"),
-                      ("OCHuman", "OCHumanDataset"), ("coco_ochuman", "CocoOCHumanDataset")):
+                      ("OCHuman", "OCHumanDataset"), ("coco_ochuman", "CocoOCHumanDataset"),
+                      ("mpii", "MPIIDataset")):
         assert get_dataset_class(name).__name__ == cls == jax_dataset_class(name).__name__
     with pytest.raises(KeyError) as got:
         get_dataset_class("mpii_typo")
     with pytest.raises(KeyError) as want:
         jax_dataset_class("mpii_typo")
     assert str(got.value).split(";")[0] == str(want.value).split(";")[0]
-    assert str(got.value).endswith("have ['OCHuman', 'coco', 'coco_ochuman', 'crowdpose']\"")
+    assert str(got.value).endswith(
+        "have ['OCHuman', 'coco', 'coco_ochuman', 'crowdpose', 'mpii']\"")
 
 
 RECIPES = {"coco": "coco/interformer_coco_w48_pure_en6.yaml",

@@ -153,3 +153,38 @@ def test_resize_fits_the_raster_as_make_raw_batch_does():
         np.testing.assert_array_equal(resize_linear(img, size), cv2.resize(img, size))
     with pytest.raises(ValueError, match="uint8"):
         resize_linear(np.zeros((4, 4), np.float32), (2, 2))
+
+
+def test_a_dataset_in_a_zip_reads_as_its_folder(tmp_path):
+    """``DATASET.DATA_FORMAT`` zip: the COCO fixture's db with every image
+    path rewritten to ``archive.zip@images/val2017/<file>`` assembles the raw
+    batches of the folder's db bit for bit, and the JAX dataset given the
+    same paths (its ``utils/zipreader.py`` through cv2) the same images."""
+    import zipfile
+    from pathlib import Path
+
+    from i2rnet_tpu.data.coco import COCODataset as JaxCOCODataset
+    from i2rnet_tpu_torch import presets
+    from i2rnet_tpu_torch.data.coco import COCODataset
+    from torch_fixture import w48_cfg
+
+    archive = tmp_path / "val2017.zip"
+    with zipfile.ZipFile(archive, "w") as zf:
+        for path in sorted((FIXTURE / IMAGES).glob("*.jpg")):
+            zf.write(path, f"{IMAGES}/{path.name}")
+    jcfg = w48_cfg(str(FIXTURE))
+    cfg = presets.from_config(jcfg)
+    folder = COCODataset(cfg, str(FIXTURE), "val2017", is_train=False)
+    zipped = COCODataset(cfg, str(FIXTURE), "val2017", is_train=False)
+    jax_zipped = JaxCOCODataset(jcfg, str(FIXTURE), "val2017", is_train=False)
+    for db in (zipped.db, jax_zipped.db):
+        for rec in db:
+            rec["image"] = f"{archive}@{IMAGES}/{Path(rec['image']).name}"
+    assert all("@" in rec["image"] for rec in zipped.db)
+    for items, nb in list(folder.eval_batches(16)):
+        want, _ = folder.make_raw_batch(items, nb)
+        got, _ = zipped.make_raw_batch(items, nb)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        jax_raw, _ = jax_zipped.make_raw_batch(items, nb)
+        np.testing.assert_array_equal(got["images"], jax_raw["images"])

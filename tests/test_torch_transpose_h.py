@@ -246,23 +246,37 @@ def test_build_model_dispatches_on_the_name_and_first_stage():
 
 def test_training_forward_raises():
     """A TPH model trains (``tests/test_torch_transpose_h_train.py``), but
-    not with the options still unported (ROADMAP queue 1, item 6): a frozen
-    first stage (``SINGLEFORMER_FIX``, ``FROZEN_STAGE_EVAL_MODE``) and
-    ``DEVICE.REMAT`` raise on a training forward; an eval forward runs."""
+    not with ``DEVICE.REMAT``, still unported (ROADMAP queue 1): it raises on
+    a training forward; an eval forward runs. A frozen first stage
+    (``SINGLEFORMER_FIX``; with ``FROZEN_STAGE_EVAL_MODE`` in eval mode, its
+    BatchNorm statistics kept) trains the rest: no ``single`` heatmaps, no
+    gradient into the first stage (held against JAX in
+    ``tests/test_torch_pretrained.py``)."""
     z = torch.zeros(1, 2, 64, 48, 3)
     args = (z, z[..., :1], torch.ones(1, 2, dtype=torch.bool))
-    for sec, key, value in (("MODEL", "SINGLEFORMER_FIX", True),
-                            ("DEVICE", "FROZEN_STAGE_EVAL_MODE", True),
-                            ("DEVICE", "REMAT", "layers")):
+    cfg = presets.tiny_tph_config(5)
+    cfg["DEVICE"]["REMAT"] = "layers"
+    model = build_model(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="REMAT"):
+        model(*args, train=True, dropout_seed=0)
+    with pytest.raises(NotImplementedError, match="REMAT"):
+        model.train()(*args)
+    with torch.no_grad():
+        assert model.eval()(*args)["multi"].shape == (1, 2, 5, 16, 12)
+    for eval_mode in (False, True):
         cfg = presets.tiny_tph_config(5)
-        cfg[sec][key] = value
+        cfg["MODEL"]["SINGLEFORMER_FIX"] = True
+        cfg["DEVICE"]["FROZEN_STAGE_EVAL_MODE"] = eval_mode
         model = build_model(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match=key):
-            model(*args, train=True, dropout_seed=0)
-        with pytest.raises(NotImplementedError, match=key):
-            model.train()(*args)
-        with torch.no_grad():
-            assert model.eval()(*args)["multi"].shape == (1, 2, 5, 16, 12)
+        stats = {k: v.clone() for k, v in model.singleformer.state_dict().items()
+                 if "running" in k}
+        out = model.train()(*args, train=True, dropout_seed=0)
+        out["multi"].sum().backward()
+        assert out["single"] is None and model.singleformer.training
+        assert all(p.grad is None for p in model.singleformer.parameters())
+        assert any(p.grad is not None for p in model.multi_global_encoder.parameters())
+        kept = all(torch.equal(v, model.singleformer.state_dict()[k]) for k, v in stats.items())
+        assert kept == eval_mode
 
 
 FLIP_PAIRS = [[1, 2], [3, 4]]

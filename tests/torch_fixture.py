@@ -29,6 +29,13 @@ batch, ``WORKERS`` 0, in the form of
 ``i2rnet_tpu_torch/data/train_record.py``; the CrowdPose and OCHuman trees
 have the oracle's ``expected.json`` of their test split, as ``coco_synth``.
 
+``write_mpii`` writes ``mpii_synth`` (4 single-person images, the MPII
+annotation JSON and ``gt_valid.mat``, and the JAX oracle's PCKh table in
+``expected.json``), and ``expected_recipes`` the port config of each of the
+ten recipes under ``experiments/`` as the JAX reader gives it
+(``i2rnet_tpu_torch/config/expected_recipes.json``), which ``chip_smoke.py``
+holds the port's YAML reader to on a machine without JAX or PyYAML.
+
     python tests/torch_fixture.py      # rewrite the committed fixtures
 
 ``tests/test_torch_validate.py`` and ``tests/test_torch_datasets.py``
@@ -72,6 +79,11 @@ TRAIN_SPLITS = {
 TRAIN_BATCH, TRAIN_BATCHES = 4, 3
 #: the moved ids of a second split written into a tree
 ID_OFFSET = 1000
+#: the MPII fixture (``write_mpii``) and its images a batch
+MPII = FIXTURES / "mpii_synth"
+MPII_BATCH = 4
+#: the port configs of the recipes (``expected_recipes``)
+RECIPES_JSON = REPO / "i2rnet_tpu_torch" / "config" / "expected_recipes.json"
 
 
 def w48_cfg(root: str):
@@ -249,9 +261,132 @@ def write_train_fixtures(fixtures) -> None:
         _write_expected(tree, dataset, test=True)
 
 
+def mpii_cfg(root: str):
+    """The JAX W48 preset on MPII (16 joints) reading ``root``'s ``valid``
+    split, ``MPII_BATCH`` images a batch."""
+    from i2rnet_tpu.presets import w48_pure_en6
+
+    cfg = w48_pure_en6().clone()
+    cfg.MODEL.NUM_JOINTS = 16
+    cfg.DATASET.DATASET = "mpii"
+    cfg.DATASET.ROOT = root
+    cfg.DATASET.TEST_SET = "valid"
+    cfg.TEST.BATCH_SIZE_PER_GPU = MPII_BATCH
+    return cfg
+
+
+def write_mpii(root) -> None:
+    """``mpii_synth``: ``tests/test_mpii.py::_make_mpii``'s tree (seed 0;
+    JPEGs, ``annot/valid.json``, ``annot/gt_valid.mat``), ``decoded.sha256``
+    and ``expected.json``: the JAX ``validate``'s PCKh table with the
+    GT-heatmap oracle at ``mpii_cfg``."""
+    import numpy as np
+
+    from i2rnet_tpu.core.validate import validate
+    from i2rnet_tpu.registry import get_dataset_class
+    from test_mpii import _make_mpii
+
+    root = Path(root)
+    _make_mpii(str(root), np.random.RandomState(0))
+    (root / "decoded.sha256").write_text(decoded_digests(root, Path("images")))
+    cfg = mpii_cfg(str(root))
+    ds = get_dataset_class("mpii")(cfg, str(root), "valid", is_train=False)
+    with tempfile.TemporaryDirectory() as out:
+        name_value, _ = validate(cfg, ds, model=None, variables=None, output_dir=out,
+                                 eval_step_fn=oracle)
+    expected = {"stats": {k: float(v) for k, v in name_value.items()},
+                "batch_images": MPII_BATCH, "image_size": list(cfg.MODEL.IMAGE_SIZE),
+                "heatmap_size": list(cfg.MODEL.HEATMAP_SIZE),
+                "blur_kernel": cfg.TEST.BLUR_KERNEL}
+    (root / "expected.json").write_text(json.dumps(expected, indent=1, sort_keys=True) + "\n")
+
+
+#: the keys of a JAX config that a port config carries, section by section,
+#: written out here apart from ``config/config.py``'s lists
+JAX_PORT_KEYS = {
+    "MODEL": ("NAME", "NUM_JOINTS", "IMAGE_SIZE", "HEATMAP_SIZE", "TRANS_SIZE", "DIM_MODEL",
+              "DIM_FEEDFORWARD", "N_HEAD", "ENCODER_LAYERS", "USE_MULTI_POS",
+              "MULTI_POS_EMBEDDING", "SIGMA", "LOSS_WEIGHTS", "SINGLEFORMER", "SINGLEFORMER_FIX",
+              "INTER_SUPERVISION", "ENCODER_MULTI_LAYERS", "UPSAMPLE_TYPE", "ATTENTION_TYPE",
+              "DOMAIN_TRANS", "POS_EMBEDDING", "PE_ONLY_AT_BEGIN", "HRNET_RES_LAYER",
+              "MULTI_POS_EMBEDDING_DIM", "SINGLE_MODEL", "PRETRAINED", "INIT_WEIGHTS",
+              "BACKBONE_FIX", "END2END"),
+    "DATASET": ("DATASET", "ROOT", "TRAIN_SET", "TEST_SET", "PATCH_MODE", "COLOR_RGB",
+                "USE_COCOMINI", "MAX_PATCH", "SELECT_DATA", "SCALE_FACTOR", "ROT_FACTOR", "FLIP",
+                "PROB_HALF_BODY", "NUM_JOINTS_HALF_BODY"),
+    "TEST": ("FLIP_TEST", "BLUR_KERNEL", "POST_PROCESS", "BATCH_SIZE_PER_GPU", "USE_GT_BBOX",
+             "COCO_BBOX_FILE", "IMAGE_THRE", "IN_VIS_THRE", "OKS_THRE", "SOFT_NMS", "DETAIL_EVAL",
+             "MODEL_FILE"),
+    "TRAIN": ("BATCH_SIZE_PER_GPU", "BEGIN_EPOCH", "END_EPOCH", "LR", "LR_END", "OPTIMIZER",
+              "MOMENTUM", "WD", "NESTEROV"),
+    "LOSS": ("USE_OHKM", "TOPK", "USE_TARGET_WEIGHT", "USE_DIFFERENT_JOINTS_WEIGHT"),
+}
+JAX_TOP_KEYS = ("SEED", "AUTO_RESUME", "PRINT_FREQ", "WORKERS", "OUTPUT_DIR", "LOG_DIR",
+                "DATA_DIR")
+
+
+def _plain(v):
+    if hasattr(v, "to_dict"):
+        v = v.to_dict()
+    if isinstance(v, dict):
+        return {k: _plain(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_plain(x) for x in v]
+    return v
+
+
+def jax_port_config(cfg) -> dict:
+    """The port config of a JAX ``Config``, read by attribute access: the
+    reference that ``config.to_port`` is held to (they share no code). The
+    ``TPU`` knobs are read as the JAX package defines them
+    (``i2rnet_tpu/config/config.py``); ``MAX_IMAGE_HW``, which it leaves
+    out, with the default its dataset reads (``data/dataset.py``)."""
+    tpu = cfg.TPU
+    return {
+        "MODEL": {**{k: _plain(getattr(cfg.MODEL, k)) for k in JAX_PORT_KEYS["MODEL"]},
+                  "EXTRA": _plain(cfg.MODEL.EXTRA)},
+        **{sec: {k: _plain(getattr(getattr(cfg, sec), k)) for k in JAX_PORT_KEYS[sec]}
+           for sec in ("DATASET", "TEST")},
+        "DEVICE": {"COMPUTE_DTYPE": tpu.COMPUTE_DTYPE,
+                   "USE_KERNELS": bool(tpu.USE_PALLAS_ATTENTION),
+                   "FLASH_TRAIN_ATTENTION": bool(tpu.FLASH_TRAIN_ATTENTION),
+                   "FUSED_FFN_TRAIN": bool(tpu.FUSED_FFN_TRAIN),
+                   "FUSED_BLOCK_EVAL": bool(tpu.FUSED_BLOCK_EVAL),
+                   "FUSED_BLOCK_EVAL_ONEPASS": bool(tpu.FUSED_BLOCK_EVAL_ONEPASS),
+                   "FUSED_MLP_EVAL": bool(tpu.FUSED_MLP_EVAL),
+                   "FUSED_BLOCK_TRAIN": bool(tpu.FUSED_BLOCK_TRAIN),
+                   "FROZEN_STAGE_EVAL_MODE": bool(tpu.FROZEN_STAGE_EVAL_MODE),
+                   "REMAT": _plain(tpu.REMAT),
+                   "MAX_IMAGE_HW": _plain(list(tpu.get("MAX_IMAGE_HW", (640, 640)))),
+                   "EVAL_PIPELINE": int(tpu.EVAL_PIPELINE)},
+        **{sec: {k: _plain(getattr(getattr(cfg, sec), k)) for k in JAX_PORT_KEYS[sec]}
+           for sec in ("TRAIN", "LOSS")},
+        "DEBUG": {"DEBUG": bool(cfg.DEBUG.DEBUG)},
+        **{k: _plain(getattr(cfg, k)) for k in JAX_TOP_KEYS},
+    }
+
+
+def expected_recipes() -> str:
+    """``expected_recipes.json``: the port config of every recipe under
+    ``experiments/`` as the JAX reader gives it (``jax_port_config`` of its
+    ``load_config``), keyed by the path under ``experiments/``."""
+    from i2rnet_tpu.config import load_config
+
+    out = {}
+    for path in sorted((REPO / "experiments").glob("*/*.yaml")):
+        rel = path.relative_to(REPO)
+        out[str(rel.relative_to("experiments"))] = jax_port_config(load_config(str(rel)))
+    return json.dumps(out, indent=1, sort_keys=True) + "\n"
+
+
 if __name__ == "__main__":
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(REPO / "tests"))
+    os.chdir(REPO)
     write_fixture(FIXTURE)
     write_train_fixtures(FIXTURES)
-    print(f"wrote {FIXTURES}")
+    shutil.rmtree(MPII, ignore_errors=True)
+    write_mpii(MPII)
+    RECIPES_JSON.write_text(expected_recipes())
+    print(f"wrote {FIXTURES} and {RECIPES_JSON}")
