@@ -209,7 +209,35 @@ Phases, one line each (any failure exits non-zero):
     breaking the bound, and D over their 3072, 4608 and 3456 rows;
 40. MPII (``i2rnet_tpu_torch/data/fixtures/mpii_synth``): ``validate`` with
     the GT-heatmap oracle against the JAX PCKh table, and a seeded 16-joint
-    W48 in bf16 kernels on vs off within phase 6's bound, A and B launched.
+    W48 in bf16 kernels on vs off within phase 6's bound, A and B launched;
+41. the serving artifacts: the COCO W48, TPH and HRT recipes' models,
+    seeded and calibrated as phase 5, saved as checkpoints; five artifacts
+    exported by ``tools.export`` from them, each in a process of its own, all
+    at once (seconds and MB each): W48 (bf16, kernels on, buckets 2/4/7,
+    B=8, 480x640 canvas), W48 ``--no-kernels`` (bucket 7), W48 at phase 42's
+    geometry, TPH (B=16, bucket 4) and HRT on E + F (B=8, bucket 4); the W48
+    artifact served by ``probes/serve_artifact.py`` in a fresh process that
+    imports only the port (phase 6's requests, 1-9 boxes an image, every
+    bucket hit) within phase 6's bound of the in-process ``Predictor``, A
+    and B 12 launches a serve call and no other kernel, no model module
+    imported, a request refused with the kernel library unavailable; while
+    it loads, this process loads the other four; the ``--no-kernels``
+    artifact launches no kernel and serves within the bound of the model
+    served in process with its kernels off (bucket 7);
+42. for information: the W48 artifact and the in-process ``Predictor`` in
+    turns at B=16, bucket 7, 256x320 (host clock, images/s and persons/s,
+    the device's busy time and idle share from a profile); Kernel A's host
+    cost a call through the registered op and launched directly;
+43. for information: ``MicroBatcher`` in the fresh process over the phase-41
+    artifact, 200 single-image requests of 1-7 boxes offered as a Poisson
+    stream at half phase 42's rate (max_delay_ms 5): latency p50 and p99,
+    requests/s and persons/s; each result within phase 6's bound of the
+    request served alone;
+44. ``hub.i2rnet_w48_pure`` with phase 41's checkpoint serving as phase 41's
+    model; the TPH and HRT artifacts within phase 6's bound (phases 15 and 25
+    serve under it) of their models served in process, launching a serve
+    call A and B 20 times (TPH), E and F 88 and A and B 4 times (HRT) and
+    nothing else.
 
 Every ``torch.profiler`` breakdown counts all device events but user
 annotations and step markers, and logs how many of them carry a ``#`` in
@@ -229,7 +257,8 @@ B, ``crowdpose_hrt_p16`` for E, F and kernel 9, ``coco_hrt_288`` for kernel 9
 and ``{crowdpose_hrt,ochuman_hrt,coco_hrt_288}_inter`` for C and D: the
 fields at phases 35-39's new shapes; for every kernel ``recipes``: its
 launches in each recipe run's training and test, and MPII's ``validate``
-for A and B), and last
+for A and B; ``served_artifact_{w48,tph,hrt}``: its launches in phases 41's
+and 44's served runs), and last
 ``{"ok": true, "device": {...}}``.
 TF32 is off throughout, so the float32 parts (crops, decode) stay float32.
 Training writes its checkpoints, and validation its results JSONs, under
@@ -241,10 +270,12 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import hashlib
+import io
 import json
 import math
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -253,7 +284,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from i2rnet_tpu_torch import presets
+from i2rnet_tpu_torch import hub, presets
 from i2rnet_tpu_torch.config.config import load_config, to_port
 from i2rnet_tpu_torch.core import trainer as trainer_module
 from i2rnet_tpu_torch.core.pretrained import NOT_LOADED
@@ -290,7 +321,7 @@ from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import (DTYPE_CODES, device_plan, mlp32_
                                                 pack_mlp, pack_mlp32, sm_count)
 from i2rnet_tpu_torch.ops.preprocess import device_preprocess
 from i2rnet_tpu_torch.registry import get_dataset_class
-from i2rnet_tpu_torch.serving import Predictor, make_eval_fn
+from i2rnet_tpu_torch.serving import Predictor, load_predictor, make_eval_fn
 from i2rnet_tpu_torch.tools.test import main as test_main
 from i2rnet_tpu_torch.tools.train import main as train_main
 from i2rnet_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
@@ -354,6 +385,7 @@ PROFILED_STEPS = 2
 TRAIN_KERNELS = ("mhsa_train_fwd", "mhsa_train_bwd", "encoder_ffn_train_fwd",
                  "encoder_ffn_train_bwd")
 OUT_DIR = Path(__file__).resolve().parent / "output" / "chip_smoke"
+ROOT = Path(__file__).resolve().parent
 #: persons per image of the training batch: B=8 images x N=7 slots, ragged
 TRAIN_COUNTS = [7, 5, 3, 1, 7, 2, 6, 4]
 TRAIN_STEPS = 8
@@ -491,6 +523,40 @@ HRT_RECIPES = {37: "crowdpose_hrt_inter", 38: "ochuman_hrt_inter", 39: "coco_hrt
 #: the MPII fixture (phase 40) and its batch
 MPII = FIXTURES / "mpii_synth"
 MPII_BATCH = 4
+#: the serving slice (phases 41-44): the W48 artifact's person buckets, batch
+#: and canvas, written with the other artifacts and the checkpoints under
+#: ARTIFACT_DIR
+ARTIFACT_BUCKETS, ARTIFACT_BATCH, ARTIFACT_HW = (2, 4, 7), 8, (480, 640)
+ARTIFACT_DIR = OUT_DIR / "artifacts"
+#: phase 42's geometry (the JAX ``tools/bench_serving.py``'s): B=16 images,
+#: bucket 7, a 256x320 canvas; calls of each route in turns
+RATE_BATCH, RATE_BUCKET, RATE_HW, RATE_ITERS = 16, 7, (256, 320), 10
+#: the artifacts of phases 41-44, each exported by ``tools.export`` in a
+#: process of its own: name -> (recipe under experiments/, checkpoint, B,
+#: person buckets, canvas, further flags); TPH and HRT one bucket each at
+#: their recipes' test geometry
+EXPORTS = {
+    "w48": ("coco/interformer_coco_w48_pure_en6.yaml", "w48", ARTIFACT_BATCH, ARTIFACT_BUCKETS,
+            ARTIFACT_HW, ()),
+    "w48_plain": ("coco/interformer_coco_w48_pure_en6.yaml", "w48", ARTIFACT_BATCH,
+                  ARTIFACT_BUCKETS[-1:], ARTIFACT_HW, ("--no-kernels",)),
+    "w48_rate": ("coco/interformer_coco_w48_pure_en6.yaml", "w48", RATE_BATCH, (RATE_BUCKET,),
+                 RATE_HW, ()),
+    "tph": ("coco/interformer_coco_tph_192_p4_b4.yaml", "tph", 16, (4,), ARTIFACT_HW, ()),
+    "hrt": ("coco/interformer_coco_hrt_192_p2_b12.yaml", "hrt", 8, (4,), ARTIFACT_HW, ()),
+}
+#: seconds the exports may take together, and the fresh process
+EXPORT_TIMEOUT, CHILD_TIMEOUT = 900, 900
+#: Kernels A's and B's launches a W48 serve call: 6 layers, 2 forwards
+W48_SERVE_LAUNCHES = 12
+#: launches a serve call of the TPH artifact (A and B: 6 intra + 4 inter
+#: layers, 2 forwards) and of the HRT artifact on E + F (E and F: HRFormer-B's
+#: 44 blocks, 2 forwards; A and B: 2 inter layers)
+SERVED_LAUNCHES = {"tph": {"masked_mhsa": 20, "encoder_ffn": 20},
+                   "hrt": {"window_attn_block": 88, "mlp_block": 88, "masked_mhsa": 4,
+                           "encoder_ffn": 4}}
+#: phase 43: single-image requests offered to a MicroBatcher
+POISSON_REQUESTS, POISSON_DELAY_MS = 200, 5.0
 ZERO_GRADS = re.compile(r"(k_proj|mlp\.(fc1|dw3x3|fc2)|norm2|fuse_layers\.\d+\.\d+\.\d+\.1)\.bias$")
 
 
@@ -909,20 +975,29 @@ def phase_serve(model, cfg, set_kernels, kernels=EVAL_KERNELS, batch_images=8,
         raise AssertionError(f"the served path launched kernels of another route: {stray}")
     set_kernels(False)
     plain = pred.predict(images, boxes)
-    conf = np.concatenate([k[..., 2] for k in out])
-    conf_plain = np.concatenate([k[..., 2] for k in plain])
-    xy_err = np.concatenate([np.abs(a[..., :2] - b[..., :2]).max(-1) for a, b in zip(out, plain)])
-    conf_err = np.abs(conf - conf_plain).max() / np.abs(conf_plain).max()
     log(f"  {len(images)} images, {sum(map(len, boxes))} persons -> results "
         f"[n_i, {cfg['MODEL']['NUM_JOINTS']}, 3], "
         f"finite; host clock {dt * 1e3:.1f} ms (with host packing and copies); "
         f"launches {counts} in {len(calls)} serve calls")
-    log(f"  bf16 kernels vs bf16 plain on the same requests: max|dconf|/max|conf| "
+    check_served(out, plain, "bf16 kernels vs bf16 plain", "bf16 serving with kernels strays "
+                 "from the plain path")
+    return counts
+
+
+def check_served(out, ref, what, fault):
+    """Phase 6's bound between two servings of the same requests: the largest
+    confidence difference within 5% of the largest confidence, the median
+    keypoint within 1 px; returns the largest |difference|."""
+    conf = np.concatenate([k[..., 2] for k in out])
+    conf_ref = np.concatenate([k[..., 2] for k in ref])
+    xy_err = np.concatenate([np.abs(a[..., :2] - b[..., :2]).max(-1) for a, b in zip(out, ref)])
+    conf_err = np.abs(conf - conf_ref).max() / np.abs(conf_ref).max()
+    log(f"  {what} on the same requests: max|dconf|/max|conf| "
         f"{conf_err:.3g}, |dxy| median {np.median(xy_err):.3g} px, "
         f"share within 1 px {np.mean(xy_err <= 1.0):.3f}")
     if conf_err > 0.05 or np.median(xy_err) > 1.0:
-        raise AssertionError("bf16 serving with kernels strays from the plain path")
-    return counts
+        raise AssertionError(fault)
+    return max(float(np.abs(a - b).max()) for a, b in zip(out, ref))
 
 
 def time_cuda(fn, iters):
@@ -3148,6 +3223,383 @@ def phase_mpii(g, card):
     return want
 
 
+def box_requests(rng, counts, hw):
+    """Uint8 images of at least half of ``hw`` (h, w) each way, with
+    ``counts[i]`` random person boxes (x, y, w, h) inside image i."""
+    images, boxes = [], []
+    for n in counts:
+        h, w = int(rng.randint(hw[0] // 2, hw[0] + 1)), int(rng.randint(hw[1] // 2, hw[1] + 1))
+        images.append(rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+        bw, bh = rng.uniform(16, w / 2, n), rng.uniform(32, h / 1.5, n)
+        x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+        boxes.append(np.stack([x0, y0, bw, bh], 1).tolist())
+    return images, boxes
+
+
+def save_requests(path, images, boxes, **extra):
+    """Requests as ``probes/serve_artifact.py`` reads them, written whole
+    (a temporary name, then moved: the process waiting for it sees it
+    complete)."""
+    tmp = path.with_suffix(".tmp.npz")
+    np.savez(tmp, boxes=json.dumps(boxes), **{f"image_{i}": im for i, im in enumerate(images)},
+             **extra)
+    tmp.replace(path)
+
+
+def artifact_header(path):
+    """An artifact's JSON header (``serving.save_artifact``'s layout)."""
+    with open(path, "rb") as f:
+        if f.read(4) != b"I2RX":
+            raise AssertionError(f"{path}: not an i2rx artifact")
+        (n,) = struct.unpack("<I", f.read(4))
+        return json.loads(f.read(n))
+
+
+def seeded_checkpoint(cfg, g, name):
+    """The recipe's model seeded and calibrated as phase 5, in its compute
+    dtype, and its weights saved as ARTIFACT_DIR/<name>.pth: (model, path)."""
+    model = random_model(cfg, g)
+    model.compute_dtype = getattr(torch, cfg["DEVICE"]["COMPUTE_DTYPE"])  # the recipe's: bf16
+    path = ARTIFACT_DIR / f"{name}.pth"
+    torch.save({"state_dict": model.state_dict()}, path)
+    return model, path
+
+
+def export_all(ckpts):
+    """Every artifact of EXPORTS through ``tools.export``, each in a process
+    of its own, all at once: {name: path}; logs each one's seconds (start to
+    exit, alongside the others) and MB, and the ops its programs call."""
+    procs = {}
+    for name, (recipe, ckpt, b, buckets, hw, flags) in EXPORTS.items():
+        out = ARTIFACT_DIR / f"{name}.i2rx"
+        cmd = [sys.executable, "-m", "i2rnet_tpu_torch.tools.export", "--cfg",
+               str(EXPERIMENTS / recipe), "--checkpoint", str(ckpts[ckpt]), "--out", str(out),
+               "--batch", str(b), "--persons", *map(str, buckets), "--raw-hw", *map(str, hw),
+               "--device", torch.device(DEV).type, *flags]
+        logf = open(ARTIFACT_DIR / f"{name}.export.log", "w")
+        procs[name] = (subprocess.Popen(cmd, cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT),
+                       out, logf)
+    t0, seconds = time.perf_counter(), {}
+    try:
+        while len(seconds) < len(procs):
+            for name, (proc, _, _) in procs.items():
+                if name not in seconds and proc.poll() is not None:
+                    seconds[name] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > EXPORT_TIMEOUT:
+                raise AssertionError(f"exports unfinished after {EXPORT_TIMEOUT} s")
+            time.sleep(0.2)
+    finally:
+        for proc, _, logf in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            logf.close()
+    failed = {name: proc.returncode for name, (proc, _, _) in procs.items() if proc.returncode}
+    if failed:
+        tails = "".join(f"\n{name}: {(ARTIFACT_DIR / f'{name}.export.log').read_text()[-3000:]}"
+                        for name in failed)
+        raise AssertionError(f"tools.export failed: {failed}{tails}")
+    for name, (_, out, _) in procs.items():
+        recipe, _, b, buckets, hw, flags = EXPORTS[name]
+        log(f"  tools.export {recipe}{''.join(' ' + f for f in flags)} (B={b}, buckets {buckets}, "
+            f"{hw[0]}x{hw[1]} canvas): {seconds[name]:.1f} s, "
+            f"{out.stat().st_size / 1e6:.1f} MB; programs call {artifact_header(out)['kernels']}")
+    return {name: out for name, (_, out, _) in procs.items()}
+
+
+def loaded(path):
+    """``load_predictor`` then ``warmup``: (predictor, load s, warmup s)."""
+    t0 = time.perf_counter()
+    pred = load_predictor(str(path), DEV)
+    t1 = time.perf_counter()
+    pred.warmup()
+    return pred, t1 - t0, time.perf_counter() - t1
+
+
+def counting(pred):
+    """Counts the serve calls of ``pred`` (its programs' calls) per bucket;
+    returns the dict, filled as the predictor serves."""
+    calls, serve = {}, pred.serve
+
+    def counted(*args):
+        n = int(args[4].shape[1])
+        calls[n] = calls.get(n, 0) + 1
+        return serve(*args)
+
+    pred.serve = counted
+    return calls
+
+
+def wait_for(path, child, timeout):
+    """Wait until ``path`` exists; raise if ``child`` exits first with an
+    error or ``timeout`` seconds pass."""
+    t0 = time.perf_counter()
+    while not path.exists():
+        if child.poll() not in (None, 0) or time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"the fresh process (exit {child.poll()}) wrote no {path.name}:"
+                                 f"\n{(ARTIFACT_DIR / 'serve_artifact.log').read_text()[-4000:]}")
+        time.sleep(0.1)
+
+
+def check_fresh(rec, served, ref):
+    """Phase 41's checks of the fresh process's record and results."""
+    calls = {int(n): c for n, c in rec["calls"].items()}
+    want = {k: (W48_SERVE_LAUNCHES * sum(calls.values()) if k in EVAL_KERNELS else 0)
+            for k in KERNELS}
+    log(f"  fresh process: load {rec['load_s']:.1f} s, warmup {rec['warmup_s']:.1f} s, "
+        f"{len(served)} images / {sum(len(r) for r in served)} persons served in "
+        f"{rec['serve_s'] * 1e3:.1f} ms; calls per bucket {calls}; launches "
+        f"{ {k: v for k, v in rec['launches'].items() if v} }; model modules imported "
+        f"{rec['models_imported']}; without the kernel library: "
+        f"{rec['refused_without_library']!r}")
+    if set(calls) != set(ARTIFACT_BUCKETS) or rec["launches"] != want:
+        raise AssertionError(f"the fresh process served calls {calls} with launches "
+                             f"{rec['launches']}, want {want}")
+    if rec["models_imported"] or (torch.device(DEV).type == "cuda"
+                                  and not rec["refused_without_library"]):
+        raise AssertionError("the fresh process imported a model module, or served without "
+                             "the kernel library")
+    diff = check_served(served, ref, "artifact in a fresh process vs in-process Predictor",
+                        "the W48 artifact strays from the in-process Predictor")
+    log(f"  max|difference| {diff:.3g}")
+
+
+def check_no_kernels(plain, model, cfg, images, boxes, ref):
+    """Phase 41's ``--no-kernels`` artifact: no kernel launched, within phase
+    6's bound of the model served in process with its kernels off in the
+    same bucket; beside it, for information, the in-process plain path in
+    buckets 2/4/7 and the kernels' results."""
+    reset_launches()
+    out = plain.predict(images, boxes)
+    torch.cuda.synchronize()
+    stray = {k: v for k, v in launch_counts().items() if v}
+    if stray:
+        raise AssertionError(f"the --no-kernels artifact launched {stray}")
+    model.set_kernels(False)
+    try:
+        same = Predictor(model, cfg, flip_pairs(cfg), batch_images=ARTIFACT_BATCH,
+                         n_buckets=(ARTIFACT_BUCKETS[-1],), raw_hw=ARTIFACT_HW)
+        local = Predictor(model, cfg, flip_pairs(cfg), batch_images=ARTIFACT_BATCH,
+                          n_buckets=ARTIFACT_BUCKETS, raw_hw=ARTIFACT_HW)
+        want, layout = same.predict(images, boxes), local.predict(images, boxes)
+    finally:
+        model.set_kernels(True)
+    diff = check_served(out, want, f"--no-kernels artifact vs in-process plain, bucket "
+                        f"{ARTIFACT_BUCKETS[-1]}", "the --no-kernels artifact strays from "
+                        "the in-process plain path")
+    log(f"  max|difference| {diff:.3g}; launches {stray}; for information, in-process plain in "
+        f"bucket {ARTIFACT_BUCKETS[-1]} vs buckets {ARTIFACT_BUCKETS}, and in buckets "
+        f"{ARTIFACT_BUCKETS} kernels on vs off (phase 6's comparison):")
+    for a, b, what in ((want, layout, "bucket layout"), (ref, layout, "kernels vs plain")):
+        conf = np.concatenate([k[..., 2] for k in a])
+        conf_ref = np.concatenate([k[..., 2] for k in b])
+        xy = np.concatenate([np.abs(u[..., :2] - v[..., :2]).max(-1) for u, v in zip(a, b)])
+        log(f"    {what}: max|dconf|/max|conf| "
+            f"{np.abs(conf - conf_ref).max() / np.abs(conf_ref).max():.3g}, |dxy| median "
+            f"{np.median(xy):.3g} px, share within 1 px {np.mean(xy <= 1.0):.3f}")
+
+
+def host_us(fn, calls=500, rounds=3):
+    """Host microseconds a call of ``fn`` takes to return (its launch queued,
+    not waited for): the median of ``rounds`` loops of ``calls`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def phase_serving_rate(art, model, cfg, card):
+    """Phase 42, for information: the W48 model served from its artifact and
+    in process in turns at B=16, bucket 7, on a 256x320 canvas (host clock,
+    and the device's busy time from a profile), and the registered op's host
+    cost per call against the direct launch. Returns the artifact's images/s
+    and the op's extra host microseconds a call."""
+    local = Predictor(model, cfg, flip_pairs(cfg), batch_images=RATE_BATCH,
+                      n_buckets=(RATE_BUCKET,), raw_hw=RATE_HW)
+    local.warmup()
+    rng = np.random.RandomState(SEED + 1)
+    images, boxes = box_requests(rng, rng.randint(1, RATE_BUCKET + 1, RATE_BATCH), RATE_HW)
+    persons = sum(map(len, boxes))
+    fns = {"artifact": lambda: art.predict(images, boxes),
+           "in-process": lambda: local.predict(images, boxes)}
+    walls = {k: [] for k in fns}
+    for _ in range(RATE_ITERS):
+        for k, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[k].append((time.perf_counter() - t0) * 1e3)
+    log(f"  one call of {RATE_BATCH} images, {persons} persons, in turns x{RATE_ITERS} [{card}]:")
+    rates = {}
+    for k, fn in fns.items():
+        ms = float(np.median(walls[k]))
+        wall, busy, launches, _ = profile_steps(fn, 2)
+        rates[k] = RATE_BATCH / ms * 1e3
+        log(f"    {k:10s} {ms:8.2f} ms/call (host clock, median), {rates[k]:8.1f} images/s, "
+            f"{persons / ms * 1e3:8.1f} persons/s; under the profiler {wall:.2f} ms/call, "
+            f"device busy {busy:.2f} ms/call, idle share {1 - busy / wall:.3f}, "
+            f"{launches:.0f} device launches/call")
+    check_served(fns["artifact"](), fns["in-process"](), "artifact vs in-process",
+                 "the rate artifact strays from the in-process Predictor")
+    q = torch.randn(1, 16, 96, device=DEV, dtype=torch.bfloat16)
+    op = host_us(lambda: torch.ops.i2r.masked_mhsa(q, q, q, 1, None))
+    direct = host_us(lambda: masked_mhsa_fused(q, q, q, 1, None))
+    extra = op - direct
+    share = 2 * W48_SERVE_LAUNCHES * extra / 1e3 / float(np.median(walls["in-process"]))
+    log(f"  host cost of Kernel A per call: the registered op {op:.1f} us, the direct launch "
+        f"{direct:.1f} us (extra {extra:.1f} us); the {2 * W48_SERVE_LAUNCHES} kernel calls of "
+        f"a W48 serve call through the op would add {100 * share:.2f}% to its in-process "
+        f"wall (eager calls launch directly; only exported programs take the op)")
+    return rates["artifact"], extra
+
+
+def poisson_stream(rate):
+    """Phase 43's requests: POISSON_REQUESTS images of 1-7 boxes and their
+    arrival times at half ``rate`` (a Poisson stream)."""
+    rng = np.random.RandomState(SEED + 2)
+    images, boxes = box_requests(rng, rng.randint(1, 8, POISSON_REQUESTS), ARTIFACT_HW)
+    return images, boxes, np.cumsum(rng.exponential(2.0 / rate, POISSON_REQUESTS))
+
+
+def report_stream(res, boxes, rate, card):
+    """Phase 43's numbers from the fresh process's stream run, and its
+    batched results against the same requests served alone."""
+    submitted, done, groups = res["submitted"], res["done"], res["groups"]
+    lat = (done - submitted) * 1e3
+    span = done.max() - submitted[0]
+    persons = sum(map(len, boxes))
+    log(f"  {POISSON_REQUESTS} requests of 1-7 boxes ({persons} persons) offered at "
+        f"{rate / 2:.1f} requests/s (half of phase 42's {rate:.1f} images/s), max_delay_ms "
+        f"{POISSON_DELAY_MS:g} [{card}]:")
+    log(f"    latency p50 {np.percentile(lat, 50):.2f} ms, p99 {np.percentile(lat, 99):.2f} ms, "
+        f"max {lat.max():.2f} ms; achieved {POISSON_REQUESTS / span:.2f} requests/s, "
+        f"{persons / span:.2f} persons/s; {len(groups)} predict calls, "
+        f"{groups.mean():.2f} images a call")
+    n = len(boxes)
+    diff = check_served([res[f"batched_{i}"] for i in range(n)],
+                        [res[f"alone_{i}"] for i in range(n)],
+                        "MicroBatcher vs each request served alone",
+                        "MicroBatcher results stray from sequential predict")
+    log(f"  max|difference| {diff:.3g}")
+
+
+def check_model_artifact(label, pred, model, cfg, images, boxes, op_extra_us, card):
+    """Phase 44: a TPH or HRT artifact loaded here against its model served
+    in process, each kernel launched its count a serve call; the share of a
+    serve call's wall that ``op_extra_us`` a kernel call would add. Returns
+    the launches."""
+    recipe, _, b, (n,), hw, _ = EXPORTS[label]
+    per_call = SERVED_LAUNCHES[label]
+    local = Predictor(model, cfg, flip_pairs(cfg), batch_images=b, n_buckets=(n,), raw_hw=hw)
+    local.warmup()
+    calls = counting(pred)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = pred.predict(images, boxes)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in launch_counts().items() if v}
+    want = {k: c * calls[n] for k, c in per_call.items()}
+    per_call_ms, extra_ms = wall / calls[n], sum(per_call.values()) * op_extra_us / 1e3
+    log(f"  {label.upper()} artifact ({recipe}, B={b}, bucket {n}): {calls[n]} serve calls in "
+        f"{wall:.1f} ms (host clock) [{card}]; launches {launches}; its "
+        f"{sum(per_call.values())} kernel calls a serve call through the op: {extra_ms:.3f} "
+        f"ms of host time more than launched directly, {100 * extra_ms / per_call_ms:.2f}% "
+        f"of its {per_call_ms:.1f} ms")
+    if launches != want:
+        raise AssertionError(f"the {label} artifact launched {launches}, want {want}")
+    diff = check_served(out, local.predict(images, boxes),
+                        f"{label.upper()} artifact vs in-process Predictor",
+                        f"the {label} artifact strays from the in-process Predictor")
+    log(f"  max|difference| {diff:.3g}")
+    return launches
+
+
+def phase_serving(g, card):
+    """Phases 41-44 (the module docstring): the seeded W48, TPH and HRT
+    models saved as checkpoints; every artifact exported by ``tools.export``
+    at once; the W48 artifact served by a fresh process
+    (``probes/serve_artifact.py``) while this one loads the others; the
+    serving rate; the fresh process's ``MicroBatcher`` stream; the hub's W48,
+    the TPH and HRT artifacts. Returns each served artifact's launches."""
+    ARTIFACT_DIR.mkdir(parents=True, exist_ok=True)
+    for stale in ARTIFACT_DIR.glob("*.npz"):
+        stale.unlink()
+    cfgs = {"w48": presets.w48_pure_en6(), "tph": presets.tph_interformer(),
+            "hrt": presets.hrt_interformer()}
+    models, ckpts = {}, {}
+    for name, routes in (("w48", lambda m: m.set_kernels), ("tph", lambda m: m.set_kernels),
+                         ("hrt", hrt_kernels)):
+        models[name], ckpts[name] = seeded_checkpoint(cfgs[name], g, name)
+        routes(models[name])(True)
+    log("phase 41 the serving artifacts through tools.export, one process each, all at once:")
+    paths = export_all(ckpts)
+    images, boxes = requests(np.random.RandomState(SEED))
+    req, out = ARTIFACT_DIR / "requests.npz", ARTIFACT_DIR / "served.npz"
+    stream, stream_out = ARTIFACT_DIR / "stream.npz", ARTIFACT_DIR / "stream_out.npz"
+    save_requests(req, images, boxes)
+    logf = open(ARTIFACT_DIR / "serve_artifact.log", "w")
+    child = subprocess.Popen(
+        [sys.executable, "-m", "i2rnet_tpu_torch.probes.serve_artifact", str(paths["w48"]),
+         str(req), str(out), "--device", DEV, "--stream", str(stream), "--stream-out",
+         str(stream_out)], cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT)
+    try:
+        preds = {}
+        for name in ("w48_plain", "w48_rate", "tph", "hrt"):  # while the fresh process loads
+            preds[name], load_s, warm_s = loaded(paths[name])
+            log(f"  {name} loaded in this process: {load_s:.1f} s, warmup {warm_s:.1f} s")
+        local = Predictor(models["w48"], cfgs["w48"], flip_pairs(cfgs["w48"]),
+                          batch_images=ARTIFACT_BATCH, n_buckets=ARTIFACT_BUCKETS,
+                          raw_hw=ARTIFACT_HW)
+        local.warmup()
+        ref = local.predict(images, boxes)
+        wait_for(out, child, CHILD_TIMEOUT)
+        res = np.load(out)
+        rec = json.loads(str(res["record"]))
+        check_fresh(rec, [res[f"result_{i}"] for i in range(len(images))], ref)
+        check_no_kernels(preds.pop("w48_plain"), models["w48"], cfgs["w48"], images, boxes, ref)
+
+        log(f"phase 42 serving rate, artifact vs in-process [{card}]:")
+        rate, op_extra_us = phase_serving_rate(preds.pop("w48_rate"), models["w48"],
+                                               cfgs["w48"], card)
+        torch.cuda.empty_cache()
+        log(f"phase 43 MicroBatcher in the fresh process under a Poisson stream [{card}]:")
+        s_images, s_boxes, arrivals = poisson_stream(rate)
+        save_requests(stream, s_images, s_boxes, arrivals=arrivals,
+                      max_delay_ms=POISSON_DELAY_MS)
+        if child.wait(timeout=CHILD_TIMEOUT) != 0:
+            raise AssertionError(f"the fresh process exited {child.returncode}:\n"
+                                 f"{(ARTIFACT_DIR / 'serve_artifact.log').read_text()[-4000:]}")
+        report_stream(np.load(stream_out), s_boxes, rate, card)
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.wait()
+        logf.close()
+
+    log("phase 44 the hub's W48, and the TPH and HRT artifacts:")
+    hub_model = hub.i2rnet_w48_pure("coco", checkpoint=str(ckpts["w48"]), device=DEV)
+    got = Predictor(hub_model, cfgs["w48"], flip_pairs(cfgs["w48"]),
+                    batch_images=ARTIFACT_BATCH, n_buckets=ARTIFACT_BUCKETS,
+                    raw_hw=ARTIFACT_HW).predict(images, boxes)
+    diff = check_served(got, ref, "hub.i2rnet_w48_pure(checkpoint) vs phase 41's model",
+                        "the hub's W48 serves otherwise than the model it was saved from")
+    log(f"  max|difference| {diff:.3g}")
+    del hub_model, local
+    launches = {"w48": rec["launches"]}
+    for label in ("tph", "hrt"):
+        launches[label] = check_model_artifact(label, preds.pop(label), models.pop(label),
+                                               cfgs[label], images, boxes, op_extra_us, card)
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -3325,6 +3777,9 @@ def main() -> int:
     recipe_runs, recipe_shapes = phase_recipes(g, card)
     log("phase 40 MPII (PCKh):")
     mpii_launches = phase_mpii(g, card)
+    torch.cuda.empty_cache()
+
+    served = phase_serving(g, card)
 
     counts.update(train_counts)
     counts.update({k: hrt_train_counts[k] for k in ("window_attn_block_train_fwd",
@@ -3352,6 +3807,11 @@ def main() -> int:
             for stem, run in recipe_runs.items()}
     for name in EVAL_KERNELS:
         new_shapes[name]["recipes"]["mpii_validate"] = mpii_launches
+    # phases 41 and 44: each kernel's launches in each served artifact's run
+    for name in KERNELS:
+        new_shapes.setdefault(name, {}).update(
+            {f"served_artifact_{label}": {"launches": run.get(name, 0)}
+             for label, run in served.items()})
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": counts[name],
                 "max_abs_err": errs[name], **times[name],

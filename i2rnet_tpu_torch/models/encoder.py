@@ -9,7 +9,7 @@ reference's (``layers.{i}.linear1``...). With ``TransformerEncoder.use_kernels``
 versions:
 
 * eval: the attention on Kernel A, the LN1 -> FFN -> residual -> LN2 tail on
-  Kernel B;
+  Kernel B (each its registered ``i2r::`` op while ``torch.export`` traces);
 * training (``module.training``), dropout ``dropout_rate`` (0.1, reference
   ``attention.py:37-112``): the attention with dropout on its weights on
   Kernel C where ``flash_train`` is on too (``TPU.FLASH_TRAIN_ATTENTION``),
@@ -39,9 +39,10 @@ from torch import nn
 
 from i2rnet_tpu_torch.models.layers import Linear
 from i2rnet_tpu_torch.ops.attention import masked_mhsa, masked_mhsa_train
-from i2rnet_tpu_torch.ops.cuda.encoder_ffn import encoder_ffn_fused, encoder_ffn_torch
+from i2rnet_tpu_torch.ops.cuda.encoder_ffn import encoder_ffn_torch
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn_train import (encoder_ffn_train_fused,
                                                          encoder_ffn_train_torch)
+from i2rnet_tpu_torch.ops.cuda.library import route
 
 OFFSETS_PER_LAYER = 4
 #: the dropout offsets an encoder may use are below this (module docstring)
@@ -108,7 +109,7 @@ class TransformerEncoderLayer(nn.Module):
                 self.linear2.weight, self.linear2.bias, self.norm2.weight, self.norm2.bias)
         if not self.training:
             src = src + self.self_attn(qk, qk, src, key_padding_mask, use_kernel=use_kernels)
-            ffn = encoder_ffn_fused if use_kernels else encoder_ffn_torch
+            ffn = route("encoder_ffn") if use_kernels else encoder_ffn_torch
             return ffn(src, *tail, eps=self.norm1.eps)
         attn = self.self_attn(qk, qk, src, key_padding_mask, use_kernels and flash_train,
                               dropout_rate, dropout_seed, offset)

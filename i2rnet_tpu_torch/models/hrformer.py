@@ -37,6 +37,9 @@ kernel 9 (``window_attn_block_train_fused``) where ``use_kernels`` and
 ``fused_train`` (``DEVICE.FUSED_BLOCK_TRAIN``) are on, else the modules.
 ``use_rpe`` is not ported: the relative-position table is carried, not
 added (the reference quirk), and a block built with ``use_rpe`` raises.
+While ``torch.export`` traces, each kernel is its registered ``i2r::`` op
+(``ops/cuda/library.py``) and the packed weights are the buffers
+``HRFormerBlock.prepare_export`` made.
 """
 
 from __future__ import annotations
@@ -52,11 +55,11 @@ from torch import nn
 from i2rnet_tpu_torch.models.hrnet import Transition
 from i2rnet_tpu_torch.models.layers import (Bottleneck, Conv2d, ConvBN, LayerNorm, Linear,
                                             MaskedBatchNorm, set_compute_dtype, upsample_bilinear)
-from i2rnet_tpu_torch.ops.cuda.hrformer_block import (full_block_fused, mlp_block_fused,
-                                                      pack_attn, window_attn_block_fused,
-                                                      window_partition, window_unpartition)
+from i2rnet_tpu_torch.ops.cuda.hrformer_block import (pack_attn, window_partition,
+                                                      window_unpartition)
 from i2rnet_tpu_torch.ops.cuda.hrformer_block_train import window_attn_block_train_fused
-from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import fold_bn, mlp_dwbn_fused, pack_mlp, pack_mlp32
+from i2rnet_tpu_torch.ops.cuda.library import route
+from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import fold_bn, pack_mlp, pack_mlp32
 
 #: the HRFormer-B architecture (reference factory ``hrformer.py:2487-2533``,
 #: ``i2rnet_tpu/models/hrformer.py:44``)
@@ -222,25 +225,25 @@ class HRFormerBlock(nn.Module):
             attn_w = (a.q_proj.weight, a.q_proj.bias, a.k_proj.weight, a.k_proj.bias,
                       a.v_proj.weight, a.v_proj.bias, a.out_proj.weight, a.out_proj.bias)
             if self.fused_onepass:
-                return full_block_fused(
+                return route("full_block")(
                     x, self.norm1.weight, self.norm1.bias, *attn_w, self.norm2.weight,
                     self.norm2.bias, *self._kernel_weights("folded", x), heads=self.num_heads,
                     window=self.window, eps=self.norm1.eps,
                     packed=(self._kernel_weights("attn", x), self._kernel_weights("mlp", x)))
-            x = window_attn_block_fused(x, self.norm1.weight, self.norm1.bias, *attn_w,
-                                        heads=self.num_heads, window=self.window,
-                                        eps=self.norm1.eps, packed=self._kernel_weights("attn", x))
-            return mlp_block_fused(x, self.norm2.weight, self.norm2.bias,
-                                   *self._kernel_weights("folded", x), eps=self.norm2.eps,
-                                   packed=self._kernel_weights("mlp", x))
+            x = route("window_attn_block")(
+                x, self.norm1.weight, self.norm1.bias, *attn_w, heads=self.num_heads,
+                window=self.window, eps=self.norm1.eps, packed=self._kernel_weights("attn", x))
+            return route("mlp_block")(
+                x, self.norm2.weight, self.norm2.bias, *self._kernel_weights("folded", x),
+                eps=self.norm2.eps, packed=self._kernel_weights("mlp", x))
         x = x + self.attn(self.norm1(x))
         if self.use_kernels and self.fused_mlp:
             # Kernel G takes LN2's f32 output, as the JAX module hands it; its
             # f32 result joins the residual, so the sum is f32 from here on
             y = F.layer_norm(x.float(), self.norm2.normalized_shape, self.norm2.weight,
                              self.norm2.bias, self.norm2.eps)
-            y = mlp_dwbn_fused(y, *self._kernel_weights("folded", x),
-                               packed=self._kernel_weights("mlp32", x))
+            y = route("mlp_dwbn")(y, *self._kernel_weights("folded", x),
+                                  packed=self._kernel_weights("mlp32", x))
         else:
             y = self.mlp(self.norm2(x))
         return x + y
@@ -264,27 +267,59 @@ class HRFormerBlock(nn.Module):
         device) and kept until a parameter or BN statistic changes (its
         version or storage): ``"folded"`` the BN-folded MLP weights,
         ``"attn"``/``"mlp"`` the kernels' packed layouts in x's dtype,
-        ``"mlp32"`` Kernel G's TF32 fragments."""
+        ``"mlp32"`` Kernel G's TF32 fragments. While ``torch.export`` traces,
+        the buffers :meth:`prepare_export` made."""
+        if torch.compiler.is_exporting():
+            return self._export_weights(kind, x)
         tensors = list(self.parameters()) + list(self.mlp.buffers())
         stamp = tuple((t.data_ptr(), t._version) for t in tensors)
         key = (kind, x.dtype, x.device)
         hit = self._packed.get(key)
         if hit is not None and hit[0] == stamp:
             return hit[1]
-        with torch.no_grad():
-            if kind == "folded":
-                val = self.mlp.folded_params()
-            elif kind == "attn":
-                a = self.attn.attn
-                val = pack_attn(a.q_proj.weight, a.q_proj.bias, a.k_proj.weight, a.k_proj.bias,
-                                a.v_proj.weight, a.v_proj.bias, a.out_proj.weight,
-                                a.out_proj.bias, self.num_heads, x.dtype, x.device)
-            elif kind == "mlp32":
-                val = pack_mlp32(*self._kernel_weights("folded", x), x.device)
-            else:
-                val = pack_mlp(*self._kernel_weights("folded", x), x.dtype, x.device)
+        val = self._pack(kind, x.dtype, x.device)
         self._packed[key] = (stamp, val)
         return val
+
+    def _pack(self, kind: str, dtype, device):
+        with torch.no_grad():
+            if kind == "folded":
+                return self.mlp.folded_params()
+            if kind == "attn":
+                a = self.attn.attn
+                return pack_attn(a.q_proj.weight, a.q_proj.bias, a.k_proj.weight, a.k_proj.bias,
+                                 a.v_proj.weight, a.v_proj.bias, a.out_proj.weight,
+                                 a.out_proj.bias, self.num_heads, dtype, device)
+            if kind == "mlp32":
+                return pack_mlp32(*self._pack("folded", dtype, device), device)
+            return pack_mlp(*self._pack("folded", dtype, device), dtype, device)
+
+    def _route_kinds(self):
+        """The kernel weights this block's eval route takes."""
+        if not self.use_kernels:
+            return ()
+        if self.fused_block:
+            return ("folded", "attn", "mlp")
+        return ("folded", "mlp32") if self.fused_mlp else ()
+
+    def prepare_export(self, dtype, device) -> None:
+        """Pack the weights this block's eval route takes (the stream in
+        ``dtype`` on ``device``) once, into buffers kept out of the state
+        dict, which an exported program carries as constants: ``torch.export``
+        traces fake parameters, which :meth:`_kernel_weights` can neither
+        stamp nor should pack anew at every call."""
+        for kind in self._route_kinds():
+            for i, t in enumerate(self._pack(kind, dtype, device)):
+                self.register_buffer(f"export_{kind}_{i}", t.contiguous(), persistent=False)
+        self._export_dtype = dtype
+
+    def _export_weights(self, kind: str, x):
+        if not hasattr(self, f"export_{kind}_0"):
+            raise RuntimeError("HRFormerBlock: call prepare_export before torch.export")
+        if kind in ("attn", "mlp") and x.dtype != self._export_dtype:
+            raise RuntimeError(f"HRFormerBlock: weights packed for {self._export_dtype}, "
+                               f"the stream is {x.dtype}")
+        return tuple(getattr(self, f"export_{kind}_{i}") for i in range(6))
 
 
 def _fuse_layers(channels: List[int], n_out: int) -> nn.ModuleList:

@@ -264,6 +264,21 @@ def build_singleformer(cfg: Dict) -> nn.Module:
     raise NotImplementedError(f"MODEL.SINGLEFORMER={name!r}: only {FIRST_STAGES} are ported")
 
 
+def build_transpose_h(cfg: Dict, use_kernels: Optional[bool] = None, device="cuda") -> nn.Module:
+    """The standalone TransPose-H single-person model (``MODEL.NAME``
+    ``transpose_h``, or its legacy alias ``transpose_h_old``; the JAX
+    ``models/transpose_h.py:89-92``): the first stage of
+    :func:`build_singleformer` from the same ``MODEL`` keys, its encoder on
+    the kernels where ``use_kernels`` (``DEVICE.USE_KERNELS``), in eval mode
+    on ``device``. ``forward(x [P, 3, H, W])`` in the compute dtype returns
+    (features, heatmaps)."""
+    model = build_singleformer({**cfg, "MODEL": {**cfg["MODEL"], "SINGLEFORMER": "transpose_h"}})
+    dev = cfg["DEVICE"]
+    model.set_routes(dev["USE_KERNELS"] if use_kernels is None else use_kernels)
+    set_train_routes(model.global_encoder, dev)
+    return model.to(device).eval()
+
+
 def build_interformer(cfg: Dict, use_kernels: Optional[bool] = None,
                       device="cuda") -> InterFormer:
     """The two-stage model from a port config, in eval mode, on ``device``.
@@ -295,11 +310,13 @@ def build_interformer(cfg: Dict, use_kernels: Optional[bool] = None,
 
 def build_model(cfg: Dict, use_kernels: Optional[bool] = None, device="cuda"):
     """The ported model of ``MODEL.NAME`` (``interformer_pureMulti``,
-    ``interformer`` or ``interformer_2stage``) on ``device`` (the card unless
-    asked), in eval mode."""
+    ``interformer``, ``interformer_2stage`` or the standalone ``transpose_h``)
+    on ``device`` (the card unless asked), in eval mode."""
     name = cfg["MODEL"]["NAME"]
     if name == "interformer_pureMulti":
         return build_pure_multi(cfg, use_kernels, device)
     if name in TWO_STAGE_NAMES:
         return build_interformer(cfg, use_kernels, device)
+    if name in ("transpose_h", "transpose_h_old"):
+        return build_transpose_h(cfg, use_kernels, device)
     raise ValueError(f"model {name!r} is not ported")

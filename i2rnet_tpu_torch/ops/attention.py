@@ -13,7 +13,8 @@ from typing import Optional
 
 import torch
 
-from i2rnet_tpu_torch.ops.cuda.mhsa import masked_mhsa_fused, masked_mhsa_torch
+from i2rnet_tpu_torch.ops.cuda.library import route
+from i2rnet_tpu_torch.ops.cuda.mhsa import masked_mhsa_torch
 from i2rnet_tpu_torch.ops.cuda.mhsa_train import masked_mhsa_train_fused, masked_mhsa_train_torch
 
 __all__ = ["masked_mhsa", "masked_mhsa_torch", "masked_mhsa_train", "masked_mhsa_train_torch"]
@@ -24,8 +25,9 @@ def masked_mhsa(q, k, v, num_heads: int,
                 use_kernel: bool = False):
     """Kernel A when ``use_kernel`` (the counterpart of
     ``TPU.USE_PALLAS_ATTENTION``), else the plain version. No fallback: the
-    kernel path raises if the kernel cannot run on a CUDA tensor."""
-    fn = masked_mhsa_fused if use_kernel else masked_mhsa_torch
+    kernel path raises if the kernel cannot run on a CUDA tensor. While
+    ``torch.export`` traces, the kernel is its registered op ``i2r::masked_mhsa``."""
+    fn = route("masked_mhsa") if use_kernel else masked_mhsa_torch
     return fn(q, k, v, num_heads, key_padding_mask)
 
 

@@ -3,6 +3,8 @@
 Each wrapper keeps a plain integer ``launches`` that it raises by one where it
 launches its kernel, so a run can show that its path went through the kernel.
 The training kernels count their forward and backward launches apart.
+Importing this package registers the eval kernels as ``i2r::`` ops
+(:mod:`~i2rnet_tpu_torch.ops.cuda.library`), which exported programs call.
 """
 
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn import encoder_ffn_fused
@@ -14,6 +16,7 @@ from i2rnet_tpu_torch.ops.cuda.hrformer_block_train import (window_attn_train_bw
 from i2rnet_tpu_torch.ops.cuda.mhsa import masked_mhsa_fused
 from i2rnet_tpu_torch.ops.cuda.mhsa_train import mhsa_train_bwd, mhsa_train_fwd
 from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import mlp_dwbn_fused
+from i2rnet_tpu_torch.ops.cuda import library  # noqa: F401  (registers the i2r:: ops)
 
 KERNELS = {"masked_mhsa": masked_mhsa_fused, "encoder_ffn": encoder_ffn_fused,
            "mhsa_train_fwd": mhsa_train_fwd, "mhsa_train_bwd": mhsa_train_bwd,

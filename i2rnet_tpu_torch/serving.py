@@ -1,23 +1,50 @@
-"""In-process serving: preprocess -> forward (+ flip test) -> DARK decode.
+"""Serving: the request program in process, and as an artifact a fresh process loads.
 
-Port of ``i2rnet_tpu/serving.py``: :func:`boxes_to_person_meta` (host request
-math, copied), :func:`make_serve_fn` (the device program: crop-warp and
-position masks, then :func:`make_eval_fn` -- the model forward, a second
-forward on the flipped crops, decode with the inverse affine, padded persons
-zeroed) and :class:`Predictor`
-(pads requests into static ``(B, N)`` person buckets, chunks what does not
-fit, routes each row to the smallest bucket that holds it). The predictor is
-built from a model and its weights; exporting an artifact and the
-``MicroBatcher`` are not ported yet.
+Port of ``i2rnet_tpu/serving.py``. The device program of a request
+(:func:`make_serve_fn`) is the crop-warp and position masks of
+``preprocess_inputs``, the model forward and a second forward on the flipped
+crops averaged in, DARK decode to source pixels, padded persons zeroed.
+:class:`Predictor` pads requests into static ``(B, N)`` person buckets,
+chunks what does not fit and routes each row to the smallest bucket that
+holds it; it serves either a model in this process or the programs of an
+artifact. :class:`MicroBatcher` coalesces single-image requests into those
+batches. :func:`boxes_to_person_meta` is the host request math, copied.
+
+The artifact (``.i2rx``, :func:`export_predictor`, :func:`save_artifact`,
+:func:`load_predictor`) ships a trained model as one file: per person bucket
+the whole request program, weights included, as a ``torch.export``
+``ExportedProgram``. The hand kernels are in it as the registered ops of
+:mod:`i2rnet_tpu_torch.ops.cuda.library` (``i2r::masked_mhsa`` ...), so a
+process that loads it needs ``torch``, ``numpy`` and this package (which
+registers the ops and builds the kernels at their first launch), and never
+the model code. Layout: the ``I2RX`` magic, a uint32 header length, a JSON
+header, then the payloads, each the bytes of ``torch.export.save``. The
+header keeps the JAX artifact's fields (model, dataset, joints,
+``batch_images``, the bucket table, ``raw_hw``, ``image_size``,
+``heatmap_size``, ``flip_test``) and adds ``torch_version``, ``device`` and
+``kernels`` (the ``i2r::`` ops the programs call). Its ``format_version``
+is this package's own (:data:`FORMAT_VERSION`): each package's reader
+refuses the other's file. Data-parallel serving over several devices
+(the JAX ``Predictor.call_sharded``) is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+import contextlib
+import io
+import json
+import queue
+import struct
+import threading
+import time
+from concurrent.futures import Future
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
+import i2rnet_tpu_torch.ops.cuda  # noqa: F401  (registers the i2r:: ops the artifacts call)
 from i2rnet_tpu_torch.ops.decode import get_final_preds
 from i2rnet_tpu_torch.ops.flip import flip_back
 from i2rnet_tpu_torch.ops.preprocess import np_rotate_bound_resize_affine, preprocess_inputs
@@ -50,15 +77,16 @@ def boxes_to_person_meta(boxes: Sequence[Sequence[float]],
             np.asarray(affines, np.float32), np.asarray(rects, np.float32))
 
 
-def make_eval_fn(cfg: Dict, model, flip_pairs):
-    """Returns ``evaluate(crops, pos_masks, person_valid, centers, scales) ->
-    (coords [B*N,K,2], maxvals [B*N,K,1])``: the eval protocol of
+def _eval_program(cfg: Dict, model, flip_pairs):
+    """``evaluate(crops, pos_masks, person_valid, centers, scales) -> (coords
+    [B*N,K,2], maxvals [B*N,K,1])``: the eval protocol of
     ``core/train.py::make_eval_step`` -- the forward, a second forward on the
     flipped crops averaged in (reference ``lib/core/function.py:142-162``,
     without the HRNet 1px shift, as validate() never applies it), DARK decode
-    to source pixels, padded persons zeroed. A model that returns a dict
-    (the two-stage ``interformer``) is read at ``["multi"]``, as
-    ``i2rnet_tpu/serving.py:120-124``."""
+    to source pixels, padded persons zeroed. A model that returns a dict (the
+    two-stage ``interformer``) is read at ``["multi"]``, as
+    ``i2rnet_tpu/serving.py:120-124``. No grad mode is set inside, so that
+    ``torch.export`` can trace it."""
     heatmap_size = tuple(int(v) for v in cfg["MODEL"]["HEATMAP_SIZE"])
     test = cfg["TEST"]
 
@@ -67,7 +95,6 @@ def make_eval_fn(cfg: Dict, model, flip_pairs):
         # the two-stage model's {"single", "multi"}: serve the inter stage's
         return out["multi"] if isinstance(out, dict) else out
 
-    @torch.inference_mode()
     def evaluate(crops, pos_masks, person_valid, centers, scales):
         heat = forward(crops, pos_masks, person_valid)
         if test["FLIP_TEST"]:
@@ -84,20 +111,18 @@ def make_eval_fn(cfg: Dict, model, flip_pairs):
     return evaluate
 
 
-def make_serve_fn(cfg: Dict, model, flip_pairs):
-    """Returns ``serve(images_u8, crop_affines, boxes, mask_affines,
-    person_valid, centers, scales) -> (coords [B*N,K,2], maxvals [B*N,K,1])``
-    over tensors on the model's device: the crop-warp and position masks of
-    ``preprocess_inputs``, then :func:`make_eval_fn`'s program.
+def make_eval_fn(cfg: Dict, model, flip_pairs):
+    """:func:`_eval_program` under ``torch.inference_mode``, for eager callers."""
+    return torch.inference_mode()(_eval_program(cfg, model, flip_pairs))
 
-    Invalid person slots must carry non-singular (e.g. identity) affines: a
-    zero matrix inverts to nan, and attention would carry the nan crop into
-    the image's valid persons.
-    """
+
+def _serve_program(cfg: Dict, model, flip_pairs):
+    """:func:`make_serve_fn`'s function without a grad mode, the form
+    ``torch.export`` traces (a grad-mode context inside a traced function
+    becomes a sub-graph of its own)."""
     image_size = tuple(int(v) for v in cfg["MODEL"]["IMAGE_SIZE"])
-    evaluate = make_eval_fn(cfg, model, flip_pairs)
+    evaluate = _eval_program(cfg, model, flip_pairs)
 
-    @torch.inference_mode()
     def serve(images_u8, crop_affines, boxes, mask_affines, person_valid, centers, scales):
         # serving affines come from boxes and never rotate: the axis-aligned warp
         crops, pos_masks = preprocess_inputs(images_u8, crop_affines, boxes, mask_affines,
@@ -105,6 +130,161 @@ def make_serve_fn(cfg: Dict, model, flip_pairs):
         return evaluate(crops, pos_masks, person_valid, centers, scales)
 
     return serve
+
+
+def make_serve_fn(cfg: Dict, model, flip_pairs):
+    """Returns ``serve(images_u8, crop_affines, boxes, mask_affines,
+    person_valid, centers, scales) -> (coords [B*N,K,2], maxvals [B*N,K,1])``
+    over tensors on the model's device, under ``torch.inference_mode``: the
+    crop-warp and position masks of ``preprocess_inputs``, then
+    :func:`_eval_program`. :func:`export_predictor` traces the same program
+    without the grad mode (:class:`ServeModule`).
+
+    Invalid person slots must carry non-singular (e.g. identity) affines: a
+    zero matrix inverts to nan, and attention would carry the nan crop into
+    the image's valid persons.
+    """
+    return torch.inference_mode()(_serve_program(cfg, model, flip_pairs))
+
+
+class ServeModule(nn.Module):
+    """The serve program as a module holding the model, the form
+    ``torch.export`` takes (under ``torch.no_grad``): the model's parameters
+    and buffers become the exported program's weights."""
+
+    def __init__(self, cfg: Dict, model: nn.Module, flip_pairs):
+        super().__init__()
+        self.model = model
+        self._serve = _serve_program(cfg, model, flip_pairs)
+
+    def forward(self, images_u8, crop_affines, boxes, mask_affines, person_valid, centers,
+                scales):
+        return self._serve(images_u8, crop_affines, boxes, mask_affines, person_valid,
+                           centers, scales)
+
+
+def _header(cfg: Dict, batch_images: int, n_buckets, raw_hw) -> Dict:
+    """The serving geometry of a config: the artifact header's fields that an
+    in-process predictor has too."""
+    m = cfg["MODEL"]
+    ns = sorted({int(n) for n in n_buckets})
+    return {"model_name": m["NAME"], "dataset": cfg["DATASET"]["DATASET"],
+            "num_joints": int(m["NUM_JOINTS"]), "batch_images": int(batch_images),
+            "n_bucket": ns[-1], "buckets": [{"n_bucket": n} for n in ns],
+            "raw_hw": [int(raw_hw[0]), int(raw_hw[1])],
+            "image_size": [int(v) for v in m["IMAGE_SIZE"]],
+            "heatmap_size": [int(v) for v in m["HEATMAP_SIZE"]],
+            "flip_test": bool(cfg["TEST"]["FLIP_TEST"])}
+
+
+def _padded_args(b: int, n: int, raw_hw, device) -> List[torch.Tensor]:
+    """The seven inputs of one static ``(b, n)`` call with no person: a black
+    canvas, identity affines, no valid slot."""
+    affs = torch.zeros(b, n, 2, 3)
+    affs[..., 0, 0] = affs[..., 1, 1] = 1.0
+    args = (torch.zeros(b, *raw_hw, 3, dtype=torch.uint8), affs, torch.zeros(b, n, 4),
+            affs.clone(), torch.zeros(b, n, dtype=torch.bool), torch.zeros(b * n, 2),
+            torch.ones(b * n, 2))
+    return [a.to(device) for a in args]
+
+
+@contextlib.contextmanager
+def _kernel_switch(model: nn.Module, use_kernels: Optional[bool]):
+    """Every ``use_kernels`` switch under ``model`` set for the ``with``
+    block (``None``: left as it is), then restored."""
+    saved = [(m, m.use_kernels) for m in model.modules() if hasattr(m, "use_kernels")]
+    try:
+        for m, value in saved:
+            m.use_kernels = value if use_kernels is None else bool(use_kernels)
+        yield
+    finally:
+        for m, value in saved:
+            m.use_kernels = value
+
+
+def export_predictor(cfg: Dict, model: nn.Module, batch_images: int, n_bucket,
+                     raw_hw: Tuple[int, int], device=None,
+                     use_kernels: Optional[bool] = None) -> Tuple[bytes, Dict]:
+    """Export the serving program of ``model`` (weights loaded, eval mode, on
+    ``device``: where it is when ``None``) once per person bucket; returns
+    ``(payload, header)`` for :func:`save_artifact`.
+
+    ``n_bucket`` is one person bucket or several (e.g. ``(2, 4, 7)``): one
+    program each, at static shapes: images ``[B, rawH, rawW, 3]`` uint8,
+    crop_affines ``[B, N, 2, 3]``, boxes ``[B, N, 4]``, mask_affines ``[B,
+    N, 2, 3]``, person_valid ``[B, N]`` bool, centers and scales ``[B*N,
+    2]``, with B ``batch_images`` and ``raw_hw`` (rawH, rawW) the uint8
+    canvas. ``use_kernels`` sets the model's kernel switch for the export
+    (``False``: a program of plain PyTorch only); ``None`` keeps its routes.
+    The kernels' packed weights are made once here (the HRFormer blocks'
+    ``prepare_export``) and travel as constants. The flip-test pairs are the
+    dataset's of ``DATASET.DATASET`` (``registry.get_dataset_class``).
+    """
+    from i2rnet_tpu_torch.ops.cuda.library import graph_ops
+    from i2rnet_tpu_torch.registry import get_dataset_class
+
+    k = int(cfg["MODEL"]["NUM_JOINTS"])
+    try:
+        pairs = get_dataset_class(cfg["DATASET"]["DATASET"]).flip_pairs
+        flip_pairs = [list(p) for p in pairs if p[0] < k and p[1] < k]
+    except KeyError:
+        if cfg["TEST"]["FLIP_TEST"]:
+            raise  # flip-test averaging needs the dataset's joint pairing
+        flip_pairs = []
+    at = next(model.parameters()).device
+    if device is not None and torch.device(device).type != at.type:
+        raise ValueError(f"export_predictor: the model is on {at}, not {device}")
+    b, (rh, rw) = int(batch_images), (int(raw_hw[0]), int(raw_hw[1]))
+    ns = sorted({int(n) for n in (n_bucket if hasattr(n_bucket, "__iter__") else [n_bucket])})
+    module = ServeModule(cfg, model, flip_pairs).eval()
+    payloads, buckets, kernels, offset = [], [], set(), 0
+    with torch.no_grad(), _kernel_switch(model, use_kernels):
+        for m in model.modules():
+            if hasattr(m, "prepare_export"):
+                m.prepare_export(model.compute_dtype, at)
+        for n in ns:
+            ep = torch.export.export(module, tuple(_padded_args(b, n, (rh, rw), at)))
+            kernels.update(graph_ops(ep.graph))
+            buf = io.BytesIO()
+            torch.export.save(ep, buf)
+            payloads.append(buf.getvalue())
+            buckets.append({"n_bucket": n, "offset": offset, "length": len(payloads[-1])})
+            offset += len(payloads[-1])
+    header = {"format_version": FORMAT_VERSION, "torch_version": torch.__version__,
+              **_header(cfg, b, ns, (rh, rw)), "buckets": buckets, "device": at.type,
+              "kernels": sorted(kernels)}
+    return b"".join(payloads), header
+
+
+MAGIC = b"I2RX"
+#: this package's artifact format; the JAX package writes 1
+FORMAT_VERSION = "torch-export-1"
+
+
+def save_artifact(path: str, payload: bytes, header: Dict) -> None:
+    hdr = json.dumps(header).encode("utf-8")
+    with open(path, "wb") as f:
+        f.write(MAGIC)
+        f.write(struct.pack("<I", len(hdr)))
+        f.write(hdr)
+        f.write(payload)
+
+
+def _read_artifact(path: str) -> Tuple[Dict, bytes]:
+    with open(path, "rb") as f:
+        magic = f.read(4)
+        if magic != MAGIC:
+            raise ValueError(f"{path}: not an i2rx artifact (magic {magic!r})")
+        (hlen,) = struct.unpack("<I", f.read(4))
+        header = json.loads(f.read(hlen).decode("utf-8"))
+        payload = f.read()
+    version = header.get("format_version")
+    if version != FORMAT_VERSION:
+        made_by = (f", written by the JAX package (jax {header['jax_version']}): load it with "
+                   "i2rnet_tpu.serving" if "jax_version" in header else "")
+        raise ValueError(f"{path}: unsupported artifact format {version!r}{made_by} (this "
+                         f"package reads {FORMAT_VERSION!r})")
+    return header, payload
 
 
 class Predictor:
@@ -115,20 +295,59 @@ class Predictor:
     Each image's boxes are split into rows of at most ``max(n_buckets)``
     persons; each row goes to the smallest person bucket that holds it and
     runs in a static ``[batch_images, n]`` batch padded with invalid rows.
+    The constructor serves ``model`` in this process (:func:`make_serve_fn`);
+    :meth:`from_programs` (what :func:`load_predictor` returns) serves an
+    artifact's programs, one per bucket. ``header`` holds the geometry.
     """
 
     def __init__(self, model, cfg: Dict, flip_pairs, batch_images: int = 8,
                  n_buckets: Sequence[int] = (2, 4, 7), raw_hw: Tuple[int, int] = (480, 640)):
-        self.device = next(model.parameters()).device
-        self.serve = make_serve_fn(cfg, model, flip_pairs)
-        self.image_size = tuple(int(v) for v in cfg["MODEL"]["IMAGE_SIZE"])
-        self.num_joints = int(cfg["MODEL"]["NUM_JOINTS"])
-        self.batch_images = int(batch_images)
-        self.n_buckets = sorted({int(n) for n in n_buckets})
-        self.raw_hw = (int(raw_hw[0]), int(raw_hw[1]))
+        self._setup(_header(cfg, batch_images, n_buckets, raw_hw),
+                    make_serve_fn(cfg, model, flip_pairs), next(model.parameters()).device)
+
+    @classmethod
+    def from_programs(cls, header: Dict, programs: Sequence, device) -> "Predictor":
+        """A predictor over one callable program per bucket of ``header``
+        (its order), each taking and returning the serve function's tensors."""
+        by_n = {int(bk["n_bucket"]): prog for bk, prog in zip(header["buckets"], programs)}
+        self = cls.__new__(cls)
+        # the program of the call's bucket, read off person_valid [B, n]
+        self._setup(header, lambda *args: by_n[args[4].shape[1]](*args), torch.device(device))
+        self.programs = by_n
+        return self
+
+    def _setup(self, header: Dict, serve, device) -> None:
+        self.header = header
+        self.serve = serve
+        self.device = device
+        self.image_size = tuple(header["image_size"])
+        self.num_joints = int(header["num_joints"])
+        self.batch_images = int(header["batch_images"])
+        self.n_buckets = sorted(int(bk["n_bucket"]) for bk in header["buckets"])
+        self.raw_hw = tuple(header["raw_hw"])
 
     def _bucket(self, m: int) -> int:
         return next(n for n in self.n_buckets if m <= n)
+
+    def _call(self, args):
+        with torch.inference_mode():
+            return self.serve(*args)
+
+    def call_raw(self, images_u8, crop_affines, boxes, mask_affines, person_valid, centers,
+                 scales):
+        """One static call at the largest bucket's shapes (arrays or tensors,
+        moved to the device) -> ``(coords [B*N,K,2], maxvals [B*N,K,1])`` on
+        the device. Invalid slots need non-singular affines (:func:`make_serve_fn`)."""
+        args = (images_u8, crop_affines, boxes, mask_affines, person_valid, centers, scales)
+        return self._call([torch.as_tensor(a).to(self.device) for a in args])
+
+    def warmup(self) -> None:
+        """Run every bucket once with no person, so the first request does not
+        pay the kernels' build and the convolutions' algorithm choice."""
+        for n in self.n_buckets:
+            self._call(_padded_args(self.batch_images, n, self.raw_hw, self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _run(self, n: int, chunk) -> np.ndarray:
         """One static (B, n) call over ``chunk`` rows -> [B, n, K, 3] keypoints."""
@@ -161,7 +380,7 @@ class Predictor:
             scal[r * n:r * n + m] = s
         args = [torch.from_numpy(a).to(self.device, non_blocking=True)
                 for a in (imgs, affs, rects, mask_affs, valid, cent, scal)]
-        coords, maxvals = self.serve(*args)
+        coords, maxvals = self._call(args)
         kp = torch.cat([coords, maxvals], dim=-1).cpu().numpy()
         return kp.reshape(b, n, self.num_joints, 3)
 
@@ -192,3 +411,82 @@ class Predictor:
                     parts.setdefault(i, []).append((start, kp[r, :len(bxs)]))
         return [np.concatenate([k for _, k in sorted(parts[i], key=lambda t: t[0])], axis=0)
                 for i in range(len(images))]
+
+
+class MicroBatcher:
+    """Coalesce concurrent single-image requests into full device batches.
+
+    ``submit(image, boxes)`` returns a ``concurrent.futures.Future``; a
+    background thread drains the queue, waiting up to ``max_delay_ms`` after
+    the first pending request to gather ``predictor.batch_images`` of them
+    before it dispatches one ``predict`` call. A failed call sets its
+    exception on every waiter of that call. ``close()`` dispatches what is
+    pending, then stops the thread; ``submit`` raises after it.
+    """
+
+    def __init__(self, predictor: Predictor, max_delay_ms: float = 5.0):
+        self._pred = predictor
+        self._delay = max_delay_ms / 1000.0
+        self._q: "queue.Queue" = queue.Queue()
+        self._closed = False
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def submit(self, image: np.ndarray, boxes: Sequence[Sequence[float]]) -> Future:
+        if self._closed:
+            raise RuntimeError("MicroBatcher is closed")
+        fut: Future = Future()
+        self._q.put((image, boxes, fut))
+        return fut
+
+    def close(self) -> None:
+        self._closed = True
+        self._q.put(None)  # wake the worker: it dispatches what came before, then stops
+        self._thread.join()
+
+    def _run(self) -> None:
+        b = self._pred.batch_images
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            group = [item]
+            deadline = time.monotonic() + self._delay
+            while len(group) < b:
+                timeout = deadline - time.monotonic()
+                if timeout <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=timeout)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self._dispatch(group)
+                    return
+                group.append(nxt)
+            self._dispatch(group)
+
+    def _dispatch(self, group) -> None:
+        try:
+            results = self._pred.predict([g[0] for g in group], [g[1] for g in group])
+        except Exception as e:  # every waiter of this call gets the error
+            for _, _, fut in group:
+                fut.set_exception(e)
+            return
+        for (_, _, fut), res in zip(group, results):
+            fut.set_result(res)
+
+
+def load_predictor(path: str, device=None) -> Predictor:
+    """The :class:`Predictor` of an artifact, on ``device`` (the card when
+    ``None``), which must be the device it was exported for: there is no
+    fallback to another. Loading needs no model code; the programs call the
+    kernels through the ``i2r::`` ops this package registers."""
+    device = torch.device(device if device is not None else "cuda")
+    header, payload = _read_artifact(path)
+    if header["device"] != device.type:
+        raise ValueError(f"{path}: exported for {header['device']!r}, asked to serve on "
+                         f"{device.type!r}")
+    progs = [torch.export.load(io.BytesIO(payload[bk["offset"]:bk["offset"] + bk["length"]]))
+             .module() for bk in header["buckets"]]
+    return Predictor.from_programs(header, progs, device)

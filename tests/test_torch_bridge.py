@@ -140,7 +140,10 @@ def test_port_imports_without_jax_yaml_cv2():
             "i2rnet_tpu_torch.config.yaml_lite", "i2rnet_tpu_torch.config.config",
             "i2rnet_tpu_torch.core.pretrained", "i2rnet_tpu_torch.utils.logging",
             "i2rnet_tpu_torch.tools.train", "i2rnet_tpu_torch.tools.test",
-            "i2rnet_tpu_torch.data.mpii", "i2rnet_tpu_torch.probes.recipes_probe"} <= set(mods)
+            "i2rnet_tpu_torch.data.mpii", "i2rnet_tpu_torch.probes.recipes_probe",
+            "i2rnet_tpu_torch.hub", "i2rnet_tpu_torch.tools.export",
+            "i2rnet_tpu_torch.tools.demo", "i2rnet_tpu_torch.utils.vis",
+            "i2rnet_tpu_torch.ops.cuda.library", "i2rnet_tpu_torch.serving"} <= set(mods)
 
 
 def with_recipe_data(jax_cfg):
