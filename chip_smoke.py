@@ -237,7 +237,32 @@ Phases, one line each (any failure exits non-zero):
     model; the TPH and HRT artifacts within phase 6's bound (phases 15 and 25
     serve under it) of their models served in process, launching a serve
     call A and B 20 times (TPH), E and F 88 and A and B 4 times (HRT) and
-    nothing else.
+    nothing else;
+45. ``DEVICE.REMAT``: one bf16 training step (dropout and drop path on) of
+    the W48 (B=8 x N=7), TPH (B=4 x N=4) and HRT (B=12 x N=2, kernel 9's
+    route) models, from one seeded state, under ``none``, ``layers``,
+    ``dots`` and ``full``, with ``torch.use_deterministic_algorithms(True)``:
+    the loss, every gradient, the post-Adam parameters and the BatchNorm
+    statistics of each mode bit-equal to ``none``'s; Kernels C and D and
+    kernel 9 launched once a layer or block forward and backward with REMAT
+    off, and their forwards twice under each mode (the backward recomputes
+    every region); for information each mode's peak memory and step ms (a
+    second step, host clock);
+46. ``TEST.DETAIL_EVAL`` and ``DEBUG.DEBUG``: ``validate`` with the GT
+    oracle on ``coco_synth`` and ``ochuman_synth`` with the crowd report on,
+    its levels and stats those of the fixture's ``expected_detail.json`` and
+    its AP that of ``expected.json``, ``res_eval.txt`` written; the seeded
+    W48 in bf16 with both options on against both off: the same results
+    file, AP and A and B launches, the first batch's three debug images
+    written; one ``train_loop`` step with ``DEBUG.DEBUG`` on writing its
+    three images;
+47. the analysis tools: ``tools.compute_flops`` of the COCO W48 preset at
+    B=8 x N=7 (GFLOPs per person, the hand kernels counted through their
+    ``i2r::`` ops, beside the forward's ms), ``tools.visualize`` on one
+    fixture image from the W48 recipe's YAML (six layers' weights recorded
+    through Kernel A's plain version, Kernel B launched), and
+    ``tools.profile`` of two W48 train steps (a Chrome trace that holds
+    Kernels C and D).
 
 Every ``torch.profiler`` breakdown counts all device events but user
 annotations and step markers, and logs how many of them carry a ``#`` in
@@ -258,7 +283,8 @@ and ``{crowdpose_hrt,ochuman_hrt,coco_hrt_288}_inter`` for C and D: the
 fields at phases 35-39's new shapes; for every kernel ``recipes``: its
 launches in each recipe run's training and test, and MPII's ``validate``
 for A and B; ``served_artifact_{w48,tph,hrt}``: its launches in phases 41's
-and 44's served runs), and last
+and 44's served runs; for C, D and kernel 9 ``remat``: its launches in
+phase 45's step of each model under each REMAT value), and last
 ``{"ok": true, "device": {...}}``.
 TF32 is off throughout, so the float32 parts (crops, decode) stay float32.
 Training writes its checkpoints, and validation its results JSONs, under
@@ -268,17 +294,20 @@ Training writes its checkpoints, and validation its results JSONs, under
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 import hashlib
 import io
 import json
 import math
+import os
 import re
 import shutil
 import struct
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -322,6 +351,7 @@ from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import (DTYPE_CODES, device_plan, mlp32_
 from i2rnet_tpu_torch.ops.preprocess import device_preprocess
 from i2rnet_tpu_torch.registry import get_dataset_class
 from i2rnet_tpu_torch.serving import Predictor, load_predictor, make_eval_fn
+from i2rnet_tpu_torch.tools import compute_flops, profile as profile_tool, visualize
 from i2rnet_tpu_torch.tools.test import main as test_main
 from i2rnet_tpu_torch.tools.train import main as train_main
 from i2rnet_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
@@ -3600,6 +3630,260 @@ def phase_serving(g, card):
     return launches
 
 
+REMAT_MODES = ("none", "layers", "dots", "full")
+#: phase 45's models: (label, config, persons per image of the raw batch)
+REMAT_RUNS = (("w48", lambda: train_cfg("bfloat16", True), TRAIN_COUNTS),
+              ("tph", lambda: train_cfg("bfloat16", True, presets.tph_interformer),
+               TPH_TRAIN_PERSONS),
+              ("hrt", lambda: hrt_train_cfg("bfloat16", True), HRT_TRAIN_COUNTS))
+REMAT_KERNELS = TRAIN_KERNELS + ("window_attn_block_train_fwd", "window_attn_block_train_bwd")
+CUBLAS_DETERMINISTIC = ":4096:8"
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True)`` (cuDNN's deterministic
+    algorithms; cuBLAS under the workspace setting torch asks for), restored
+    after; yields the operations torch warns have no deterministic version."""
+    kept = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_DETERMINISTIC
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    seen = []
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield seen
+        seen.extend(sorted({str(w.message).split("\n")[0][:160] for w in caught
+                            if "deterministic" in str(w.message)}))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if kept is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = kept
+
+
+def remat_step(cfg, init, batch, mode):
+    """One training step under ``mode`` from the state dict ``init``: (loss,
+    gradients, post-step state dict, launches), then a second step's host ms
+    and the peak memory over it in GiB."""
+    cfg = copy.deepcopy(cfg)
+    cfg["DEVICE"]["REMAT"] = mode
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(init)
+    model.to(DEV)
+    state = TrainState(model, *make_optimizer(cfg, model.parameters(), 1000))
+    step = make_train_step(state, cfg["MODEL"]["LOSS_WEIGHTS"], remat=mode)
+    torch.cuda.synchronize()
+    reset_launches()
+    loss = step(batch, gen(SEED + 1))["loss"]
+    torch.cuda.synchronize()
+    launches = {k: launch_counts()[k] for k in REMAT_KERNELS}
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    after = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step(batch, gen(SEED + 2))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, step, model
+    return loss.detach().clone(), grads, after, launches, ms, peak
+
+
+def remat_want(model, mode):
+    """The training kernels' launches in one step: a forward and a backward a
+    layer (C, D) and block (kernel 9), the forward twice under REMAT."""
+    layers = sum(len(e.layers) for e in model.encoders())
+    stage = getattr(model, "singleformer", None)
+    blocks = sum(b.use_kernels and b.fused_train
+                 for b in (stage.blocks() if hasattr(stage, "blocks") else []))
+    k = 1 if mode == "none" else 2
+    return {"mhsa_train_fwd": k * layers, "mhsa_train_bwd": layers,
+            "encoder_ffn_train_fwd": k * layers, "encoder_ffn_train_bwd": layers,
+            "window_attn_block_train_fwd": k * blocks, "window_attn_block_train_bwd": blocks}
+
+
+def first_difference(ref, got):
+    """The first name whose tensors are not bit-equal, or None."""
+    if ref.keys() != got.keys():
+        return f"names {sorted(set(ref) ^ set(got))[:3]}"
+    return next((k for k in ref if not torch.equal(ref[k], got[k])), None)
+
+
+def phase_remat(card):
+    """Phase 45 (module docstring): {model: {mode: launches}}."""
+    out = {}
+    with deterministic_algorithms() as nondeterministic:
+        for label, make_cfg, persons in REMAT_RUNS:
+            cfg = make_cfg()
+            model = seeded_model(cfg)
+            init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+            m = cfg["MODEL"]
+            raw = synthetic_raw_batch(cfg, persons, np.random.RandomState(SEED))
+            batch = device_preprocess(raw_to_device(raw, DEV), tuple(m["IMAGE_SIZE"]),
+                                      tuple(m["HEATMAP_SIZE"]), m["SIGMA"])
+            ref = None
+            out[label] = {}
+            for mode in REMAT_MODES:
+                loss, grads, after, launches, ms, peak = remat_step(cfg, init, batch, mode)
+                want = {k: v for k, v in remat_want(model, mode).items() if k in launches}
+                out[label][mode] = launches
+                if ref is None:
+                    ref = (loss, grads, after)
+                    diff = None
+                else:
+                    diff = (None if torch.equal(loss, ref[0]) else "loss") or \
+                        first_difference(ref[1], grads) or first_difference(ref[2], after)
+                log(f"  {label} B={len(persons)} x N={cfg['DATASET']['MAX_PATCH']} REMAT "
+                    f"{mode}: loss {loss.item():.6f}, {len(grads)} gradients and "
+                    f"{len(after)} state tensors "
+                    + ("(the reference)" if mode == "none" else
+                       "bit-equal to none's" if diff is None else f"DIFFER at {diff}")
+                    + f"; launches {launches}; peak {peak:.2f} GiB, step {ms:.2f} ms [{card}]")
+                if diff is not None:
+                    raise AssertionError(f"{label} under REMAT {mode} is not the step without it")
+                if launches != want:
+                    raise AssertionError(f"{label} REMAT {mode}: launches {launches}, want {want}")
+            del model, init, batch, ref
+            torch.cuda.empty_cache()
+    log(f"  operations torch reports without a deterministic version: {nondeterministic or 'none'}")
+    return out
+
+
+def detail_cfg(tree):
+    """Phase 46's W48 config reading ``tree`` (a fixture under FIXTURES),
+    ``TEST.DETAIL_EVAL`` on: COCO val2017 at B=16, or the OCHuman recipe's."""
+    cfg = fixture_cfg() if tree == "coco_synth" else dataset_cfg("OCHuman")
+    cfg["TEST"]["DETAIL_EVAL"] = True
+    return cfg
+
+
+DEBUG_FILES = ("gt", "hm_gt", "hm_pred")
+
+
+def check_debug_files(folder, prefix):
+    """The three dump files of ``prefix`` under ``folder``: their sizes."""
+    from PIL import Image
+
+    sizes = []
+    for kind in DEBUG_FILES:
+        path = folder / f"{prefix}_{kind}.jpg"
+        if not path.exists():
+            raise AssertionError(f"DEBUG.DEBUG wrote no {path.name}")
+        sizes.append(Image.open(path).size)
+    return sizes
+
+
+def phase_detail_debug(g, card):
+    """Phase 46 (module docstring)."""
+    for tree in ("coco_synth", "ochuman_synth"):
+        cfg = detail_cfg(tree)
+        ds = fixture_dataset(cfg, "TEST_SET")
+        want = json.loads((FIXTURES / tree / "expected_detail.json").read_text())
+        stats = json.loads((FIXTURES / tree / "expected.json").read_text())["stats"]
+        name_value, _, _, _ = validate_run(cfg, ds, None, f"detail_{tree}",
+                                           eval_step_fn=lambda _model, batch: batch["target"])
+        levels = {k: v for k, v in name_value.items() if k.startswith("AP(c")}
+        report = (OUT_DIR / f"detail_{tree}" / "results" / "res_eval.txt").read_text()
+        classes = [x for x in report.splitlines() if x.startswith("Class ")]
+        err = max(abs(name_value[k] - v) for k, v in want["name_value"].items())
+        log(f"  {tree}, GT oracle, TEST.DETAIL_EVAL: {levels}; AP {name_value['AP']:.6f} "
+            f"(expected.json {stats['AP']:.6f}); largest |stat - expected_detail| {err:.3g}; "
+            f"res_eval.txt {classes}")
+        if (sorted(name_value) != sorted(want["name_value"]) or err > ORACLE_TOL
+                or abs(name_value["AP"] - stats["AP"]) > ORACLE_TOL
+                or classes != want["res_eval_levels"]):
+            raise AssertionError(f"detail report of {tree} {dict(name_value)} vs {want}")
+
+    cfg = fixture_cfg()
+    model = random_model(cfg, g)
+    model.compute_dtype = torch.bfloat16
+    model.set_kernels(True)
+    runs = {}
+    for on in (False, True):  # deterministic algorithms: both runs do the same arithmetic
+        run_cfg = copy.deepcopy(cfg)
+        run_cfg["TEST"]["DETAIL_EVAL"] = on
+        run_cfg["DEBUG"] = {"DEBUG": on, "SAVE_BATCH_IMAGES_GT": on, "SAVE_HEATMAPS_GT": on,
+                            "SAVE_HEATMAPS_PRED": on}
+        ds = COCODataset(run_cfg, str(FIXTURE), "val2017", is_train=False)
+        torch.cuda.synchronize()
+        reset_launches()
+        with deterministic_algorithms():
+            name_value, results, wall, _ = validate_run(run_cfg, ds, model, f"debug_{on}")
+        torch.cuda.synchronize()
+        runs[on] = (name_value, results, {k: launch_counts()[k] for k in EVAL_KERNELS}, wall)
+    (nv_off, res_off, l_off, w_off), (nv_on, res_on, l_on, w_on) = runs[False], runs[True]
+    sizes = check_debug_files(OUT_DIR / "debug_True" / "debug", "val_0")
+    levels = {k: round(v, 6) for k, v in nv_on.items() if k.startswith("AP(c")}
+    log(f"  seeded W48, bf16, TEST.DETAIL_EVAL and DEBUG.DEBUG on vs off: AP {nv_on['AP']:.6f} "
+        f"vs {nv_off['AP']:.6f}, levels {levels}, results equal {res_on == res_off}, launches "
+        f"{l_on} vs {l_off}; debug images val_0 {dict(zip(DEBUG_FILES, sizes))}; host "
+        f"{w_on * 1e3:.1f} vs {w_off * 1e3:.1f} ms [{card}]")
+    if res_on != res_off or nv_on["AP"] != nv_off["AP"] or l_on != l_off or not levels:
+        raise AssertionError("validate with DETAIL_EVAL and DEBUG moved its results")
+    del model
+    torch.cuda.empty_cache()
+
+    cfg = train_cfg("bfloat16", True)
+    cfg["DEBUG"] = {"DEBUG": True, "SAVE_BATCH_IMAGES_GT": True, "SAVE_HEATMAPS_GT": True,
+                    "SAVE_HEATMAPS_PRED": True}
+    raw = synthetic_raw_batch(cfg, TRAIN_COUNTS, np.random.RandomState(SEED))
+    out = OUT_DIR / "train_debug"
+    shutil.rmtree(out, ignore_errors=True)
+    train_loop(cfg, str(out), lambda epoch: [raw], max_epochs=1, device=DEV)
+    sizes = check_debug_files(out / "debug", "train_0_0")
+    log(f"  one W48 train_loop step with DEBUG.DEBUG on: {dict(zip(DEBUG_FILES, sizes))}")
+
+
+def phase_tools(card):
+    """Phase 47 (module docstring)."""
+    cfg = presets.w48_pure_en6("coco")
+    layers = cfg["MODEL"]["ENCODER_LAYERS"]
+    reset_launches()
+    report = compute_flops.measure(cfg, 8, 7, 10, DEV)
+    torch.cuda.synchronize()
+    counts = {k: launch_counts()[k] for k in EVAL_KERNELS}
+    log(f"  compute_flops, COCO W48 preset, B=8 x N=7 {report['input']}: "
+        f"{report['gflops_per_person']} GFLOPs/person, {report['gflops_per_batch']} a batch, "
+        f"forward {report['latency_ms']} ms ({report['persons_per_sec']} persons/s, "
+        f"{report['tflops_per_sec']} TFLOP/s), {report['hbm_gb_per_batch']} GB moved by the "
+        f"eager ops; A and B launched {counts} over the count and 20 timed calls [{card}]")
+    if not report["gflops_per_person"] > 0 or counts != {k: layers * 21 for k in EVAL_KERNELS}:
+        raise AssertionError(f"compute_flops: {report}, launches {counts}")
+
+    image = sorted((FIXTURE / "images" / "val2017").glob("*.jpg"))[0]
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    out = OUT_DIR / "attention_vis.jpg"
+    recipe = EXPERIMENTS / "coco" / "interformer_coco_w48_pure_en6.yaml"
+    layers = to_port(load_config(str(recipe)))["MODEL"]["ENCODER_LAYERS"]
+    reset_launches()
+    records, grid = visualize.main(["--cfg", str(recipe), "--image", str(image), "--out",
+                                    str(out), "--device", DEV, "TEST.MODEL_FILE", ""])
+    torch.cuda.synchronize()
+    counts = {k: launch_counts()[k] for k in EVAL_KERNELS}
+    sums = max(float(np.abs(r.sum(-1) - 1.0).max()) for r in records)
+    log(f"  visualize {image.name}: {len(records)} layers of {records[0].shape} weights, "
+        f"largest |row sum - 1| {sums:.3g}; grid {grid.shape}; launches {counts}")
+    if (len(records) != layers or sums > 1e-3 or not out.exists()
+            or counts != {k: layers * (k == "encoder_ffn") for k in EVAL_KERNELS}):
+        raise AssertionError(f"visualize did not record the {layers} layers")
+
+    cfg = train_cfg("bfloat16", True)
+    folder = OUT_DIR / "profile"
+    shutil.rmtree(folder, ignore_errors=True)
+    profile_tool.trace(cfg, str(folder), 2, True, 8, 7, DEV)
+    events = json.loads((folder / "trace.json").read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    held = {label: sum(any(p in e.get("name", "") for p in parts) for e in kernels)
+            for label, parts in TRAIN_KERNEL_PARTS}
+    log(f"  profile, two W48 train steps: trace.json {(folder / 'trace.json').stat().st_size} "
+        f"bytes, {len(kernels)} kernel events; Kernels C and D among them {held}")
+    if not all(held.values()):
+        raise AssertionError(f"the trace holds no launch of a training kernel: {held}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -3781,6 +4065,18 @@ def main() -> int:
 
     served = phase_serving(g, card)
 
+    t_new = time.perf_counter()
+    log(f"phase 45 DEVICE.REMAT, one bf16 step of each model under each value, deterministic "
+        f"algorithms [{card}]:")
+    remat_launches = phase_remat(card)
+    log("phase 46 TEST.DETAIL_EVAL and DEBUG.DEBUG:")
+    phase_detail_debug(g, card)
+    torch.cuda.empty_cache()
+    log("phase 47 the analysis tools (compute_flops, visualize, profile):")
+    phase_tools(card)
+    log(f"  phases 45-47: {time.perf_counter() - t_new:.1f} s; phases 2-47: "
+        f"{time.perf_counter() - t0:.1f} s")
+
     counts.update(train_counts)
     counts.update({k: hrt_train_counts[k] for k in ("window_attn_block_train_fwd",
                                                     "window_attn_block_train_bwd")})
@@ -3812,6 +4108,11 @@ def main() -> int:
         new_shapes.setdefault(name, {}).update(
             {f"served_artifact_{label}": {"launches": run.get(name, 0)}
              for label, run in served.items()})
+    # phase 45: each training kernel's launches in each model's step under each REMAT value
+    for name in REMAT_KERNELS:
+        new_shapes.setdefault(name, {})["remat"] = {
+            label: {mode: runs[mode][name] for mode in REMAT_MODES}
+            for label, runs in remat_launches.items()}
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": counts[name],
                 "max_abs_err": errs[name], **times[name],

@@ -182,6 +182,8 @@ TRAIN_KEYS = ("BATCH_SIZE_PER_GPU", "BEGIN_EPOCH", "END_EPOCH", "LR", "LR_END", 
               "MOMENTUM", "WD", "NESTEROV")
 LOSS_KEYS = ("USE_OHKM", "TOPK", "USE_TARGET_WEIGHT", "USE_DIFFERENT_JOINTS_WEIGHT")
 TOP_KEYS = ("SEED", "AUTO_RESUME", "PRINT_FREQ", "WORKERS", "OUTPUT_DIR", "LOG_DIR", "DATA_DIR")
+DEBUG_KEYS = ("DEBUG", "SAVE_BATCH_IMAGES_GT", "SAVE_BATCH_IMAGES_PRED", "SAVE_HEATMAPS_GT",
+              "SAVE_HEATMAPS_PRED")
 
 
 def plain(v):
@@ -218,6 +220,6 @@ def to_port(cfg: Dict[str, Any]) -> Dict[str, Any]:
                    "EVAL_PIPELINE": int(tpu.get("EVAL_PIPELINE", 2))},
         "TRAIN": {k: plain(sec["TRAIN"][k]) for k in TRAIN_KEYS},
         "LOSS": {k: plain(sec["LOSS"][k]) for k in LOSS_KEYS},
-        "DEBUG": {"DEBUG": bool(cfg["DEBUG"]["DEBUG"])},
+        "DEBUG": {k: bool(cfg["DEBUG"][k]) for k in DEBUG_KEYS},
         **{k: plain(cfg[k]) for k in TOP_KEYS},
     }

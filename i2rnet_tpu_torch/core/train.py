@@ -7,8 +7,11 @@ The model returns its heatmaps (``interformer_pureMulti``) or the
 ``{"single", "multi"}`` dict (``interformer``), whose ``single`` adds the
 inter-supervision loss. Frozen parameters (``frozen_predicate``) are the
 ones without ``requires_grad`` (``core/pretrained.py::freeze``), which the
-trainer keeps out of the optimizer. ``TPU.REMAT`` is not ported (no recipe
-uses it; ROADMAP).
+trainer keeps out of the optimizer. ``DEVICE.REMAT`` (the JAX ``TPU.REMAT``)
+recomputes activations in the backward instead of keeping them: ``dots``
+and ``full`` here, around the forward and the loss (the JAX
+``jax.checkpoint`` of the step), ``layers`` inside the model; the values
+are ``REMAT_VALUES``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,11 @@ import torch
 
 from i2rnet_tpu_torch.core.loss import joints_mse_loss, joints_ohkm_mse_loss
 from i2rnet_tpu_torch.core.train_state import TrainState
+from i2rnet_tpu_torch.models import layers
+from i2rnet_tpu_torch.models.layers import REMAT_VALUES, check_remat
 from i2rnet_tpu_torch.ops.accuracy import pck_accuracy
+
+__all__ = ["REMAT_VALUES", "compute_losses", "make_train_step"]
 
 SEED_RANGE = 2 ** 31 - 1
 
@@ -46,7 +53,8 @@ def compute_losses(outputs: Dict, batch, loss_weights: Sequence[float], use_targ
 
 
 def make_train_step(state: TrainState, loss_weights=(0.5, 0.5), use_target_weight: bool = True,
-                    use_ohkm: bool = False, topk: int = 8):
+                    use_ohkm: bool = False, topk: int = 8, remat="none",
+                    return_heatmaps: bool = False):
     """``train_step(batch, generator) -> metrics``: one optimizer step on
     ``state`` in place.
 
@@ -56,23 +64,44 @@ def make_train_step(state: TrainState, loss_weights=(0.5, 0.5), use_target_weigh
     is ``state.schedule(state.step)``. Metrics (``loss``, ``acc``,
     ``loss_multi``, and ``loss_single`` where the model supervises it) stay
     device tensors, so no step waits on the host; PCK accuracy is on ``multi``.
-    """
+    ``return_heatmaps`` adds the predicted ``multi`` heatmaps as
+    ``heatmaps_pred`` (the ``DEBUG.DEBUG`` dumps).
 
-    def train_step(batch, generator: torch.Generator):
-        seed = int(torch.randint(0, SEED_RANGE, (), generator=generator))
-        state.set_lr()
+    ``remat`` is ``DEVICE.REMAT``, checked here before any step runs:
+    ``dots`` and ``full`` run the forward and the loss as one region that
+    the backward recomputes (``models/layers.py::remat``), ``dots`` keeping
+    the outputs of its unbatched matrix products; the other values leave the
+    step as it is (``layers`` acts inside the model). The loss, gradients and
+    statistics are those of the step without it.
+    """
+    check_remat(remat)
+    policy = layers.save_products_policy if remat == "dots" else None
+
+    def forward_loss(batch, seed):
         out = state.model(batch["images"], batch["pos_masks"], batch["person_valid"],
                           train=True, dropout_seed=seed)
         outputs = out if isinstance(out, dict) else {"single": None, "multi": out}
         loss, parts = compute_losses(outputs, batch, loss_weights, use_target_weight, use_ohkm,
                                      topk)
+        return loss, parts, outputs["multi"]
+
+    def train_step(batch, generator: torch.Generator):
+        seed = int(torch.randint(0, SEED_RANGE, (), generator=generator))
+        state.set_lr()
+        if remat in ("dots", "full"):
+            loss, parts, multi = layers.remat(state.model, forward_loss, batch, seed, policy=policy)
+        else:
+            loss, parts, multi = forward_loss(batch, seed)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
         state.step += 1
+        multi = multi.detach()
         with torch.no_grad():
-            acc, _, _ = pck_accuracy(outputs["multi"].detach(), batch["target"],
-                                     batch["person_valid"])
-        return {"loss": loss.detach(), "acc": acc, **{k: v.detach() for k, v in parts.items()}}
+            acc, _, _ = pck_accuracy(multi, batch["target"], batch["person_valid"])
+        metrics = {"loss": loss.detach(), "acc": acc, **{k: v.detach() for k, v in parts.items()}}
+        if return_heatmaps:
+            metrics["heatmaps_pred"] = multi
+        return metrics
 
     return train_step

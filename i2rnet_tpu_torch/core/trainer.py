@@ -27,12 +27,20 @@ With a validation dataset, every ``validate_every``-th epoch ends with
 ``core/validate.py::validate`` (the dataset's AP), whose AP is the
 checkpoint's ``perf`` and picks ``model_best.pth``; without one, ``perf``
 is -1. One device: ``TRAIN.BATCH_SIZE_PER_GPU`` images a step.
+
+The step recomputes activations as ``DEVICE.REMAT`` says (``core/train.py``).
+With ``DEBUG.DEBUG`` every logged step (each ``PRINT_FREQ``-th) dumps its
+batch as images (``utils/vis.py::save_debug_images``: the crops with their GT
+joints, GT and predicted heatmaps) under ``<output_dir>/debug/
+train_<epoch>_<step>``, as the JAX trainer does
+(``i2rnet_tpu/core/trainer.py:168-185``).
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
 import time
 from typing import Callable, Dict, Iterable, Optional
 
@@ -42,7 +50,7 @@ import torch
 from i2rnet_tpu_torch.core.pretrained import freeze, load_pretrained
 from i2rnet_tpu_torch.core.train import make_train_step
 from i2rnet_tpu_torch.core.train_state import TrainState, make_optimizer
-from i2rnet_tpu_torch.core.validate import validate
+from i2rnet_tpu_torch.core.validate import debug_meta, validate
 from i2rnet_tpu_torch.data.prefetch import prefetch_batches
 from i2rnet_tpu_torch.models.interformer import build_model
 from i2rnet_tpu_torch.models.pure_multi import init_weights
@@ -50,6 +58,7 @@ from i2rnet_tpu_torch.ops.preprocess import device_preprocess
 from i2rnet_tpu_torch.registry import get_dataset_class
 from i2rnet_tpu_torch.utils.checkpoint import (latest_checkpoint, load_checkpoint,
                                                save_checkpoint, save_final_state)
+from i2rnet_tpu_torch.utils.vis import save_debug_images
 
 logger = logging.getLogger(__name__)
 
@@ -195,9 +204,11 @@ def train_loop(cfg: Dict, output_dir: str,
             logger.info("=> auto-resumed from %s (epoch %d)", ckpt, begin_epoch)
 
     loss_cfg = cfg["LOSS"]
+    debug = bool(cfg["DEBUG"]["DEBUG"])
     step_fn = make_train_step(state, loss_weights=m["LOSS_WEIGHTS"],
                               use_target_weight=loss_cfg["USE_TARGET_WEIGHT"],
-                              use_ohkm=loss_cfg["USE_OHKM"], topk=loss_cfg["TOPK"])
+                              use_ohkm=loss_cfg["USE_OHKM"], topk=loss_cfg["TOPK"],
+                              remat=cfg["DEVICE"].get("REMAT", False), return_heatmaps=debug)
     generator = torch.Generator().manual_seed(cfg["SEED"] + 1)
     end_epoch = max_epochs if max_epochs is not None else cfg["TRAIN"]["END_EPOCH"]
     global_step = state.step
@@ -213,7 +224,10 @@ def train_loop(cfg: Dict, output_dir: str,
             if max_steps_per_epoch and i >= max_steps_per_epoch:
                 break
             data_t.update(time.time() - t0)
-            metrics = step_fn(to_device(raw), generator)
+            batch = to_device(raw)
+            metrics = step_fn(batch, generator)
+            if debug:
+                heatmaps = metrics.pop("heatmaps_pred")
             pending.append(metrics)
             global_step += 1
             if i % print_freq == 0:
@@ -229,6 +243,13 @@ def train_loop(cfg: Dict, output_dir: str,
                             "acc %.3f (%.3f) lr %.2e", epoch, i, steps_per_epoch, batch_t.avg,
                             data_t.avg, loss_m.val, loss_m.avg, acc_m.val, acc_m.avg,
                             schedule(state.step))
+                if debug:
+                    debug_dir = os.path.join(output_dir, "debug")
+                    os.makedirs(debug_dir, exist_ok=True)
+                    save_debug_images(cfg, batch, debug_meta(raw, m["IMAGE_SIZE"],
+                                                             m["HEATMAP_SIZE"]),
+                                      batch["target"], heatmaps,
+                                      os.path.join(debug_dir, f"train_{epoch}_{i}"))
             t0 = time.time()
         if hasattr(epoch_iter, "close"):  # stop the prefetch threads left ahead of the loop
             epoch_iter.close()

@@ -10,13 +10,21 @@ conf) and all_boxes [M, 6] (center, scale, area = prod(scale * 200), score)
 over the valid persons of every batch; the dataset's ``evaluate`` rescores,
 suppresses, writes the results JSON and scores it.
 
+With ``DEBUG.DEBUG`` the step returns the full heatmaps (forward and flip
+test, ``serving.heatmap_program``), decoded on the device as the fused step
+decodes them, and every ``PRINT_FREQ``-th batch is dumped as images
+(``utils/vis.py::save_debug_images``: the crops with their GT joints, GT and
+predicted heatmaps) under ``<output_dir>/debug/val_<batch>``, as the JAX
+``validate`` does (``i2rnet_tpu/core/validate.py:55-60,160-174``).
+
 Not ported: validation over a mesh or across processes (ROADMAP queue 1,
-item 8) and the ``DEBUG.DEBUG`` image dumps (queue 1, item 7); each raises.
+item 6); each raises.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Callable, Dict, Optional
 
@@ -25,22 +33,29 @@ import torch
 
 from i2rnet_tpu_torch.data.prefetch import prefetch_batches
 from i2rnet_tpu_torch.ops.decode import get_final_preds
-from i2rnet_tpu_torch.serving import make_eval_fn
+from i2rnet_tpu_torch.serving import heatmap_program, make_eval_fn
+from i2rnet_tpu_torch.utils.vis import save_debug_images
 
 logger = logging.getLogger(__name__)
 
 
-def _refuse_unported(cfg: Dict, mesh) -> None:
+def _refuse_unported(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError("validate over a device mesh is not ported: ROADMAP queue 1, "
-                                  "item 8")
+                                  "item 6")
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
         raise NotImplementedError("validate across processes is not ported: ROADMAP queue 1, "
-                                  "item 8")
-    if cfg.get("DEBUG", {}).get("DEBUG", False):
-        raise NotImplementedError("DEBUG.DEBUG image dumps are not ported: ROADMAP queue 1, "
-                                  "item 7")
+                                  "item 6")
+
+
+def debug_meta(raw, image_size, heatmap_size) -> Dict:
+    """The GT joints of a raw batch in crop pixels, and their visibility, as
+    ``save_debug_images`` takes them; sizes are (width, height)."""
+    scale = np.array([image_size[0] / heatmap_size[0], image_size[1] / heatmap_size[1]],
+                     np.float32)
+    return {"joints": np.asarray(raw["joints_hm"]) * scale,
+            "joints_vis": np.asarray(raw["joints_vis"])[..., None]}
 
 
 def validate(cfg: Dict, dataset, model, output_dir: str,
@@ -66,7 +81,7 @@ def validate(cfg: Dict, dataset, model, output_dir: str,
     ``max_batches`` stops after that many batches and scores what they gave
     (``tools/test.py --max-batches``).
     """
-    _refuse_unported(cfg, mesh)
+    _refuse_unported(mesh)
     if main_target is None:
         main_target = cfg["DATASET"]["PATCH_MODE"] == "main_target"
     if model is None:
@@ -82,6 +97,14 @@ def validate(cfg: Dict, dataset, model, output_dir: str,
     # the fused program: forward, flip forward, DARK decode. TEST.SHIFT_HEATMAP
     # is not applied: the reference's validate() never applies the HRNet 1px
     # shift (lib/core/function.py:142-162)
+    debug = bool(cfg["DEBUG"]["DEBUG"])
+    if eval_step_fn is None and debug:
+        # the dumps need the full heatmaps on the host: the heatmaps-out step
+        # (reference function.py:240-241), decoded as the fused step decodes
+        heatmaps = torch.inference_mode()(heatmap_program(cfg, model, dataset.flip_pairs))
+
+        def eval_step_fn(_model, batch):
+            return heatmaps(batch["images"], batch["pos_masks"], batch["person_valid"])
     evaluate = make_eval_fn(cfg, model, dataset.flip_pairs) if eval_step_fn is None else None
 
     @torch.inference_mode()
@@ -149,6 +172,13 @@ def validate(cfg: Dict, dataset, model, output_dir: str,
         else:
             heat = torch.as_tensor(eval_step_fn(model, batch), device=device)
             coords, maxvals = decode(heat, centers_d, scales_d)
+            if debug and i % max(cfg["PRINT_FREQ"], 1) == 0:
+                debug_dir = os.path.join(output_dir, "debug")
+                os.makedirs(debug_dir, exist_ok=True)
+                meta_dbg = debug_meta(raw, (dataset.image_width, dataset.image_height),
+                                      heatmap_size)
+                save_debug_images(cfg, batch, meta_dbg, batch["target"], heat,
+                                  os.path.join(debug_dir, f"val_{i}"))
         entry = (coords, maxvals, raw["person_valid"].reshape(b * n),
                  centers, scales, meta["score"].reshape(b * n),
                  meta["image_id"].reshape(b * n), n)

@@ -9,10 +9,10 @@ Port of ``i2rnet_tpu/data/coco.py`` (reference ``lib/dataset/coco.py``):
   one single-person record per box (:298-343);
 * ``evaluate``: regroup predictions per image, rescore
   ``box_score * mean(kpt conf > IN_VIS_THRE)``, OKS-NMS (or soft), write a
-  results JSON, score it with the keypoint evaluator (:345-509).
-
-``TEST.DETAIL_EVAL`` (the crowd-stratified report) is not ported: ROADMAP
-queue 1, item 5.
+  results JSON, score it with the keypoint evaluator (:345-509); with
+  ``TEST.DETAIL_EVAL`` also AP per crowd level (``utils/detail_eval.py``,
+  bands ``detail_cluster_mode``) and ``res_eval.txt`` beside the results
+  (:488-494).
 """
 
 from __future__ import annotations
@@ -31,18 +31,15 @@ from i2rnet_tpu_torch.ops.cocoeval import KeypointEval
 from i2rnet_tpu_torch.ops.nms import oks_nms, soft_oks_nms
 from i2rnet_tpu_torch.presets import (COCO_FLIP_PAIRS, COCO_JOINTS_WEIGHT,
                                       COCO_LOWER_BODY_IDS, COCO_UPPER_BODY_IDS)
+from i2rnet_tpu_torch.utils.detail_eval import DEFAULT_CLUSTER_MODE, detail_evaluate
 
 logger = logging.getLogger(__name__)
-
-_DETAIL_EVAL = "TEST.DETAIL_EVAL (the crowd-stratified AP report) is not ported: " \
-               "ROADMAP queue 1, item 5"
 
 
 class COCODataset(PoseDataset):
     num_joints = 17
-    # TEST.DETAIL_EVAL's crowd bands (reference KeypointEvaluator.py:482
-    # default), kept as data while that report is not ported
-    detail_cluster_mode = (1, 2, 6, 10)
+    # TEST.DETAIL_EVAL's crowd bands (reference KeypointEvaluator.py:482)
+    detail_cluster_mode = DEFAULT_CLUSTER_MODE
     flip_pairs = COCO_FLIP_PAIRS
     upper_body_ids = COCO_UPPER_BODY_IDS
     lower_body_ids = COCO_LOWER_BODY_IDS
@@ -51,8 +48,6 @@ class COCODataset(PoseDataset):
     def __init__(self, cfg: Dict, root: str, image_set: str, is_train: bool):
         super().__init__(cfg, root, image_set, is_train)
         test = cfg["TEST"]
-        if test["DETAIL_EVAL"]:
-            raise NotImplementedError(_DETAIL_EVAL)
         self.use_gt_bbox = test["USE_GT_BBOX"]
         self.bbox_file = test["COCO_BBOX_FILE"]
         self.image_thre = test["IMAGE_THRE"]
@@ -168,10 +163,10 @@ class COCODataset(PoseDataset):
         """Score predictions: (``name_value``, AP).
 
         preds [M, K, 3] source-image coords + conf; all_boxes [M, 6]
-        (center, scale, area, score); image_ids [M].
+        (center, scale, area, score); image_ids [M]. ``TEST.DETAIL_EVAL``
+        adds AP per crowd level to ``name_value`` and writes ``res_eval.txt``
+        beside the results JSON (JAX ``coco.py:198-212``).
         """
-        if cfg["TEST"]["DETAIL_EVAL"]:
-            raise NotImplementedError(_DETAIL_EVAL)
         res_folder = os.path.join(output_dir, "results")
         os.makedirs(res_folder, exist_ok=True)
         res_file = os.path.join(res_folder, f"keypoints_{self.image_set}_results.json")
@@ -203,7 +198,13 @@ class COCODataset(PoseDataset):
         self._write_results(nmsed, res_file)
         if self._skip_scoring():
             return {"Null": 0}, 0
-        name_value = OrderedDict(self._score(res_file))
+        info = self._score(res_file)
+        name_value = OrderedDict(info)
+        if cfg["TEST"]["DETAIL_EVAL"]:
+            name_value.update(detail_evaluate(
+                self._gt_for_eval(), self._read_results(res_file), num_joints=self.num_joints,
+                cluster_mode=self.detail_cluster_mode,
+                report_path=os.path.join(res_folder, "res_eval.txt"), all_stats=info))
         return name_value, name_value["AP"]
 
     def _skip_scoring(self) -> bool:
@@ -245,11 +246,17 @@ class COCODataset(PoseDataset):
                 })
         return gt
 
-    def _score(self, res_file):
+    @staticmethod
+    def _read_results(res_file):
+        """The results JSON as the evaluator's detections, per image."""
         with open(res_file) as f:
             results = json.load(f)
         dt = defaultdict(list)
         for r in results:
             dt[r["image_id"]].append({"keypoints": r["keypoints"], "score": r["score"]})
-        ev = KeypointEval(self._gt_for_eval(), dt, num_joints=self.num_joints)
+        return dt
+
+    def _score(self, res_file):
+        ev = KeypointEval(self._gt_for_eval(), self._read_results(res_file),
+                          num_joints=self.num_joints)
         return ev.summarize_coco()

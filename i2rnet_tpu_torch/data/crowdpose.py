@@ -10,9 +10,7 @@ banded by each image's ``crowdIndex``.
 
 from __future__ import annotations
 
-import json
 import os
-from collections import defaultdict
 
 from i2rnet_tpu_torch.data.coco import COCODataset
 from i2rnet_tpu_torch.ops.cocoeval import KeypointEval
@@ -43,11 +41,6 @@ class CROWDPOSEDataset(COCODataset):
                 for im in self.coco.dataset.get("images", [])}
 
     def _score(self, res_file):
-        with open(res_file) as f:
-            results = json.load(f)
-        dt = defaultdict(list)
-        for r in results:
-            dt[r["image_id"]].append({"keypoints": r["keypoints"], "score": r["score"]})
-        ev = KeypointEval(self._gt_for_eval(), dt, num_joints=self.num_joints,
-                          crowd_index=self._crowd_index())
+        ev = KeypointEval(self._gt_for_eval(), self._read_results(res_file),
+                          num_joints=self.num_joints, crowd_index=self._crowd_index())
         return ev.summarize_crowdpose()

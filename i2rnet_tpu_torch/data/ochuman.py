@@ -3,8 +3,8 @@
 Port of ``i2rnet_tpu/data/ochuman.py`` (reference ``lib/dataset/
 ochuman.py``): ``image_set`` names the annotation JSON itself (relative to
 ``root``), images are ``root/images/{id:06d}.jpg``, and scoring follows the
-COCO keypoint protocol. ``TEST.DETAIL_EVAL`` (the crowd-stratified report,
-with cluster mode [1, 2] here) raises, as in COCO.
+COCO keypoint protocol. ``TEST.DETAIL_EVAL`` reports AP per crowd level as
+in COCO, with the bands of cluster mode (1, 2) here.
 
 ``coco_ochuman`` (reference ``lib/dataset/coco_ochuman.py``), a
 COCO-configured run scored on OCHuman data, is the same layout under its own

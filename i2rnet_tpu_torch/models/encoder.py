@@ -17,6 +17,11 @@ versions:
   ``fused_ffn_train`` is on too (``TPU.FUSED_FFN_TRAIN``), as the JAX encoder
   routes them (``i2rnet_tpu/models/encoder.py:54,145``).
 
+With ``remat`` (``DEVICE.REMAT`` ``layers``) each layer of a training forward
+is recomputed in the backward (``models/layers.py::remat``), on the kernels
+or their plain versions alike, as the JAX encoder wraps its layers in
+``nn.remat``.
+
 Training dropout is keyed by one seed per forward: layer i of an encoder
 whose ``offset_base`` is b uses the offsets b + 4i (attention weights),
 b + 4i + 1 (attention output, a ``bernoulli_`` draw from a generator seeded
@@ -37,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from i2rnet_tpu_torch.models.layers import Linear
+from i2rnet_tpu_torch.models.layers import Linear, remat
 from i2rnet_tpu_torch.ops.attention import masked_mhsa, masked_mhsa_train
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn import encoder_ffn_torch
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn_train import (encoder_ffn_train_fused,
@@ -122,13 +127,15 @@ class TransformerEncoderLayer(nn.Module):
 
 class TransformerEncoder(nn.Module):
     """Stack of encoder layers over flat tokens ``[B, S, C]``. ``use_kernels``,
-    ``flash_train``, ``fused_ffn_train`` and ``dropout_rate`` are settable; a
+    ``flash_train``, ``fused_ffn_train``, ``dropout_rate`` and ``remat`` (each
+    layer recomputed in a training forward's backward) are settable; a
     training forward with a dropout rate above 0 needs ``dropout_seed``.
     Its dropout sites take the offsets :meth:`offsets` (from ``offset_base``)."""
 
     def __init__(self, num_layers: int, d_model: int, num_heads: int,
                  dim_feedforward: int, use_kernels: bool = False, dropout_rate: float = 0.1,
-                 flash_train: bool = True, fused_ffn_train: bool = True, offset_base: int = 0):
+                 flash_train: bool = True, fused_ffn_train: bool = True, offset_base: int = 0,
+                 remat: bool = False):
         super().__init__()
         if not 0 <= offset_base <= OFFSET_LIMIT - OFFSETS_PER_LAYER * num_layers:
             raise ValueError(f"{num_layers} layers from dropout offset {offset_base} pass "
@@ -138,6 +145,7 @@ class TransformerEncoder(nn.Module):
         self.flash_train = flash_train
         self.fused_ffn_train = fused_ffn_train
         self.dropout_rate = dropout_rate
+        self.remat = remat
         self.layers = nn.ModuleList([
             TransformerEncoderLayer(d_model, num_heads, dim_feedforward)
             for _ in range(num_layers)])
@@ -148,9 +156,10 @@ class TransformerEncoder(nn.Module):
             raise ValueError("a training forward with dropout needs dropout_seed")
         out = src
         for i, layer in enumerate(self.layers):
-            out = layer(out, key_padding_mask, pos, self.use_kernels, rate, dropout_seed,
-                        self.offset_base + OFFSETS_PER_LAYER * i, self.flash_train,
-                        self.fused_ffn_train)
+            args = (out, key_padding_mask, pos, self.use_kernels, rate, dropout_seed,
+                    self.offset_base + OFFSETS_PER_LAYER * i, self.flash_train,
+                    self.fused_ffn_train)
+            out = remat(layer, layer, *args) if self.remat and self.training else layer(*args)
         return out
 
     def offsets(self) -> range:

@@ -35,7 +35,13 @@ per-sample scales (:func:`drop_path_scale`, drawn in
 :meth:`HRFormer.forward` from the call's seed); the attention half runs
 kernel 9 (``window_attn_block_train_fused``) where ``use_kernels`` and
 ``fused_train`` (``DEVICE.FUSED_BLOCK_TRAIN``) are on, else the modules.
-``use_rpe`` is not ported: the relative-position table is carried, not
+With ``remat`` (``DEVICE.REMAT`` ``layers``) each block of a training forward
+is recomputed in the backward, on either training route
+(``models/layers.py::remat``), its DropPath scales handed to the region. The
+JAX guard of ``TPU.FUSED_TRAIN_MAX_BLOCKS`` against ``layers``
+(``i2rnet_tpu/models/hrformer.py:640-646``) has nothing to guard here: the
+port does not carry that key, and every block takes kernel 9 when its route
+is on. ``use_rpe`` is not ported: the relative-position table is carried, not
 added (the reference quirk), and a block built with ``use_rpe`` raises.
 While ``torch.export`` traces, each kernel is its registered ``i2r::`` op
 (``ops/cuda/library.py``) and the packed weights are the buffers
@@ -54,7 +60,8 @@ from torch import nn
 
 from i2rnet_tpu_torch.models.hrnet import Transition
 from i2rnet_tpu_torch.models.layers import (Bottleneck, Conv2d, ConvBN, LayerNorm, Linear,
-                                            MaskedBatchNorm, set_compute_dtype, upsample_bilinear)
+                                            MaskedBatchNorm, remat, set_compute_dtype,
+                                            upsample_bilinear)
 from i2rnet_tpu_torch.ops.cuda.hrformer_block import (pack_attn, window_partition,
                                                       window_unpartition)
 from i2rnet_tpu_torch.ops.cuda.hrformer_block_train import window_attn_block_train_fused
@@ -212,6 +219,7 @@ class HRFormerBlock(nn.Module):
         self.fused_onepass = False
         self.fused_mlp = False
         self.fused_train = False
+        self.remat = False  # recompute the block in a training forward's backward
         self.dp_scales = None  # (attention half, MLP half) [P] scales or None, per call
         self._packed = {}
 
@@ -219,7 +227,10 @@ class HRFormerBlock(nn.Module):
         if self.use_rpe:
             raise NotImplementedError("use_rpe (adding the relative-position bias) is not ported")
         if self.training:
-            return self._forward_train(x)
+            s_attn, s_mlp = self.dp_scales or (None, None)
+            if self.remat:
+                return remat(self, self._forward_train, x, s_attn, s_mlp)
+            return self._forward_train(x, s_attn, s_mlp)
         if self.use_kernels and self.fused_block:
             a = self.attn.attn
             attn_w = (a.q_proj.weight, a.q_proj.bias, a.k_proj.weight, a.k_proj.bias,
@@ -248,8 +259,7 @@ class HRFormerBlock(nn.Module):
             y = self.mlp(self.norm2(x))
         return x + y
 
-    def _forward_train(self, x):
-        s_attn, s_mlp = self.dp_scales or (None, None)
+    def _forward_train(self, x, s_attn, s_mlp):
         if self.use_kernels and self.fused_train:
             a = self.attn.attn
             s = torch.ones(x.shape[0], device=x.device) if s_attn is None else s_attn
@@ -452,6 +462,11 @@ class HRFormer(nn.Module):
             blk.use_kernels, blk.fused_block = use_kernels, fused_block
             blk.fused_mlp, blk.fused_train = fused_mlp, fused_train
             blk.fused_onepass = fused_onepass
+
+    def set_remat(self, layers: bool) -> None:
+        """``DEVICE.REMAT`` ``layers``: each block recomputed in training."""
+        for blk in self.blocks():
+            blk.remat = layers
 
     def encoders(self):
         """No transformer encoder: the blocks run their own kernels."""

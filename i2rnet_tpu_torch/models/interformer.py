@@ -41,7 +41,10 @@ runs without autograd in a training forward (the JAX ``stop_gradient``;
 BatchNorm statistics still updating, and ``single`` is None; with
 ``DEVICE.FROZEN_STAGE_EVAL_MODE`` too it runs in eval mode (running
 statistics, no dropout or DropPath, the eval kernels), as the JAX model
-does. ``DEVICE.REMAT`` is not ported: a training forward with it raises.
+does. ``DEVICE.REMAT`` ``layers`` recomputes each encoder layer (intra and
+inter) and each HRFormer block in the backward, as the JAX builders pass
+``remat`` down; ``dots`` and ``full`` recompute at the step
+(``core/train.py``); an unknown value raises when the model is built.
 
 :func:`build_model` builds every ported model from a port config, on the card
 unless asked otherwise.
@@ -58,7 +61,7 @@ from torch import nn
 from i2rnet_tpu_torch.models.encoder import TransformerEncoder, flatten_person_tokens
 from i2rnet_tpu_torch.models.hrformer import HRFORMER_B_ARCH, HRFormer
 from i2rnet_tpu_torch.models.layers import (Conv2d, ConvBN, DeconvBlock, MaskedBatchNorm,
-                                            max_pool_3x3_s2, training_call,
+                                            max_pool_3x3_s2, remat_layers, training_call,
                                             upsample_nearest)
 from i2rnet_tpu_torch.models.position import PositionEmbeddingImage
 from i2rnet_tpu_torch.models.pure_multi import DTYPES, build_pure_multi, set_train_routes
@@ -122,10 +125,9 @@ class InterFormer(nn.Module):
         self.return_single = inter_supervision and not singleformer_fix
         self.singleformer_fix = singleformer_fix
         self.frozen_stage_eval = frozen_stage_eval
-        # training options not ported: (config key, value) pairs that are set
-        self.unported_training = [] if remat in (False, None, "none") else [("DEVICE.REMAT",
-                                                                              remat)]
         self.singleformer = singleformer
+        layers = remat_layers(remat)
+        singleformer.set_remat(layers)
         # the token grid, as the JAX model reads it off the pooled map (3x3/s2
         # pools with padding 1 take w to ceil(w / 2))
         th, tw = heatmap_size[1], heatmap_size[0]
@@ -137,7 +139,7 @@ class InterFormer(nn.Module):
         else:
             self.multi_position_embedding = None
         self.multi_global_encoder = TransformerEncoder(encoder_layers, d_model, n_head,
-                                                       dim_feedforward)
+                                                       dim_feedforward, remat=layers)
         taken = [o for e in singleformer.encoders() for o in e.offsets()]
         if set(taken) & set(self.multi_global_encoder.offsets()):
             raise ValueError(f"{encoder_layers} inter layers take dropout offsets of the "
@@ -181,8 +183,6 @@ class InterFormer(nn.Module):
 
     def forward(self, images, pos_masks, person_valid, train: bool = False,
                 dropout_seed: Optional[int] = None, drop_path_scales=None):
-        if (train or self.training) and self.unported_training:
-            raise NotImplementedError(f"training with {self.unported_training} is not ported")
         with training_call(self, train, person_valid):
             return self._forward(images, pos_masks, person_valid, dropout_seed,
                                  drop_path_scales)
@@ -275,6 +275,7 @@ def build_transpose_h(cfg: Dict, use_kernels: Optional[bool] = None, device="cud
     model = build_singleformer({**cfg, "MODEL": {**cfg["MODEL"], "SINGLEFORMER": "transpose_h"}})
     dev = cfg["DEVICE"]
     model.set_routes(dev["USE_KERNELS"] if use_kernels is None else use_kernels)
+    model.set_remat(remat_layers(dev.get("REMAT", False)))
     set_train_routes(model.global_encoder, dev)
     return model.to(device).eval()
 

@@ -13,9 +13,11 @@ JAX package's ``conv_init`` (N(0, 0.001), reference ``init_weights``).
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as torch_checkpoint
 from torch import nn
 
 
@@ -73,6 +75,16 @@ def conv_init_(weight, generator=None):
     return nn.init.normal_(weight, 0.0, CONV_INIT_STD, generator=generator)
 
 
+class _Recompute(threading.local):
+    """Whether this thread runs a :func:`remat` region again (the backward's
+    recomputation, which autograd may run on a thread of its own)."""
+
+    active = False
+
+
+_RECOMPUTE = _Recompute()
+
+
 class MaskedBatchNorm(nn.BatchNorm2d):
     """BatchNorm over NCHW whose training statistics count valid persons only
     (``layers.py:34-85``).
@@ -88,7 +100,10 @@ class MaskedBatchNorm(nn.BatchNorm2d):
 
     The model that owns the BNs sets ``person_mask`` on each of them before a
     training forward and clears it after, so the state-dict names stay the
-    reference's (``PureMultiInterFormer.forward``).
+    reference's (``PureMultiInterFormer.forward``). A forward that
+    :func:`remat` runs again in the backward moves no running statistic: each
+    moves once per training forward, as Flax commits no recomputation's
+    ``batch_stats``.
     """
 
     person_mask = None
@@ -114,6 +129,8 @@ class MaskedBatchNorm(nn.BatchNorm2d):
             cnt = torch.clamp(m.sum() * (h * w), min=1.0)
             mean = (xf * m).sum((0, 2, 3)) / cnt
             var = (((xf - mean[:, None, None]) ** 2) * m).sum((0, 2, 3)) / cnt
+        if _RECOMPUTE.active:
+            return mean, var
         with torch.no_grad():
             unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
             self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
@@ -141,6 +158,95 @@ def training_call(model: nn.Module, train: bool, person_valid):
             bn.person_mask = None
         if train != was_training:
             model.train(was_training)
+
+
+#: ``DEVICE.REMAT`` values (the JAX ``TPU.REMAT``, ``i2rnet_tpu/core/train.py:53``):
+#: off (False, None, "none"); each encoder layer and HRFormer block recomputed
+#: (True, "layers", inside the model); the whole forward and loss recomputed
+#: but the matrix products (``"dots"``), or all of it (``"full"``), at the step
+#: (``core/train.py``)
+REMAT_VALUES = (False, None, "none", True, "layers", "dots", "full")
+#: what ``"dots"`` keeps from the first run: the outputs of products without
+#: batch dimensions, as ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``
+#: (no batched product, convolution or hand kernel)
+SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def check_remat(remat) -> None:
+    """Raise for a ``DEVICE.REMAT`` outside :data:`REMAT_VALUES`."""
+    if remat not in REMAT_VALUES:
+        raise ValueError(f"DEVICE.REMAT must be one of {REMAT_VALUES}, got {remat!r}")
+
+
+def remat_layers(remat) -> bool:
+    """``DEVICE.REMAT`` checked; whether it recomputes each layer and block."""
+    check_remat(remat)
+    return remat in (True, "layers")
+
+
+def save_products_policy(ctx, op, *args, **kwargs):
+    """``"dots"``: keep :data:`SAVED_PRODUCTS`' outputs, recompute the rest."""
+    if op in SAVED_PRODUCTS:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _replay(modes, masks):
+    """The recomputation's context: the region's modules in the training
+    modes, and its BatchNorms with the person masks, of the first run, and no
+    running statistic moved; the present state restored after."""
+    now_modes = [(m, m.training) for m, _ in modes]
+    now_masks = [(bn, bn.person_mask) for bn, _ in masks]
+    was = _RECOMPUTE.active
+    try:
+        for m, training in modes:
+            m.training = training
+        for bn, mask in masks:
+            bn.person_mask = mask
+        _RECOMPUTE.active = True
+        yield
+    finally:
+        _RECOMPUTE.active = was
+        for m, training in now_modes:
+            m.training = training
+        for bn, mask in now_masks:
+            bn.person_mask = mask
+
+
+@contextlib.contextmanager
+def _both(first, second):
+    with first, second:
+        yield
+
+
+def remat(module: nn.Module, fn, *args, policy=None):
+    """``fn(*args)`` under ``torch.utils.checkpoint``: autograd keeps none of
+    the region's activations, and the backward runs ``fn`` again for them.
+
+    Non-reentrant (``use_reentrant=False``), so the gradients reach
+    parameters when no input requires one (the step's images, a frozen first
+    stage). The recomputation sees every module under ``module`` in the
+    training mode, and every :class:`MaskedBatchNorm` with the person mask,
+    of the first run, whatever the model's call has reset since, and moves no
+    running statistic. ``policy`` (``"dots"``: :func:`save_products_policy`)
+    keeps some ops' outputs from the first run. Dropout draws must come from
+    generators made in the region from the step's seed (``models/encoder.py``):
+    a generator that lives across the region would give the recomputation
+    other bits. Without grad mode (a frozen stage) ``fn`` just runs.
+    """
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    modes = [(m, m.training) for m in module.modules()]
+    masks = [(m, m.person_mask) for m in module.modules() if isinstance(m, MaskedBatchNorm)]
+
+    def contexts():
+        if policy is None:
+            return contextlib.nullcontext(), _replay(modes, masks)
+        first, again = torch_checkpoint.create_selective_checkpoint_contexts(policy)
+        return first, _both(_replay(modes, masks), again)
+
+    return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False, context_fn=contexts)
 
 
 class ConvBN(nn.Sequential):

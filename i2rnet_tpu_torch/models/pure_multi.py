@@ -23,7 +23,8 @@ from i2rnet_tpu_torch.models.encoder import (SelfAttention, TransformerEncoder,
                                              flatten_person_tokens)
 from i2rnet_tpu_torch.models.hrformer import WindowRPEAttention
 from i2rnet_tpu_torch.models.hrnet import HRNetTrunk
-from i2rnet_tpu_torch.models.layers import Conv2d, DeconvBlock, conv_init_, training_call
+from i2rnet_tpu_torch.models.layers import (Conv2d, DeconvBlock, conv_init_, remat_layers,
+                                            training_call)
 from i2rnet_tpu_torch.models.position import PositionEmbeddingImage
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -43,8 +44,10 @@ class PureMultiInterFormer(HRNetTrunk):
     valid persons (``person_valid`` set as each BN's ``person_mask`` for the
     call: trunk, position embedding and both applications of the deconv
     block), and the encoder's dropout is keyed by ``dropout_seed``.
-    ``DEVICE.REMAT`` is not ported: a training forward with it set raises,
-    as :class:`~i2rnet_tpu_torch.models.interformer.InterFormer`'s does."""
+    ``remat`` is ``DEVICE.REMAT``: ``layers`` (or True) recomputes each
+    encoder layer in the backward, as the JAX builder's ``nn.remat``; the
+    step recomputes under ``dots`` and ``full`` (``core/train.py``); an
+    unknown value raises here."""
 
     def __init__(self, extra: Dict, num_joints: int = 17, d_model: int = 96,
                  dim_feedforward: int = 192, n_head: int = 1, encoder_layers: int = 6,
@@ -55,14 +58,12 @@ class PureMultiInterFormer(HRNetTrunk):
         self.trans_size = tuple(trans_size)
         self.d_model = d_model
         self.compute_dtype = compute_dtype
-        # training options not ported: (config key, value) pairs that are set
-        self.unported_training = [] if remat in (False, None, "none") else [("DEVICE.REMAT",
-                                                                              remat)]
         self.reduce = Conv2d(self.trunk_channels[-1], d_model, 1, bias=False)
         self.position_embedding = (PositionEmbeddingImage(trans_size, d_model, multi_pos_mode)
                                    if use_multi_pos else None)
         self.global_encoder = TransformerEncoder(encoder_layers, d_model, n_head,
-                                                 dim_feedforward, use_kernels)
+                                                 dim_feedforward, use_kernels,
+                                                 remat=remat_layers(remat))
         filters = extra["NUM_DECONV_FILTERS"][0]
         self.deconv_layers = DeconvBlock(d_model, filters, extra["NUM_DECONV_KERNELS"][0],
                                          bias=extra.get("DECONV_WITH_BIAS", False))
@@ -79,8 +80,6 @@ class PureMultiInterFormer(HRNetTrunk):
 
     def forward(self, images, pos_masks, person_valid, train: bool = False,
                 dropout_seed: Optional[int] = None):
-        if (train or self.training) and self.unported_training:
-            raise NotImplementedError(f"training with {self.unported_training} is not ported")
         with training_call(self, train, person_valid):
             return self._forward(images, pos_masks, person_valid, dropout_seed)
 
@@ -147,8 +146,8 @@ def build_pure_multi(cfg: Dict, use_kernels=None, device="cuda") -> PureMultiInt
     (the card unless the caller names another; without CUDA that raises).
     ``use_kernels`` defaults to ``cfg["DEVICE"]["USE_KERNELS"]``
     (``TPU.USE_PALLAS_ATTENTION``); ``FLASH_TRAIN_ATTENTION`` and
-    ``FUSED_FFN_TRAIN`` set the encoder's training routes, ``REMAT`` is kept
-    to refuse a training forward."""
+    ``FUSED_FFN_TRAIN`` set the encoder's training routes, ``REMAT`` its
+    recomputation (an unknown value raises)."""
     m = cfg["MODEL"]
     if m["NAME"] != "interformer_pureMulti":
         raise ValueError(f"model {m['NAME']!r} is not ported")

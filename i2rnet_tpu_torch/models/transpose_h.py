@@ -76,6 +76,10 @@ class TransPoseH(HRNetTrunk):
         them."""
         self.global_encoder.use_kernels = use_kernels
 
+    def set_remat(self, layers: bool) -> None:
+        """``DEVICE.REMAT`` ``layers``: each encoder layer recomputed in training."""
+        self.global_encoder.remat = layers
+
     def encoders(self):
         return [self.global_encoder]
 

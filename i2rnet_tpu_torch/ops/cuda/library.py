@@ -11,17 +11,28 @@ plain version. There is one launch body per kernel, the wrapper's.
 
 Eager calls do not go through the op, whose dispatch costs host time on every
 call: the model's kernel routes take :func:`route`, which hands them the op
-only while ``torch.export`` traces. The training kernels are not registered,
+only while ``torch.export`` traces, or inside :func:`through_ops` (the FLOP
+count of ``tools/compute_flops.py``). The training kernels are not registered,
 since nothing exports a training step. Importing ``i2rnet_tpu_torch.ops.cuda``
 registers the ops, so a process that loads an artifact finds them.
+
+Each op carries a FLOP formula (``torch.utils.flop_counter``), so
+``FlopCounterMode`` counts the kernels it cannot see into: two FLOPs per
+multiply-add of the op's plain version, its products and, for the MlpDWBN
+ops, its depthwise 3x3 (nine multiply-adds per hidden element). Softmax,
+LayerNorm, GELU and the residuals are not counted, as ``FlopCounterMode``
+counts no elementwise op.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn import encoder_ffn_fused
 from i2rnet_tpu_torch.ops.cuda.hrformer_block import (full_block_fused, mlp_block_fused,
@@ -113,11 +124,29 @@ ROUTES: Dict[str, tuple] = {
     "mlp_dwbn": (mlp_dwbn_fused, mlp_dwbn),
 }
 
+class _Routing(threading.local):
+    ops = False
+
+
+_ROUTING = _Routing()
+
+
+@contextlib.contextmanager
+def through_ops():
+    """Inside, :func:`route` hands the models the registered ops (this thread)."""
+    was = _ROUTING.ops
+    _ROUTING.ops = True
+    try:
+        yield
+    finally:
+        _ROUTING.ops = was
+
+
 def route(name: str) -> Callable:
     """Kernel ``name``'s wrapper, or its registered op while ``torch.export``
-    traces; both take the wrapper's arguments."""
+    traces or inside :func:`through_ops`; both take the wrapper's arguments."""
     wrapper, op = ROUTES[name]
-    return op if torch.compiler.is_exporting() else wrapper
+    return op if _ROUTING.ops or torch.compiler.is_exporting() else wrapper
 
 
 def graph_ops(graph) -> List[str]:
@@ -129,3 +158,61 @@ def graph_ops(graph) -> List[str]:
                 and target.namespace == NAMESPACE:
             found.add(f"{NAMESPACE}::{target._opname}")
     return sorted(found)
+
+# ------------------------------------------------------------------ FLOPs
+# two FLOPs a multiply-add, as FlopCounterMode counts a product
+
+
+def _window_flops(x_shape, heads: int, window: int) -> int:
+    """The window-attention half: q, k, v and the output projection over the
+    map padded to whole windows, and the two products of each window."""
+    p, h, w, c = x_shape
+    hp, wp = -(-h // window) * window, -(-w // window) * window
+    rows, t = p * hp * wp, window * window
+    return 2 * 4 * rows * c * c + 2 * 2 * rows * t * c
+
+
+def _mlp_flops(x_shape, hidden: int) -> int:
+    """MlpDWBN: the two 1x1 products and the depthwise 3x3."""
+    p, h, w, c = x_shape
+    return 2 * p * h * w * hidden * (2 * c + 9)
+
+
+# each formula takes the op's arguments (tensors as their shapes) by the
+# names of its schema, and FlopCounterMode's out_shape
+
+
+@register_flop_formula(torch.ops.i2r.masked_mhsa)
+def _masked_mhsa_flops(q, k, v, num_heads, key_padding_mask=None, **_) -> int:
+    b, s, c = q
+    return 2 * 2 * b * s * s * c
+
+
+@register_flop_formula(torch.ops.i2r.encoder_ffn)
+def _encoder_ffn_flops(x, n1_weight, n1_bias, w1, *_, **__) -> int:
+    rows = 1
+    for n in x[:-1]:
+        rows *= n
+    return 2 * 2 * rows * x[-1] * w1[0]
+
+
+@register_flop_formula(torch.ops.i2r.window_attn_block)
+def _window_attn_block_flops(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads, window,
+                             *_, **__) -> int:
+    return _window_flops(x, heads, window)
+
+
+@register_flop_formula(torch.ops.i2r.mlp_block)
+def _mlp_block_flops(x, ln_w, ln_b, w1, *_, **__) -> int:
+    return _mlp_flops(x, w1[0])
+
+
+@register_flop_formula(torch.ops.i2r.full_block)
+def _full_block_flops(x, ln1_w, ln1_b, wq, bq, wk, bk, wv, bv, wo, bo, ln2_w, ln2_b, w1, b1, dw,
+                      bdw, w2, b2, heads, window, *_, **__) -> int:
+    return _window_flops(x, heads, window) + _mlp_flops(x, w1[0])
+
+
+@register_flop_formula(torch.ops.i2r.mlp_dwbn)
+def _mlp_dwbn_flops(x, w1, *_, **__) -> int:
+    return _mlp_flops(x, w1[0])

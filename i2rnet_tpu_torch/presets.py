@@ -15,9 +15,11 @@ recipe), ``FUSED_BLOCK_EVAL`` (HRFormer blocks on Kernels E and F),
 ``FUSED_BLOCK_EVAL_ONEPASS`` (each block in one launch of kernel 7 in place
 of E and F; off, as in every recipe), ``FUSED_MLP_EVAL`` (their MlpDWBN on
 Kernel G where E and F are off), ``FUSED_BLOCK_TRAIN`` (the HRFormer blocks'
-attention half on kernel 9 in training), and ``FROZEN_STAGE_EVAL_MODE`` and
-``REMAT``, which the port does not implement (a training forward of either
-model with one of them set raises). One key is the
+attention half on kernel 9 in training), ``FROZEN_STAGE_EVAL_MODE`` (a frozen
+first stage run in eval mode in training, ``models/interformer.py``) and
+``REMAT`` (activations recomputed in the backward: each encoder layer and
+HRFormer block under ``layers``, the step under ``dots`` and ``full``;
+``models/layers.py::REMAT_VALUES``). One key is the
 port's own: ``MODEL.HRFORMER_ARCH``, the HRFormer architecture (the JAX
 builder's ``arch=`` argument; HRFormer-B when absent). The JAX gates
 ``TPU.MIN_FUSED_TRAIN_TOKENS`` and ``TPU.FUSED_TRAIN_MAX_BLOCKS`` are not

@@ -77,17 +77,13 @@ def boxes_to_person_meta(boxes: Sequence[Sequence[float]],
             np.asarray(affines, np.float32), np.asarray(rects, np.float32))
 
 
-def _eval_program(cfg: Dict, model, flip_pairs):
-    """``evaluate(crops, pos_masks, person_valid, centers, scales) -> (coords
-    [B*N,K,2], maxvals [B*N,K,1])``: the eval protocol of
-    ``core/train.py::make_eval_step`` -- the forward, a second forward on the
-    flipped crops averaged in (reference ``lib/core/function.py:142-162``,
-    without the HRNet 1px shift, as validate() never applies it), DARK decode
-    to source pixels, padded persons zeroed. A model that returns a dict (the
-    two-stage ``interformer``) is read at ``["multi"]``, as
-    ``i2rnet_tpu/serving.py:120-124``. No grad mode is set inside, so that
-    ``torch.export`` can trace it."""
-    heatmap_size = tuple(int(v) for v in cfg["MODEL"]["HEATMAP_SIZE"])
+def heatmap_program(cfg: Dict, model, flip_pairs):
+    """``heatmaps(crops, pos_masks, person_valid) -> [B, N, K, h, w]``: the
+    forward, and with ``TEST.FLIP_TEST`` a second forward on the flipped
+    crops averaged in (reference ``lib/core/function.py:142-162``, without
+    the HRNet 1px shift, as validate() never applies it). A model that
+    returns a dict (the two-stage ``interformer``) is read at ``["multi"]``,
+    as ``i2rnet_tpu/serving.py:120-124``. No grad mode is set inside."""
     test = cfg["TEST"]
 
     def forward(*args):
@@ -95,11 +91,28 @@ def _eval_program(cfg: Dict, model, flip_pairs):
         # the two-stage model's {"single", "multi"}: serve the inter stage's
         return out["multi"] if isinstance(out, dict) else out
 
-    def evaluate(crops, pos_masks, person_valid, centers, scales):
+    def heatmaps(crops, pos_masks, person_valid):
         heat = forward(crops, pos_masks, person_valid)
         if test["FLIP_TEST"]:
             heat_f = forward(crops.flip(-2), pos_masks.flip(-2), person_valid)
             heat = (heat + flip_back(heat_f, flip_pairs or [])) * 0.5
+        return heat
+
+    return heatmaps
+
+
+def _eval_program(cfg: Dict, model, flip_pairs):
+    """``evaluate(crops, pos_masks, person_valid, centers, scales) -> (coords
+    [B*N,K,2], maxvals [B*N,K,1])``: the eval protocol of
+    ``core/train.py::make_eval_step`` -- :func:`heatmap_program`'s maps, DARK
+    decode to source pixels, padded persons zeroed. No grad mode is set
+    inside, so that ``torch.export`` can trace it."""
+    heatmap_size = tuple(int(v) for v in cfg["MODEL"]["HEATMAP_SIZE"])
+    test = cfg["TEST"]
+    heatmaps = heatmap_program(cfg, model, flip_pairs)
+
+    def evaluate(crops, pos_masks, person_valid, centers, scales):
+        heat = heatmaps(crops, pos_masks, person_valid)
         b, n = heat.shape[:2]
         coords, maxvals = get_final_preds(
             heat.reshape(b * n, *heat.shape[2:]), centers, scales,

@@ -143,7 +143,11 @@ def test_port_imports_without_jax_yaml_cv2():
             "i2rnet_tpu_torch.data.mpii", "i2rnet_tpu_torch.probes.recipes_probe",
             "i2rnet_tpu_torch.hub", "i2rnet_tpu_torch.tools.export",
             "i2rnet_tpu_torch.tools.demo", "i2rnet_tpu_torch.utils.vis",
-            "i2rnet_tpu_torch.ops.cuda.library", "i2rnet_tpu_torch.serving"} <= set(mods)
+            "i2rnet_tpu_torch.ops.cuda.library", "i2rnet_tpu_torch.serving",
+            "i2rnet_tpu_torch.utils.detail_eval", "i2rnet_tpu_torch.tools.visualize",
+            "i2rnet_tpu_torch.tools.compute_flops", "i2rnet_tpu_torch.tools.profile",
+            "i2rnet_tpu_torch.tools.confirm_eval", "i2rnet_tpu_torch.tools.trans_json",
+            "i2rnet_tpu_torch.tools.vis_demo", "i2rnet_tpu_torch.tools.reproduce"} <= set(mods)
 
 
 def with_recipe_data(jax_cfg):
@@ -171,8 +175,11 @@ def test_from_config_matches_presets():
                         assert got[sec][k][ek] == ev, (sec, k, ek)
                 else:
                     assert got[sec][k] == v, (sec, k)
-        for k in ("SEED", "AUTO_RESUME", "PRINT_FREQ", "WORKERS", "DEBUG"):
+        for k in ("SEED", "AUTO_RESUME", "PRINT_FREQ", "WORKERS"):
             assert got[k] == port_cfg[k], k
+        for k, v in port_cfg["DEBUG"].items():  # the presets set DEBUG.DEBUG only
+            assert got["DEBUG"][k] == v, k
+        assert not any(got["DEBUG"].values())
 
 
 @pytest.mark.parametrize("preset,recipe", [
@@ -310,28 +317,38 @@ def test_builders_default_to_the_card():
 
 @pytest.mark.parametrize("remat", [True, "layers", "dots"])
 def test_remat_refuses_a_training_forward(remat):
-    """``DEVICE.REMAT`` reaches both models through ``from_config``: an eval
-    forward runs, a training forward raises (rematerialisation is not
-    ported), as the HRFormer model always did."""
+    """``DEVICE.REMAT`` reaches both models through ``from_config``: the eval
+    and the training forward run as without it (``tests/test_torch_remat.py``
+    holds whole steps); ``layers`` (or True) sets each encoder layer and
+    HRFormer block to be recomputed, ``dots`` leaves the model as it is (the
+    step recomputes). An unknown value is refused at build time."""
     from i2rnet_tpu.presets import hrt_interformer
 
     jcfg = tiny_test_config(5)
     jcfg.TPU.REMAT = remat
     cfg = presets.from_config(jcfg)
     assert cfg["DEVICE"]["REMAT"] == remat
+    layers = remat in (True, "layers")
     model = build_pure_multi(cfg, device="cpu")
-    images = torch.zeros(1, 2, 64, 48, 3)
+    plain = build_pure_multi(presets.tiny_test_config(5), device="cpu")
+    plain.load_state_dict(model.state_dict())
+    assert model.global_encoder.remat is layers and plain.global_encoder.remat is False
+    images = torch.rand(1, 2, 64, 48, 3, generator=torch.Generator().manual_seed(0))
     pos = torch.zeros(1, 2, 64, 48, 1)
     valid = torch.tensor([[True, False]])
     with torch.no_grad():
         assert model(images, pos, valid).shape == (1, 2, 5, 16, 12)
-    with pytest.raises(NotImplementedError, match="REMAT"):
-        model(images, pos, valid, train=True, dropout_seed=0)
+    out = model(images, pos, valid, train=True, dropout_seed=0)
+    assert torch.equal(out, plain(images, pos, valid, train=True, dropout_seed=0))
     hrt = presets.tiny_hrt_config(5)
     hrt["DEVICE"]["REMAT"] = remat
-    assert ("DEVICE.REMAT", remat) in build_model(hrt, device="cpu").unported_training
+    built = build_model(hrt, device="cpu")
+    assert all(blk.remat is layers for blk in built.singleformer.blocks())
+    assert built.multi_global_encoder.remat is layers
     assert presets.from_config(hrt_interformer())["DEVICE"]["REMAT"] is False
-    assert build_pure_multi(presets.tiny_test_config(5), device="cpu").unported_training == []
+    hrt["DEVICE"]["REMAT"] = "layer"
+    with pytest.raises(ValueError, match="DEVICE.REMAT"):
+        build_model(hrt, device="cpu")
 
 
 @pytest.mark.parametrize("flash,ffn", [(True, True), (True, False), (False, True),

@@ -191,13 +191,29 @@ def test_evaluate_matches_jax(synth_root, tmp_path, soft):
     assert 0.0 < got[1] <= 1.0
 
 
-def test_unported_evaluation_options_raise(synth_root):
-    """``TEST.DETAIL_EVAL`` raises. A training dataset, ported since, reads
-    the GT boxes even where evaluation would take a detector's (as the JAX
-    one does): its db equals JAX's."""
-    _, tcfg = coco_cfgs(synth_root, DETAIL_EVAL=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        COCODataset(tcfg, synth_root, "val2017", is_train=False)
+def test_unported_evaluation_options_raise(synth_root, tmp_path):
+    """``TEST.DETAIL_EVAL``, ported since, evaluates as JAX's: the same
+    ``name_value`` with its crowd levels, and the same ``res_eval.txt``
+    (``tests/test_torch_detail_eval.py`` holds the report itself). A training
+    dataset, ported since, reads the GT boxes even where evaluation would
+    take a detector's (as the JAX one does): its db equals JAX's."""
+    jcfg, tcfg = coco_cfgs(synth_root, DETAIL_EVAL=True)
+    jds = JaxCOCO(jcfg, synth_root, "val2017", is_train=False)
+    tds = COCODataset(tcfg, synth_root, "val2017", is_train=False)
+    rng = np.random.RandomState(6)
+    preds, boxes, ids = [], [], []
+    for rec in jds.db:
+        for a in rec["annos"]:
+            preds.append(np.concatenate([a["joints_3d"][:, :2] + rng.randn(5, 2) * 2.0,
+                                         rng.rand(5, 1)], axis=1))
+            boxes.append([*a["center"], *a["scale"], float(np.prod(a["scale"] * 200)), 1.0])
+            ids.append(rec["image_id"])
+    preds, boxes = np.asarray(preds, np.float32), np.asarray(boxes, np.float32)
+    got = tds.evaluate(tcfg, preds, str(tmp_path / "port"), boxes, ids)
+    want = jds.evaluate(jcfg, preds, str(tmp_path / "jax"), boxes, ids)
+    assert got == want and any(k.startswith("AP(c") for k in got[0])
+    report = "results/res_eval.txt"
+    assert (tmp_path / "port" / report).read_text() == (tmp_path / "jax" / report).read_text()
     jcfg, tcfg = coco_cfgs(synth_root, USE_GT_BBOX=False, COCO_BBOX_FILE="missing.json")
     train = COCODataset(tcfg, synth_root, "val2017", is_train=True)
     want = JaxCOCO(jcfg, synth_root, "val2017", is_train=True).db

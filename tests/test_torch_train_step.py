@@ -115,9 +115,10 @@ def test_train_step_matches_jax(jax_dropout_zero):
     check_train_step(jcfg, jmodel, variables, _raw(presets.from_config(jcfg)))
 
 
-def check_train_step(jcfg, jmodel, variables, raw):
+def check_train_step(jcfg, jmodel, variables, raw, remat="none"):
     """One Adam step of the port against JAX ``make_train_step`` on ``raw``
-    (the module docstring's comparisons and tolerances); the caller patches
+    (the module docstring's comparisons and tolerances), both steps built
+    with ``remat`` (``DEVICE.REMAT`` / ``TPU.REMAT``); the caller patches
     the JAX dropout sites to rate 0 (``jax_dropout_zero``)."""
     cfg = presets.from_config(jcfg)
     m = cfg["MODEL"]
@@ -128,7 +129,8 @@ def check_train_step(jcfg, jmodel, variables, raw):
     tx, jsched = j_make_optimizer(jcfg, steps_per_epoch=1)
     jstate = create_train_state(jmodel, variables, tx)
     jstep = j_make_train_step(jmodel, tx, loss_weights=jcfg.MODEL.LOSS_WEIGHTS,
-                              use_target_weight=jcfg.LOSS.USE_TARGET_WEIGHT, donate=False)
+                              use_target_weight=jcfg.LOSS.USE_TARGET_WEIGHT, donate=False,
+                              remat=remat)
     new_jstate, jmetrics = jstep(jstate, jbatch, jax.random.PRNGKey(0))
 
     from i2rnet_tpu.core.train import compute_losses as j_compute_losses
@@ -146,7 +148,8 @@ def check_train_step(jcfg, jmodel, variables, raw):
         model = port_model(variables, jcfg)
         model.global_encoder.dropout_rate = 0.0
         state = TrainState(model, *make_optimizer(cfg, model.parameters(), steps_per_epoch=1))
-        return state, make_train_step(state, m["LOSS_WEIGHTS"], cfg["LOSS"]["USE_TARGET_WEIGHT"])
+        return state, make_train_step(state, m["LOSS_WEIGHTS"], cfg["LOSS"]["USE_TARGET_WEIGHT"],
+                                      remat=remat)
 
     # the port's step on its own preprocessing of the raw batch
     state, step = port_state()

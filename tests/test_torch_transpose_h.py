@@ -245,9 +245,10 @@ def test_build_model_dispatches_on_the_name_and_first_stage():
 
 
 def test_training_forward_raises():
-    """A TPH model trains (``tests/test_torch_transpose_h_train.py``), but
-    not with ``DEVICE.REMAT``, still unported (ROADMAP queue 1): it raises on
-    a training forward; an eval forward runs. A frozen first stage
+    """A TPH model trains (``tests/test_torch_transpose_h_train.py``), with
+    ``DEVICE.REMAT`` layers too: both encoders' layers are recomputed, the
+    training forward as without it (``tests/test_torch_remat.py`` holds the
+    step); an eval forward runs. A frozen first stage
     (``SINGLEFORMER_FIX``; with ``FROZEN_STAGE_EVAL_MODE`` in eval mode, its
     BatchNorm statistics kept) trains the rest: no ``single`` heatmaps, no
     gradient into the first stage (held against JAX in
@@ -257,10 +258,13 @@ def test_training_forward_raises():
     cfg = presets.tiny_tph_config(5)
     cfg["DEVICE"]["REMAT"] = "layers"
     model = build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="REMAT"):
-        model(*args, train=True, dropout_seed=0)
-    with pytest.raises(NotImplementedError, match="REMAT"):
-        model.train()(*args)
+    plain = build_model(presets.tiny_tph_config(5), device="cpu")
+    plain.load_state_dict(model.state_dict())
+    assert [e.remat for e in model.encoders()] == [True, True]
+    out = model(*args, train=True, dropout_seed=0)
+    assert torch.equal(out["multi"], plain(*args, train=True, dropout_seed=0)["multi"])
+    out["multi"].sum().backward()
+    assert all(p.grad is not None for p in model.singleformer.global_encoder.parameters())
     with torch.no_grad():
         assert model.eval()(*args)["multi"].shape == (1, 2, 5, 16, 12)
     for eval_mode in (False, True):

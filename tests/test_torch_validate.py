@@ -270,14 +270,33 @@ def test_eval_pipeline_depth_leaves_the_results(root, tmp_path, seeded):
     assert (tmp_path / "0" / RESULTS).read_bytes() == (tmp_path / "8" / RESULTS).read_bytes()
 
 
-def test_validate_refuses_what_is_not_ported(root, tmp_path):
+def test_validate_refuses_what_is_not_ported(root, tmp_path, seeded):
+    """A mesh raises. ``DEBUG.DEBUG``, ported since, leaves the results file
+    as it is (the heatmaps-out step decoded as the fused one) and dumps the
+    first batch's images under the names the JAX ``validate`` gives them,
+    each the size of JAX's (``tests/test_torch_debug_vis.py`` holds the
+    pixels)."""
+    from PIL import Image
+
     _, tcfg = configs(root)
     tds = COCODataset(tcfg, root, "val2017", is_train=False)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         validate(tcfg, tds, None, str(tmp_path), mesh=object(), device="cpu")
-    tcfg["DEBUG"]["DEBUG"] = True
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        validate(tcfg, tds, None, str(tmp_path), device="cpu")
+    jmodel, variables, model = seeded
+    debug = {"DEBUG.DEBUG": True, "DEBUG.SAVE_BATCH_IMAGES_GT": True,
+             "DEBUG.SAVE_HEATMAPS_GT": True, "DEBUG.SAVE_HEATMAPS_PRED": True}
+    jcfg, jds, tcfg, tds = datasets(root, **debug)
+    *_, tcfg_off, tds_off = datasets(root)
+    got = validate(tcfg, tds, model, str(tmp_path / "port"))
+    assert got == validate(tcfg_off, tds_off, model, str(tmp_path / "off"))
+    assert (tmp_path / "port" / RESULTS).read_bytes() == (tmp_path / "off" / RESULTS).read_bytes()
+    jax_validate(jcfg, jds, jmodel, variables, str(tmp_path / "jax"))
+    names = sorted(p.name for p in (tmp_path / "jax" / "debug").iterdir())
+    assert names == ["val_0_gt.jpg", "val_0_hm_gt.jpg", "val_0_hm_pred.jpg"]
+    assert sorted(p.name for p in (tmp_path / "port" / "debug").iterdir()) == names
+    for name in names:
+        assert Image.open(tmp_path / "port" / "debug" / name).size == \
+            Image.open(tmp_path / "jax" / "debug" / name).size
 
 
 def test_fixture_regenerates_and_validates_as_jax(tmp_path):

@@ -135,6 +135,41 @@ def jax_expected(root, cfg=None) -> dict:
             "oks_thre": cfg.TEST.OKS_THRE}
 
 
+#: the trees whose ``expected_detail.json`` holds the JAX ``TEST.DETAIL_EVAL``
+#: report, and the dataset each is read as
+DETAIL_TREES = {"coco_synth": "coco", "ochuman_synth": "OCHuman"}
+
+
+def detail_cfg(tree: str):
+    """The JAX config whose oracle ``validate`` gives ``tree``'s
+    ``expected_detail.json``: as ``expected.json``'s, ``TEST.DETAIL_EVAL`` on."""
+    root = str(FIXTURES / tree)
+    dataset = DETAIL_TREES[tree]
+    cfg = (w48_cfg(root) if dataset == "coco" else recipe_cfg(dataset, root)).clone()
+    cfg.TEST.DETAIL_EVAL = True
+    return cfg
+
+
+def jax_expected_detail(tree: str) -> str:
+    """``expected_detail.json``: the JAX oracle ``validate``'s ``name_value``
+    with ``TEST.DETAIL_EVAL`` on (its stats and AP per crowd level), and the
+    ``res_eval.txt`` it writes."""
+    from i2rnet_tpu.core.validate import validate
+    from i2rnet_tpu.registry import get_dataset_class
+
+    cfg = detail_cfg(tree)
+    test_set = cfg.DATASET.TEST_SET
+    root = str(FIXTURES / tree)
+    ds = get_dataset_class(cfg.DATASET.DATASET)(cfg, root, test_set, is_train=False)
+    with tempfile.TemporaryDirectory() as out:
+        name_value, _ = validate(cfg, ds, model=None, variables=None, output_dir=out,
+                                 eval_step_fn=oracle)
+        report = (Path(out) / "results" / "res_eval.txt").read_text()
+    return json.dumps({"name_value": dict(name_value), "res_eval_levels":
+                       [line for line in report.splitlines() if line.startswith("Class ")]},
+                      indent=1, sort_keys=True) + "\n"
+
+
 def write_fixture(root) -> None:
     from i2rnet_tpu.data.synthetic import make_synthetic_coco
 
@@ -361,7 +396,9 @@ def jax_port_config(cfg) -> dict:
                    "EVAL_PIPELINE": int(tpu.EVAL_PIPELINE)},
         **{sec: {k: _plain(getattr(getattr(cfg, sec), k)) for k in JAX_PORT_KEYS[sec]}
            for sec in ("TRAIN", "LOSS")},
-        "DEBUG": {"DEBUG": bool(cfg.DEBUG.DEBUG)},
+        "DEBUG": {k: bool(getattr(cfg.DEBUG, k)) for k in
+                  ("DEBUG", "SAVE_BATCH_IMAGES_GT", "SAVE_BATCH_IMAGES_PRED", "SAVE_HEATMAPS_GT",
+                   "SAVE_HEATMAPS_PRED")},
         **{k: _plain(getattr(cfg, k)) for k in JAX_TOP_KEYS},
     }
 
@@ -389,4 +426,6 @@ if __name__ == "__main__":
     shutil.rmtree(MPII, ignore_errors=True)
     write_mpii(MPII)
     RECIPES_JSON.write_text(expected_recipes())
+    for tree in DETAIL_TREES:
+        (FIXTURES / tree / "expected_detail.json").write_text(jax_expected_detail(tree))
     print(f"wrote {FIXTURES} and {RECIPES_JSON}")
