@@ -229,7 +229,7 @@ Phases, one line each (any failure exits non-zero):
     the device's busy time and idle share from a profile); Kernel A's host
     cost a call through the registered op and launched directly;
 43. for information: ``MicroBatcher`` in the fresh process over the phase-41
-    artifact, 200 single-image requests of 1-7 boxes offered as a Poisson
+    artifact, 100 single-image requests of 1-7 boxes offered as a Poisson
     stream at half phase 42's rate (max_delay_ms 5): latency p50 and p99,
     requests/s and persons/s; each result within phase 6's bound of the
     request served alone;
@@ -262,7 +262,38 @@ Phases, one line each (any failure exits non-zero):
     fixture image from the W48 recipe's YAML (six layers' weights recorded
     through Kernel A's plain version, Kernel B launched), and
     ``tools.profile`` of two W48 train steps (a Chrome trace that holds
-    Kernels C and D).
+    Kernels C and D);
+48. data parallelism (``parallel/dist.py``): one f32 W48 step (dropout 0,
+    kernels on) over two ``gloo`` ranks, each a process on this card (NCCL
+    refuses two ranks on one GPU) with B=4 x N=7 of phase 10's global
+    batch, against the step on the global batch in a process without a
+    group: the global loss, every summed gradient within phase 10's f32
+    bounds, the parameters after Adam within 2.2 lr, the BatchNorm
+    statistics (a masked sync-BN), C and D launched 6 + 6 a rank, the two
+    ranks bit-equal;
+49. one bf16 W48 step with dropout on in an ``nccl`` group of world size
+    1, bit-equal to the step without a group (deterministic algorithms);
+50. ``validate`` over two ``gloo`` ranks on ``coco_synth`` at phase 23's
+    global batch: the GT oracle's stats equal to one process's, the seeded
+    W48 in f32 within phase 6's bound of one process's results, A and B
+    12 launches a global batch on each rank, the same results file on
+    every rank;
+51. ``Predictor.call_sharded`` over [cuda:0, cuda:0] (an f32 W48 batch of
+    8 images x 7 slots, half on each replica) within phase 6's bound of the
+    whole call, A and B 12 launches a replica; for information the W48
+    forward on the whole batch against its halves in f32 and bf16, kernels
+    on and off (in bf16 the batch size alone moves the random model's
+    heatmaps by a tenth of their largest value, so phases 50-51 hold f32);
+52. the end-to-end models ``interformer_e2e`` and ``interformer_e2e_new``
+    at full width (``presets.e2e_w48``, seeded and calibrated as phase 5):
+    an f32 forward at B=8 x N=4 kernels on vs off (A and B 6 launches each:
+    4 intra layers over 3072 tokens a person, 2 inter), one f32 training
+    step at B=4 x N=4, dropout 0, kernels on vs off (C and D 6 + 6), requests
+    served through ``Predictor`` in bf16 (buckets 2/4); for information the
+    bf16 eval protocol and train step of ``interformer_e2e_new`` with
+    profiles; then A and B at the e2e eval batch's intra shape (P=32, S=3072;
+    R=32*3072) against their plain versions and timed as phase 24 times
+    them.
 
 Every ``torch.profiler`` breakdown counts all device events but user
 annotations and step markers, and logs how many of them carry a ``#`` in
@@ -284,8 +315,13 @@ fields at phases 35-39's new shapes; for every kernel ``recipes``: its
 launches in each recipe run's training and test, and MPII's ``validate``
 for A and B; ``served_artifact_{w48,tph,hrt}``: its launches in phases 41's
 and 44's served runs; for C, D and kernel 9 ``remat``: its launches in
-phase 45's step of each model under each REMAT value), and last
-``{"ok": true, "device": {...}}``.
+phase 45's step of each model under each REMAT value; for A-D ``ddp``:
+its launches on a rank of each run of phases 48-50 and in phase 51's sharded
+call (both replicas), and ``e2e``: its
+launches in each e2e model's forward (A, B) or step (C, D) of phase 52 and
+the fields at the e2e shapes, A and B at P=32 x 3072 from phase 52, C and D
+at the training step's intra shape P=16 x 3072 from phase 27, which times
+that shape), and last ``{"ok": true, "device": {...}}``.
 TF32 is off throughout, so the float32 parts (crops, decode) stay float32.
 Training writes its checkpoints, and validation its results JSONs, under
 ``output/chip_smoke/`` of this checkout.
@@ -349,6 +385,8 @@ from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import (DTYPE_CODES, device_plan, mlp32_
                                                 mlp_dwbn_fused, mlp_dwbn_torch, mlp_plan,
                                                 pack_mlp, pack_mlp32, sm_count)
 from i2rnet_tpu_torch.ops.preprocess import device_preprocess
+from i2rnet_tpu_torch.parallel import dist
+from i2rnet_tpu_torch.probes.ddp_rank import case_step, run_ranks
 from i2rnet_tpu_torch.registry import get_dataset_class
 from i2rnet_tpu_torch.serving import Predictor, load_predictor, make_eval_fn
 from i2rnet_tpu_torch.tools import compute_flops, profile as profile_tool, visualize
@@ -356,6 +394,7 @@ from i2rnet_tpu_torch.tools.test import main as test_main
 from i2rnet_tpu_torch.tools.train import main as train_main
 from i2rnet_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
 
+T_START = time.perf_counter()
 SEED = 0
 DEV = "cuda:0"
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}  # (atol, rtol)
@@ -586,11 +625,14 @@ SERVED_LAUNCHES = {"tph": {"masked_mhsa": 20, "encoder_ffn": 20},
                    "hrt": {"window_attn_block": 88, "mlp_block": 88, "masked_mhsa": 4,
                            "encoder_ffn": 4}}
 #: phase 43: single-image requests offered to a MicroBatcher
-POISSON_REQUESTS, POISSON_DELAY_MS = 200, 5.0
+POISSON_REQUESTS, POISSON_DELAY_MS = 100, 5.0
 ZERO_GRADS = re.compile(r"(k_proj|mlp\.(fc1|dw3x3|fc2)|norm2|fuse_layers\.\d+\.\d+\.\d+\.1)\.bias$")
 
 
 def log(msg: str) -> None:
+    """Print ``msg``; a phase's first line with the seconds since the start."""
+    if msg.startswith("phase"):
+        msg += f" [{time.perf_counter() - T_START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -2152,29 +2194,38 @@ def phase_validate_model(cfg, ds, g, card, name="validate"):
                                  f"{want if on else 0} each ({n_batches} batches)")
         runs[on] += (counts,)
     (nv_on, res_on, wall, eval_s, counts), (nv_off, res_off, *_) = runs[True], runs[False]
-
-    def keyed(results):
-        return {(r["image_id"], *r["center"], *r["scale"]): r for r in results}
-
-    on, off = keyed(res_on), keyed(res_off)
-    if len(on) != len(res_on) or set(on) != set(off):
-        raise AssertionError(f"results JSONs hold other entries: {len(res_on)} on, "
-                             f"{len(res_off)} off, {len(set(on) ^ set(off))} differ")
-    kp_on = np.array([on[k]["keypoints"] for k in on]).reshape(len(on), -1, 3)
-    kp_off = np.array([off[k]["keypoints"] for k in on]).reshape(len(on), -1, 3)
-    conf_err = np.abs(kp_on[..., 2] - kp_off[..., 2]).max() / np.abs(kp_off[..., 2]).max()
-    xy_err = np.abs(kp_on[..., :2] - kp_off[..., :2]).max(-1)
     persons = sum(len(r["annos"]) for r in ds.db)
     log(f"  seeded model, bf16: {len(res_on)} results; launches per batch with the kernels on "
         f"{ {k: v // n_batches for k, v in counts.items()} }, none off; AP kernels on "
-        f"{nv_on['AP']:.6f}, off {nv_off['AP']:.6f}; max|dconf|/max|conf| {conf_err:.3g}, "
-        f"|dxy| median {np.median(xy_err):.3g} px, share within 1 px {np.mean(xy_err <= 1.0):.3f}")
-    if conf_err > 0.05 or np.median(xy_err) > 1.0:
-        raise AssertionError("validate with the kernels strays from the plain path")
+        f"{nv_on['AP']:.6f}, off {nv_off['AP']:.6f}; "
+        + results_diff(res_on, res_off, "validate with the kernels strays from the plain path"))
     log(f"  validate, kernels on: {persons} persons in {wall * 1e3:.1f} ms, of which evaluate "
         f"(NMS, results JSON, evaluator) {eval_s * 1e3:.1f} ms; {persons / (wall - eval_s):.1f} "
         f"persons/s including host IO, evaluate excluded [{card}]")
     return model
+
+
+def results_diff(got, ref, fault):
+    """Phase 6's bound between two results files of ``validate``: the same
+    entries (image, center, scale), the largest confidence difference within
+    5% of the largest confidence, the median keypoint within 1 px; raises
+    ``fault`` otherwise, else returns the differences as text."""
+    def keyed(results):
+        return {(r["image_id"], *r["center"], *r["scale"]): r for r in results}
+
+    a, b = keyed(got), keyed(ref)
+    if len(a) != len(got) or set(a) != set(b):
+        raise AssertionError(f"results JSONs hold other entries: {len(got)} vs {len(ref)}, "
+                             f"{len(set(a) ^ set(b))} differ")
+    kp_a = np.array([a[k]["keypoints"] for k in a]).reshape(len(a), -1, 3)
+    kp_b = np.array([b[k]["keypoints"] for k in a]).reshape(len(a), -1, 3)
+    conf_err = np.abs(kp_a[..., 2] - kp_b[..., 2]).max() / np.abs(kp_b[..., 2]).max()
+    xy_err = np.abs(kp_a[..., :2] - kp_b[..., :2]).max(-1)
+    text = (f"max|dconf|/max|conf| {conf_err:.3g}, |dxy| median {np.median(xy_err):.3g} px, "
+            f"max {xy_err.max():.3g} px, share within 1 px {np.mean(xy_err <= 1.0):.3f}")
+    if conf_err > 0.05 or np.median(xy_err) > 1.0:
+        raise AssertionError(f"{fault}: {text}")
+    return text
 
 
 def phase_validate_split(model, cfg, ds, decode_ms, card):
@@ -3884,6 +3935,338 @@ def phase_tools(card):
         raise AssertionError(f"the trace holds no launch of a training kernel: {held}")
 
 
+#: each rank process's time limit (start, build load, model, step or validate)
+DDP_RANK_TIMEOUT = 300.0
+#: Kernels C and D in one W48 training step, forward and backward: one a layer
+DDP_STEP_LAUNCHES = 6
+#: the two-rank step's gradients against the one-process step's
+#: (``grad_diff``): twice the worst of the readings on the H100 (NVIDIA H100
+#: 80GB HBM3, 700 W) of the two ranks and of the one-process step with its
+#: images in another order, which gave the same spread (max 0.116 at
+#: stage3.1.branches.2.0.conv1, L2 0.0146, all together 0.0088): both only
+#: reorder f32 sums (the BatchNorms' over the batch), and a trunk ReLU input
+#: within f32 noise of zero then flips a conv's gradient (6.5% of its largest
+#: value on the tiny model on the CPU, either way). Phase 10's
+#: TRAIN_GRAD_REL holds a path whose trunk sums run in one order.
+DDP_GRAD_BOUND = {"max": 0.232, "l2": 0.029, "all_l2": 0.0176}
+#: a gradient entry resolved across the two sides of phase 48: above twice
+#: its leaf's largest move under the reordering, and above a thousand times
+#: Adam's eps (1e-8), so that Adam's first step moves the parameter by
+#: lr * sign(g) within 1e-3 lr on both sides
+ADAM_RESOLVED_G = 1e-5
+#: the parameters after Adam at resolved entries, two ranks vs one process
+DDP_PARAM_LR = 1e-2
+#: the end-to-end models' eval batch (B x N, ragged) and training batch
+E2E_COUNTS = [4, 3, 1, 2, 4, 0, 2, 3]
+E2E_TRAIN_COUNTS = [4, 2, 3, 1]
+#: Kernels A and B in one e2e forward, and C and D in one step: 4 intra + 2 inter layers
+E2E_LAYERS = 6
+#: the f32 e2e step kernels on vs off (``grad_diff``): twice the worst of two
+#: calls on the H100, which gave the same values (``interformer_e2e_new``: max
+#: 8.6e-4 at an inter layer's linear1 bias, L2 4.9e-4 at the box-mask
+#: embedding's first conv, 1.1e-4 all together; ``interformer_e2e`` 1.8e-4,
+#: 1.4e-4, 6.4e-5): the inter encoder's f32 sums on C and D against the
+#: plain path's reach the embedding behind it; C and D are held at 1e-4 in
+#: phases 8-9 and 27
+E2E_GRAD_BOUND = {"max": 2e-3, "l2": 1e-3, "all_l2": 2.5e-4}
+
+
+def state_job(cfg, model, batch, dropout):
+    """A ``probes/ddp_rank.py`` step job: the config, the model's weights and
+    the global device batch, on the host."""
+    return {"cfg": cfg, "state_dict": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            "batch": {k: v.detach().cpu() for k, v in batch.items()}, "dropout": dropout}
+
+
+def global_batch(cfg, counts):
+    """Phase 10's synthetic raw batch of ``counts`` persons an image, preprocessed."""
+    m = cfg["MODEL"]
+    raw = synthetic_raw_batch(cfg, counts, np.random.RandomState(SEED))
+    return device_preprocess(raw_to_device(raw, DEV), tuple(m["IMAGE_SIZE"]),
+                             tuple(m["HEATMAP_SIZE"]), m["SIGMA"])
+
+
+def rank_launches(ranks, kernels, want):
+    """Each rank's launches of ``kernels``; raises unless every rank launched
+    each ``want`` times and no other kernel."""
+    per_rank = [{k: v for k, v in r["launches"].items() if v} for r in ranks]
+    if any(lc != dict.fromkeys(kernels, want) for lc in per_rank):
+        raise AssertionError(f"launches per rank {per_rank}, want {want} of each of {kernels}")
+    return per_rank[0]
+
+
+def phase_ddp_step(card):
+    """Phase 48: one f32 W48 step (dropout 0, kernels on) over two ``gloo``
+    ranks on this card, each B=4 x N=7 of phase 10's global batch, against
+    the step on the global batch in this process: the global loss within
+    TRAIN_LOSS_REL, the BatchNorm statistics (the masked sync-BN) within
+    1e-4 of their largest value, the summed gradients (``grad_diff``)
+    within DDP_GRAD_BOUND, and the parameters after the Adam step within
+    DDP_PARAM_LR lr at every gradient entry that the one-process step
+    resolves against itself on the batch's images in another order
+    (ADAM_RESOLVED_G; Adam's first step moves each parameter by lr times the
+    sign of its gradient there, so a flipped or lost gradient shows as 2 lr
+    or 1 lr); C and D launched DDP_STEP_LAUNCHES times a rank forward and
+    backward; both ranks holding the same bits."""
+    cfg = train_cfg("float32", True)
+    batch = global_batch(cfg, TRAIN_COUNTS)
+    job = state_job(cfg, seeded_model(cfg), batch, 0.0)
+    t0 = time.perf_counter()
+    ranks = run_ranks("step", job, 2, OUT_DIR / "ddp_step", device=DEV, backend="gloo",
+                      timeout=DDP_RANK_TIMEOUT)
+    t_ranks = time.perf_counter() - t0
+    one = case_step(job, DEV)
+    half = len(TRAIN_COUNTS) // 2  # rank 1's images first: the sums in another order
+    order = torch.cat([torch.arange(half, 2 * half), torch.arange(half)])
+    reordered = case_step({**job, "batch": {k: v[order] for k, v in job["batch"].items()}}, DEV)
+    launches = rank_launches(ranks, TRAIN_KERNELS, DDP_STEP_LAUNCHES)
+    loss_rel = abs(ranks[0]["metrics"]["loss"] - one["metrics"]["loss"]) / abs(
+        one["metrics"]["loss"])
+    g_ref, g_got = one["grads"], ranks[0]["grads"]
+    if set(g_ref) != set(g_got):
+        raise AssertionError(f"gradients of {set(g_ref) ^ set(g_got)} on one side only")
+    diff, spread = grad_diff(g_got, g_ref), grad_diff(reordered["grads"], g_ref)
+    lr = cfg["TRAIN"]["LR"]
+    sd_ref, sd_got = one["state_dict"], ranks[0]["state_dict"]
+    param_d, resolved, entries = 0.0, 0, 0
+    for n, g in g_ref.items():
+        noise = (reordered["grads"][n] - g).abs().max()
+        sure = g.abs() > torch.clamp(2 * noise, min=ADAM_RESOLVED_G)
+        resolved, entries = resolved + int(sure.sum()), entries + g.numel()
+        if sure.any():
+            param_d = max(param_d, (sd_got[n] - sd_ref[n])[sure].abs().max().item() / lr)
+    stat_rel = max(((sd_got[k] - sd_ref[k]).abs().max() / sd_ref[k].abs().max()).item()
+                   for k in sd_ref if "running" in k)
+    same = ranks[0]["same"] and ranks[1]["same"] and all(
+        torch.equal(v, ranks[1]["state_dict"][k]) for k, v in sd_got.items())
+    log(f"  2 gloo ranks on {DEV}, B=4 x N=7 each: global loss {ranks[0]['metrics']['loss']:.8f} "
+        f"vs one process {one['metrics']['loss']:.8f} (rel {loss_rel:.3g}, bound "
+        f"{TRAIN_LOSS_REL:g}); acc {ranks[0]['metrics']['acc']:.4f} vs "
+        f"{one['metrics']['acc']:.4f}; BN statistics max rel {stat_rel:.3g} (bound 1e-4); "
+        f"parameters after Adam at {resolved} of {entries} gradient entries resolved: "
+        f"max|dp| {param_d:.3g} lr (bound {DDP_PARAM_LR:g} lr); ranks "
+        f"bit-equal {same}; launches per rank {launches}; host clock of the two ranks "
+        f"{t_ranks:.1f} s (process start, kernel load, step)")
+    log(f"  {len(g_ref)} gradients, two ranks vs one process: {describe_diff(diff)}; one process "
+        f"with its images reordered vs as they were: {describe_diff(spread)}; bounds "
+        + ", ".join(f"{k} {v:.3g}" for k, v in DDP_GRAD_BOUND.items()))
+    if (loss_rel > TRAIN_LOSS_REL or any(diff[k][0] > DDP_GRAD_BOUND[k] for k in diff)
+            or not resolved or param_d > DDP_PARAM_LR or stat_rel > 1e-4 or not same):
+        raise AssertionError("the two-rank step strays from the one-process step")
+    return launches
+
+
+def phase_ddp_nccl(card):
+    """Phase 49: one bf16 W48 step with dropout 0.1 and the kernels on in a
+    process group of ``nccl`` at world size 1, bit-equal to the same step
+    without a group (both in this process under deterministic algorithms):
+    the metrics, every parameter and statistic after the step; then the
+    step's gradients all-reduced through the group, which NCCL returns
+    unchanged at world 1."""
+    cfg = train_cfg("bfloat16", True)
+    batch = global_batch(cfg, TRAIN_COUNTS)
+    job = state_job(cfg, seeded_model(cfg), batch, RATE)
+    rendezvous = OUT_DIR / "ddp_nccl_rendezvous"
+    rendezvous.unlink(missing_ok=True)
+    with deterministic_algorithms():
+        alone = case_step(job, DEV)
+        dist.init(num_processes=1, process_id=0, backend="nccl", device=DEV,
+                  init_method=dist.file_init_method(rendezvous))
+        try:
+            backend = torch.distributed.get_backend()
+            nccl = case_step(job, DEV)
+            # a real collective through the group (the port's helpers do
+            # nothing at world 1): the step's gradients all-reduced over one
+            # rank come back as they went
+            flat = torch.cat([g.reshape(-1).float() for g in nccl["grads"].values()]).to(DEV)
+            reduced = flat.clone()
+            t0 = time.perf_counter()
+            torch.distributed.all_reduce(reduced)
+            torch.cuda.synchronize()
+            t_reduce = time.perf_counter() - t0
+            reduced_same = torch.equal(reduced, flat)
+        finally:
+            dist.destroy()
+    launches = rank_launches([nccl], TRAIN_KERNELS, DDP_STEP_LAUNCHES)
+    differ = [k for k, v in alone["state_dict"].items() if not torch.equal(v, nccl["state_dict"][k])]
+    log(f"  {backend} world 1: metrics {nccl['metrics']} vs no group {alone['metrics']}; "
+        f"{len(alone['state_dict']) - len(differ)} of {len(alone['state_dict'])} state tensors "
+        f"bit-equal; launches {launches}; all_reduce of the {flat.numel()} gradient values "
+        f"(f32) unchanged {reduced_same}, {t_reduce * 1e3:.2f} ms host clock (the first "
+        f"collective, which builds the communicator)")
+    if backend != "nccl" or nccl["metrics"] != alone["metrics"] or differ or not reduced_same:
+        raise AssertionError(f"the nccl world of one differs from the undistributed step: "
+                             f"{differ[:5]}")
+    return launches
+
+
+def phase_ddp_validate(g, card):
+    """Phase 50: ``validate`` over two ``gloo`` ranks on the COCO fixture at
+    phase 23's global batch (8 rows a rank): the GT oracle's ``name_value``
+    equal to the one-process run's, and the seeded W48 in f32 (kernels on)
+    within phase 6's bound of the one-process results, A and B launched
+    12 times a global batch on each rank; every rank the same results. f32:
+    a bf16 forward of half a batch differs from the whole batch's by a tenth
+    of the largest heat on the plain path alone (phase 51 shows it), which
+    moves the random model's keypoints past any bound."""
+    cfg = fixture_cfg()
+    cfg["DEVICE"]["COMPUTE_DTYPE"] = "float32"
+    ds = COCODataset(cfg, str(FIXTURE), "val2017", is_train=False)
+    n_batches = len(list(ds.eval_batches(VAL_BATCH)))
+    oracle_nv, oracle_res, *_ = validate_run(cfg, ds, None, "ddp_oracle_one",
+                                             eval_step_fn=lambda _m, batch: batch["target"])
+    model = random_model(cfg, g)
+    model.set_kernels(True)
+    model_nv, model_res, *_ = validate_run(cfg, ds, model, "ddp_model_one")
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model
+    rows = copy.deepcopy(cfg)
+    rows["TEST"]["BATCH_SIZE_PER_GPU"] = VAL_BATCH // 2
+    job = {"cfg": rows, "root": str(FIXTURE),
+           "runs": [{"out": str(OUT_DIR / "ddp_oracle")},
+                    {"out": str(OUT_DIR / "ddp_model"), "state_dict": sd}]}
+    ranks = run_ranks("validate", job, 2, OUT_DIR / "ddp_validate", device=DEV, backend="gloo",
+                      timeout=DDP_RANK_TIMEOUT)
+    oracle = [r["runs"][0] for r in ranks]
+    runs = [r["runs"][1] for r in ranks]
+    if any(o["name_value"] != dict(oracle_nv) for o in oracle):
+        raise AssertionError(f"two-rank oracle {oracle[0]['name_value']} vs {dict(oracle_nv)}")
+    if oracle[0]["results"] != oracle[1]["results"] or runs[0]["results"] != runs[1]["results"]:
+        raise AssertionError("the ranks wrote different results files")
+    launches = rank_launches(runs, EVAL_KERNELS, 2 * 6 * n_batches)
+    diff = results_diff(json.loads(runs[0]["results"]), model_res,
+                        "the two-rank validate strays from the one-process one")
+    log(f"  GT oracle over 2 ranks: AP {oracle[0]['name_value']['AP']:.6f}, every stat equal to "
+        f"the one-process run's; seeded W48 f32 over 2 ranks: AP {runs[0]['perf']:.6f} vs one "
+        f"process {model_nv['AP']:.6f}, {diff}; launches per rank {launches} over {n_batches} "
+        f"global batches; every rank the same results file")
+    return launches
+
+
+def phase_call_sharded(g, card):
+    """Phase 51: ``Predictor.call_sharded`` over [cuda:0, cuda:0] (each half
+    of an f32 W48 batch of 8 images x 7 slots on its replica, the kernels on)
+    against the unsharded call: within phase 6's bound, A and B launched 12
+    times a replica call. For information, the model's forward on the whole
+    batch against its two halves, f32 and bf16, kernels on and off: what
+    the batch size alone moves."""
+    cfg = presets.w48_pure_en6()
+    model = random_model(cfg, g)
+    images, pos, valid = person_inputs(cfg, 8, 7, TRAIN_COUNTS, g)
+    for dt in (torch.float32, torch.bfloat16):
+        model.compute_dtype = dt
+        for on in (True, False):
+            model.set_kernels(on)
+            with torch.no_grad():
+                whole = model(images, pos, valid)
+                halves = torch.cat([model(images[:4], pos[:4], valid[:4]),
+                                    model(images[4:], pos[4:], valid[4:])])
+            log(f"  W48 forward, {str(dt)[6:]}, kernels {'on' if on else 'off'}: max|whole batch "
+                f"- its halves|/max|heat| {(whole - halves).abs().max().item() / whole.abs().max().item():.3g}")
+    model.compute_dtype = torch.float32
+    model.set_kernels(True)
+    pred = Predictor(model, cfg, flip_pairs(cfg), batch_images=8, n_buckets=(7,),
+                     raw_hw=(480, 640))
+    images, boxes = requests(np.random.RandomState(SEED + 1), 8)
+    args = pred.pack(7, [(i, 0, img, bxs[:7]) for i, (img, bxs) in enumerate(zip(images, boxes))])
+    want = pred.call_raw(*args)
+    pred.call_sharded([DEV, DEV], *args)  # the replica's first call, outside the count
+    torch.cuda.synchronize()
+    reset_launches()
+    got = pred.call_sharded([DEV, DEV], *args)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    if counts != dict.fromkeys(EVAL_KERNELS, 2 * 12):
+        raise AssertionError(f"call_sharded launched {counts}, want 12 of A and B a replica")
+    valid = args[4].reshape(-1).cpu().numpy()
+    kp = [torch.cat(o, -1).cpu().numpy()[valid] for o in (got, want)]
+    check_served([kp[0]], [kp[1]], "call_sharded over 2 replicas vs the whole call, f32",
+                 "call_sharded strays from the unsharded call")
+    log(f"  {int(valid.sum())} persons; launches {counts}")
+    return counts
+
+
+def e2e_train_cfg(name, dtype):
+    """The e2e model's training config at B=4 x N=4 (``MAX_PATCH`` 4)."""
+    cfg = train_cfg(dtype, True, lambda: presets.e2e_w48(name))
+    cfg["DATASET"]["MAX_PATCH"] = 4
+    return cfg
+
+
+def phase_e2e(name, g, card):
+    """Phase 52, one model name: the end-to-end model at full width, seeded
+    and calibrated as phase 5. An f32 forward at B=8 x N=4 (ragged), kernels
+    on vs off within phase 15's bound, A and B launched E2E_LAYERS times each
+    and nothing else; one f32 training step at B=4 x N=4 at dropout 0 from
+    the JAX initialisation, kernels on vs off (losses within TRAIN_LOSS_REL,
+    gradients within E2E_GRAD_BOUND), C and D launched E2E_LAYERS times each
+    forward and backward; requests
+    served through ``Predictor`` in bf16 (buckets 2/4), A and B 2 x
+    E2E_LAYERS launches a serve call. Returns the launches."""
+    cfg = presets.e2e_w48(name)
+    model = random_model(cfg, g)  # f32 (compute_dtype) until phase_serve
+    images, pos, valid = person_inputs(cfg, 8, 4, E2E_COUNTS, g)
+    with torch.no_grad():
+        model.set_kernels(False)
+        off = model(images, pos, valid)
+        reset_launches()
+        model.set_kernels(True)
+        on = model(images, pos, valid)
+        torch.cuda.synchronize()
+    eval_counts = {k: v for k, v in launch_counts().items() if v}
+    check_heatmaps(on, off, valid, f"{name} A + B", eval_counts)
+    if eval_counts != dict.fromkeys(EVAL_KERNELS, E2E_LAYERS):
+        raise AssertionError(f"the {name} forward launched {eval_counts}, want {E2E_LAYERS} "
+                             f"of each of {EVAL_KERNELS}")
+    del on, off
+    log(f"  {name}: one f32 training step at dropout 0, kernels on vs off (B=4 x N=4, "
+        f"persons {E2E_TRAIN_COUNTS}):")
+    tcfg = e2e_train_cfg(name, "float32")
+    raw = synthetic_raw_batch(tcfg, E2E_TRAIN_COUNTS, np.random.RandomState(SEED))
+    tmodel = seeded_model(tcfg)
+    for encoder in tmodel.encoders():
+        encoder.dropout_rate = 0.0
+    (l_on, g_on, c_on), (l_off, g_off, c_off) = grads_on_off(tmodel, tcfg, raw, 4,
+                                                             tmodel.set_kernels)
+    train_counts = {k: c_on[k] for k in TRAIN_KERNELS}
+    if train_counts != dict.fromkeys(TRAIN_KERNELS, E2E_LAYERS) or any(
+            c_off[k] for k in TRAIN_KERNELS):
+        raise AssertionError(f"Kernels C and D with the kernels on {c_on}, off {c_off}")
+    loss_rel = max(abs(l_on[k] - l_off[k]) / abs(l_off[k]) for k in l_off)
+    diff = grad_diff(g_on, g_off)
+    log(f"  losses on {l_on} vs off {l_off} (worst rel {loss_rel:.3g}, bound {TRAIN_LOSS_REL:g}); "
+        f"{len(g_off)} gradients: " + describe_diff(diff) + f" (bounds {E2E_GRAD_BOUND}); "
+        f"launches {train_counts}")
+    if loss_rel > TRAIN_LOSS_REL or any(diff[k][0] > E2E_GRAD_BOUND[k] for k in diff):
+        raise AssertionError(f"f32 {name} training step with kernels strays from the plain path")
+    del tmodel, g_on, g_off
+    torch.cuda.empty_cache()
+    log(f"  {name} served through Predictor (bf16, batch 8, buckets 2/4):")
+    phase_serve(model, cfg, model.set_kernels, batch_images=8, n_buckets=(2, 4),
+                per_call=2 * E2E_LAYERS)
+    return model, cfg, {"eval_forward": eval_counts, "train_step": train_counts}
+
+
+def phase_e2e_timing(model, cfg, g, card):
+    """For information: the e2e eval protocol at B=8 x N=4 and its train step
+    at B=4 x N=4, bf16, kernels on and off in turns, with a profile of each
+    kernels-on step."""
+    step = eval_steps(model, cfg, model.set_kernels, 8, 4, g)
+    eval_timing(step, 8, 4, 3, card)
+    wall, busy, launches, top = profile_steps(step(True), 2)
+    log(f"  eval profile, kernels on: wall {wall:.2f} ms/step under the profiler, device busy "
+        f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
+        f"launches/step; top kernels (ms/step, launches/step):")
+    for name, t, c in top[:8]:
+        log(f"    {t:8.3f} {c:6.0f}  {name[:110]}")
+    tcfg = e2e_train_cfg(cfg["MODEL"]["NAME"], "bfloat16")
+    raw = synthetic_raw_batch(tcfg, E2E_TRAIN_COUNTS, np.random.RandomState(SEED))
+    step_timing(tcfg, raw, E2E_TRAIN_COUNTS, lambda m: m.set_kernels, card,
+                [(f"Kernel {'C' if k.startswith('mhsa') else 'D'} "
+                  f"{'forward' if k.endswith('fwd') else 'backward'}", parts)
+                 for k, parts in TRAIN_KERNEL_PARTS])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -4076,6 +4459,34 @@ def main() -> int:
     phase_tools(card)
     log(f"  phases 45-47: {time.perf_counter() - t_new:.1f} s; phases 2-47: "
         f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    t_new = time.perf_counter()
+    log(f"phase 48 one f32 W48 step over two gloo ranks on this card vs one process [{card}]:")
+    ddp = {"step_f32_gloo_2_ranks": phase_ddp_step(card)}
+    log("phase 49 one bf16 W48 step over nccl at world size 1 vs no process group:")
+    ddp["step_bf16_nccl_world_1"] = phase_ddp_nccl(card)
+    log("phase 50 validate over two gloo ranks on the COCO fixture vs one process:")
+    ddp["validate_2_ranks"] = phase_ddp_validate(g, card)
+    torch.cuda.empty_cache()
+    log("phase 51 Predictor.call_sharded over [cuda:0, cuda:0] vs the whole call:")
+    ddp["call_sharded"] = phase_call_sharded(g, card)
+    torch.cuda.empty_cache()
+    log(f"phase 52 the end-to-end models at full width (B=8 N=4 eval, B=4 N=4 training) "
+        f"[{card}]:")
+    e2e_launches = {}
+    for name in ("interformer_e2e", "interformer_e2e_new"):
+        model, e2e_cfg, e2e_launches[name] = phase_e2e(name, g, card)
+        if name == "interformer_e2e_new":
+            log(f"  {name} timing [{card}]:")
+            phase_e2e_timing(model, e2e_cfg, g, card)
+        del model
+        torch.cuda.empty_cache()
+    log("  Kernels A and B at the e2e eval batch's intra shape (P=32 persons of 3072 tokens):")
+    e2e_ab_times, e2e_ab_errs = phase_tph_kernels(card, attn=[(32, TPH_TOKENS)],
+                                                  rows=32 * TPH_TOKENS)
+    log(f"  phases 48-52: {time.perf_counter() - t_new:.1f} s; phases 2-52: "
+        f"{time.perf_counter() - t0:.1f} s")
 
     counts.update(train_counts)
     counts.update({k: hrt_train_counts[k] for k in ("window_attn_block_train_fwd",
@@ -4113,6 +4524,24 @@ def main() -> int:
         new_shapes.setdefault(name, {})["remat"] = {
             label: {mode: runs[mode][name] for mode in REMAT_MODES}
             for label, runs in remat_launches.items()}
+    # phases 48-51: each of A-D's launches on a rank of each data-parallel run
+    # (phase 51: in the sharded call, both replicas);
+    # phase 52: the e2e models' launches, and the fields at the e2e shapes (A
+    # and B at P=32 x 3072 measured there; C and D's training shapes, P=16 x
+    # 3072 intra, are phase 27's)
+    e2e_fields = {"masked_mhsa": {**e2e_ab_times[f"A P=32 S={TPH_TOKENS}"],
+                                  "max_abs_err": e2e_ab_errs[f"A P=32 S={TPH_TOKENS}"],
+                                  "shape": f"P=32 S={TPH_TOKENS} C=96"},
+                  "encoder_ffn": {**e2e_ab_times[f"B R={32 * TPH_TOKENS}"],
+                                  "max_abs_err": e2e_ab_errs[f"B R={32 * TPH_TOKENS}"],
+                                  "shape": f"R={32 * TPH_TOKENS} C=96 F=192"},
+                  **{name: {k: v for k, v in tph[name].items() if k != "launches"}
+                     for name in TRAIN_KERNELS}}
+    for name, fields in e2e_fields.items():
+        part = "eval_forward" if name in EVAL_KERNELS else "train_step"
+        new_shapes.setdefault(name, {})["e2e"] = {
+            **fields, "launches": {m: run[part][name] for m, run in e2e_launches.items()}}
+        new_shapes[name]["ddp"] = {"launches": {run: c.get(name, 0) for run, c in ddp.items()}}
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": counts[name],
                 "max_abs_err": errs[name], **times[name],

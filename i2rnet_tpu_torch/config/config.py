@@ -171,7 +171,9 @@ MODEL_KEYS = ("NAME", "NUM_JOINTS", "IMAGE_SIZE", "HEATMAP_SIZE", "TRANS_SIZE", 
               "DOMAIN_TRANS", "POS_EMBEDDING", "PE_ONLY_AT_BEGIN", "HRNET_RES_LAYER",
               "MULTI_POS_EMBEDDING_DIM",
               # weight sources and freezing (core/pretrained.py)
-              "SINGLE_MODEL", "PRETRAINED", "INIT_WEIGHTS", "BACKBONE_FIX", "END2END")
+              "SINGLE_MODEL", "PRETRAINED", "INIT_WEIGHTS", "BACKBONE_FIX", "END2END",
+              # the end-to-end models (models/interformer_e2e.py)
+              "ENCODER_SINGLE_LAYERS", "ENCODER_MUTI_LAYERS", "SINGLE_POS_EMBEDDING")
 TEST_KEYS = ("FLIP_TEST", "BLUR_KERNEL", "POST_PROCESS", "BATCH_SIZE_PER_GPU", "USE_GT_BBOX",
              "COCO_BBOX_FILE", "IMAGE_THRE", "IN_VIS_THRE", "OKS_THRE", "SOFT_NMS",
              "DETAIL_EVAL", "MODEL_FILE")

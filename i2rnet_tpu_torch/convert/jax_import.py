@@ -3,9 +3,10 @@
 ``params_from_jax(variables, model_name)`` takes the JAX model's
 ``{"params": ..., "batch_stats": ...}`` tree (numpy or jax arrays; read with
 ``np.asarray`` only) and returns a state dict that the port's model of
-``model_name`` (``interformer_pureMulti``, or ``interformer`` and
+``model_name`` (``interformer_pureMulti``; ``interformer`` and
 ``interformer_2stage``, the two-stage model with the HRFormer or the
-TransPose-H first stage) takes with ``load_state_dict(..., strict=True)``. It
+TransPose-H first stage; ``interformer_e2e`` and ``interformer_e2e_new``)
+takes with ``load_state_dict(..., strict=True)``. It
 is the exact inverse of ``i2rnet_tpu/convert/torch_import.py::
 convert_state_dict`` (``rewrite_interformer_2stage`` hands the main names,
 ``upsample_layer.deconv_layers.{i}`` and the multiplex block's
@@ -25,7 +26,9 @@ convert_state_dict`` (``rewrite_interformer_2stage`` hands the main names,
 
 The JAX package's converter has no rule for the ``upconv`` upsampling's
 names (the JAX ``upsample/...``); this function maps them to the port's
-``upsample_layer.{fuse,conv1,conv2}``.
+``upsample_layer.{fuse,conv1,conv2}``. Its e2e rule drops the name
+``single_pos_embedding`` (the reference's sine buffer), so a learnable e2e
+table (the JAX ``single_pos``) comes here but does not go back.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch
 
 from i2rnet_tpu_torch.models.hrformer import _rpe_index
 from i2rnet_tpu_torch.models.interformer import TWO_STAGE_NAMES
+from i2rnet_tpu_torch.models.interformer_e2e import E2E_BUILDERS
 
 _CB = {"conv": "0", "bn": "1"}
 _FUSE = {"dw": "0", "dwbn": "1", "pw": "2", "pwbn": "3"}
@@ -142,6 +146,14 @@ _RULES = {
     "transpose_h": (_TRANSPOSE_H + _TWO_STAGE,
                     [_qkv("singleformer/global_encoder", "singleformer.global_encoder"),
                      _qkv("multi_encoder", "multi_global_encoder")]),
+    # the end-to-end models: the trunk at the top, two encoders, the two-stage
+    # model's position embedding, the multiplex deconv, domain trans and heads
+    "interformer_e2e": (_trunk_rules("", "") + _encoder_rules(
+        "single_encoder", "single_global_encoder") + _TWO_STAGE + [
+        (r"reduce", lambda m: "reduce"),
+        (r"final_layer_(single|multi)", lambda m: f"final_layer_{m[1]}"),
+    ], [_qkv("single_encoder", "single_global_encoder"),
+        _qkv("multi_encoder", "multi_global_encoder")]),
 }
 _DECONV = re.compile(r"deconv\d*")
 _LEAF = {"scale": "weight", "kernel": "weight", "bias": "bias",
@@ -193,6 +205,8 @@ def params_from_jax(variables, model_name: str = "interformer_pureMulti") -> Dic
     params = variables.get("params", {})
     if model_name in TWO_STAGE_NAMES:
         model_name = "transpose_h" if "trunk" in params.get("singleformer", {}) else "hrformer"
+    elif model_name in E2E_BUILDERS:
+        model_name = "interformer_e2e"
     elif model_name != "interformer_pureMulti":
         raise KeyError(f"params_from_jax: model {model_name!r} is not ported")
     rules, packed = _RULES[model_name]
@@ -203,6 +217,9 @@ def params_from_jax(variables, model_name: str = "interformer_pureMulti") -> Dic
         module, leaf = path.rsplit("/", 1)
         if path == "singleformer/pos_embedding":  # TransPose-H's learnable embedding
             sd["singleformer.pos_embedding"] = v
+            continue
+        if path == "single_pos":  # the end-to-end model's learnable embedding
+            sd["single_pos_embedding"] = v
             continue
         m, owner = _packed_qkv(packed, module)
         if m:

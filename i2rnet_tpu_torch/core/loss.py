@@ -21,14 +21,17 @@ def _rows(output, target, target_weight):
     return pred, gt, lead, hw
 
 
-def joints_mse_loss(output, target, target_weight=None, person_valid=None):
+def joints_mse_loss(output, target, target_weight=None, person_valid=None, count=None):
     """``mean_j 0.5 * mean_{valid persons, pixels} (pred_j w - gt_j w)^2``;
-    output, target [..., K, H, W], target_weight [..., K], person_valid [...]."""
+    output, target [..., K, H, W], target_weight [..., K], person_valid [...].
+    ``count``, where given, is the number of valid persons to divide by in
+    place of ``person_valid``'s (the global batch's under data parallelism:
+    each rank's loss is then its part of the global loss)."""
     pred, gt, lead, hw = _rows(output, target, target_weight)
     sq = (pred - gt) ** 2
     if person_valid is not None:
         sq = sq * person_valid[..., None, None].to(sq.dtype)
-        n_rows = person_valid.sum().to(sq.dtype)
+        n_rows = (person_valid.sum() if count is None else count).to(sq.dtype)
     else:
         n_rows = torch.tensor(float(lead.numel()), dtype=sq.dtype, device=sq.device)
     lead_axes = tuple(range(len(lead)))
@@ -36,13 +39,16 @@ def joints_mse_loss(output, target, target_weight=None, person_valid=None):
     return 0.5 * per_joint.mean()
 
 
-def joints_ohkm_mse_loss(output, target, target_weight=None, person_valid=None, topk: int = 8):
+def joints_ohkm_mse_loss(output, target, target_weight=None, person_valid=None, topk: int = 8,
+                         count=None):
     """Online hard-keypoint mining: per person the mean of its ``topk`` largest
-    per-joint MSEs, averaged over the valid persons."""
+    per-joint MSEs, averaged over the valid persons (``count`` of them where
+    given, as :func:`joints_mse_loss`)."""
     pred, gt, _, _ = _rows(output, target, target_weight)
     per_joint = 0.5 * ((pred - gt) ** 2).mean(-1)
     per_sample = torch.topk(per_joint, topk, dim=-1).values.sum(-1) / topk
     if person_valid is not None:
         m = person_valid.to(per_sample.dtype)
-        return (per_sample * m).sum() / torch.clamp(m.sum(), min=1)
+        n = m.sum() if count is None else count.to(per_sample.dtype)
+        return (per_sample * m).sum() / torch.clamp(n, min=1)
     return per_sample.mean()

@@ -1,7 +1,7 @@
 """The training loop: epochs, steps, logging, checkpoints, AUTO_RESUME.
 
 Port of ``i2rnet_tpu/core/trainer.py::train_loop`` (reference
-``tools/ddp_train.py:101-263``) on one device. The model of ``MODEL.NAME``
+``tools/ddp_train.py:101-263``), on one device a process. The model of ``MODEL.NAME``
 (``build_model``: the vanilla or the HRFormer two-stage I²R-Net) is built
 from the config and initialised as the JAX package initialises it
 (``init_weights``, seed ``SEED``), then takes its pretrained weights as the
@@ -26,7 +26,7 @@ dataset's place where given.
 With a validation dataset, every ``validate_every``-th epoch ends with
 ``core/validate.py::validate`` (the dataset's AP), whose AP is the
 checkpoint's ``perf`` and picks ``model_best.pth``; without one, ``perf``
-is -1. One device: ``TRAIN.BATCH_SIZE_PER_GPU`` images a step.
+is -1. Each process (rank) takes ``TRAIN.BATCH_SIZE_PER_GPU`` images a step.
 
 The step recomputes activations as ``DEVICE.REMAT`` says (``core/train.py``).
 With ``DEBUG.DEBUG`` every logged step (each ``PRINT_FREQ``-th) dumps its
@@ -34,6 +34,24 @@ batch as images (``utils/vis.py::save_debug_images``: the crops with their GT
 joints, GT and predicted heatmaps) under ``<output_dir>/debug/
 train_<epoch>_<step>``, as the JAX trainer does
 (``i2rnet_tpu/core/trainer.py:168-185``).
+
+Across processes (a process group of more than one rank,
+``parallel/dist.py``; the JAX trainer's mesh, ``i2rnet_tpu/core/trainer.py:
+43-47,113,127-133``): the global batch is ``TRAIN.BATCH_SIZE_PER_GPU`` times
+the world size, and each rank takes ``BATCH_SIZE_PER_GPU`` images a step,
+its interleaved shard of the epoch's order (``train_batches(...,
+shard_index=rank, num_shards=world)``) with the JAX trainer's per-batch
+seeds. The shards' batch counts can differ (an image holds a variable
+number of items under ``main_target`` and ``window``, and the last partial
+batch is padded on one shard and not another), so every rank takes the
+fewest batches of any shard that epoch, and no rank waits alone in a
+collective. Rank 0's initial (or resumed) parameters and buffers are broadcast to
+every rank before the first step, and checked equal at each epoch's end. The step sums
+the gradients over the ranks (``core/train.py``); validation runs across the
+ranks (``core/validate.py``); only rank 0 writes checkpoints, the final
+state and the debug dumps, and every rank waits for it at a barrier after
+each. ``AUTO_RESUME`` loads on every rank. With ``batches``, each rank's
+callable yields that rank's rows, the same number of batches on every rank.
 """
 
 from __future__ import annotations
@@ -42,7 +60,7 @@ import logging
 import math
 import os
 import time
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +73,7 @@ from i2rnet_tpu_torch.data.prefetch import prefetch_batches
 from i2rnet_tpu_torch.models.interformer import build_model
 from i2rnet_tpu_torch.models.pure_multi import init_weights
 from i2rnet_tpu_torch.ops.preprocess import device_preprocess
+from i2rnet_tpu_torch.parallel import dist
 from i2rnet_tpu_torch.registry import get_dataset_class
 from i2rnet_tpu_torch.utils.checkpoint import (latest_checkpoint, load_checkpoint,
                                                save_checkpoint, save_final_state)
@@ -101,12 +120,23 @@ def joints_weight_for(cfg: Dict):
     return weights if len(weights) == cfg["MODEL"]["NUM_JOINTS"] else None
 
 
-def epoch_batches(cfg: Dict, dataset, epoch: int, batch_images: int) -> Iterable[Dict]:
-    """One epoch's raw training batches from ``dataset``, composed as the JAX
-    trainer composes them (``i2rnet_tpu/core/trainer.py:114-130``): the order
-    and patch choices of ``train_batches`` from ``RandomState(SEED + 1000 +
-    epoch)``, each batch's augmentation from ``RandomState((SEED + 1) *
-    100003 + epoch * 10007 + index)``, assembled by ``WORKERS`` threads."""
+def epoch_plan(cfg: Dict, dataset, epoch: int, batch_images: int, shard_index: int = 0,
+               num_shards: int = 1) -> List[Tuple]:
+    """One epoch's ``(items, n_bucket)`` batches of ``train_batches``, in the
+    order and with the patch choices that ``RandomState(SEED + 1000 +
+    epoch)`` gives, as the JAX trainer draws them
+    (``i2rnet_tpu/core/trainer.py:114-130``). ``batch_images`` is this
+    process's share of the global batch and ``shard_index`` of
+    ``num_shards`` its shard of the order (a rank's)."""
+    return list(dataset.train_batches(batch_images,
+                                      np.random.RandomState(cfg["SEED"] + 1000 + epoch),
+                                      shard_index=shard_index, num_shards=num_shards))
+
+
+def assemble_batches(cfg: Dict, dataset, epoch: int, plan: Iterable[Tuple]) -> Iterable[Dict]:
+    """The raw batches of ``plan`` (:func:`epoch_plan`), each augmented from
+    ``RandomState((SEED + 1) * 100003 + epoch * 10007 + index)`` as the JAX
+    trainer does, assembled ahead by ``WORKERS`` threads."""
     seed = cfg["SEED"]
 
     def make_batch(idx, items, nb):
@@ -114,9 +144,16 @@ def epoch_batches(cfg: Dict, dataset, epoch: int, batch_images: int) -> Iterable
         raw, _ = dataset.make_raw_batch(items, nb, rng)
         return raw
 
-    return prefetch_batches(dataset.train_batches(batch_images,
-                                                  np.random.RandomState(seed + 1000 + epoch)),
-                            make_batch, num_workers=max(0, cfg["WORKERS"]))
+    return prefetch_batches(iter(plan), make_batch, num_workers=max(0, cfg["WORKERS"]))
+
+
+def epoch_batches(cfg: Dict, dataset, epoch: int, batch_images: int, shard_index: int = 0,
+                  num_shards: int = 1) -> Iterable[Dict]:
+    """One epoch's raw training batches from ``dataset``, composed as the JAX
+    trainer composes them: :func:`epoch_plan`'s batches, assembled by
+    :func:`assemble_batches`."""
+    return assemble_batches(cfg, dataset, epoch,
+                            epoch_plan(cfg, dataset, epoch, batch_images, shard_index, num_shards))
 
 
 def _record(metrics, loss_m, acc_m, epoch, i):
@@ -137,8 +174,9 @@ def train_loop(cfg: Dict, output_dir: str,
 
     Without ``batches`` the batches come from the dataset of ``cfg``
     (``DATASET.DATASET``, ``ROOT``, ``TRAIN_SET``; :func:`epoch_batches`),
-    ``max(1, len(dataset) // TRAIN.BATCH_SIZE_PER_GPU)`` steps an epoch
-    (at most ``max_steps_per_epoch``), and ``TEST_SET`` is validated unless
+    the schedule counting ``max(1, len(dataset) // global batch)`` steps an
+    epoch; each epoch runs the fewest batches of any rank's shard (at most
+    ``max_steps_per_epoch``), and ``TEST_SET`` is validated unless
     ``val_dataset`` names another. ``batches(epoch)``, where given, yields the
     epoch's raw host batches instead (numpy dicts in ``device_preprocess``'s
     contract: images, crop_affines, boxes, mask_affines, joints_hm,
@@ -161,18 +199,28 @@ def train_loop(cfg: Dict, output_dir: str,
         train_ds = ds_cls(cfg, d["ROOT"], d["TRAIN_SET"], is_train=True)
         if val_dataset is None:
             val_dataset = ds_cls(cfg, d["ROOT"], d["TEST_SET"], is_train=False)
-        batch_images = cfg["TRAIN"]["BATCH_SIZE_PER_GPU"]
-        steps_per_epoch = max(1, len(train_ds) // batch_images)
+        batch_images = cfg["TRAIN"]["BATCH_SIZE_PER_GPU"]  # this rank's share
+        world = dist.world_size()
+        steps_per_epoch = max(1, len(train_ds) // (batch_images * world))
         if max_steps_per_epoch:
             steps_per_epoch = min(steps_per_epoch, max_steps_per_epoch)
+        if world > 1:
+            logger.info("data parallel: %d ranks, global batch %d images", world,
+                        batch_images * world)
 
-        def batches(epoch):
-            return epoch_batches(cfg, train_ds, epoch, batch_images)
+        def epoch_data(epoch) -> Tuple[Optional[int], Iterable[Dict]]:
+            plan = epoch_plan(cfg, train_ds, epoch, batch_images, dist.rank(), world)
+            # every rank takes the fewest batches of any shard
+            return min(dist.gather_host(len(plan))), assemble_batches(cfg, train_ds, epoch, plan)
 
         def to_device(raw):
             return train_ds.device_batch(raw, device)
     else:
         steps_per_epoch = max_steps_per_epoch or len(batches(begin_epoch))
+
+        def epoch_data(epoch) -> Tuple[Optional[int], Iterable[Dict]]:
+            return None, batches(epoch)
+
         prep = dict(image_size=tuple(m["IMAGE_SIZE"]), heatmap_size=tuple(m["HEATMAP_SIZE"]),
                     sigma=m["SIGMA"], joints_weight=joints_weight_for(cfg))
 
@@ -202,6 +250,9 @@ def train_loop(cfg: Dict, output_dir: str,
             begin_epoch = payload["epoch"] + 1
             best_perf = payload["perf"]
             logger.info("=> auto-resumed from %s (epoch %d)", ckpt, begin_epoch)
+    # every rank starts from rank 0's state (the same seeded init and resume,
+    # made certain)
+    dist.broadcast_module(model)
 
     loss_cfg = cfg["LOSS"]
     debug = bool(cfg["DEBUG"]["DEBUG"])
@@ -219,9 +270,13 @@ def train_loop(cfg: Dict, output_dir: str,
         batch_t, data_t = AverageMeter(), AverageMeter()
         pending = []
         t0 = time.time()
-        epoch_iter = iter(batches(epoch))
+        n_steps, epoch_iter = epoch_data(epoch)
+        if max_steps_per_epoch:
+            n_steps = max_steps_per_epoch if n_steps is None else min(n_steps,
+                                                                      max_steps_per_epoch)
+        epoch_iter = iter(epoch_iter)
         for i, raw in enumerate(epoch_iter):
-            if max_steps_per_epoch and i >= max_steps_per_epoch:
+            if n_steps is not None and i >= n_steps:
                 break
             data_t.update(time.time() - t0)
             batch = to_device(raw)
@@ -243,7 +298,7 @@ def train_loop(cfg: Dict, output_dir: str,
                             "acc %.3f (%.3f) lr %.2e", epoch, i, steps_per_epoch, batch_t.avg,
                             data_t.avg, loss_m.val, loss_m.avg, acc_m.val, acc_m.avg,
                             schedule(state.step))
-                if debug:
+                if debug and dist.is_main():
                     debug_dir = os.path.join(output_dir, "debug")
                     os.makedirs(debug_dir, exist_ok=True)
                     save_debug_images(cfg, batch, debug_meta(raw, m["IMAGE_SIZE"],
@@ -264,10 +319,16 @@ def train_loop(cfg: Dict, output_dir: str,
                         ", ".join(f"{k} {v:.4f}" for k, v in name_value.items()))
         is_best = perf > best_perf
         best_perf = max(best_perf, perf)
-        save_checkpoint(output_dir, epoch, state, perf, is_best, model_name=m["NAME"],
-                        train_global_steps=global_step)
+        if dist.active() and not dist.same_on_every_rank(list(model.state_dict().values())):
+            raise RuntimeError(f"the ranks' models differ after epoch {epoch}")
+        if dist.is_main():
+            save_checkpoint(output_dir, epoch, state, perf, is_best, model_name=m["NAME"],
+                            train_global_steps=global_step)
+        dist.barrier()
         logger.info("=> epoch %d done, loss %.5f, perf %.4f (best %.4f)", epoch, loss_m.avg,
                     perf, best_perf)
 
-    save_final_state(output_dir, state)
+    if dist.is_main():
+        save_final_state(output_dir, state)
+    dist.barrier()
     return state

@@ -17,8 +17,16 @@ decodes them, and every ``PRINT_FREQ``-th batch is dumped as images
 predicted heatmaps) under ``<output_dir>/debug/val_<batch>``, as the JAX
 ``validate`` does (``i2rnet_tpu/core/validate.py:55-60,160-174``).
 
-Not ported: validation over a mesh or across processes (ROADMAP queue 1,
-item 6); each raises.
+Across processes (a process group of more than one rank,
+``parallel/dist.py``; the JAX ``validate`` over a mesh, ``i2rnet_tpu/core/
+validate.py:42-53,127-152``): the global eval batch is
+``TEST.BATCH_SIZE_PER_GPU`` times the world size, every rank walks the same
+global batches and assembles and runs its contiguous block of their rows,
+and each batch's keypoints, boxes and image ids are gathered in global order,
+so every rank scores the whole result set, into its own ``proc<rank>``
+directory, and returns the same ``name_value`` and ``perf``. The debug
+dumps are written in a world of one only, as the JAX ``validate`` writes
+them.
 """
 
 from __future__ import annotations
@@ -33,20 +41,11 @@ import torch
 
 from i2rnet_tpu_torch.data.prefetch import prefetch_batches
 from i2rnet_tpu_torch.ops.decode import get_final_preds
+from i2rnet_tpu_torch.parallel import dist
 from i2rnet_tpu_torch.serving import heatmap_program, make_eval_fn
 from i2rnet_tpu_torch.utils.vis import save_debug_images
 
 logger = logging.getLogger(__name__)
-
-
-def _refuse_unported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("validate over a device mesh is not ported: ROADMAP queue 1, "
-                                  "item 6")
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError("validate across processes is not ported: ROADMAP queue 1, "
-                                  "item 6")
 
 
 def debug_meta(raw, image_size, heatmap_size) -> Dict:
@@ -62,7 +61,7 @@ def validate(cfg: Dict, dataset, model, output_dir: str,
              eval_step_fn: Optional[Callable] = None, main_target: Optional[bool] = None,
              mesh=None, device=None, max_batches: Optional[int] = None):
     """Run the full evaluation in batches of ``TEST.BATCH_SIZE_PER_GPU``
-    images; returns ``(name_value, perf)``.
+    images a rank (module docstring); returns ``(name_value, perf)``.
 
     ``eval_step_fn(model, batch) -> heatmaps [B, N, K, h, w]`` may be
     injected (tests use an oracle that returns the GT heatmaps, to check the
@@ -81,7 +80,10 @@ def validate(cfg: Dict, dataset, model, output_dir: str,
     ``max_batches`` stops after that many batches and scores what they gave
     (``tools/test.py --max-batches``).
     """
-    _refuse_unported(mesh)
+    if mesh is not None:
+        raise NotImplementedError("validate over a device mesh is not ported: the port runs "
+                                  "one device a process, data-parallel across processes "
+                                  "(parallel/dist.py; ROADMAP queue 1, item 6)")
     if main_target is None:
         main_target = cfg["DATASET"]["PATCH_MODE"] == "main_target"
     if model is None:
@@ -92,12 +94,15 @@ def validate(cfg: Dict, dataset, model, output_dir: str,
         if device != on:
             raise ValueError(f"the model is on {on}, validate was asked for {device}")
     test = cfg["TEST"]
-    batch_images = test["BATCH_SIZE_PER_GPU"]
+    rows = test["BATCH_SIZE_PER_GPU"]  # this rank's rows of each global batch
+    world, rank = dist.world_size(), dist.rank()
+    batch_images = rows * world
+    output_dir = dist.proc_dir(output_dir)
     heatmap_size = (dataset.heatmap_width, dataset.heatmap_height)
     # the fused program: forward, flip forward, DARK decode. TEST.SHIFT_HEATMAP
     # is not applied: the reference's validate() never applies the HRNet 1px
     # shift (lib/core/function.py:142-162)
-    debug = bool(cfg["DEBUG"]["DEBUG"])
+    debug = bool(cfg["DEBUG"]["DEBUG"]) and world == 1
     if eval_step_fn is None and debug:
         # the dumps need the full heatmaps on the host: the heatmaps-out step
         # (reference function.py:240-241), decoded as the fused step decodes
@@ -135,24 +140,26 @@ def validate(cfg: Dict, dataset, model, output_dir: str,
             valid = target_only
         sel = np.nonzero(valid)[0]
         preds = np.concatenate([coords, maxvals], axis=2)  # [b*n, K, 3]
-        all_preds.append(preds[sel])
-        all_boxes.append(np.stack([
-            centers[sel, 0], centers[sel, 1],
-            scales[sel, 0], scales[sel, 1],
-            area[sel], scores[sel],
-        ], axis=1))
-        all_image_ids.extend(image_ids[sel].tolist())
-        persons_done += len(sel)
+        boxes = np.stack([centers[sel, 0], centers[sel, 1], scales[sel, 0], scales[sel, 1],
+                          area[sel], scores[sel]], axis=1)
+        # every rank's part of the global batch, in rank (row) order
+        for p, bx, ids in dist.gather_host((preds[sel], boxes, image_ids[sel])):
+            all_preds.append(p)
+            all_boxes.append(bx)
+            all_image_ids.extend(ids.tolist())
+            persons_done += len(ids)
 
     def assemble(_idx, items, n_bucket):
         # pad a trailing partial batch so the (B, N) shape stays the same;
-        # padded rows are marked invalid so they never reach the evaluator
+        # padded rows are marked invalid so they never reach the evaluator;
+        # this rank takes its contiguous block of the global batch's rows
         n_real = len(items)
         if n_real < batch_images:
             items = list(items) + [items[-1]] * (batch_images - n_real)
-        raw, meta = dataset.make_raw_batch(items, n_bucket)
-        if n_real < batch_images:
-            raw["person_valid"][n_real:] = False
+        lo = rank * rows
+        raw, meta = dataset.make_raw_batch(items[lo:lo + rows], n_bucket)
+        if n_real < lo + rows:
+            raw["person_valid"][max(n_real - lo, 0):] = False
         return raw, meta
 
     workers = max(0, cfg.get("WORKERS", 0))

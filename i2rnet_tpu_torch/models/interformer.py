@@ -311,11 +311,17 @@ def build_interformer(cfg: Dict, use_kernels: Optional[bool] = None,
 
 def build_model(cfg: Dict, use_kernels: Optional[bool] = None, device="cuda"):
     """The ported model of ``MODEL.NAME`` (``interformer_pureMulti``,
-    ``interformer``, ``interformer_2stage`` or the standalone ``transpose_h``)
+    ``interformer``, ``interformer_2stage``, the end-to-end
+    ``interformer_e2e`` and ``interformer_e2e_new``, or the standalone
+    ``transpose_h``)
     on ``device`` (the card unless asked), in eval mode."""
+    from i2rnet_tpu_torch.models.interformer_e2e import E2E_BUILDERS
+
     name = cfg["MODEL"]["NAME"]
     if name == "interformer_pureMulti":
         return build_pure_multi(cfg, use_kernels, device)
+    if name in E2E_BUILDERS:
+        return E2E_BUILDERS[name](cfg, use_kernels, device)
     if name in TWO_STAGE_NAMES:
         return build_interformer(cfg, use_kernels, device)
     if name in ("transpose_h", "transpose_h_old"):

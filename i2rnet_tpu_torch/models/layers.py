@@ -20,6 +20,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint as torch_checkpoint
 from torch import nn
 
+from i2rnet_tpu_torch.parallel import dist
+
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` computing in ``compute_dtype``, else the input's dtype
@@ -98,6 +100,13 @@ class MaskedBatchNorm(nn.BatchNorm2d):
     multiply-add in the activation dtype with the [C]-sized math in f32, and
     in training the gradients flow through the batch statistics.
 
+    Under a process group of more than one rank (``parallel/dist.py``) it
+    is a masked sync-BN: the statistics and the count are those of the valid
+    persons of the global batch, every rank's rows, with the gradients
+    through the all-reduces (the JAX BN computes the same sums over a batch
+    sharded on a mesh); the running statistics then move alike on every
+    rank. Every rank must run the same BNs in the same order.
+
     The model that owns the BNs sets ``person_mask`` on each of them before a
     training forward and clears it after, so the state-dict names stay the
     reference's (``PureMultiInterFormer.forward``). A forward that
@@ -120,7 +129,9 @@ class MaskedBatchNorm(nn.BatchNorm2d):
     def _batch_stats(self, x):
         xf = x.float()
         h, w = x.shape[2], x.shape[3]
-        if self.person_mask is None:
+        if dist.active():
+            mean, var, cnt = self._global_stats(xf)
+        elif self.person_mask is None:
             cnt = torch.tensor(float(x.shape[0] * h * w), device=x.device)
             mean = xf.mean((0, 2, 3))
             var = ((xf - mean[:, None, None]) ** 2).mean((0, 2, 3))
@@ -137,6 +148,27 @@ class MaskedBatchNorm(nn.BatchNorm2d):
             self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
             self.num_batches_tracked.add_(1)
         return mean, var
+
+    def _global_stats(self, xf):
+        """The two-pass statistics over the valid persons of every rank's
+        rows: ``sum x m`` and the count ``sum m H W`` in one all-reduce, then
+        ``sum (x - mean)^2 m`` in another; gradients pass through both
+        (``parallel/dist.py::all_reduce_sum``). A rank without a valid person
+        joins both with zeros."""
+        h, w = xf.shape[2], xf.shape[3]
+        if self.person_mask is None:
+            m = None
+            local = xf.new_tensor(float(xf.shape[0] * h * w))
+        else:
+            m = self.person_mask.to(xf.device, torch.float32)[:, None, None, None]
+            local = m.sum() * (h * w)
+        s1 = (xf if m is None else xf * m).sum((0, 2, 3))
+        both = dist.all_reduce_sum(torch.cat([s1, local.reshape(1)]))
+        cnt = torch.clamp(both[-1].detach(), min=1.0)
+        mean = both[:-1] / cnt
+        sq = (xf - mean[:, None, None]) ** 2
+        var = dist.all_reduce_sum((sq if m is None else sq * m).sum((0, 2, 3))) / cnt
+        return mean, var, cnt
 
 
 @contextlib.contextmanager

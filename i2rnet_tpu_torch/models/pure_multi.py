@@ -111,13 +111,14 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     encoder's q, k, v as three [C, C] matrices, as the JAX ``q_proj``/
     ``k_proj``/``v_proj``, and the HRFormer's window-attention projections);
     the HRFormer's relative-position tables truncated normal, std 0.02 cut
-    at 2 std (``rpe_table``); TransPose-H's learnable position embedding
-    N(0, 1); BatchNorm and LayerNorm scale 1, bias 0; running statistics 0
+    at 2 std (``rpe_table``); TransPose-H's and the end-to-end model's
+    learnable position embeddings N(0, 1); BatchNorm and LayerNorm scale 1, bias 0; running statistics 0
     and 1."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(getattr(m, "pos_embedding", None), nn.Parameter):
-                m.pos_embedding.normal_(0.0, 1.0, generator=generator)
+            for name in ("pos_embedding", "single_pos_embedding"):  # learnable tables
+                if isinstance(getattr(m, name, None), nn.Parameter):
+                    getattr(m, name).normal_(0.0, 1.0, generator=generator)
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 conv_init_(m.weight, generator)
                 if m.bias is not None:

@@ -16,6 +16,13 @@ from i2rnet_tpu_torch.ops.decode import get_max_preds
 def pck_accuracy(output, target, person_valid=None, thr: float = 0.5):
     """output, target [..., K, H, W]; person_valid [...] bool -> (mean accuracy,
     per-joint accuracy [K] (-1 where no joint has data), joints with data)."""
+    return pck_from_counts(*pck_counts(output, target, person_valid, thr))
+
+
+def pck_counts(output, target, person_valid=None, thr: float = 0.5):
+    """Per joint, (hits [K], joints with data [K]): the sums that
+    :func:`pck_from_counts` turns into the accuracy, which data-parallel
+    training sums over the ranks first."""
     h, w = output.shape[-2], output.shape[-1]
     pred, _ = get_max_preds(output)
     gt, _ = get_max_preds(target)
@@ -27,6 +34,11 @@ def pck_accuracy(output, target, person_valid=None, thr: float = 0.5):
     lead = tuple(range(dists.dim() - 1))
     cnt = has_data.sum(lead)
     hit = ((dists < thr) & has_data).sum(lead)
+    return hit, cnt
+
+
+def pck_from_counts(hit, cnt):
+    """(mean accuracy, per-joint accuracy, joints with data) from the counts."""
     per_joint = torch.where(cnt > 0, hit / cnt.clamp_min(1), -1.0)
     joint_has = per_joint >= 0
     n_joints = joint_has.sum()

@@ -4,7 +4,8 @@ Mirrors ``i2rnet_tpu/presets.py:70,104,141,190`` and the recipes
 ``experiments/coco/interformer_coco_w48_pure_en6.yaml`` (and its CrowdPose
 and OCHuman variants under ``experiments/crowdpose`` and
 ``experiments/OCHuman``), ``interformer_coco_hrt_192_p2_b12.yaml`` and
-``interformer_coco_tph_192_p4_b4.yaml``, keeping only the keys the ported
+``interformer_coco_tph_192_p4_b4.yaml`` (``e2e_w48``: the end-to-end model on
+the W48 recipe), keeping only the keys the ported
 paths read, under the JAX config's section and key names. The one renamed
 section is ``DEVICE``: ``COMPUTE_DTYPE``, ``USE_KERNELS`` (the JAX
 ``TPU.COMPUTE_DTYPE`` and ``TPU.USE_PALLAS_ATTENTION``, the master switch of
@@ -170,6 +171,21 @@ def w48_pure_en6(dataset: str = "coco") -> Dict:
         "DEVICE": _device("bfloat16", True),
         **_training(batch=r["batch"], end_epoch=240, lr=r["lr"], lr_end=r["lr_end"], wd=0.1),
     }
+
+
+def e2e_w48(name: str = "interformer_e2e") -> Dict:
+    """The end-to-end I²R-Net (``interformer_e2e``, or ``interformer_e2e_new``
+    with a final conv for each branch) at full width on the COCO W48 recipe:
+    its HRNet-W48-S trunk, data, test and training sections, with the
+    model's reference defaults (``config/config.py:44-50``): branch 0 (64x48
+    at 256x192) reduced to DIM_MODEL 96, a 4-layer intra encoder over each
+    person's 3072 tokens with the sine table, a 2-layer inter encoder over
+    the 16x12-pooled tokens of up to MAX_PATCH 7 persons with the ``conv``
+    box-mask embedding, FFN 192, 1 head, no DOMAIN_TRANS."""
+    cfg = w48_pure_en6()
+    cfg["MODEL"].update(NAME=name, ENCODER_SINGLE_LAYERS=4, ENCODER_MUTI_LAYERS=2,
+                        SINGLE_POS_EMBEDDING="sine", HRNET_RES_LAYER=0, DOMAIN_TRANS=False)
+    return cfg
 
 
 def _hrt_extra(filters: int) -> Dict:

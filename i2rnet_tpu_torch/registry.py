@@ -14,12 +14,13 @@ from typing import Callable, Dict, Type
 
 def _models() -> Dict[str, Callable]:
     from i2rnet_tpu_torch.models.interformer import build_interformer, build_transpose_h
+    from i2rnet_tpu_torch.models.interformer_e2e import E2E_BUILDERS
     from i2rnet_tpu_torch.models.pure_multi import build_pure_multi
 
     # "transpose_h_old" is the JAX package's legacy alias of "transpose_h"
     return {"interformer_pureMulti": build_pure_multi, "interformer": build_interformer,
             "interformer_2stage": build_interformer, "transpose_h": build_transpose_h,
-            "transpose_h_old": build_transpose_h}
+            "transpose_h_old": build_transpose_h, **E2E_BUILDERS}
 
 
 def get_model_builder(name: str) -> Callable:

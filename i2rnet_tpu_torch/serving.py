@@ -24,13 +24,16 @@ header keeps the JAX artifact's fields (model, dataset, joints,
 ``heatmap_size``, ``flip_test``) and adds ``torch_version``, ``device`` and
 ``kernels`` (the ``i2r::`` ops the programs call). Its ``format_version``
 is this package's own (:data:`FORMAT_VERSION`): each package's reader
-refuses the other's file. Data-parallel serving over several devices
-(the JAX ``Predictor.call_sharded``) is not ported.
+refuses the other's file. :meth:`Predictor.call_sharded` serves one static
+batch data-parallel over a list of devices (the JAX ``call_sharded``): each
+device runs its rows on a replica of the model, and the results come back
+in row order.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import queue
@@ -317,6 +320,9 @@ class Predictor:
                  n_buckets: Sequence[int] = (2, 4, 7), raw_hw: Tuple[int, int] = (480, 640)):
         self._setup(_header(cfg, batch_images, n_buckets, raw_hw),
                     make_serve_fn(cfg, model, flip_pairs), next(model.parameters()).device)
+        # call_sharded's replica on another device: a copy of the model there
+        self._replicate = lambda dev: make_serve_fn(cfg, copy.deepcopy(model).to(dev),
+                                                    flip_pairs)
 
     @classmethod
     def from_programs(cls, header: Dict, programs: Sequence, device) -> "Predictor":
@@ -332,7 +338,8 @@ class Predictor:
     def _setup(self, header: Dict, serve, device) -> None:
         self.header = header
         self.serve = serve
-        self.device = device
+        self.device = torch.empty(0, device=device).device
+        self._replicas = {self.device: serve}
         self.image_size = tuple(header["image_size"])
         self.num_joints = int(header["num_joints"])
         self.batch_images = int(header["batch_images"])
@@ -354,6 +361,34 @@ class Predictor:
         args = (images_u8, crop_affines, boxes, mask_affines, person_valid, centers, scales)
         return self._call([torch.as_tensor(a).to(self.device) for a in args])
 
+    def _replica(self, device: torch.device):
+        if device not in self._replicas:
+            if not hasattr(self, "_replicate"):
+                raise ValueError(f"an artifact's programs serve on {self.device}, not {device}")
+            self._replicas[device] = self._replicate(device)
+        return self._replicas[device]
+
+    def call_sharded(self, devices, *args):
+        """Data-parallel serving: :meth:`call_raw`'s call with the batch rows
+        of every argument split evenly over ``devices`` (images ``[B, ...]``
+        and the person arrays ``[B, N, ...]`` by image, centers and scales
+        ``[B*N, 2]`` by the same images' persons). Each device runs its rows
+        on its replica (the model copied there once; the predictor's own
+        device serves with its own model), and the results are concatenated
+        in row order on the first device. A device may be named more than
+        once. ``batch_images`` must divide by the number of devices, as in
+        the JAX ``Predictor.call_sharded``."""
+        devices = [torch.empty(0, device=d).device for d in devices]
+        if not devices or self.batch_images % len(devices) != 0:
+            raise ValueError(f"batch_images={self.batch_images} not divisible by "
+                             f"{len(devices)} devices")
+        parts = []
+        with torch.inference_mode():
+            for i, dev in enumerate(devices):
+                rows = [torch.as_tensor(a).chunk(len(devices))[i].to(dev) for a in args]
+                parts.append(self._replica(dev)(*rows))
+        return tuple(torch.cat([p[j].to(devices[0]) for p in parts]) for j in range(2))
+
     def warmup(self) -> None:
         """Run every bucket once with no person, so the first request does not
         pay the kernels' build and the convolutions' algorithm choice."""
@@ -362,8 +397,10 @@ class Predictor:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _run(self, n: int, chunk) -> np.ndarray:
-        """One static (B, n) call over ``chunk`` rows -> [B, n, K, 3] keypoints."""
+    def pack(self, n: int, chunk) -> List[torch.Tensor]:
+        """The seven inputs on the device of one static (B, n) call over
+        ``chunk``: rows ``(image index, first box, image, boxes)`` of at most
+        ``n`` boxes each, B rows at most, the rest padding."""
         b, (rh, rw) = self.batch_images, self.raw_hw
         imgs = np.zeros((b, rh, rw, 3), np.uint8)
         # padded slots get IDENTITY affines: a zero affine's inverse is nan
@@ -391,9 +428,13 @@ class Predictor:
             valid[r, :m] = True
             cent[r * n:r * n + m] = c
             scal[r * n:r * n + m] = s
-        args = [torch.from_numpy(a).to(self.device, non_blocking=True)
+        return [torch.from_numpy(a).to(self.device, non_blocking=True)
                 for a in (imgs, affs, rects, mask_affs, valid, cent, scal)]
-        coords, maxvals = self._call(args)
+
+    def _run(self, n: int, chunk) -> np.ndarray:
+        """One static (B, n) call over ``chunk`` rows -> [B, n, K, 3] keypoints."""
+        b = self.batch_images
+        coords, maxvals = self._call(self.pack(n, chunk))
         kp = torch.cat([coords, maxvals], dim=-1).cpu().numpy()
         return kp.reshape(b, n, self.num_joints, 3)
 

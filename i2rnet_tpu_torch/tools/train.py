@@ -1,17 +1,23 @@
 """Train a recipe: ``python3 -m i2rnet_tpu_torch.tools.train --cfg <yaml> [opts ...]``.
 
-Port of ``tools/train.py`` of the JAX package on one device: the recipe's
-YAML through ``config.load_config`` (``--dataDir``, ``--modelDir``,
-``--logDir`` and the trailing ``KEY value`` overrides as there), ``--seed``
-in place of ``SEED``, the logger and output layout of ``create_logger``,
-then ``core.trainer.train_loop`` (``--max-epochs``,
-``--max-steps-per-epoch``). It trains on the card unless ``--device cpu``
-is given. The multi-host flags (``--coordinator``, ``--num-processes``,
-``--process-id``) wait for data parallelism and raise.
+Port of ``tools/train.py`` of the JAX package: the recipe's YAML through
+``config.load_config`` (``--dataDir``, ``--modelDir``, ``--logDir`` and the
+trailing ``KEY value`` overrides as there), ``--seed`` in place of ``SEED``,
+the logger and output layout of ``create_logger``, then
+``core.trainer.train_loop`` (``--max-epochs``, ``--max-steps-per-epoch``).
+It trains on the card unless ``--device cpu`` is given.
+
+Data parallelism: under ``torchrun`` (its ``RANK``/``WORLD_SIZE`` environment)
+or with the JAX CLI's ``--coordinator host:port --num-processes N
+--process-id I`` each process is one rank on its own card
+(``LOCAL_RANK``'s), ``nccl`` on CUDA and ``gloo`` on the CPU
+(``--backend gloo`` on CUDA too); only rank 0 logs and writes checkpoints.
 
     python3 -m i2rnet_tpu_torch.tools.train \\
         --cfg experiments/coco/interformer_coco_hrt_192_p2_b12.yaml \\
         --max-epochs 1 DATASET.ROOT data/coco MODEL.SINGLE_MODEL first_stage.pth
+    python3 -m torch.distributed.run --nproc_per_node 2 -m i2rnet_tpu_torch.tools.train \\
+        --cfg experiments/coco/interformer_coco_w48_pure_en6.yaml
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Callable, List, Optional
 
 from i2rnet_tpu_torch.config.config import load_config, to_port
 from i2rnet_tpu_torch.core.trainer import train_loop
+from i2rnet_tpu_torch.parallel import dist
 from i2rnet_tpu_torch.utils.logging import create_logger
 
 
@@ -32,15 +39,29 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--logDir", default="", type=str)
     p.add_argument("--dataDir", default="", type=str)
     p.add_argument("--seed", default=None, type=int)
-    p.add_argument("--coordinator", default="", type=str,
-                   help="multi-host training is not ported; raises when given")
-    p.add_argument("--num-processes", default=1, type=int)
-    p.add_argument("--process-id", default=0, type=int)
+    add_dist_args(p)
     p.add_argument("--max-epochs", default=None, type=int)
     p.add_argument("--max-steps-per-epoch", default=None, type=int)
-    p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     return p.parse_args(argv)
+
+
+def add_dist_args(p) -> None:
+    """The flags of data parallelism and the device, shared with ``tools/test.py``."""
+    p.add_argument("--coordinator", default="", type=str,
+                   help="host:port of rank 0's rendezvous (else torchrun's environment)")
+    p.add_argument("--num-processes", default=None, type=int)
+    p.add_argument("--process-id", default=None, type=int)
+    p.add_argument("--backend", default=None, choices=dist.BACKENDS,
+                   help="nccl on CUDA and gloo on the CPU unless given")
+    p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+
+
+def start(args):
+    """The process group of the arguments or torchrun's environment, where
+    there is one; returns this rank's device."""
+    dist.init(args.coordinator, args.num_processes, args.process_id, args.backend, args.device)
+    return str(dist.local_device(args.device, dist.rank()))
 
 
 def load_cfg(args):
@@ -54,16 +75,14 @@ def main(argv: Optional[List[str]] = None, on_step: Optional[Callable] = None):
     ``on_step`` is handed to ``train_loop`` (each step's metrics and host
     times)."""
     args = parse_args(argv)
-    if args.coordinator or args.num_processes != 1 or args.process_id != 0:
-        raise NotImplementedError("multi-host training (--coordinator, --num-processes, "
-                                  "--process-id) is not ported")
+    device = start(args)
     cfg = load_cfg(args)
     if args.seed is not None:
         cfg["SEED"] = args.seed
-    logger, output_dir, _ = create_logger(cfg, args.cfg, "train")
+    logger, output_dir, _ = create_logger(cfg, args.cfg, "train", rank=dist.rank())
     logger.info("config: %s", cfg)
     state = train_loop(cfg, output_dir, max_epochs=args.max_epochs,
-                       max_steps_per_epoch=args.max_steps_per_epoch, device=args.device,
+                       max_steps_per_epoch=args.max_steps_per_epoch, device=device,
                        on_step=on_step)
     return state, output_dir
 

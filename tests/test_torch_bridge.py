@@ -147,7 +147,9 @@ def test_port_imports_without_jax_yaml_cv2():
             "i2rnet_tpu_torch.utils.detail_eval", "i2rnet_tpu_torch.tools.visualize",
             "i2rnet_tpu_torch.tools.compute_flops", "i2rnet_tpu_torch.tools.profile",
             "i2rnet_tpu_torch.tools.confirm_eval", "i2rnet_tpu_torch.tools.trans_json",
-            "i2rnet_tpu_torch.tools.vis_demo", "i2rnet_tpu_torch.tools.reproduce"} <= set(mods)
+            "i2rnet_tpu_torch.tools.vis_demo", "i2rnet_tpu_torch.tools.reproduce",
+            "i2rnet_tpu_torch.parallel.dist", "i2rnet_tpu_torch.models.interformer_e2e",
+            "i2rnet_tpu_torch.probes.ddp_rank"} <= set(mods)
 
 
 def with_recipe_data(jax_cfg):

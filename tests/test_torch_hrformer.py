@@ -309,7 +309,7 @@ def test_build_model_dispatches_on_the_name():
         with pytest.raises(NotImplementedError, match=key):
             build_model(cfg, device="cpu")
     cfg = presets.tiny_hrt_config(5)
-    cfg["MODEL"]["NAME"] = "interformer_e2e"
+    cfg["MODEL"]["NAME"] = "hrformer"  # the standalone HRFormer is not ported
     with pytest.raises(ValueError, match="not ported"):
         build_model(cfg, device="cpu")
 

@@ -11,7 +11,8 @@ the committed COCO fixture, ``WORKERS`` 0, float32):
   ``OUTPUT_DIR/{dataset}/{model}/{cfg_name}`` and
   ``LOG_DIR/{dataset}/{model}/GT_{USE_GT_BBOX}_{phase}_{cfg_name}_*.log``;
 * ``test`` takes ``TEST.MODEL_FILE`` (a port checkpoint) where it is set,
-  and raises for a file that is not there; the multi-host flags raise;
+  and raises for a file that is not there; the data-parallel flags raise
+  where they cannot start a process group;
 * ``metric_table`` is the JAX one's text.
 """
 
@@ -144,10 +145,13 @@ def test_test_takes_the_model_file(trained, recipe, tmp_path):
                         "TEST.MODEL_FILE", str(tmp_path / "none.pth")])
 
 
-@pytest.mark.parametrize("flag", [["--coordinator", "localhost:1234"], ["--num-processes", "2"],
-                                  ["--process-id", "1"]])
+@pytest.mark.parametrize("flag", [["--coordinator", "localhost:1234", "--backend", "nccl"],
+                                  ["--num-processes", "2"], ["--process-id", "1"]])
 def test_multi_host_flags_raise(recipe, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="multi-host"):
+    """The data-parallel flags raise where they cannot start a group: ``nccl``
+    for the CPU (no quiet ``gloo``), and a world or rank without a
+    coordinator (``tests/test_torch_ddp.py`` runs the group)."""
+    with pytest.raises((ValueError, RuntimeError), match="nccl|coordinator"):
         train_tool.main(["--cfg", str(recipe), *_dirs(tmp_path), "--device", "cpu", *flag])
 
 

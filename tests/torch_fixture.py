@@ -345,7 +345,8 @@ JAX_PORT_KEYS = {
               "INTER_SUPERVISION", "ENCODER_MULTI_LAYERS", "UPSAMPLE_TYPE", "ATTENTION_TYPE",
               "DOMAIN_TRANS", "POS_EMBEDDING", "PE_ONLY_AT_BEGIN", "HRNET_RES_LAYER",
               "MULTI_POS_EMBEDDING_DIM", "SINGLE_MODEL", "PRETRAINED", "INIT_WEIGHTS",
-              "BACKBONE_FIX", "END2END"),
+              "BACKBONE_FIX", "END2END", "ENCODER_SINGLE_LAYERS", "ENCODER_MUTI_LAYERS",
+              "SINGLE_POS_EMBEDDING"),
     "DATASET": ("DATASET", "ROOT", "TRAIN_SET", "TEST_SET", "PATCH_MODE", "COLOR_RGB",
                 "USE_COCOMINI", "MAX_PATCH", "SELECT_DATA", "SCALE_FACTOR", "ROT_FACTOR", "FLIP",
                 "PROB_HALF_BODY", "NUM_JOINTS_HALF_BODY"),
