@@ -293,7 +293,37 @@ Phases, one line each (any failure exits non-zero):
     bf16 eval protocol and train step of ``interformer_e2e_new`` with
     profiles; then A and B at the e2e eval batch's intra shape (P=32, S=3072;
     R=32*3072) against their plain versions and timed as phase 24 times
-    them.
+    them;
+53. the options no recipe uses, each a model at full width (the TPH intra
+    encoder cut to OPTION_INTRA_LAYERS layers), seeded and calibrated as
+    phase 5, one forward with the kernels on vs their plain versions on the
+    same weights and ragged persons: ``MULTI_POS_EMBEDDING: cat_vec`` on TPH
+    at B=16 x N=4 (the inter encoder at C=192: A over [16, 768, 192], B at
+    R=12288) and on HRT at B=8 x N=4 (C=174; the first stage on E and F in
+    both runs), in bf16 within BF16_HEAT_BOUND; ``ATTENTION_TYPE: window``,
+    ``sine``, ``PE_ONLY_AT_BEGIN``, ``POS_EMBEDDING: none``, deconv kernels
+    2 (multiplex) and 3 (deconv), pre-norm layers and HRT with ``use_rpe``,
+    in f32 within phase 15's bound; A and B launched once a layer (B not in
+    pre-norm layers, the window encoder one A), E and F once a block on HRT,
+    none of E, F, G or kernel 7 under ``use_rpe``;
+54. Kernels A-D at the cat_vec widths C=192 and C=174 against their plain
+    versions at the shapes the options run (A [16, 768, C] f32 and bf16; B
+    at R=12288 bf16; C [4, 768, C] forward and backward, bits and seed mode,
+    f32 and bf16; D at R=3072 bf16, two backward calls bit-equal); B's and
+    D's f32 templates refuse C=F=192 (their weights alone exceed shared
+    memory) and the bf16 kernels are held against the f32 plain versions
+    instead; each kernel's device time per call beside its plain version,
+    its bound and, for A and C, SDPA;
+55. one training step of the TPH model with ``cat_vec`` (bf16: C over [4,
+    768, 192] and D at R=3072 in the inter encoder; f32 with the inter tail
+    on its plain version) and with the window inter encoder (f32; its
+    attention on Kernel C at rate 0) at B=4 x N=4, dropout 0, kernels on vs
+    off: losses and every gradient within phase 28's bounds (phase 18's for
+    bf16), C and D launched;
+56. the device NMS of ``ops/nms.py`` on the card (greedy OKS, soft OKS, box
+    NMS over ``box_iou_matrix``) against the native library
+    (``i2rnet_tpu_torch/native.py``) and the numpy versions on the same
+    detections of 8 images: the same kept sets and pick orders.
 
 Every ``torch.profiler`` breakdown counts all device events but user
 annotations and step markers, and logs how many of them carry a ``#`` in
@@ -321,7 +351,10 @@ call (both replicas), and ``e2e``: its
 launches in each e2e model's forward (A, B) or step (C, D) of phase 52 and
 the fields at the e2e shapes, A and B at P=32 x 3072 from phase 52, C and D
 at the training step's intra shape P=16 x 3072 from phase 27, which times
-that shape), and last ``{"ok": true, "device": {...}}``.
+that shape; for every kernel ``options``: its launches in each option's
+forward (phase 53) and training step (phase 55), and for A-D ``cat_vec
+C=192`` and ``cat_vec C=174``: the fields at phase 54's shapes), and last
+``{"ok": true, "device": {...}}``.
 TF32 is off throughout, so the float32 parts (crops, decode) stay float32.
 Training writes its checkpoints, and validation its results JSONs, under
 ``output/chip_smoke/`` of this checkout.
@@ -361,7 +394,9 @@ from i2rnet_tpu_torch.data.coco import COCODataset
 from i2rnet_tpu_torch.data.jpeg import imread
 from i2rnet_tpu_torch.data.synthetic import synthetic_raw_batch
 from i2rnet_tpu_torch.data.train_record import compare_records, train_records
-from i2rnet_tpu_torch.models.encoder import INTRA_OFFSET_BASE, TransformerEncoder
+from i2rnet_tpu_torch import native
+from i2rnet_tpu_torch.models.encoder import (INTRA_OFFSET_BASE, TransformerEncoder,
+                                             WindowInterEncoder)
 from i2rnet_tpu_torch.models.interformer import build_model
 from i2rnet_tpu_torch.models.layers import MaskedBatchNorm, max_pool_3x3_s2
 from i2rnet_tpu_torch.models.pure_multi import init_weights
@@ -384,6 +419,7 @@ from i2rnet_tpu_torch.ops.cuda.mhsa_train import (attention_bits, masked_mhsa_tr
 from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import (DTYPE_CODES, device_plan, mlp32_plan,
                                                 mlp_dwbn_fused, mlp_dwbn_torch, mlp_plan,
                                                 pack_mlp, pack_mlp32, sm_count)
+from i2rnet_tpu_torch.ops import nms
 from i2rnet_tpu_torch.ops.preprocess import device_preprocess
 from i2rnet_tpu_torch.parallel import dist
 from i2rnet_tpu_torch.probes.ddp_rank import case_step, run_ranks
@@ -625,7 +661,7 @@ SERVED_LAUNCHES = {"tph": {"masked_mhsa": 20, "encoder_ffn": 20},
                    "hrt": {"window_attn_block": 88, "mlp_block": 88, "masked_mhsa": 4,
                            "encoder_ffn": 4}}
 #: phase 43: single-image requests offered to a MicroBatcher
-POISSON_REQUESTS, POISSON_DELAY_MS = 100, 5.0
+POISSON_REQUESTS, POISSON_DELAY_MS = 50, 5.0
 ZERO_GRADS = re.compile(r"(k_proj|mlp\.(fc1|dw3x3|fc2)|norm2|fuse_layers\.\d+\.\d+\.\d+\.1)\.bias$")
 
 
@@ -777,13 +813,13 @@ def ffn_params(c, f, g):
 FFN_SHAPES = ((8 * 1344, 96, 192), (8 * 768, 78, 192), (1003, 16, 32))
 
 
-def phase_ffn(g, shapes=FFN_SHAPES):
-    """Kernel B against its plain version at ``shapes``, f32 and bf16; returns
+def phase_ffn(g, shapes=FFN_SHAPES, dtypes=(torch.float32, torch.bfloat16)):
+    """Kernel B against its plain version at ``shapes``, in ``dtypes``; returns
     the bf16 max |err| of the first shape."""
     main_err = None
     for rows, c, f in shapes:
         p = ffn_params(c, f, g)
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in dtypes:
             x = (2 * randn(rows, c, g=g) + 0.5).to(dt)
             got = encoder_ffn_fused(x, *p)
             torch.cuda.synchronize()
@@ -886,16 +922,16 @@ def away_from_kink(x, p, g, eps=1e-4):
     raise AssertionError("could not draw rows away from the ReLU kink")
 
 
-def phase_ffn_train(g, shapes=FFN_SHAPES):
+def phase_ffn_train(g, shapes=FFN_SHAPES, dtypes=(torch.float32, torch.bfloat16)):
     """Kernel D forward and backward (dx + 8 parameter grads) vs plain at
-    ``shapes``, and two bf16 backward calls bit-equal (seed mode, the first
-    shape); returns the bf16 seed-mode max |err| of the first shape."""
+    ``shapes`` in ``dtypes``, and two bf16 backward calls bit-equal (seed mode,
+    the first shape); returns the bf16 seed-mode max |err| of the first shape."""
     errs = {}
     for rows, c, f in shapes:
         p = ffn_params(c, f, g)
         bits = (torch.randint(0, 2 ** 32, (rows, f), generator=g, dtype=torch.int64).to(DEV),
                 torch.randint(0, 2 ** 32, (rows, c), generator=g, dtype=torch.int64).to(DEV))
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in dtypes:
             x = away_from_kink((2 * randn(rows, c, g=g) + 0.5).to(dt), p, g)
             cot = randn(rows, c, g=g, dtype=dt)
             for mode in ("bits", "seed"):
@@ -938,11 +974,14 @@ def person_inputs(cfg, b, n, counts, g):
     return images, pos.to(DEV), valid.to(DEV)
 
 
-def random_model(cfg, g):
-    """The recipe's model at full width with seeded random weights; each
-    BatchNorm's running statistics set from its input on a calibration batch,
-    so every layer's output is O(1)."""
+def random_model(cfg, g, option=None):
+    """The recipe's model at full width with seeded random weights (and the
+    module ``option`` applied, where given); each BatchNorm's running
+    statistics set from its input on a calibration batch, so every layer's
+    output is O(1)."""
     model = build_model(cfg, use_kernels=False, device=DEV)
+    if option is not None:
+        option(model)
     model.compute_dtype = torch.float32
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -4267,6 +4306,378 @@ def phase_e2e_timing(model, cfg, g, card):
                  for k, parts in TRAIN_KERNEL_PARTS])
 
 
+# ---- phases 53-56: the last model options, the widened kernels, the NMS -----
+
+#: the cat_vec inter encoder's widths (C = DIM_MODEL + MULTI_POS_EMBEDDING_DIM,
+#: one head): TPH's 96 + 96 and HRT's 78 + 96 (A and C pad it to 192, B and D
+#: to 176)
+WIDE_C = (192, 174)
+WIDE_F = 192
+#: their tokens: eval at B=16 x N=4 persons of 192 tokens (256x192), training
+#: at the TPH recipe's B=4 x N=4
+WIDE_EVAL = (16, 4 * 192)
+WIDE_TRAIN = (4, 4 * 192)
+#: bf16 heatmaps with the kernels against the bf16 plain path on the same
+#: weights and inputs: phase 6's 5%, of the largest heat here
+BF16_HEAT_BOUND = 5e-2
+#: TPH's intra encoder in phases 53 and 55, cut from the recipe's 6 layers
+#: (the options act on the inter encoder, TPH's position terms on the first
+#: layers); widths as the recipe's
+OPTION_INTRA_LAYERS = 2
+
+
+def _pre_norm(model):
+    for encoder in model.encoders():
+        for layer in encoder.layers:
+            layer.normalize_before = True
+
+
+def _use_rpe(model):
+    for blk in model.singleformer.blocks():
+        blk.use_rpe = True
+
+
+#: phase 53: (label, preset, MODEL keys, EXTRA keys, module option, (B, N), dtype)
+OPTION_RUNS = (
+    ("TPH cat_vec", presets.tph_interformer, {"MULTI_POS_EMBEDDING": "cat_vec"}, {}, None,
+     (16, 4), torch.bfloat16),
+    ("HRT cat_vec", presets.hrt_interformer,
+     {"USE_MULTI_POS": True, "MULTI_POS_EMBEDDING": "cat_vec", "MULTI_POS_EMBEDDING_DIM": 96},
+     {}, None, (8, 4), torch.bfloat16),
+    ("TPH window", presets.tph_interformer, {"ATTENTION_TYPE": "window", "WINDOW_SIZE": 4}, {},
+     None, (4, 4), torch.float32),
+    ("TPH sine", presets.tph_interformer, {"MULTI_POS_EMBEDDING": "sine"}, {}, None, (4, 4),
+     torch.float32),
+    ("TPH PE_ONLY_AT_BEGIN", presets.tph_interformer, {"PE_ONLY_AT_BEGIN": True}, {}, None,
+     (4, 4), torch.float32),
+    ("TPH POS_EMBEDDING none", presets.tph_interformer, {"POS_EMBEDDING": "none"}, {}, None,
+     (4, 4), torch.float32),
+    ("TPH deconv kernel 2 (multiplex)", presets.tph_interformer, {},
+     {"NUM_DECONV_KERNELS": [2]}, None, (4, 4), torch.float32),
+    ("TPH deconv kernel 3 (deconv)", presets.tph_interformer, {"UPSAMPLE_TYPE": "deconv"},
+     {"NUM_DECONV_KERNELS": [3]}, None, (4, 4), torch.float32),
+    ("TPH pre-norm", presets.tph_interformer, {}, {}, _pre_norm, (4, 4), torch.float32),
+    ("HRT use_rpe", presets.hrt_interformer, {}, {}, _use_rpe, (4, 4), torch.float32),
+)
+OPTION_COUNTS = [4, 3, 1, 2]
+
+
+def option_cfg(preset, model_kw, extra_kw, dtype=torch.float32):
+    cfg = preset()
+    cfg["MODEL"].update(model_kw)
+    cfg["MODEL"]["EXTRA"].update(extra_kw)
+    if cfg["MODEL"]["SINGLEFORMER"] == "transpose_h":
+        cfg["MODEL"]["ENCODER_LAYERS"] = OPTION_INTRA_LAYERS
+    cfg["DEVICE"]["COMPUTE_DTYPE"] = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    return cfg
+
+
+def encoder_kernel_counts(model):
+    """Kernels A's and B's launches a forward of ``model`` makes: one A a
+    layer (the window encoder's one attention too), one B a post-norm layer."""
+    a = b = 0
+    for e in model.encoders():
+        if isinstance(e, WindowInterEncoder):
+            a += 1
+            continue
+        a += len(e.layers)
+        b += sum(not layer.normalize_before for layer in e.layers)
+    return {"masked_mhsa": a, "encoder_ffn": b}
+
+
+def phase_options(g, card):
+    """Each ported option's model at full width (TPH's intra encoder cut to
+    OPTION_INTRA_LAYERS layers), seeded and calibrated as phase 5: one forward
+    with the kernels on and one on the plain versions, on the same weights
+    and inputs (ragged persons), in f32 within phase 15's bound, in bf16 (the
+    cat_vec widths, whose f32 tails the kernels refuse) within
+    BF16_HEAT_BOUND; A and B launched as the encoders' layers say (B not in
+    pre-norm layers), E and F by the HRT first stage, and none of E, F, G
+    or kernel 7 under ``use_rpe``. Returns {label: launches}."""
+    runs = {}
+    for label, preset, model_kw, extra_kw, post, (b, n), dt in OPTION_RUNS:
+        t0 = time.perf_counter()
+        cfg = option_cfg(preset, model_kw, extra_kw, dt)
+        model = random_model(cfg, g, post)
+        model.compute_dtype = dt
+        images, pos, valid = person_inputs(cfg, b, n, (OPTION_COUNTS * b)[:b], g)
+        hrt = cfg["MODEL"]["SINGLEFORMER"] == "hrformer"
+        with torch.no_grad():
+            # bf16 HRT: the first stage on its kernels in both runs (its module
+            # route rounds LN2 elsewhere, a few % of the heat in bf16 alone)
+            model.set_kernels(hrt and dt == torch.bfloat16)
+            model.multi_global_encoder.use_kernels = False
+            off = model(images, pos, valid)
+            reset_launches()
+            model.set_kernels(True)
+            on = model(images, pos, valid)
+            torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        want = {k: v for k, v in encoder_kernel_counts(model).items() if v}
+        if hrt and post is None:
+            want.update(dict.fromkeys(("window_attn_block", "mlp_block"),
+                                      len(model.singleformer.blocks())))
+        rels = []
+        for key in ("multi", "single"):
+            if not torch.isfinite(on[key]).all() or (on[key][~valid] != 0).any():
+                raise AssertionError(f"{label}: {key} heatmaps non-finite or padded not zero")
+            scale = off[key].float().abs().max().item()
+            rels.append((on[key].float() - off[key].float()).abs().max().item() / scale)
+        limit = HEAT_REL_BOUND if dt == torch.float32 else BF16_HEAT_BOUND
+        log(f"  {label}: B={b} N={n} {str(dt)[6:]}, heatmaps {tuple(on['multi'].shape)}, "
+            f"max|dheat|/max|heat| multi {rels[0]:.3g}, single {rels[1]:.3g} (bound {limit:g}); "
+            f"launches {counts} (want {want}); {time.perf_counter() - t0:.1f} s")
+        if max(rels) > limit or scale < 1e-3:
+            raise AssertionError(f"{label}: kernels vs plain {rels}, bound {limit}")
+        if counts != want:
+            raise AssertionError(f"{label}: launched {counts}, want {want}")
+        runs[label] = counts
+        del model, on, off
+        torch.cuda.empty_cache()
+    return runs
+
+
+def f32_refused(fn, what):
+    """``fn`` (an f32 call at a cat_vec width) raises the wrapper's reason."""
+    try:
+        fn()
+    except ValueError as err:
+        if "float32" not in str(err):
+            raise
+        log(f"  {what} f32: refused, as it should be: {err}")
+        return
+    raise AssertionError(f"{what} f32 at a cat_vec width did not raise")
+
+
+#: the bf16 kernels against the f32 plain version, where the f32 templates
+#: refuse the width (phase 54): no farther than this many times the bf16 plain
+#: version is, plus this share of the largest value
+F32_CHECK_FACTOR, F32_CHECK_ATOL = 2.0, 1e-3
+
+
+def as_f32_check(kernel, plain, ref, what):
+    """``kernel`` and ``plain`` (bf16) against ``ref`` (f32): (kernel's max
+    |err| / max |ref|, plain's, ``what``); raises where the kernel's exceeds
+    F32_CHECK_FACTOR times the plain version's plus F32_CHECK_ATOL."""
+    ref = ref.float()
+    scale = ref.abs().max().clamp_min(1e-30)
+    k = ((kernel.float() - ref).abs().max() / scale).item()
+    pl = ((plain.float() - ref).abs().max() / scale).item()
+    if not math.isfinite(k) or k > F32_CHECK_FACTOR * pl + F32_CHECK_ATOL:
+        raise AssertionError(f"{what}: the bf16 kernel is {k:.3g} of max from the f32 plain "
+                             f"version, the bf16 plain version {pl:.3g}")
+    return k, pl, what
+
+
+def phase_wide_kernels(g, card):
+    """Kernels A-D at the cat_vec widths (WIDE_C) against their plain
+    versions: A over [16, 768, C] with a ragged person mask (f32 and bf16,
+    phase 3's bound), B over R=12288 (bf16, phase 4's), C over [4, 768, C]
+    forward and backward, bits and seed mode (f32 and bf16, phase 8's), D over
+    R=3072 (bf16, phase 9's, two backward calls bit-equal); B's and D's f32
+    templates refuse C=F=192 (their f32 weights alone take 294912 B of shared
+    memory), so in their place the bf16 kernels are held against the f32
+    plain versions (dropout 0): each output and gradient no farther from
+    the f32 plain version, as a share of its largest value, than
+    F32_CHECK_FACTOR times the bf16 plain version is, plus F32_CHECK_ATOL
+    (the kernels' error is then bf16 rounding, as the plain version's: dx
+    through both LayerNorms' backward is some 8% of its largest value off
+    in bf16 either way). Then each kernel's device time per call beside its
+    plain version, its bound and, for A and C, SDPA. Returns ({(name, C):
+    timing}, {(name, C): max |err|})."""
+    b, s = WIDE_EVAL
+    bt, st = WIDE_TRAIN
+    times, errs = {}, {}
+    bf = torch.bfloat16
+    for c in WIDE_C:
+        errs["masked_mhsa", c] = phase_mhsa(g, ((b, s, c, 1),))
+        errs["encoder_ffn", c] = phase_ffn(g, ((b * s, c, WIDE_F),), dtypes=(bf,))
+        c_err = phase_mhsa_train(g, ((bt, st, c, 1),), keep_fraction=False)
+        d_err = phase_ffn_train(g, ((bt * st, c, WIDE_F),), dtypes=(bf,))
+        errs["mhsa_train_fwd", c], errs["mhsa_train_bwd", c] = c_err["fwd"], c_err["bwd"]
+        errs["encoder_ffn_train_fwd", c] = d_err["fwd"]
+        errs["encoder_ffn_train_bwd", c] = d_err["bwd"]
+        p = ffn_params(c, WIDE_F, g)
+        x = away_from_kink((2 * randn(bt * st, c, g=g) + 0.5).to(bf), p, g)
+        cot = randn(bt * st, c, g=g, dtype=bf)
+        f32_refused(lambda: encoder_ffn_fused(x.float(), *p), f"encoder_ffn C={c}")
+        f32_refused(lambda: encoder_ffn_train_fused(x.float(), *p), f"encoder_ffn_train C={c}")
+        with torch.no_grad():
+            outs = [f(x_, *p) for f, x_ in ((encoder_ffn_fused, x), (encoder_ffn_torch, x),
+                                            (encoder_ffn_torch, x.float()))]
+        worst = [as_f32_check(*outs, f"encoder_ffn C={c}")]
+        runs = [fwd_bwd(lambda *a: f(*a), (x_, *p), cot_)
+                for f, x_, cot_ in ((encoder_ffn_train_fused, x, cot),
+                                    (encoder_ffn_train_torch, x, cot),
+                                    (encoder_ffn_train_torch, x.float(), cot.float()))]
+        worst.append(as_f32_check(*(r[0] for r in runs), f"encoder_ffn_train C={c} out"))
+        names = ("x", "ln1_w", "ln1_b", "w1", "b1", "w2", "b2", "ln2_w", "ln2_b")
+        worst += [as_f32_check(*(r[1][i] for r in runs), f"encoder_ffn_train C={c} d{n}")
+                  for i, n in enumerate(names)]
+        k_w, p_w, what = max(worst)
+        log(f"  B and D bf16 at C={c} vs their f32 plain versions (rows {bt * st}, dropout 0): "
+            f"worst {what}: kernel {k_w:.3g} of max, bf16 plain {p_w:.3g} (bound "
+            f"{F32_CHECK_FACTOR:g} x plain + {F32_CHECK_ATOL:g})")
+        eval_times = {**phase_timing_mhsa(g, card, b, s, c),
+                      **ffn_timing(g, card, b * s, c, WIDE_F)}
+        log_eval_times(eval_times, b, s, card, c)
+        train_times = phase_train_kernel_timing(g, card, bt, st, c, WIDE_F, 192)
+        for name, t in {**eval_times, **train_times}.items():
+            times[name, c] = t
+        torch.cuda.empty_cache()
+    return times, errs
+
+
+#: phase 55: (label, MODEL keys, dtype, the inter encoder's D on). An f32 step
+#: is held to phase 28's TPH_GRAD_BOUND on every gradient. A bf16 step's
+#: gradients differ from the bf16 plain route's by bf16 rounding carried
+#: through the model (0.058 of the largest value at a trunk BN bias, 2.8% of
+#: the inter encoder's gradients together, on an H100 80GB HBM3), which no
+#: training phase bounds: there both routes are held against the f32 plain
+#: step on the same weights, the kernels' |dg|/|g| over all gradients together,
+#: and over the inter encoder's (where C and D act), within F32_CHECK_FACTOR
+#: times the plain route's plus F32_CHECK_ATOL (phase 54's rule)
+OPTION_TRAIN_RUNS = (
+    ("TPH cat_vec step", {"MULTI_POS_EMBEDDING": "cat_vec"}, "bfloat16", True),
+    ("TPH cat_vec step, the inter tail on its plain version", {"MULTI_POS_EMBEDDING": "cat_vec"},
+     "float32", False),
+    ("TPH window step", {"ATTENTION_TYPE": "window", "WINDOW_SIZE": 4}, "float32", True),
+)
+
+
+def phase_option_training(card):
+    """One training step of the TPH model with ``cat_vec`` and with the window
+    inter encoder at the recipe's B=4 x N=4 (TPH_TRAIN_PERSONS, dropout 0,
+    TPH's intra encoder cut to OPTION_INTRA_LAYERS layers), kernels on vs
+    off on the same batch: the losses within TRAIN_LOSS_REL, the gradients
+    within the run's bound (OPTION_TRAIN_RUNS).
+    ``cat_vec`` in bf16 runs C over [4, 768, 192] and D over 3072 rows in the
+    inter encoder; in f32 it runs C at C=192 and the inter tail's plain
+    version (D's f32 template refuses that width).
+    Returns {label: launches with the kernels on}."""
+    runs = {}
+    for label, model_kw, dtype, inter_d in OPTION_TRAIN_RUNS:
+        t0 = time.perf_counter()
+        cfg = option_cfg(presets.tph_interformer, model_kw, {})
+        cfg["DEVICE"].update(COMPUTE_DTYPE=dtype, USE_KERNELS=True)
+        model = seeded_model(cfg)
+        for encoder in model.encoders():
+            encoder.dropout_rate = 0.0
+        model.multi_global_encoder.fused_ffn_train = inter_d
+        raw = synthetic_raw_batch(cfg, TPH_TRAIN_PERSONS, np.random.RandomState(SEED))
+        (l_on, g_on, c_on), (l_off, g_off, c_off) = grads_on_off(
+            model, cfg, raw, len(TPH_TRAIN_PERSONS), model.set_kernels)
+        c_on = {k: v for k, v in c_on.items() if v}
+        loss_rel = max(abs(l_on[k] - l_off[k]) / abs(l_off[k]) for k in l_off)
+        diff = grad_diff(g_on, g_off)
+        text = f"{len(g_off)} gradients on vs off: " + describe_diff(diff)
+        strays = any(diff[k][0] > TPH_GRAD_BOUND[k] for k in diff)
+        if dtype == "bfloat16":
+            cfg32 = copy.deepcopy(cfg)
+            cfg32["DEVICE"]["COMPUTE_DTYPE"] = "float32"
+            model32 = seeded_model(cfg32)
+            for encoder in model32.encoders():
+                encoder.dropout_rate = 0.0
+            [(_, g_32, _)] = grads_on_off(model32, cfg32, raw, len(TPH_TRAIN_PERSONS),
+                                          model32.set_kernels, routes=(False,))
+            inter = [n for n in g_32 if n.startswith("multi_global_encoder.")]
+            strays = False
+            for what, names in (("all", list(g_32)), ("the inter encoder's", inter)):
+                d_on, d_off = (grad_diff({n: g[n] for n in names},
+                                         {n: g_32[n] for n in names})["all_l2"][0]
+                               for g in (g_on, g_off))
+                text += (f"; against the f32 plain step, {what} together: kernels {d_on:.3g}, "
+                         f"plain route {d_off:.3g}")
+                strays |= d_on > F32_CHECK_FACTOR * d_off + F32_CHECK_ATOL
+            text += f" (bound {F32_CHECK_FACTOR:g} x plain + {F32_CHECK_ATOL:g})"
+            del model32
+        log(f"  {label}, {dtype}: losses on {l_on} vs off {l_off} (worst rel {loss_rel:.3g}, "
+            f"bound {TRAIN_LOSS_REL:g}); {text}"
+            + ("" if dtype == "bfloat16" else f" (bounds {TPH_GRAD_BOUND})")
+            + f"; launches on {c_on}, off {sum(c_off.values())}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        want = {"mhsa_train_fwd", "mhsa_train_bwd", "encoder_ffn_train_fwd",
+                "encoder_ffn_train_bwd"}
+        if set(c_on) != want or any(c_off.values()):
+            raise AssertionError(f"{label}: launches on {c_on}, off {c_off}")
+        if loss_rel > TRAIN_LOSS_REL or strays:
+            raise AssertionError(f"{label}: the training step with kernels strays from the "
+                                 "plain path")
+        runs[label] = c_on
+        del model
+        torch.cuda.empty_cache()
+    return runs
+
+
+def nms_candidates(rng, m=64, k=17, clusters=8):
+    """Detections of one image: keypoints around a few centres (so that OKS
+    overlaps exist), areas, scores, boxes around the keypoints."""
+    centres = rng.rand(clusters, k, 2) * 400
+    owner = rng.randint(0, clusters, m)
+    xy = centres[owner] + rng.randn(m, k, 2) * rng.choice([1.0, 6.0, 30.0], (m, 1, 1))
+    kpts = np.concatenate([xy, rng.rand(m, k, 1)], -1).astype(np.float32)
+    areas = rng.uniform(500, 5000, m).astype(np.float32)
+    scores = rng.rand(m).astype(np.float32)
+    boxes = np.concatenate([xy.min(1), xy.max(1), scores[:, None]], 1).astype(np.float32)
+    return kpts, areas, scores, boxes
+
+
+def phase_nms(card):
+    """The device NMS on the card (``ops/nms.py``: OKS greedy, soft OKS, box
+    greedy over ``box_iou_matrix``) against the native library and the numpy
+    versions on the same detections of 8 images (64 candidates, 8 padded
+    slots each): the same kept sets and the same pick orders; then, for
+    information, the device call's ms beside the library's host us."""
+    rng = np.random.RandomState(SEED)
+    images = [nms_candidates(rng) for _ in range(8)]
+    valid = np.ones(64, bool)
+    valid[-8:] = False
+    real = np.flatnonzero(valid)
+    for kpts, areas, scores, boxes in images:
+        d_keep = nms.oks_nms_device(torch.from_numpy(kpts).to(DEV), torch.from_numpy(areas).to(DEV),
+                                    torch.from_numpy(scores).to(DEV), torch.from_numpy(valid).to(DEV),
+                                    0.9, nms.COCO_SIGMAS)
+        got = set(np.flatnonzero(d_keep.cpu().numpy()))
+        lib = set(real[native.oks_nms(kpts[real], areas[real], scores[real], nms.COCO_SIGMAS,
+                                      0.9)])
+        iou = nms.np_oks_iou_matrix(kpts[real], areas[real], nms.COCO_SIGMAS)
+        plain = set(real[nms._np_greedy_from_iou(iou, scores[real], 0.9)])
+        if not got == lib == plain or not 0 < len(got) < len(real):
+            raise AssertionError(f"oks_nms_device {sorted(got)}, native {sorted(lib)}, numpy "
+                                 f"{sorted(plain)}")
+        d_iou = nms.oks_iou_matrix(torch.from_numpy(kpts).to(DEV), torch.from_numpy(areas).to(DEV),
+                                   nms.COCO_SIGMAS)
+        _, picks = nms.soft_oks_nms_device(d_iou, torch.from_numpy(scores).to(DEV),
+                                           torch.from_numpy(valid).to(DEV), 0.3, 20)
+        picks = picks.cpu().numpy()
+        lib = list(real[native.soft_oks_nms(kpts[real], areas[real], scores[real],
+                                            nms.COCO_SIGMAS, 0.3, 20)])
+        plain = list(real[nms._np_soft_from_iou(iou, scores[real], 0.3, 20)])
+        if not list(picks[picks >= 0]) == lib == plain:
+            raise AssertionError(f"soft_oks_nms_device {picks}, native {lib}, numpy {plain}")
+        d_box = nms.greedy_nms_from_iou(nms.box_iou_matrix(torch.from_numpy(boxes[:, :4]).to(DEV)),
+                                        torch.from_numpy(boxes[:, 4]).to(DEV),
+                                        torch.from_numpy(valid).to(DEV), 0.5)
+        got = set(np.flatnonzero(d_box.cpu().numpy()))
+        lib, plain = set(real[native.box_nms(boxes[real], 0.5)]), set(real[nms.np_box_nms(
+            boxes[real], 0.5)])
+        if not got == lib == plain:
+            raise AssertionError(f"box NMS on the card {sorted(got)}, native {sorted(lib)}, "
+                                 f"numpy {sorted(plain)}")
+    kpts, areas, scores, _ = [torch.from_numpy(a).to(DEV) for a in images[0]]
+    v = torch.from_numpy(valid).to(DEV)
+    dev_ms = time_cuda(lambda: nms.oks_nms_device(kpts, areas, scores, v, 0.9, nms.COCO_SIGMAS), 5)
+    k0, a0, s0, _ = images[0]
+    t0 = time.perf_counter()
+    for _ in range(100):
+        native.oks_nms(k0[real], a0[real], s0[real], nms.COCO_SIGMAS, 0.9)
+    lib_us = (time.perf_counter() - t0) / 100 * 1e6
+    log(f"  8 images x 64 candidates (8 padded): OKS greedy, soft OKS (20 picks) and box greedy "
+        f"on the card equal the native library's and the numpy versions' (kept sets, pick "
+        f"orders); oks_nms_device {dev_ms:.3f} ms a call (CUDA events, a Python loop of 64 "
+        f"steps), native oks_nms {lib_us:.1f} us on the host [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -4441,7 +4852,12 @@ def main() -> int:
 
     log("phase 34 the ten recipes read from their YAML:")
     phase_read_recipes()
+    # tools.train and tools.test set torch.backends.cudnn from each recipe's
+    # CUDNN block (BENCHMARK true); the later phases run with the flags as before
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.benchmark, cudnn.deterministic, cudnn.enabled)
     recipe_runs, recipe_shapes = phase_recipes(g, card)
+    cudnn.benchmark, cudnn.deterministic, cudnn.enabled = flags
     log("phase 40 MPII (PCKh):")
     mpii_launches = phase_mpii(g, card)
     torch.cuda.empty_cache()
@@ -4486,6 +4902,21 @@ def main() -> int:
     e2e_ab_times, e2e_ab_errs = phase_tph_kernels(card, attn=[(32, TPH_TOKENS)],
                                                   rows=32 * TPH_TOKENS)
     log(f"  phases 48-52: {time.perf_counter() - t_new:.1f} s; phases 2-52: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t_new = time.perf_counter()
+    log(f"phase 53 the last model options at full width, kernels on vs their plain versions "
+        f"[{card}]:")
+    option_runs = phase_options(g, card)
+    log(f"phase 54 Kernels A-D at the cat_vec widths C={WIDE_C} vs their plain versions "
+        f"[{card}]:")
+    wide_times, wide_errs = phase_wide_kernels(g, card)
+    log("phase 55 training steps of the TPH model with cat_vec and with the window inter "
+        "encoder, kernels on vs off:")
+    option_runs.update(phase_option_training(card))
+    log(f"phase 56 the device NMS on the card vs the native library and numpy [{card}]:")
+    phase_nms(card)
+    log(f"  phases 53-56: {time.perf_counter() - t_new:.1f} s; phases 2-56: "
         f"{time.perf_counter() - t0:.1f} s")
 
     counts.update(train_counts)
@@ -4542,6 +4973,17 @@ def main() -> int:
         new_shapes.setdefault(name, {})["e2e"] = {
             **fields, "launches": {m: run[part][name] for m, run in e2e_launches.items()}}
         new_shapes[name]["ddp"] = {"launches": {run: c.get(name, 0) for run, c in ddp.items()}}
+    # phases 53-55: each kernel's launches in each option's forward or
+    # training step; phase 54: A-D at the cat_vec widths (timing, error)
+    for name in KERNELS:
+        new_shapes.setdefault(name, {})["options"] = {
+            "launches": {label: run.get(name, 0) for label, run in option_runs.items()}}
+        for c in WIDE_C:
+            if (name, c) in wide_times:
+                new_shapes[name]["options"][f"cat_vec C={c}"] = {
+                    **wide_times[name, c], "max_abs_err": wide_errs[name, c],
+                    "shape": (f"B={WIDE_EVAL[0]} S={WIDE_EVAL[1]}" if name in EVAL_KERNELS
+                              else f"B={WIDE_TRAIN[0]} S={WIDE_TRAIN[1]}")}
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": counts[name],
                 "max_abs_err": errs[name], **times[name],

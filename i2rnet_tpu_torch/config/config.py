@@ -169,7 +169,7 @@ MODEL_KEYS = ("NAME", "NUM_JOINTS", "IMAGE_SIZE", "HEATMAP_SIZE", "TRANS_SIZE", 
               "MULTI_POS_EMBEDDING", "SIGMA", "LOSS_WEIGHTS", "SINGLEFORMER", "SINGLEFORMER_FIX",
               "INTER_SUPERVISION", "ENCODER_MULTI_LAYERS", "UPSAMPLE_TYPE", "ATTENTION_TYPE",
               "DOMAIN_TRANS", "POS_EMBEDDING", "PE_ONLY_AT_BEGIN", "HRNET_RES_LAYER",
-              "MULTI_POS_EMBEDDING_DIM",
+              "MULTI_POS_EMBEDDING_DIM", "WINDOW_SIZE",
               # weight sources and freezing (core/pretrained.py)
               "SINGLE_MODEL", "PRETRAINED", "INIT_WEIGHTS", "BACKBONE_FIX", "END2END",
               # the end-to-end models (models/interformer_e2e.py)
@@ -184,6 +184,8 @@ TRAIN_KEYS = ("BATCH_SIZE_PER_GPU", "BEGIN_EPOCH", "END_EPOCH", "LR", "LR_END", 
               "MOMENTUM", "WD", "NESTEROV")
 LOSS_KEYS = ("USE_OHKM", "TOPK", "USE_TARGET_WEIGHT", "USE_DIFFERENT_JOINTS_WEIGHT")
 TOP_KEYS = ("SEED", "AUTO_RESUME", "PRINT_FREQ", "WORKERS", "OUTPUT_DIR", "LOG_DIR", "DATA_DIR")
+#: the reference entry points' torch.backends.cudnn flags (``CUDNN``)
+CUDNN_KEYS = ("BENCHMARK", "DETERMINISTIC", "ENABLED")
 DEBUG_KEYS = ("DEBUG", "SAVE_BATCH_IMAGES_GT", "SAVE_BATCH_IMAGES_PRED", "SAVE_HEATMAPS_GT",
               "SAVE_HEATMAPS_PRED")
 
@@ -223,5 +225,20 @@ def to_port(cfg: Dict[str, Any]) -> Dict[str, Any]:
         "TRAIN": {k: plain(sec["TRAIN"][k]) for k in TRAIN_KEYS},
         "LOSS": {k: plain(sec["LOSS"][k]) for k in LOSS_KEYS},
         "DEBUG": {k: bool(cfg["DEBUG"][k]) for k in DEBUG_KEYS},
+        "CUDNN": {k: bool(cfg["CUDNN"][k]) for k in CUDNN_KEYS},
         **{k: plain(cfg[k]) for k in TOP_KEYS},
     }
+
+
+def apply_cudnn(cfg: Dict[str, Any]) -> Dict[str, bool]:
+    """Set ``torch.backends.cudnn``'s ``benchmark``, ``deterministic`` and
+    ``enabled`` from the config's ``CUDNN`` block (the default tree's where the
+    config has none), as the reference's ``tools/train.py`` and ``tools/test.py``
+    do before building the model; returns the flags set."""
+    import torch
+
+    flags = {**default_config()["CUDNN"], **cfg.get("CUDNN", {})}
+    torch.backends.cudnn.benchmark = bool(flags["BENCHMARK"])
+    torch.backends.cudnn.deterministic = bool(flags["DETERMINISTIC"])
+    torch.backends.cudnn.enabled = bool(flags["ENABLED"])
+    return {k: bool(flags[k]) for k in CUDNN_KEYS}

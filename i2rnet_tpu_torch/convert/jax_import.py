@@ -88,7 +88,14 @@ def _encoder_rules(jax: str, port: str):
 
 
 def _qkv(jax: str, port: str):
-    return re.compile(rf"{jax}/layer(\d+)/self_attn/([qkv])_proj"), port
+    """(JAX q/k/v projection paths, the port module whose in_proj packs them)."""
+    return (re.compile(rf"{jax}/layer(\d+)/self_attn/(?P<which>[qkv])_proj"),
+            lambda m: f"{port}.layers.{m[1]}.self_attn")
+
+
+#: the window inter encoder's one attention (``ATTENTION_TYPE: window``)
+_WINDOW_QKV = (re.compile(r"multi_encoder/attn/(?P<which>[qkv])_proj"),
+               lambda m: "multi_global_encoder.attn.attn")
 
 
 _MP = "multi_position_embedding"
@@ -120,7 +127,11 @@ _TRANSPOSE_H = _trunk_rules("singleformer/", "singleformer.") + _encoder_rules(
 ]
 #: the two-stage model after its first stage
 _TWO_STAGE = _encoder_rules("multi_encoder", "multi_global_encoder") + [
+    (r"multi_encoder/attn/out_proj", lambda m: "multi_global_encoder.attn.attn.out_proj"),
+    (r"multi_encoder", lambda m: "multi_global_encoder.attn.attn"),  # the window's rpe_table
     (r"multi_pos/conv([12])/(conv|bn)", lambda m: f"{_MP}.{m[2]}{m[1]}"),
+    (r"multi_pos/fc", lambda m: f"{_MP}.fc"),  # cat_vec's Dense
+    (r"fc", lambda m: "fc"),  # cat_vec's 1x1 conv back to DIM_MODEL
     (r"multi_pos/conv_(pre|end)", lambda m: f"{_MP}.conv_{m[1]}"),
     (r"multi_pos/res_conv1", lambda m: f"{_MP}.res.0"),
     (r"multi_pos/res_bn1", lambda m: f"{_MP}.res.1"),
@@ -138,14 +149,16 @@ _RULES = {
     "interformer_pureMulti": (_trunk_rules("", "") + _encoder_rules("encoder", "global_encoder") + [
         (r"reduce", lambda m: "reduce"),
         (r"multi_pos/conv([12])/(conv|bn)", lambda m: f"position_embedding.{m[2]}{m[1]}"),
+        (r"multi_pos/fc", lambda m: "position_embedding.fc"),
         (r"deconv", lambda m: "deconv_layers.0"),
         (r"deconv/bn", lambda m: "deconv_layers.1"),
         (r"final_layer", lambda m: "final_layer"),
     ], [_qkv("encoder", "global_encoder")]),
-    "hrformer": (_HRFORMER + _TWO_STAGE, [_qkv("multi_encoder", "multi_global_encoder")]),
+    "hrformer": (_HRFORMER + _TWO_STAGE,
+                 [_qkv("multi_encoder", "multi_global_encoder"), _WINDOW_QKV]),
     "transpose_h": (_TRANSPOSE_H + _TWO_STAGE,
                     [_qkv("singleformer/global_encoder", "singleformer.global_encoder"),
-                     _qkv("multi_encoder", "multi_global_encoder")]),
+                     _qkv("multi_encoder", "multi_global_encoder"), _WINDOW_QKV]),
     # the end-to-end models: the trunk at the top, two encoders, the two-stage
     # model's position embedding, the multiplex deconv, domain trans and heads
     "interformer_e2e": (_trunk_rules("", "") + _encoder_rules(
@@ -189,12 +202,12 @@ def _value(module: str, leaf: str, v: np.ndarray) -> np.ndarray:
 
 
 def _packed_qkv(packed, module: str):
-    """(match, port encoder) where ``module`` is a q/k/v projection of one of
-    the ``packed`` encoders, else (None, None)."""
+    """(match, the port attention module) where ``module`` is a q/k/v
+    projection of one of the ``packed`` attentions, else (None, None)."""
     for rx, owner in packed:
         m = rx.fullmatch(module)
         if m:
-            return m, owner
+            return m, owner(m)
     return None, None
 
 
@@ -223,9 +236,9 @@ def params_from_jax(variables, model_name: str = "interformer_pureMulti") -> Dic
             continue
         m, owner = _packed_qkv(packed, module)
         if m:
-            base = f"{owner}.layers.{m[1]}.self_attn.in_proj_"
             part = _value(module, leaf, v)
-            qkv.setdefault(base + ("weight" if leaf == "kernel" else "bias"), {})[m[2]] = part
+            name = f"{owner}.in_proj_{'weight' if leaf == 'kernel' else 'bias'}"
+            qkv.setdefault(name, {})[m["which"]] = part
             continue
         name = _module_name(rules, module)
         sd[f"{name}.{_LEAF[leaf]}"] = _value(module, leaf, v)

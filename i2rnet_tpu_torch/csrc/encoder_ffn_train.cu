@@ -26,7 +26,9 @@
 // rounded to bf16 into shared memory once per block, both products on
 // mma.sync per 64-column chunk of F with the hidden activation kept in
 // registers). The backward is three launches, below:
-// * pass 1 (bwd_rows_kernel), the forward's blocks and units: the same walk
+// * pass 1 (ffn_tile.cuh::bwd_rows_kernel; its instances above C = 128 in
+//   encoder_ffn_train_wide.cu, which compiles beside this file), the
+//   forward's blocks and units: the same walk
 //   recomputes h, a and LN2's statistics bit for bit (each chunk's ReLU gates
 //   and dropout keeps kept as bits), then LN2's backward, dy = drop2'(dz),
 //   per chunk da_c = T(dy) . W2[:, c] (ldmatrix.trans of the same W2 tile),
@@ -71,6 +73,16 @@
 #include "common.cuh"
 #include "ffn_tile.cuh"
 #include "philox.cuh"
+
+// encoder_ffn_train_wide.cu: the backward's pass 1 at C above 128
+extern "C" int i2r_ffn_bwd_rows_wide(const void* x, const void* dout, const float* ln1_w,
+                                     const float* ln1_b, const float* w1, const float* b1,
+                                     const float* w2, const float* b2, const float* ln2_w,
+                                     const float* ln2_b, void* dx, void* nb, void* ab, void* dyb,
+                                     void* dab, float* vec_part, int rows, int c, int f,
+                                     float eps, int grid, int vec, const uint32_t* bits1,
+                                     const uint32_t* bits2, uint32_t seed, uint32_t offset,
+                                     uint32_t threshold, float inv, int mode, cudaStream_t st);
 
 namespace {
 
@@ -379,252 +391,6 @@ cudaError_t launch_bwd(const void* x, const void* dout, const Params& p, void* d
 
 namespace ffn {
 
-// A fragment set (16 rows x 16 kk.. columns, acc_to_a's layout) into dst
-// [rows][ld] at column c0 + 16 kk, rows r0.. below `rows`
-template <int K>
-__device__ __forceinline__ void store_frags(bf16* dst, int ld, const uint32_t (&fr)[K][4], long r0,
-                                            int rows, int c0, int lane) {
-  const int g = lane >> 2, t2 = 2 * (lane & 3);
-#pragma unroll
-  for (int kk = 0; kk < K; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long row = r0 + g + 8 * (i & 1);
-      if (row < rows)
-        *reinterpret_cast<uint32_t*>(dst + row * ld + c0 + 16 * kk + 8 * (i >> 1) + t2) = fr[kk][i];
-    }
-}
-
-// The sum over the warp's 16 rows of a column value held as v (row g) and
-// w (row g + 8): the 8 row groups added by shuffles; every lane of a column
-// quad position gets it
-__device__ __forceinline__ float col_sum(float v, float w) {
-  float s = v + w;
-  s += __shfl_xor_sync(0xffffffffu, s, 4);
-  s += __shfl_xor_sync(0xffffffffu, s, 8);
-  return s + __shfl_xor_sync(0xffffffffu, s, 16);
-}
-
-// acc[col], acc[col + 1] += the column sums of a 16 x 8 n-tile's elements
-// (lanes of row group 0 add)
-__device__ __forceinline__ void add_cols(float* acc, int col, const float (&v)[4], int lane) {
-  const float s0 = col_sum(v[0], v[2]), s1 = col_sum(v[1], v[3]);
-  if (lane < 4) {
-    acc[col] += s0;
-    acc[col + 1] += s1;
-  }
-}
-
-// Backward pass 1: dx, the weight gradients' operands nb, dyb [rows][CP] =
-// T(n), T(dy) and ab, dab [rows][FP] = T(a), T(da) (zero past c and f), and
-// the block's sums of the vector gradients, vec_part [block][5c + f] =
-// (dln1_w, dln1_b, db1, db2, dln2_w, dln2_b).
-template <int CP>
-__global__ void __launch_bounds__(kTileThreads, 2)
-bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dout, Params p,
-                bf16* __restrict__ dx, bf16* __restrict__ nb, bf16* __restrict__ ab,
-                bf16* __restrict__ dyb, bf16* __restrict__ dab, float* __restrict__ vec_part,
-                int rows, int c, int f, float eps, int vec, Dropout dp) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int NJ = CP / 8, NK = CP / 16;
-  const int fp = pad64(f), nch = fp / kChunk, nv = 5 * CP + fp;
-  const Tile s = load_weights<CP>(smem_raw, p, c, f, fp);
-  uint32_t* gates = reinterpret_cast<uint32_t*>(s.be2 + CP);  // [warps][nch][32]
-  float* vacc = reinterpret_cast<float*>(gates + kTileWarps * nch * 32);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t2 = 2 * (lane & 3);
-  bf16* xw = s.xs + warp * kUnit * (CP + 8);
-  uint32_t* gw = gates + warp * nch * 32;
-  // this warp's sums: dln1_w [CP], dln1_b [CP], db1 [FP], db2, dln2_w, dln2_b [CP]
-  float* va = vacc + warp * nv;
-  float *v_g1 = va, *v_be1 = va + CP, *v_b1 = va + 2 * CP, *v_b2 = v_b1 + fp, *v_g2 = v_b2 + CP,
-        *v_be2 = v_g2 + CP;
-  for (int i = lane; i < nv; i += 32) va[i] = 0.f;
-  __syncwarp();
-  const float fc = (float)c;
-  const bool pairs = (c & 1) == 0;
-  const long units = (rows + kUnit - 1) / kUnit;
-  for (long u = blockIdx.x + (long)gridDim.x * warp; u < units; u += (long)gridDim.x * kTileWarps) {
-    const long r0 = u * kUnit;
-    load_x<CP>(xw, x, r0, rows, c, vec, lane);
-    float mean1[2], rstd1[2], rstd2[2];
-    uint32_t na[NK][4];
-    ln1<CP>(xw, s, c, eps, lane, mean1, rstd1, na);
-    store_frags(nb, CP, na, r0, rows, 0, lane);
-
-    // the forward again, the same loop: y, then z2 in its place
-    float y[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) y[j][0] = y[j][1] = y[j][2] = y[j][3] = 0.f;
-    for (int ch = 0; ch < nch; ++ch) {
-      float h[8][4];
-      uint32_t af[4][4];
-      linear1<CP>(h, na, s.w1, ch, lane);
-      gw[ch * 32 + lane] = activate(h, af, s, dp, r0, rows, f, ch, lane);
-      store_frags(ab, fp, af, r0, rows, ch * kChunk, lane);
-      linear2<CP>(y, af, s.w2, fp, ch, lane);
-    }
-    const uint64_t keep2 = residual_ln2<CP>(y, xw, s, mean1, rstd1, dp, r0, rows, c, eps, lane,
-                                            rstd2);
-
-    // LN2 backward: dz into y (the residual hands it to dn), then dy = drop2'(dz)
-    float dzh[NJ][4];
-    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      float gv[4];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const long row = r0 + g + 8 * hh;
-        const int col = 8 * j + t2;
-        gv[2 * hh] = gv[2 * hh + 1] = 0.f;
-        if (row < rows) {
-          if (pairs && col + 1 < c) {
-            const float2 v = ld2(dout + row * c + col);
-            gv[2 * hh] = v.x;
-            gv[2 * hh + 1] = v.y;
-          } else {
-            if (col < c) gv[2 * hh] = __bfloat162float(dout[row * c + col]);
-            if (col + 1 < c) gv[2 * hh + 1] = __bfloat162float(dout[row * c + col + 1]);
-          }
-        }
-      }
-      float gz[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + t2 + (e & 1);
-        gz[e] = gv[e] * y[j][e];
-        dzh[j][e] = gv[e] * s.g2[col];
-        s1[e >> 1] += dzh[j][e];
-        s2[e >> 1] += dzh[j][e] * y[j][e];
-      }
-      add_cols(v_g2, 8 * j + t2, gz, lane);
-      add_cols(v_be2, 8 * j + t2, gv, lane);
-    }
-    float m1[2], m2[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      m1[hh] = amma::quad_sum(s1[hh]) / fc;
-      m2[hh] = amma::quad_sum(s2[hh]) / fc;
-    }
-    uint32_t dya[NK][4];
-#pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
-      float dy[2][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = 2 * kk + h;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * j + t2 + (e & 1);
-          const float dz =
-              col < c ? (dzh[j][e] - m1[e >> 1] - y[j][e] * m2[e >> 1]) * rstd2[e >> 1] : 0.f;
-          y[j][e] = dz;
-          dy[h][e] = dp.mode == 0 ? dz : ((keep2 >> (4 * j + e)) & 1u ? dz * dp.inv : 0.f);
-        }
-        add_cols(v_b2, 8 * j + t2, dy[h], lane);
-      }
-      amma::acc_to_a(dya[kk], dy[0], dy[1]);
-    }
-    store_frags(dyb, CP, dya, r0, rows, 0, lane);
-
-    // per chunk: da = drop1'(T(dy) . W2[:, c]) gated by the ReLU, then dn += T(da) . W1_c
-    for (int ch = 0; ch < nch; ++ch) {
-      float da[8][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) da[j][0] = da[j][1] = da[j][2] = da[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < NK; ++kk)
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t kb[4];
-          amma::ldsm_x4_t(kb, s.w2 + amma::a_off(lane, kk * 16, ch * kChunk + np * 16, fp + 8));
-          amma::mma(da[2 * np], dya[kk], kb[0], kb[1]);
-          amma::mma(da[2 * np + 1], dya[kk], kb[2], kb[3]);
-        }
-      const uint32_t gate = gw[ch * 32 + lane];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float v = dp.mode == 0 ? da[j][e] : da[j][e] * dp.inv;
-          da[j][e] = (gate >> (4 * j + e)) & 1u ? v : 0.f;
-        }
-        add_cols(v_b1, ch * kChunk + 8 * j + t2, da[j], lane);
-      }
-      uint32_t daa[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) amma::acc_to_a(daa[kk], da[2 * kk], da[2 * kk + 1]);
-      store_frags(dab, fp, daa, r0, rows, ch * kChunk, lane);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int np = 0; np < NK; ++np) {
-          uint32_t kb[4];
-          amma::ldsm_x4_t(kb, s.w1 + amma::a_off(lane, ch * kChunk + kk * 16, np * 16, CP + 8));
-          amma::mma(y[2 * np], daa[kk], kb[0], kb[1]);
-          amma::mma(y[2 * np + 1], daa[kk], kb[2], kb[3]);
-        }
-    }
-
-    // LN1 backward: dn is y; dzh = dn * g1
-    float q1[2] = {0.f, 0.f}, q2[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      float zn[4], dnz[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + t2 + (e & 1), hh = e >> 1;
-        zn[e] = __fmul_rn(x_at<CP>(xw, lane, j, e) - mean1[hh], rstd1[hh]);
-        dnz[e] = y[j][e] * zn[e];
-        const float d = y[j][e] * s.g1[col];
-        q1[hh] += d;
-        q2[hh] += d * zn[e];
-      }
-      add_cols(v_g1, 8 * j + t2, dnz, lane);
-      add_cols(v_be1, 8 * j + t2, y[j], lane);
-    }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      q1[hh] = amma::quad_sum(q1[hh]) / fc;
-      q2[hh] = amma::quad_sum(q2[hh]) / fc;
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const long row = r0 + g + 8 * hh;
-        const int col = 8 * j + t2;
-        if (row >= rows || col >= c) continue;
-        float v[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int e = 2 * hh + i;
-          const float zn = __fmul_rn(x_at<CP>(xw, lane, j, e) - mean1[hh], rstd1[hh]);
-          v[i] = (y[j][e] * s.g1[col + i] - q1[hh] - zn * q2[hh]) * rstd1[hh];
-        }
-        store2(dx + row * c, col, c, v[0], v[1], pairs);
-      }
-    __syncwarp();  // xw is rewritten by the next unit
-  }
-
-  // the block's sums: the warps' in a fixed order, at the real columns
-  __syncthreads();
-  const int nreal = 5 * c + f;
-  for (int e = threadIdx.x; e < nreal; e += blockDim.x) {
-    int i;  // the padded index of real entry e
-    if (e < 2 * c)
-      i = e / c * CP + e % c;
-    else if (e < 2 * c + f)
-      i = 2 * CP + (e - 2 * c);
-    else
-      i = 2 * CP + fp + (e - 2 * c - f) / c * CP + (e - 2 * c - f) % c;
-    float acc = 0.f;
-    for (int w = 0; w < kTileWarps; ++w) acc += vacc[w * nv + i];
-    vec_part[(size_t)blockIdx.x * nreal + e] = acc;
-  }
-}
-
 // Backward pass 2: the two weight gradients over the token rows of one
 // slice, dW1 = T(da)^T . T(n) [FP][CP64] and dW2 = T(dy)^T . T(a) [CP64][FP]
 // (CP64: CP rounded up to 64), a block per (product, 64 x 64 output tile,
@@ -746,20 +512,21 @@ inline cudaError_t launch_bwd(const void* x, const void* dout, const Params& p, 
                               const Dropout& dp, cudaStream_t st) {
   if (!fits_bwd(c, f) || grid < 1 || slice_rows < 1 || slice_rows % kWTile != 0 || rows < 1)
     return cudaErrorInvalidValue;
-  const int cp = amma::pad16(c), fp = pad64(f), cp64 = pad64(cp);
+  const int cp = inst_cp(c), fp = pad64(f), cp64 = pad64(cp);
   const int nz = (rows + slice_rows - 1) / slice_rows;
   const int vec = amma::copy_vec(c, {x});
-  cudaError_t err = with_cp(cp, [&](auto k) {
-    constexpr int CP = decltype(k)::value;
-    const size_t bytes = bwd_smem(CP, fp);
-    cudaError_t e = amma::allow_smem<bwd_rows_kernel<CP>>(bytes);
-    if (e != cudaSuccess) return e;
-    bwd_rows_kernel<CP><<<grid, kTileThreads, bytes, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(dout), p, static_cast<bf16*>(dx),
-        static_cast<bf16*>(nb), static_cast<bf16*>(ab), static_cast<bf16*>(dyb),
-        static_cast<bf16*>(dab), vec_part, rows, c, f, eps, vec, dp);
-    return cudaGetLastError();
-  });
+  // pass 1: C up to 128 here, the wide instances in encoder_ffn_train_wide.cu
+  cudaError_t err =
+      cp <= 128
+          ? with_cp(cp, [&](auto k) {
+              return launch_bwd_rows<decltype(k)::value>(x, dout, p, dx, nb, ab, dyb, dab,
+                                                         vec_part, rows, c, f, eps, grid, vec,
+                                                         dp, st);
+            })
+          : static_cast<cudaError_t>(i2r_ffn_bwd_rows_wide(
+                x, dout, p.ln1_w, p.ln1_b, p.w1, p.b1, p.w2, p.b2, p.ln2_w, p.ln2_b, dx, nb, ab,
+                dyb, dab, vec_part, rows, c, f, eps, grid, vec, dp.bits1, dp.bits2, dp.seed,
+                dp.offset, dp.threshold, dp.inv, dp.mode, st));
   if (err != cudaSuccess) return err;
   dw_kernel<<<dim3(2 * (fp / kWTile) * (cp64 / kWTile), nz), kThreads, dw_smem(), st>>>(
       static_cast<const bf16*>(dab), static_cast<const bf16*>(nb), static_cast<const bf16*>(dyb),

@@ -29,9 +29,16 @@
 // full and is the uniform average over its S keys, finite, as masked_mhsa_xla
 // gives it. Keys past S get weight exactly 0.
 //
+// Head dims: instances for d padded to 16 up to 128 (3 blocks an SM), and
+// wide ones for d padded to 192 and to 256 (the cat_vec inter encoder: C =
+// 96 + 96 = 192 on the TPH recipes, 78 + 96 = 174 on the HRT ones) with
+// the same body at one block an SM (mma_min_blocks): 255 registers a thread
+// hold the 96 or 128 f32 output values, and the five tiles take 128 or 169 KB.
+//
 // float32 keeps the first design (CUDA-core FMAs on f32 shared-memory tiles,
 // four lanes per query row): it is the parity route of the f32 model checks,
-// and the tensor cores' TF32 would not hold their 1e-4 tolerance.
+// and the tensor cores' TF32 would not hold their 1e-4 tolerance. Its head-dim
+// tiles go to 192 and 256 as well (165 and 214 KB of shared memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,6 +51,7 @@ namespace {
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
+constexpr int kMaxHeadDim = 256;  // the widest instance (ops/cuda/mhsa.py::MAX_HEAD_DIM)
 constexpr int kThreads = 256;  // 4 threads per query row
 constexpr int kLdP = kBlockK + 1;
 using amma::kNegBig;
@@ -181,7 +189,9 @@ cudaError_t dispatch_dt(const void* q, const void* k, const void* v, const void*
   if (d <= 32) return launch<T, 32>(q, k, v, key_pad, out, bh, s, d, heads, scale, stream);
   if (d <= 64) return launch<T, 64>(q, k, v, key_pad, out, bh, s, d, heads, scale, stream);
   if (d <= 96) return launch<T, 96>(q, k, v, key_pad, out, bh, s, d, heads, scale, stream);
-  return launch<T, 128>(q, k, v, key_pad, out, bh, s, d, heads, scale, stream);
+  if (d <= 128) return launch<T, 128>(q, k, v, key_pad, out, bh, s, d, heads, scale, stream);
+  if (d <= 192) return launch<T, 192>(q, k, v, key_pad, out, bh, s, d, heads, scale, stream);
+  return launch<T, 256>(q, k, v, key_pad, out, bh, s, d, heads, scale, stream);
 }
 
 // ---- bf16: tensor cores ----------------------------------------------------
@@ -194,8 +204,15 @@ size_t mma_smem_bytes(int s) {
   return amma::tiles_smem<DP>(5) + amma::scan_smem(s);  // Q, 2 x (K, V), mask
 }
 
+// Resident blocks an SM is built for: 3 up to head dim 128 (the instances the
+// main path runs, unchanged); 1 for the wide ones (padded head dim 192 or 256,
+// the cat_vec encoders), whose f32 output accumulator (96 or 128 values a
+// thread) needs the 255 registers one block an SM leaves, and whose five
+// tiles (128 or 169 KB) fit one block's shared memory only.
+template <int DP> __host__ __device__ constexpr int mma_min_blocks() { return DP <= 128 ? 3 : 1; }
+
 template <int DP>
-__global__ void __launch_bounds__(kMmaThreads, 3)
+__global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DP>())
 mhsa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const uint8_t* __restrict__ key_pad,
                     bf16* __restrict__ out, int s, int d, int heads, float scale, int vec) {
@@ -360,8 +377,11 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v, const void
     case 80: return launch_mma<80>(q, k, v, key_pad, out, bh, s, d, heads, scale, stream);
     case 96: return launch_mma<96>(q, k, v, key_pad, out, bh, s, d, heads, scale, stream);
     case 112: return launch_mma<112>(q, k, v, key_pad, out, bh, s, d, heads, scale, stream);
-    default: return launch_mma<128>(q, k, v, key_pad, out, bh, s, d, heads, scale, stream);
+    case 128: return launch_mma<128>(q, k, v, key_pad, out, bh, s, d, heads, scale, stream);
   }
+  // the wide instances: head dims padded to 192 or to 256
+  if (d <= 192) return launch_mma<192>(q, k, v, key_pad, out, bh, s, d, heads, scale, stream);
+  return launch_mma<256>(q, k, v, key_pad, out, bh, s, d, heads, scale, stream);
 }
 
 }  // namespace
@@ -372,7 +392,7 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v, const void
 extern "C" int i2r_mhsa_fwd(const void* q, const void* k, const void* v, const void* key_pad,
                             void* out, int bh, int s, int d, int heads, float scale, int dtype,
                             void* stream) {
-  if (bh < 1 || s < 1 || d < 1 || d > 128 || heads < 1 || bh % heads != 0 || bh > 65535)
+  if (bh < 1 || s < 1 || d < 1 || d > kMaxHeadDim || heads < 1 || bh % heads != 0 || bh > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;

@@ -64,10 +64,19 @@
 // fully padded image is uniform over its S keys, finite; keys past S get
 // -inf, weight exactly 0, in both directions; query rows past S get p = 0.
 //
+// Head dims: bf16 instances for d padded to 16 up to 128, and wide ones for d
+// padded to 192 and 256 (the cat_vec inter encoder, C = 174 or 192, one head).
+// The wide forward and dQ kernels run one block an SM (split_min_blocks: their
+// f32 accumulators take 96 or 128 registers a thread); the wide dK/dV kernel
+// splits the output columns between two blocks of a key tile (dkdv_cols, grid
+// z), each recomputing the logits over the whole head dim, so that dK and dV
+// stay at 96 or 128 values a thread. The dropout bits do not depend on d.
+//
 // float32 keeps the first design (CUDA-core FMAs on f32 shared-memory tiles,
 // four threads per row of a 64 x 64 tile, Philox in each kernel): it is the
 // parity route of the f32 model checks, and the tensor cores' TF32 would not
-// hold their 1e-4 tolerance.
+// hold their 1e-4 tolerance. Its head-dim tiles go to 192 (the dK/dV block's
+// f32 tiles then take 231680 of the 232448 B a block may have).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,6 +89,10 @@
 namespace {
 
 constexpr int kBlock = 64;     // rows of a block's own tile and of each streamed tile
+// the widest instances (ops/cuda/mhsa_train.py::MAX_HEAD_DIM, MAX_HEAD_DIM_F32):
+// bf16 to 256; f32 to 192, where the CUDA-core dK/dV block's tiles take 231680 B
+constexpr int kMaxHeadDim = 256;
+constexpr int kMaxHeadDimF32 = 192;
 constexpr int kThreads = 256;  // 4 threads per row
 constexpr int kNJ = kBlock / 4;
 constexpr int kLdP = kBlock + 1;
@@ -519,7 +532,8 @@ cudaError_t dispatch(const Args& a) {
   if (a.d <= 32) return kBwd ? launch_bwd<T, 32>(a) : launch_fwd<T, 32>(a);
   if (a.d <= 64) return kBwd ? launch_bwd<T, 64>(a) : launch_fwd<T, 64>(a);
   if (a.d <= 96) return kBwd ? launch_bwd<T, 96>(a) : launch_fwd<T, 96>(a);
-  return kBwd ? launch_bwd<T, 128>(a) : launch_fwd<T, 128>(a);
+  if (a.d <= 128) return kBwd ? launch_bwd<T, 128>(a) : launch_fwd<T, 128>(a);
+  return kBwd ? launch_bwd<T, 192>(a) : launch_fwd<T, 192>(a);  // dK/dV's 231680 B
 }
 
 // ---- bf16: tensor cores ----------------------------------------------------
@@ -527,6 +541,18 @@ cudaError_t dispatch(const Args& a) {
 using bf16 = __nv_bfloat16;
 constexpr int kSplitThreads = 256;  // forward, dQ: 4 groups of 16 rows x 2 halves of each key tile
 constexpr int kDkdvThreads = 256;   // dK/dV: 4 groups of 16 keys x 2 halves of each query tile
+
+// Resident blocks an SM the forward and dQ kernels are built for: 2 up to
+// head dim 128 (the main path's instances, unchanged); 1 for the wide ones
+// (padded 192, 256), whose f32 accumulators of 96 or 128 values a thread need
+// the 255 registers one block leaves (six tiles: 154 or 203 KB of shared memory).
+template <int DP> __host__ __device__ constexpr int split_min_blocks() { return DP <= 128 ? 2 : 1; }
+// Output columns a dK/dV block accumulates: all of them up to head dim 128; half
+// of them in the wide instances, where dK and dV together would hold 192 or
+// 256 f32 values a thread: two blocks per key tile (grid z), each recomputing
+// S^T and dPd^T over the whole head dim and keeping its half of the columns,
+// so each output element's sum runs in the same order as in one block.
+template <int DP> __host__ __device__ constexpr int dkdv_cols() { return DP <= 128 ? DP : DP / 2; }
 
 constexpr int kBitsThreads = 256;
 constexpr int kBitsRows = 32;  // query rows per block of the keep-bit kernel
@@ -575,7 +601,7 @@ constexpr size_t split_tiles_smem() {  // Q (and dO), 2 x (K, V), keep words, ro
 }
 
 template <int DP>
-__global__ void __launch_bounds__(kSplitThreads, 2)
+__global__ void __launch_bounds__(kSplitThreads, split_min_blocks<DP>())
 mhsa_train_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const uint8_t* __restrict__ key_pad,
                    const uint32_t* __restrict__ keep, bf16* __restrict__ out,
@@ -753,7 +779,8 @@ mhsa_train_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using namespace amma;
   constexpr int LD = ld<DP>();
   constexpr int NK = DP / 16;
-  constexpr int ND = DP / 8;
+  constexpr int DV = dkdv_cols<DP>();
+  constexpr int ND = DV / 8;  // 8-column tiles of dK, dV this block keeps
   extern __shared__ __align__(16) uint8_t mma_smem[];
   bf16* ks = reinterpret_cast<bf16*>(mma_smem);  // this block's keys [64][LD]
   bf16* vs = ks + kTile * LD;
@@ -763,6 +790,7 @@ mhsa_train_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   uint32_t* kw = reinterpret_cast<uint32_t*>(st + 6 * kTile);  // [2][64 queries][2]
 
   const int bh = blockIdx.y, b = bh / heads, k0 = blockIdx.x * kTile;
+  const int c0 = DV == DP ? 0 : blockIdx.z * DV;  // this block's first output column
   const size_t base = (size_t)bh * s * d;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const int kg = warp & 3, qh = warp >> 2;  // 16 keys kg*16.., queries qh*32.. of each tile
@@ -779,10 +807,13 @@ mhsa_train_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const bool has_key = __syncthreads_or(any_image) != 0;
   if (has_key && __syncthreads_or(any_tile) == 0) {
-    const int n = min(kTile, s - k0) * d;
+    const int n = min(kTile, s - k0) * DV;
     for (int i = tid; i < n; i += kDkdvThreads) {
-      dk[base + (size_t)k0 * d + i] = __float2bfloat16(0.f);
-      dv[base + (size_t)k0 * d + i] = __float2bfloat16(0.f);
+      const int c = c0 + i % DV;
+      if (c >= d) continue;
+      const size_t o = base + (size_t)(k0 + i / DV) * d + c;
+      dk[o] = __float2bfloat16(0.f);
+      dv[o] = __float2bfloat16(0.f);
     }
     return;
   }
@@ -882,10 +913,10 @@ mhsa_train_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int dpi = 0; dpi < ND / 2; ++dpi) {
         uint32_t gb[4], qb[4];
-        ldsm_x4_t(gb, gt_s + a_off(lane, qh * 32 + kq * 16, dpi * 16, LD));
+        ldsm_x4_t(gb, gt_s + a_off(lane, qh * 32 + kq * 16, c0 + dpi * 16, LD));
         mma(dva[2 * dpi], pa, gb[0], gb[1]);
         mma(dva[2 * dpi + 1], pa, gb[2], gb[3]);
-        ldsm_x4_t(qb, qt_s + a_off(lane, qh * 32 + kq * 16, dpi * 16, LD));
+        ldsm_x4_t(qb, qt_s + a_off(lane, qh * 32 + kq * 16, c0 + dpi * 16, LD));
         mma(dka[2 * dpi], sa, qb[0], qb[1]);
         mma(dka[2 * dpi + 1], sa, qb[2], qb[3]);
       }
@@ -903,7 +934,7 @@ mhsa_train_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < ND; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int kr = e < 2 ? kr0 : kr1, c = 8 * j + 2 * t4 + (e & 1);
+      const int kr = e < 2 ? kr0 : kr1, c = c0 + 8 * j + 2 * t4 + (e & 1);
       if (kr < s && c < d) {
         const size_t o = base + (size_t)kr * d + c;
         dk[o] = __float2bfloat16(dka[j][e] * scale);
@@ -914,7 +945,7 @@ mhsa_train_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int DP>
-__global__ void __launch_bounds__(kSplitThreads, 2)
+__global__ void __launch_bounds__(kSplitThreads, split_min_blocks<DP>())
 mhsa_train_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const uint8_t* __restrict__ key_pad,
                   const uint32_t* __restrict__ keep, const bf16* __restrict__ dout,
@@ -1075,11 +1106,12 @@ cudaError_t launch_bwd_mma(const Args& a) {
 
   const int vec = amma::copy_vec(a.d, {a.q, a.k, a.v, a.dout});
   dim3 grid((a.s + amma::kTile - 1) / amma::kTile, a.bh);
+  const dim3 kv_grid(grid.x, grid.y, DP / dkdv_cols<DP>());
   const size_t kv_bytes = amma::tiles_smem<DP>(6) + 6 * amma::kTile * sizeof(float) +
                           4 * amma::kTile * sizeof(uint32_t);
   err = amma::allow_smem<mhsa_train_dkdv_mma<DP>>(kv_bytes);
   if (err != cudaSuccess) return err;
-  mhsa_train_dkdv_mma<DP><<<grid, kDkdvThreads, kv_bytes, a.stream>>>(
+  mhsa_train_dkdv_mma<DP><<<kv_grid, kDkdvThreads, kv_bytes, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
       static_cast<const uint8_t*>(a.key_pad), static_cast<const uint32_t*>(a.keep),
       static_cast<const bf16*>(a.dout), static_cast<const float*>(a.row_m),
@@ -1111,13 +1143,17 @@ cudaError_t dispatch_mma(const Args& a) {
     case 80: return kBwd ? launch_bwd_mma<80>(a) : launch_fwd_mma<80>(a);
     case 96: return kBwd ? launch_bwd_mma<96>(a) : launch_fwd_mma<96>(a);
     case 112: return kBwd ? launch_bwd_mma<112>(a) : launch_fwd_mma<112>(a);
-    default: return kBwd ? launch_bwd_mma<128>(a) : launch_fwd_mma<128>(a);
+    case 128: return kBwd ? launch_bwd_mma<128>(a) : launch_fwd_mma<128>(a);
   }
+  // the wide instances: head dims padded to 192 or to 256
+  if (a.d <= 192) return kBwd ? launch_bwd_mma<192>(a) : launch_fwd_mma<192>(a);
+  return kBwd ? launch_bwd_mma<256>(a) : launch_fwd_mma<256>(a);
 }
 
 template <bool kBwd>
 int run(const Args& a, int dtype) {
-  if (a.bh < 1 || a.s < 1 || a.d < 1 || a.d > 128 || a.heads < 1 || a.bh % a.heads != 0 ||
+  if (a.bh < 1 || a.s < 1 || a.d < 1 || a.d > (dtype == 0 ? kMaxHeadDimF32 : kMaxHeadDim) ||
+      a.heads < 1 || a.bh % a.heads != 0 ||
       a.bh > 65535 || a.dp.mode < 0 || a.dp.mode > 2 || (a.dp.mode == 1 && a.dp.bits == nullptr) ||
       (dtype == 1 && (a.dp.mode != 0) != (a.keep != nullptr)))
     return (int)cudaErrorInvalidValue;

@@ -17,6 +17,19 @@ versions:
   ``fused_ffn_train`` is on too (``TPU.FUSED_FFN_TRAIN``), as the JAX encoder
   routes them (``i2rnet_tpu/models/encoder.py:54,145``).
 
+With ``normalize_before`` a layer is pre-norm, the reference's
+``forward_pre`` (JAX ``encoder.py:116-124``): q = k = LN1(src) + pos, the
+value the un-normed src, ``src + drop(attn)``, then ``src + drop(linear2(
+drop(relu(linear1(LN2(src))))))``. The attention runs Kernels A and C as
+above; the tail has no kernel (Kernels B and D compute the post-norm tail)
+and runs on torch's ops, as the JAX pre-norm layer runs on flax's. No
+config key reaches it (``MODEL.NORMALIZE_BEFORE`` is read by no JAX module).
+With ``pe_only_at_begin`` the position embedding goes to the first layer
+only (TransPose-H's ``PE_ONLY_AT_BEGIN``, JAX ``encoder.py:202-203``).
+
+:class:`WindowInterEncoder` is the inter encoder of ``MODEL.ATTENTION_TYPE:
+window``: one global attention, no norm, residual or FFN.
+
 With ``remat`` (``DEVICE.REMAT`` ``layers``) each layer of a training forward
 is recomputed in the backward (``models/layers.py::remat``), on the kernels
 or their plain versions alike, as the JAX encoder wraps its layers in
@@ -42,6 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from i2rnet_tpu_torch.models.hrformer import _rpe_index
 from i2rnet_tpu_torch.models.layers import Linear, remat
 from i2rnet_tpu_torch.ops.attention import masked_mhsa, masked_mhsa_train
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn import encoder_ffn_torch
@@ -96,10 +110,13 @@ class SelfAttention(nn.Module):
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Post-norm DETR encoder layer (reference ``attention.py:37-112``)."""
+    """Post-norm (pre-norm with ``normalize_before``) DETR encoder layer
+    (reference ``attention.py:37-112``)."""
 
-    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int):
+    def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
+                 normalize_before: bool = False):
         super().__init__()
+        self.normalize_before = normalize_before
         self.self_attn = SelfAttention(d_model, num_heads)
         self.linear1 = Linear(d_model, dim_feedforward)
         self.linear2 = Linear(dim_feedforward, d_model)
@@ -109,6 +126,9 @@ class TransformerEncoderLayer(nn.Module):
     def forward(self, src, key_padding_mask=None, pos: Optional[torch.Tensor] = None,
                 use_kernels: bool = False, dropout_rate: float = 0.0, dropout_seed=None,
                 offset: int = 0, flash_train: bool = True, fused_ffn_train: bool = True):
+        if self.normalize_before:
+            return self._forward_pre(src, key_padding_mask, pos, use_kernels, dropout_rate,
+                                     dropout_seed, offset, flash_train)
         qk = src if pos is None else src + pos
         tail = (self.norm1.weight, self.norm1.bias, self.linear1.weight, self.linear1.bias,
                 self.linear2.weight, self.linear2.bias, self.norm2.weight, self.norm2.bias)
@@ -124,6 +144,27 @@ class TransformerEncoderLayer(nn.Module):
         return ffn(src, *tail, dropout_rate=dropout_rate, dropout_seed=dropout_seed,
                    dropout_offset=offset + 2, eps=self.norm1.eps)
 
+    def _norm(self, norm, x):
+        """A LayerNorm in f32 (as flax normalises a bf16 input), in f32."""
+        return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps)
+
+    def _forward_pre(self, src, key_padding_mask, pos, use_kernels, dropout_rate,
+                     dropout_seed, offset, flash_train):
+        """The reference's ``forward_pre``: q and k from LN1(src) + pos, the
+        value the un-normed src; the tail on torch's ops. The f32 LayerNorm
+        outputs are rounded to src's dtype where a projection takes them, as
+        the JAX layer's ``dtype=`` Dense layers round them."""
+        dt = src.dtype
+        n1 = self._norm(self.norm1, src)
+        qk = (n1 if pos is None else n1 + pos.float()).to(dt)
+        attn = self.self_attn(qk, qk, src, key_padding_mask,
+                              use_kernels and (flash_train or not self.training),
+                              dropout_rate, dropout_seed, offset)
+        src = src + dropout(attn, dropout_rate, dropout_seed, offset + 1)
+        h = F.relu(self.linear1(self._norm(self.norm2, src).to(dt)))
+        h = self.linear2(dropout(h, dropout_rate, dropout_seed, offset + 2))
+        return src + dropout(h, dropout_rate, dropout_seed, offset + 3)
+
 
 class TransformerEncoder(nn.Module):
     """Stack of encoder layers over flat tokens ``[B, S, C]``. ``use_kernels``,
@@ -135,7 +176,8 @@ class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, num_heads: int,
                  dim_feedforward: int, use_kernels: bool = False, dropout_rate: float = 0.1,
                  flash_train: bool = True, fused_ffn_train: bool = True, offset_base: int = 0,
-                 remat: bool = False):
+                 remat: bool = False, normalize_before: bool = False,
+                 pe_only_at_begin: bool = False):
         super().__init__()
         if not 0 <= offset_base <= OFFSET_LIMIT - OFFSETS_PER_LAYER * num_layers:
             raise ValueError(f"{num_layers} layers from dropout offset {offset_base} pass "
@@ -146,8 +188,9 @@ class TransformerEncoder(nn.Module):
         self.fused_ffn_train = fused_ffn_train
         self.dropout_rate = dropout_rate
         self.remat = remat
+        self.pe_only_at_begin = pe_only_at_begin
         self.layers = nn.ModuleList([
-            TransformerEncoderLayer(d_model, num_heads, dim_feedforward)
+            TransformerEncoderLayer(d_model, num_heads, dim_feedforward, normalize_before)
             for _ in range(num_layers)])
 
     def forward(self, src, key_padding_mask=None, pos=None, dropout_seed=None):
@@ -160,11 +203,61 @@ class TransformerEncoder(nn.Module):
                     self.offset_base + OFFSETS_PER_LAYER * i, self.flash_train,
                     self.fused_ffn_train)
             out = remat(layer, layer, *args) if self.remat and self.training else layer(*args)
+            if self.pe_only_at_begin:
+                pos = None
         return out
 
     def offsets(self) -> range:
         """The dropout offsets of this encoder's sites."""
         return range(self.offset_base, self.offset_base + OFFSETS_PER_LAYER * len(self.layers))
+
+
+class WindowAttention(SelfAttention):
+    """The window block's ``MHA_`` (reference ``attention.py:779-787``):
+    :class:`SelfAttention`'s projections, and a relative-position table
+    ``(2 w - 1)^2 x heads`` with its index, carried for the checkpoints and
+    never added to the logits (the reference builds the bias and does not
+    add it)."""
+
+    def __init__(self, d_model: int, num_heads: int, window: int):
+        super().__init__(d_model, num_heads)
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * window - 1) ** 2, num_heads))
+        nn.init.trunc_normal_(self.relative_position_bias_table, std=0.02)
+        self.register_buffer("relative_position_index",
+                             torch.from_numpy(_rpe_index(window)).long())
+
+
+class WindowInterEncoder(nn.Module):
+    """The inter encoder of ``MODEL.ATTENTION_TYPE: window`` (JAX
+    ``encoder.py:207-245``, reference ``attention.py:991-1060``): ONE
+    multi-head attention over all persons' tokens (the reference comments the
+    window partition out), q = k = src + pos, v = src, the masked softmax and
+    the out-projection; no norm, residual or FFN, no dropout. The reference's
+    reverse reshape scrambles tokens across images (JAX's docstring); this is
+    the corrected inverse, as JAX's.
+
+    Names: ``attn.attn.{in_proj_weight, in_proj_bias, out_proj}`` and
+    ``attn.attn.relative_position_bias_table`` (JAX ``torch_import.py:235-251``;
+    the reference's unused ``norm1`` is not built). Routes: Kernel A at eval
+    with ``use_kernels``; in training Kernel C at rate 0, forward and backward.
+    JAX trains this layer on the Pallas forward with an XLA backward (its
+    dropout is 0, ``ops/attention.py:89-111``), and the port's Kernel A has no
+    backward: the two match in value, not in route. It has no dropout sites
+    (:meth:`offsets` is empty): the encoders' dropout and training-route
+    settings that callers set on every encoder are not read here."""
+
+    def __init__(self, d_model: int, num_heads: int, window_size: int = 7):
+        super().__init__()
+        self.attn = nn.ModuleDict({"attn": WindowAttention(d_model, num_heads, window_size)})
+        self.use_kernels = False
+
+    def forward(self, src, key_padding_mask=None, pos=None, dropout_seed=None):
+        qk = src if pos is None else src + pos
+        return self.attn["attn"](qk, qk, src, key_padding_mask, use_kernel=self.use_kernels)
+
+    def offsets(self) -> range:
+        return range(0)
 
 
 def flatten_person_tokens(x):

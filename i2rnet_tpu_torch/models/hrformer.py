@@ -41,8 +41,14 @@ is recomputed in the backward, on either training route
 JAX guard of ``TPU.FUSED_TRAIN_MAX_BLOCKS`` against ``layers``
 (``i2rnet_tpu/models/hrformer.py:640-646``) has nothing to guard here: the
 port does not carry that key, and every block takes kernel 9 when its route
-is on. ``use_rpe`` is not ported: the relative-position table is carried, not
-added (the reference quirk), and a block built with ``use_rpe`` raises.
+is on. The relative-position table is carried and not added (the reference
+quirk, the default); with ``use_rpe`` (``HRFormer(..., use_rpe=True)``, a
+module option no config key reaches, as in JAX) each window's bias, the table
+gathered through the index, is added to the f32 logits (JAX
+``hrformer.py:121-122,141-142,166-167``), and the block takes the modules in
+eval and in training by rule: Kernels E, F, 7 and 9 take no bias, and JAX
+leaves its fused kernels off under it (``:324``, ``:332``). Kernel G's route
+(the MLP half) stays as it is, as in JAX.
 While ``torch.export`` traces, each kernel is its registered ``i2r::`` op
 (``ops/cuda/library.py``) and the packed weights are the buffers
 ``HRFormerBlock.prepare_export`` made.
@@ -121,11 +127,13 @@ class WindowRPEAttention(nn.Module):
     """MHSA over window tokens ``[BW, T, C]`` (reference ``MHA_``,
     ``hrformer.py:590-680``): separate q/k/v/out projections, q scaled by
     d^-1/2 after its projection (bias included). The relative-position table
-    and index are carried for the checkpoints but not added."""
+    and index are carried for the checkpoints, and added to the logits only
+    with ``use_rpe``."""
 
     def __init__(self, channels: int, num_heads: int, window: int):
         super().__init__()
         self.num_heads = num_heads
+        self.use_rpe = False
         self.q_proj = Linear(channels, channels)
         self.k_proj = Linear(channels, channels)
         self.v_proj = Linear(channels, channels)
@@ -145,9 +153,18 @@ class WindowRPEAttention(nn.Module):
 
         q = split(self.q_proj(x)) * (1.0 / math.sqrt(d))
         logits = torch.matmul(q, split(self.k_proj(x)).transpose(-1, -2))
+        if self.use_rpe:
+            logits = logits + self.bias()[None]
         weights = torch.softmax(logits, dim=-1).to(x.dtype).float()
         out = torch.matmul(weights, split(self.v_proj(x))).to(x.dtype)
         return self.out_proj(out.transpose(1, 2).reshape(bw, t, c))
+
+    def bias(self):
+        """The relative-position bias ``[heads, T, T]`` in f32: the table's
+        rows at the index."""
+        t = self.relative_position_index.shape[0]
+        table = self.relative_position_bias_table.float()
+        return table[self.relative_position_index.reshape(-1)].reshape(t, t, -1).permute(2, 0, 1)
 
 
 class InterlacedPoolAttention(nn.Module):
@@ -209,9 +226,9 @@ class HRFormerBlock(nn.Module):
         self.num_heads = num_heads
         self.window = window
         self.drop_path = drop_path  # DropPath rate: the identity in eval
-        self.use_rpe = use_rpe
         self.norm1 = LayerNorm(channels)
         self.attn = InterlacedPoolAttention(channels, num_heads, window)
+        self.use_rpe = use_rpe
         self.norm2 = LayerNorm(channels)
         self.mlp = MlpDWBN(channels, int(channels * mlp_ratio))
         self.use_kernels = False
@@ -223,15 +240,23 @@ class HRFormerBlock(nn.Module):
         self.dp_scales = None  # (attention half, MLP half) [P] scales or None, per call
         self._packed = {}
 
+    @property
+    def use_rpe(self) -> bool:
+        """Whether the attention adds its relative-position bias; the kernel
+        routes (E, F, 7, 9) are off while it does."""
+        return self.attn.attn.use_rpe
+
+    @use_rpe.setter
+    def use_rpe(self, on: bool) -> None:
+        self.attn.attn.use_rpe = bool(on)
+
     def forward(self, x):
-        if self.use_rpe:
-            raise NotImplementedError("use_rpe (adding the relative-position bias) is not ported")
         if self.training:
             s_attn, s_mlp = self.dp_scales or (None, None)
             if self.remat:
                 return remat(self, self._forward_train, x, s_attn, s_mlp)
             return self._forward_train(x, s_attn, s_mlp)
-        if self.use_kernels and self.fused_block:
+        if self.use_kernels and self.fused_block and not self.use_rpe:
             a = self.attn.attn
             attn_w = (a.q_proj.weight, a.q_proj.bias, a.k_proj.weight, a.k_proj.bias,
                       a.v_proj.weight, a.v_proj.bias, a.out_proj.weight, a.out_proj.bias)
@@ -260,7 +285,7 @@ class HRFormerBlock(nn.Module):
         return x + y
 
     def _forward_train(self, x, s_attn, s_mlp):
-        if self.use_kernels and self.fused_train:
+        if self.use_kernels and self.fused_train and not self.use_rpe:
             a = self.attn.attn
             s = torch.ones(x.shape[0], device=x.device) if s_attn is None else s_attn
             x = window_attn_block_train_fused(
@@ -308,7 +333,7 @@ class HRFormerBlock(nn.Module):
         """The kernel weights this block's eval route takes."""
         if not self.use_kernels:
             return ()
-        if self.fused_block:
+        if self.fused_block and not self.use_rpe:
             return ("folded", "attn", "mlp")
         return ("folded", "mlp32") if self.fused_mlp else ()
 
@@ -448,10 +473,12 @@ class HRFormer(nn.Module):
     [P, 78, H/4, W/4], heatmaps [P, K, H/4, W/4] f32)``, the first-stage
     contract (reference ``hrformer.py:2470-2480``)."""
 
-    def __init__(self, arch: Dict, num_joints: int = 17):
+    def __init__(self, arch: Dict, num_joints: int = 17, use_rpe: bool = False):
         super().__init__()
         self.backbone = HRFormerBackbone(arch)
         self.keypoint_head = KeypointHead(arch["stage2"]["num_channels"][0], num_joints)
+        for blk in self.blocks():
+            blk.use_rpe = use_rpe
 
     def blocks(self):
         return [m for m in self.modules() if isinstance(m, HRFormerBlock)]

@@ -11,10 +11,18 @@ TransPose-H one (``interformer_coco_tph_192_p4_b4.yaml``):
 * the features are max-pooled (3x3/s2) floor(log2(W/4 / TRANS_W)) times; the
   pooled map is the token grid (64x48 -> 16x12 at 256x192);
 * with ``USE_MULTI_POS`` the box-mask position embedding
-  (``multi_position_embedding``, modes ``conv``/``res``) on that grid;
+  (``multi_position_embedding``, modes ``conv``/``res``/``sine``/``cat_vec``)
+  on that grid;
 * the inter encoder (``multi_global_encoder``, Kernels A and B with
   ``DEVICE.USE_KERNELS``) over all persons' tokens of an image, key-padding
-  mask from ``person_valid``, the position embedding added to q and k;
+  mask from ``person_valid``, the position embedding added to q and k; with
+  ``MULTI_POS_EMBEDDING: cat_vec`` the embedding's vector
+  (``MULTI_POS_EMBEDDING_DIM`` wide) is concatenated to the tokens instead,
+  the encoder runs at ``DIM_MODEL + MULTI_POS_EMBEDDING_DIM`` channels (its
+  kernels at that width: 192 on the TPH recipes, 174 on the HRT ones) with
+  no position term, and a 1x1 conv ``fc`` brings its output back to
+  ``DIM_MODEL`` (JAX ``interformer.py:168-181``); with ``ATTENTION_TYPE:
+  window`` the inter encoder is :class:`~.encoder.WindowInterEncoder`;
 * back to the heatmap size on ``UPSAMPLE_TYPE``: ``deconv`` (separate deconv
   blocks, ``upsample_layer.deconv_layers.{i}``), ``multiplex`` (one block
   applied each step, ``deconv_layers``) or ``upconv`` (:class:`UpConv`,
@@ -58,7 +66,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from i2rnet_tpu_torch.models.encoder import TransformerEncoder, flatten_person_tokens
+from i2rnet_tpu_torch.models.encoder import (TransformerEncoder, WindowInterEncoder,
+                                             flatten_person_tokens)
 from i2rnet_tpu_torch.models.hrformer import HRFORMER_B_ARCH, HRFormer
 from i2rnet_tpu_torch.models.layers import (Conv2d, ConvBN, DeconvBlock, MaskedBatchNorm,
                                             max_pool_3x3_s2, remat_layers, training_call,
@@ -72,6 +81,8 @@ TWO_STAGE_NAMES = ("interformer", "interformer_2stage")
 FIRST_STAGES = ("hrformer", "transpose_h")
 #: MODEL.UPSAMPLE_TYPE values ported
 UPSAMPLE_TYPES = ("deconv", "multiplex", "upconv")
+#: MODEL.ATTENTION_TYPE values (reference attention.py:1054)
+ATTENTION_TYPES = ("default", "window")
 
 
 class DeconvUpsample(nn.Module):
@@ -113,7 +124,8 @@ class InterFormer(nn.Module):
                  d_model: int = 78, dim_feedforward: int = 192, n_head: int = 1,
                  encoder_layers: int = 2, trans_size=(16, 12), heatmap_size=(48, 64),
                  use_multi_pos: bool = False, multi_pos_mode: str = "conv",
-                 upsample_type: str = "deconv", domain_trans: bool = False,
+                 multi_pos_dim: int = 96, attention_type: str = "default",
+                 window_size: int = 7, upsample_type: str = "deconv", domain_trans: bool = False,
                  inter_supervision: bool = True, singleformer_fix: bool = False,
                  frozen_stage_eval: bool = False, remat=False,
                  compute_dtype: torch.dtype = torch.float32):
@@ -135,11 +147,19 @@ class InterFormer(nn.Module):
             th, tw = (th + 1) // 2, (tw + 1) // 2
         if use_multi_pos:
             self.multi_position_embedding = PositionEmbeddingImage((th, tw), d_model,
-                                                                   multi_pos_mode)
+                                                                   multi_pos_mode, multi_pos_dim)
         else:
             self.multi_position_embedding = None
-        self.multi_global_encoder = TransformerEncoder(encoder_layers, d_model, n_head,
-                                                       dim_feedforward, remat=layers)
+        # cat_vec: the vector joins the channels, the encoder runs wider, fc comes back
+        self.cat_vec = use_multi_pos and multi_pos_mode == "cat_vec"
+        width = d_model + multi_pos_dim if self.cat_vec else d_model
+        if attention_type == "window":
+            self.multi_global_encoder = WindowInterEncoder(width, n_head, window_size)
+        else:
+            self.multi_global_encoder = TransformerEncoder(encoder_layers, width, n_head,
+                                                           dim_feedforward, remat=layers)
+        if self.cat_vec:
+            self.fc = Conv2d(width, d_model, 1)
         taken = [o for e in singleformer.encoders() for o in e.offsets()]
         if set(taken) & set(self.multi_global_encoder.offsets()):
             raise ValueError(f"{encoder_layers} inter layers take dropout offsets of the "
@@ -223,8 +243,12 @@ class InterFormer(nn.Module):
         if self.multi_position_embedding is not None:
             pos = flatten_person_tokens(self.multi_position_embedding(
                 pos_masks.to(self.compute_dtype))).to(tokens.dtype)
+        if self.cat_vec:
+            tokens, pos = torch.cat([tokens, pos], dim=-1), None
         out = self.multi_global_encoder(tokens, key_pad, pos, dropout_seed)
-        out = out.reshape(b * n, th, tw, self.d_model).permute(0, 3, 1, 2)
+        out = out.reshape(b * n, th, tw, out.shape[-1]).permute(0, 3, 1, 2)
+        if self.cat_vec:
+            out = self.fc(out)
         if self.upsample_type == "multiplex":
             for _ in range(self.up_steps):
                 out = self.deconv_layers(out)
@@ -252,15 +276,11 @@ def build_singleformer(cfg: Dict) -> nn.Module:
     if name == "hrformer":
         return HRFormer(m.get("HRFORMER_ARCH") or HRFORMER_B_ARCH, m["NUM_JOINTS"])
     if name == "transpose_h":
-        # the recipes add the embedding in every layer; none sets these
-        for key, value in (("PE_ONLY_AT_BEGIN", True), ("POS_EMBEDDING", "none")):
-            if m.get(key) == value:
-                raise NotImplementedError(f"MODEL.{key}={value!r} is not ported "
-                                          "(ROADMAP queue 1)")
         return TransPoseH(
             m["EXTRA"], m["NUM_JOINTS"], m["DIM_MODEL"], m["DIM_FEEDFORWARD"], m["N_HEAD"],
             m["ENCODER_LAYERS"], tuple(m["IMAGE_SIZE"]), m.get("POS_EMBEDDING", "sine"),
-            m.get("HRNET_RES_LAYER", 0), m["EXTRA"].get("FINAL_CONV_KERNEL", 1))
+            m.get("HRNET_RES_LAYER", 0), m["EXTRA"].get("FINAL_CONV_KERNEL", 1),
+            m.get("PE_ONLY_AT_BEGIN", False))
     raise NotImplementedError(f"MODEL.SINGLEFORMER={name!r}: only {FIRST_STAGES} are ported")
 
 
@@ -285,8 +305,9 @@ def build_interformer(cfg: Dict, use_kernels: Optional[bool] = None,
     """The two-stage model from a port config, in eval mode, on ``device``.
     ``use_kernels`` defaults to ``DEVICE.USE_KERNELS``."""
     m, dev = cfg["MODEL"], cfg["DEVICE"]
-    if m.get("ATTENTION_TYPE", "default") != "default":
-        raise NotImplementedError(f"MODEL.ATTENTION_TYPE={m['ATTENTION_TYPE']!r} is not ported")
+    attention = m.get("ATTENTION_TYPE", "default")
+    if attention not in ATTENTION_TYPES:
+        raise ValueError(f"MODEL.ATTENTION_TYPE={attention!r}: expected one of {ATTENTION_TYPES}")
     upsample = m.get("UPSAMPLE_TYPE", "deconv")
     if upsample not in UPSAMPLE_TYPES:
         raise ValueError(f"MODEL.UPSAMPLE_TYPE={upsample!r}: expected one of {UPSAMPLE_TYPES}")
@@ -295,7 +316,10 @@ def build_interformer(cfg: Dict, use_kernels: Optional[bool] = None,
         d_model=m["DIM_MODEL"], dim_feedforward=m["DIM_FEEDFORWARD"], n_head=m["N_HEAD"],
         encoder_layers=m["ENCODER_MULTI_LAYERS"], trans_size=tuple(m["TRANS_SIZE"]),
         heatmap_size=tuple(m["HEATMAP_SIZE"]), use_multi_pos=m.get("USE_MULTI_POS", False),
-        multi_pos_mode=m.get("MULTI_POS_EMBEDDING", "conv"), upsample_type=upsample,
+        multi_pos_mode=m.get("MULTI_POS_EMBEDDING", "conv"),
+        # the default tree's 96 and 4 where a preset leaves these keys empty
+        multi_pos_dim=m.get("MULTI_POS_EMBEDDING_DIM") or 96, attention_type=attention,
+        window_size=m.get("WINDOW_SIZE") or 4, upsample_type=upsample,
         domain_trans=m.get("DOMAIN_TRANS", False), inter_supervision=m["INTER_SUPERVISION"],
         singleformer_fix=m["SINGLEFORMER_FIX"],
         frozen_stage_eval=dev.get("FROZEN_STAGE_EVAL_MODE", False),

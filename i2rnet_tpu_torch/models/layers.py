@@ -342,21 +342,30 @@ class Bottleneck(nn.Module):
 BLOCKS = {"BASIC": BasicBlock, "BOTTLENECK": Bottleneck}
 
 
+#: torch's (padding, output_padding) of a stride-2 transposed convolution per
+#: kernel size (reference ``_get_deconv_cfg``, ``interformer_pureMulti.py:
+#: 635-646``; JAX ``layers.py:157-190``): each doubles the map exactly
+DECONV_PADDING = {4: (1, 0), 3: (1, 1), 2: (0, 0)}
+
+
 class DeconvBlock(nn.Sequential):
-    """``ConvTranspose2d(k=4, s=2, p=1)`` + BN + ReLU (reference
-    ``_make_deconv_layer``, ``interformer_pureMulti.py:648-673``): exact 2x
-    upsampling. Children ``0``/``1`` as the reference's ``deconv_layers``."""
+    """``ConvTranspose2d(k, s=2)`` + BN + ReLU (reference ``_make_deconv_layer``,
+    ``interformer_pureMulti.py:648-673``), k in 4, 3, 2 with the padding of
+    ``DECONV_PADDING``: exact 2x upsampling. Children ``0``/``1`` as the
+    reference's ``deconv_layers``."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 4, bias: bool = False):
-        if kernel != 4:
-            raise NotImplementedError(f"deconv kernel {kernel}: only the recipe's 4 is ported")
-        super().__init__(nn.ConvTranspose2d(cin, cout, 4, 2, 1, bias=bias),
+        if kernel not in DECONV_PADDING:
+            raise ValueError(f"deconv kernel {kernel}: expected one of {sorted(DECONV_PADDING)}")
+        pad, out_pad = DECONV_PADDING[kernel]
+        super().__init__(nn.ConvTranspose2d(cin, cout, kernel, 2, pad, out_pad, bias=bias),
                          MaskedBatchNorm(cout), nn.ReLU())
 
     def forward(self, x):
         deconv, bn, relu = self
         b = None if deconv.bias is None else deconv.bias.to(x.dtype)
-        x = F.conv_transpose2d(x, deconv.weight.to(x.dtype), b, 2, 1)
+        x = F.conv_transpose2d(x, deconv.weight.to(x.dtype), b, 2, deconv.padding,
+                               deconv.output_padding)
         return relu(bn(x))
 
 

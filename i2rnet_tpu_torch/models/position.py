@@ -12,10 +12,14 @@
   TPH's: a 3x3 conv 1 -> 3, the ResNet-18 stem and ``layer1``, a 3x3 conv
   64 -> d_model, then the pools; reference ``:14-18, 94-97``). In training
   its BNs normalise over the valid persons (``MaskedBatchNorm.person_mask``,
-  set by the owning model, the JAX ``person_valid`` argument).
-
-Modes ``sine`` and ``cat_vec`` are not ported (ROADMAP queue 1): building
-one raises.
+  set by the owning model, the JAX ``person_valid`` argument); ``sine``
+  (no parameters: the multi-person sine table of
+  :func:`sine_position_embedding_multi` over the token grid, the same for
+  every image; reference ``:89-91``); and ``cat_vec`` (the box mask
+  max-pooled to the token grid, flattened, one ``Linear`` ``fc`` to
+  ``vec_dim`` and that vector broadcast over the person's tokens; reference
+  ``:19-23, 69-88``). The owner of a ``cat_vec`` embedding concatenates it to
+  the channels rather than adding it (``models/interformer.py``).
 """
 
 from __future__ import annotations
@@ -24,11 +28,15 @@ import math
 from typing import Tuple
 
 import numpy as np
+import torch
 import torch.nn.functional as F
 from torch import nn
 
-from i2rnet_tpu_torch.models.layers import (BasicBlock, Conv2d, MaskedBatchNorm,
+from i2rnet_tpu_torch.models.layers import (BasicBlock, Conv2d, Linear, MaskedBatchNorm,
                                             max_pool_3x3_s2)
+
+#: the modes ported, as ``MODEL.MULTI_POS_EMBEDDING`` names them
+MODES = ("conv", "res", "sine", "cat_vec")
 
 
 def sine_position_embedding_2d(h: int, w: int, d_model: int,
@@ -54,14 +62,29 @@ def sine_position_embedding_2d(h: int, w: int, d_model: int,
     return pos.reshape(h * w, d_model).astype(np.float32)
 
 
-class PositionEmbeddingImage(nn.Module):
-    """``[B, N, H, W, 1]`` box masks -> ``[B, N, th, tw, d_model]``."""
+def sine_position_embedding_multi(n: int, h: int, w: int, d_model: int) -> np.ndarray:
+    """[n, h, w, d_model]: the 2D sine table over the (h, n*w) grid of the
+    persons side by side, person i in columns i*w .. (i+1)*w - 1 (a copy of
+    ``i2rnet_tpu/models/position.py:51-59``, reference
+    ``position_embedding.py:34-62``)."""
+    wide = sine_position_embedding_2d(h, n * w, d_model).reshape(h, n * w, d_model)
+    return np.stack([wide[:, i * w:(i + 1) * w, :] for i in range(n)], axis=0)
 
-    def __init__(self, trans_size: Tuple[int, int], d_model: int = 96, mode: str = "conv"):
+
+class PositionEmbeddingImage(nn.Module):
+    """``[B, N, H, W, 1]`` box masks -> ``[B, N, th, tw, d_model]`` (``cat_vec``:
+    ``[B, N, th, tw, vec_dim]``, ``vec_dim`` d_model where not given)."""
+
+    def __init__(self, trans_size: Tuple[int, int], d_model: int = 96, mode: str = "conv",
+                 vec_dim=None):
         super().__init__()
         self.trans_size = tuple(trans_size)
+        self.d_model = d_model
         self.mode = mode
-        if mode == "conv":
+        self._sine = {}
+        if mode == "cat_vec":
+            self.fc = Linear(self.trans_size[0] * self.trans_size[1], vec_dim or d_model)
+        elif mode == "conv":
             self.conv1 = Conv2d(1, 64, 3, 2, 1, bias=False)
             self.bn1 = MaskedBatchNorm(64)
             self.conv2 = Conv2d(64, d_model, 3, 2, 1, bias=False)
@@ -73,14 +96,31 @@ class PositionEmbeddingImage(nn.Module):
                                      nn.ReLU(), nn.MaxPool2d(3, 2, 1),
                                      nn.Sequential(BasicBlock(64, 64), BasicBlock(64, 64)))
             self.conv_end = Conv2d(64, d_model, 3, 1, 1, bias=False)
-        else:
-            raise NotImplementedError(f"position embedding mode {mode!r} is not ported "
-                                      "(ROADMAP queue 1)")
+        elif mode != "sine":  # sine: no parameters
+            raise ValueError(f"position embedding mode {mode!r}: expected one of {MODES}")
+
+    def sine_table(self, n: int, dtype, device):
+        """The ``sine`` mode's ``[n, th, tw, d_model]`` table, made once per
+        (n, dtype, device)."""
+        key = (n, dtype, device)
+        if key not in self._sine:
+            pe = sine_position_embedding_multi(n, *self.trans_size, self.d_model)
+            self._sine[key] = torch.from_numpy(pe).to(device, dtype)
+        return self._sine[key]
 
     def forward(self, pos_mask):
         b, n, h, w, _ = pos_mask.shape
         th, tw = self.trans_size
+        if self.mode == "sine":
+            dt = pos_mask.dtype if pos_mask.is_floating_point() else torch.float32
+            return self.sine_table(n, dt, pos_mask.device)[None].expand(b, n, th, tw,
+                                                                       self.d_model)
         x = pos_mask.reshape(b * n, 1, h, w)
+        if self.mode == "cat_vec":
+            for _ in range(int(math.log2(w // tw))):
+                x = max_pool_3x3_s2(x)
+            vec = self.fc(x.reshape(b * n, -1)).reshape(b, n, 1, 1, -1)
+            return vec.expand(b, n, th, tw, vec.shape[-1])
         if self.mode == "conv":
             x = F.relu(self.bn1(self.conv1(x)))
             x = F.relu(self.bn2(self.conv2(x)))

@@ -19,7 +19,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from i2rnet_tpu_torch.models.encoder import (SelfAttention, TransformerEncoder,
+from i2rnet_tpu_torch.models.encoder import (SelfAttention, TransformerEncoder, WindowAttention,
                                              flatten_person_tokens)
 from i2rnet_tpu_torch.models.hrformer import WindowRPEAttention
 from i2rnet_tpu_torch.models.hrnet import HRNetTrunk
@@ -110,8 +110,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     Xavier-uniform with zero bias (``nn.Dense(kernel_init=xavier)``: the
     encoder's q, k, v as three [C, C] matrices, as the JAX ``q_proj``/
     ``k_proj``/``v_proj``, and the HRFormer's window-attention projections);
-    the HRFormer's relative-position tables truncated normal, std 0.02 cut
-    at 2 std (``rpe_table``); TransPose-H's and the end-to-end model's
+    the HRFormer's and the window inter encoder's relative-position tables
+    truncated normal, std 0.02 cut at 2 std (``rpe_table``); TransPose-H's and the end-to-end model's
     learnable position embeddings N(0, 1); BatchNorm and LayerNorm scale 1, bias 0; running statistics 0
     and 1."""
     with torch.no_grad():
@@ -130,7 +130,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 for part in m.in_proj_weight.chunk(3, dim=0):
                     nn.init.xavier_uniform_(part, generator=generator)
                 m.in_proj_bias.zero_()
-            elif isinstance(m, WindowRPEAttention):
+            if isinstance(m, (WindowRPEAttention, WindowAttention)):
                 nn.init.trunc_normal_(m.relative_position_bias_table, std=RPE_INIT_STD,
                                       a=-2 * RPE_INIT_STD, b=2 * RPE_INIT_STD,
                                       generator=generator)

@@ -5,7 +5,8 @@ Port of ``i2rnet_tpu/models/transpose_h.py:25-85`` (reference
 a 1x1 ``reduce`` on branch ``HRNET_RES_LAYER`` (branch 0: 64x48 at 256x192,
 48 -> 96 channels), one transformer encoder (``global_encoder``, no key mask)
 over all h/4 * w/4 tokens of each person (3072 at 256x192) with the sine (or
-learnable) position embedding added to q and k in every layer, and a 1x1
+learnable) position embedding added to q and k in every layer (in the first
+only with ``PE_ONLY_AT_BEGIN``; none with ``POS_EMBEDDING: none``), and a 1x1
 ``final_layer`` on the encoder output. With ``global_encoder.use_kernels`` the
 encoder runs Kernels A and B in eval and Kernels C and D in training (each
 where its training route is on), else their plain versions.
@@ -46,7 +47,7 @@ class TransPoseH(HRNetTrunk):
     def __init__(self, extra: Dict, num_joints: int = 17, d_model: int = 96,
                  dim_feedforward: int = 192, n_head: int = 1, encoder_layers: int = 6,
                  image_size: Tuple[int, int] = (192, 256), pos_embedding: str = "sine",
-                 res_layer: int = 0, final_conv_kernel: int = 1):
+                 res_layer: int = 0, final_conv_kernel: int = 1, pe_only_at_begin: bool = False):
         super().__init__(extra)
         w, h = image_size
         self.feat_hw = (h // 4, w // 4)
@@ -54,18 +55,21 @@ class TransPoseH(HRNetTrunk):
         self.reduce = Conv2d(self.trunk_channels[res_layer], d_model, 1, bias=False)
         self.res_layer = res_layer
         # [h*w, d_model] added to q and k: the fixed sine table (a buffer kept
-        # out of the state dict) or a parameter
+        # out of the state dict), a parameter, or none
         if pos_embedding == "sine":
             pe = torch.from_numpy(sine_position_embedding_2d(*self.feat_hw, d_model))
             self.register_buffer("pos_embedding", pe, persistent=False)
         elif pos_embedding == "learnable":
             self.pos_embedding = nn.Parameter(torch.randn(self.feat_hw[0] * self.feat_hw[1],
                                                           d_model))
+        elif pos_embedding == "none":
+            self.pos_embedding = None
         else:
-            raise ValueError(f"MODEL.POS_EMBEDDING={pos_embedding!r}: expected 'sine' or "
-                             "'learnable'")
+            raise ValueError(f"MODEL.POS_EMBEDDING={pos_embedding!r}: expected 'sine', "
+                             "'learnable' or 'none'")
         self.global_encoder = TransformerEncoder(encoder_layers, d_model, n_head,
-                                                 dim_feedforward, offset_base=INTRA_OFFSET_BASE)
+                                                 dim_feedforward, offset_base=INTRA_OFFSET_BASE,
+                                                 pe_only_at_begin=pe_only_at_begin)
         self.final_layer = Conv2d(d_model, num_joints, final_conv_kernel, 1,
                                   final_conv_kernel // 2)
 
@@ -93,7 +97,7 @@ class TransPoseH(HRNetTrunk):
         if tuple(feat.shape[2:]) != (fh, fw):
             raise ValueError(f"features {tuple(feat.shape[2:])}, expected {(fh, fw)} for the "
                              "configured IMAGE_SIZE")
-        pos = self.pos_embedding[None].to(feat.dtype)
+        pos = None if self.pos_embedding is None else self.pos_embedding[None].to(feat.dtype)
         tokens = feat.permute(0, 2, 3, 1).reshape(p, fh * fw, self.d_model)
         out = self.global_encoder(tokens, None, pos, dropout_seed)
         out = out.reshape(p, fh, fw, self.d_model).permute(0, 3, 1, 2)

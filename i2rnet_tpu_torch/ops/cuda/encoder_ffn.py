@@ -28,6 +28,7 @@ from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import MAX_SMEM, sm_count
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROWS_PER_BLOCK = 8  # the f32 template: one row per warp per step
+_F32_WARPS = 8  # warps of a block of the f32 templates (common.cuh kWarps)
 
 # the bf16 tile body's constants (csrc/ffn_tile.cuh; tests/test_torch_ffn_tiles.py
 # reads the same constants there)
@@ -35,7 +36,9 @@ UNIT = 16  #: rows a warp takes at a time, the mma's m (kUnit)
 TILE_WARPS = 4  #: warps of a block of the forward and of the backward's pass 1 (kTileWarps)
 TILE_ROWS = UNIT * TILE_WARPS  #: rows of a block's x tile, a unit a warp (kRows)
 CHUNK = 64  #: hidden columns a step of the two products (kChunk)
-MAX_CP = 128  #: C padded to 16, at most (kMaxCp)
+MAX_CP = 256  #: C, at most (kMaxCp)
+#: the padded widths of the instances above 128 (``inst_cp``): C rounds up to the next
+WIDE_CP = (176, 192, 256)
 W_TILE = 64  #: weight-gradient tile edge and token rows a stage of pass 2 (kWTile)
 TWO_PER_SM = 113 * 1024  #: shared memory of a block that still fits two per SM (kTwoPerSm)
 
@@ -44,11 +47,18 @@ def _up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def inst_cp(c: int) -> int:
+    """The padded width of the bf16 instance that takes C (``ffn_tile.cuh::
+    inst_cp``): C padded to 16 up to 128, else the next of ``WIDE_CP``."""
+    cp = _up(c, 16)
+    return cp if cp <= 128 else next((w for w in WIDE_CP if w >= c), _up(c, 16))
+
+
 @dataclass(frozen=True)
 class FfnPlan:
     """The bf16 FFN tail's launches over ``rows`` rows of width ``c`` with
-    ``f`` hidden units: C padded to 16 (``cp``; ``cp64`` that rounded up to
-    64) and F to 64 (``fp``); ``grid`` blocks of the forward and ``bwd_grid``
+    ``f`` hidden units: C padded to its instance's width (``cp``,
+    :func:`inst_cp`; ``cp64`` that rounded up to 64) and F to 64 (``fp``); ``grid`` blocks of the forward and ``bwd_grid``
     of the backward's pass 1, whose warps take the ``units`` units of ``UNIT``
     rows in turn (unit u to block u % grid, then to its next warp); pass 2's
     ``slices`` row slices of ``slice_rows`` rows each."""
@@ -91,12 +101,12 @@ def ffn_plan(rows: int, c: int, f: int, sms: int = 132, backward: bool = False) 
     1 as many blocks as units, up to two per SM where a block's shared
     memory fits two (one otherwise), so that the units spread over every SM;
     pass 2 row slices of whole ``W_TILE`` stages, as many as its grid needs
-    to hold two blocks per SM. Raises ValueError where C padded
-    to 16 exceeds ``MAX_CP`` or the forward's (with ``backward``, pass 1's)
+    to hold two blocks per SM. Raises ValueError where C exceeds ``MAX_CP``
+    or the forward's (with ``backward``, pass 1's)
     shared memory exceeds ``MAX_SMEM``: the float32 template is no stand-in."""
-    cp, fp = _up(c, 16), _up(f, CHUNK)
+    cp, fp = inst_cp(c), _up(f, CHUNK)
     fwd, bwd = ffn_smem(cp, fp, False), ffn_smem(cp, fp, True)
-    if cp > MAX_CP:
+    if c > MAX_CP:
         raise ValueError(f"the bf16 FFN kernel takes C up to {MAX_CP}, got C={c}")
     need = bwd if backward else fwd
     if need > MAX_SMEM:
@@ -110,6 +120,22 @@ def ffn_plan(rows: int, c: int, f: int, sms: int = 132, backward: bool = False) 
                    min(units, (2 if fwd <= TWO_PER_SM else 1) * sms),
                    min(units, (2 if bwd <= TWO_PER_SM else 1) * sms),
                    -(-rows // slice_rows), slice_rows)
+
+
+def f32_smem(c: int, f: int) -> int:
+    """Shared memory of Kernel B's f32 template (``encoder_ffn.cu::smem_bytes``):
+    W1^T and W2^T, the vectors and the warps' scratch, all f32."""
+    return 4 * (2 * c * f + f + 5 * c + _F32_WARPS * (2 * c + f))
+
+
+def check_f32_fits(c: int, f: int, need: int, what: str) -> None:
+    """Raise where an f32 template's block needs more than ``MAX_SMEM``: its
+    f32 weights stay whole in shared memory (147 KB at C = 96, F = 192;
+    295 KB at C = F = 192, the cat_vec width), and no other route stands in."""
+    if need > MAX_SMEM:
+        raise ValueError(f"the float32 {what} kernel does not fit C={c}, F={f}: its f32 "
+                         f"weights take {need} B of shared memory, the limit is {MAX_SMEM} B; "
+                         "run that width in bfloat16")
 
 
 def _layer_norm(v, g, b, eps):
@@ -143,7 +169,8 @@ def encoder_ffn_fused(x, n1_weight, n1_bias, w1, b1, w2, b2, n2_weight, n2_bias,
     """The FFN tail through the CUDA kernel over the rows of ``x`` ``[..., C]``.
 
     CPU tensors take :func:`encoder_ffn_torch`; CUDA tensors launch the kernel
-    or raise (in bfloat16 where :func:`ffn_plan` refuses C or F).
+    or raise (in bfloat16 where :func:`ffn_plan` refuses C or F, in float32
+    where :func:`check_f32_fits` does).
     """
     if x.device.type == "cpu":
         return encoder_ffn_torch(x, n1_weight, n1_bias, w1, b1, w2, b2,
@@ -169,6 +196,8 @@ def encoder_ffn_fused(x, n1_weight, n1_bias, w1, b1, w2, b2, n2_weight, n2_bias,
     if rows == 0:
         return out.reshape(x.shape)
     sms = sm_count(x.device.index or 0)
+    if x.dtype == torch.float32:
+        check_f32_fits(c, f, f32_smem(c, f), "encoder_ffn")
     grid = (ffn_plan(rows, c, f, sms).grid if x.dtype == torch.bfloat16
             else min(-(-rows // _ROWS_PER_BLOCK), 2 * sms))
     err = build.library().i2r_encoder_ffn_fwd(

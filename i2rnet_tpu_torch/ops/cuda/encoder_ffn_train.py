@@ -35,11 +35,21 @@ import torch
 from i2rnet_tpu_torch.ops.cuda import build
 from i2rnet_tpu_torch.ops.cuda.dropout import (as_words, check_mode, kernel_args, keep_mask,
                                                philox_bits)
-from i2rnet_tpu_torch.ops.cuda.encoder_ffn import _DTYPE_CODES, _layer_norm, ffn_plan
+from i2rnet_tpu_torch.ops.cuda.encoder_ffn import (_DTYPE_CODES, _F32_WARPS, _layer_norm,
+                                                   check_f32_fits, ffn_plan)
 from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import sm_count
 
 _ROWS_PER_BLOCK = 8  # the f32 template: one row per warp per step
 _OUTER_SPLITS = 16  # the f32 template's row slices of a weight gradient (kOuterSplits)
+
+
+def f32_smem(c: int, f: int, backward: bool = False) -> int:
+    """Shared memory of Kernel D's f32 template (``encoder_ffn_train.cu::
+    fwd_smem``/``bwd_smem``): W1, W2 at odd row strides, the vectors, and the
+    warps' scratch."""
+    params = f * (c + 1) + c * (f + 1) + f + 5 * c
+    scratch = 5 * c + 2 * f + 5 * c + f if backward else 3 * c + f
+    return 4 * (params + _F32_WARPS * scratch)
 
 
 def ffn_bits(seed: int, offset: int, rows: int, width: int, device=None):
@@ -185,7 +195,8 @@ def encoder_ffn_train_fused(x, n1_weight, n1_bias, w1, b1, w2, b2, n2_weight, n2
     the eight parameters.
 
     CPU tensors take :func:`encoder_ffn_train_torch`; CUDA tensors launch the
-    kernels or raise: float32 any C and F whose f32 weights fit shared memory,
+    kernels or raise: float32 any C and F whose f32 weights fit shared memory
+    (:func:`f32_smem`; not C = F = 192, whose weights alone are 295 KB),
     bfloat16 what :func:`~.encoder_ffn.ffn_plan` takes.
     """
     if x.device.type == "cpu":
@@ -206,6 +217,8 @@ def encoder_ffn_train_fused(x, n1_weight, n1_bias, w1, b1, w2, b2, n2_weight, n2
     rows = x.numel() // c
     if rows == 0:
         raise ValueError("encoder_ffn_train_fused: no rows")
+    if x.dtype == torch.float32:
+        check_f32_fits(c, f, f32_smem(c, f, backward=True), "encoder_ffn_train")
     mode = check_mode(dropout_rate, dropout_bits, dropout_seed)
     words1 = words2 = None
     if mode == "bits":

@@ -21,6 +21,18 @@ from i2rnet_tpu_torch.ops.cuda import build
 
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the widest head dim the kernel takes, in either dtype (``kMaxHeadDim``)
+MAX_HEAD_DIM = 256
+
+
+def check_heads(c: int, heads: int, b: int, max_dim: int = MAX_HEAD_DIM) -> int:
+    """The head dim of ``C`` split into ``heads``; raises where the split is
+    not even, the head dim exceeds ``max_dim`` or ``B * heads`` the grid."""
+    if heads < 1 or c % heads != 0 or c // heads > max_dim:
+        raise ValueError(f"C={c} must split into {heads} heads of dim <= {max_dim}")
+    if b * heads > 65535:
+        raise ValueError(f"B*heads={b * heads} exceeds the kernel grid")
+    return c // heads
 
 
 def masked_mhsa_torch(q, k, v, num_heads: int,
@@ -77,7 +89,7 @@ def masked_mhsa_fused(q, k, v, num_heads: int,
 
     CPU tensors take :func:`masked_mhsa_torch`; CUDA tensors launch the kernel
     or raise. Heads are folded into the batch (``[B*H, S, d]``, a view when
-    H = 1); the head dim may be anything up to 128 and S any length.
+    H = 1); the head dim may be anything up to ``MAX_HEAD_DIM`` and S any length.
     """
     if q.device.type == "cpu":
         return masked_mhsa_torch(q, k, v, num_heads, key_padding_mask)
@@ -91,11 +103,7 @@ def masked_mhsa_fused(q, k, v, num_heads: int,
                          f"{q.dtype} {k.dtype} {v.dtype}")
     b, s, c = q.shape
     h = int(num_heads)
-    if h < 1 or c % h != 0 or c // h > 128:
-        raise ValueError(f"C={c} must split into {h} heads of dim <= 128")
-    if b * h > 65535:
-        raise ValueError(f"B*heads={b * h} exceeds the kernel grid")
-    d = c // h
+    d = check_heads(c, h, b)
     mask = key_mask(key_padding_mask, b, s, q.device)
     qf, kf, vf = fold_heads(q, h), fold_heads(k, h), fold_heads(v, h)
     out = torch.empty_like(qf)

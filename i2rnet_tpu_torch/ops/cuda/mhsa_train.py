@@ -23,9 +23,15 @@ import torch
 from i2rnet_tpu_torch.ops.cuda import build
 from i2rnet_tpu_torch.ops.cuda.dropout import (as_words, check_mode, kernel_args, keep_mask,
                                                philox_bits)
-from i2rnet_tpu_torch.ops.cuda.mhsa import _DTYPE_CODES, fold_heads, key_mask, unfold_heads
+from i2rnet_tpu_torch.ops.cuda.mhsa import (_DTYPE_CODES, check_heads, fold_heads, key_mask,
+                                            unfold_heads)
 
 NEG_INF = -1e30
+#: the widest head dim the kernels take in bf16, and in f32, whose CUDA-core
+#: dK/dV block at 192 takes 231680 of a block's 232448 B (``kMaxHeadDim``,
+#: ``kMaxHeadDimF32``)
+MAX_HEAD_DIM = 256
+MAX_HEAD_DIM_F32 = 192
 
 
 def attention_bits(seed: int, offset: int, bh: int, s: int, device=None, first: int = 0):
@@ -141,7 +147,8 @@ def masked_mhsa_train_fused(q, k, v, num_heads: int,
     """Training attention through the CUDA kernels, differentiable in q, k, v.
 
     CPU tensors take :func:`masked_mhsa_train_torch`; CUDA tensors launch the
-    kernels or raise. The head dim may be anything up to 128 and S any length.
+    kernels or raise. The head dim may be anything up to ``MAX_HEAD_DIM`` in bf16
+    and ``MAX_HEAD_DIM_F32`` in f32, and S any length.
     """
     if q.device.type == "cpu":
         return masked_mhsa_train_torch(q, k, v, num_heads, key_padding_mask, dropout_rate,
@@ -155,10 +162,7 @@ def masked_mhsa_train_fused(q, k, v, num_heads: int,
         raise ValueError(f"q/k/v must all be float32 or bfloat16, got {q.dtype} {k.dtype} {v.dtype}")
     b, s, c = q.shape
     h = int(num_heads)
-    if h < 1 or c % h != 0 or c // h > 128:
-        raise ValueError(f"C={c} must split into {h} heads of dim <= 128")
-    if b * h > 65535:
-        raise ValueError(f"B*heads={b * h} exceeds the kernel grid")
+    check_heads(c, h, b, MAX_HEAD_DIM if q.dtype == torch.bfloat16 else MAX_HEAD_DIM_F32)
     mask = key_mask(key_padding_mask, b, s, q.device)
     mode = check_mode(dropout_rate, dropout_bits, dropout_seed)
     words = None

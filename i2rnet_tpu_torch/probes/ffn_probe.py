@@ -51,7 +51,8 @@ def main() -> None:
     timing_only = "--timing" in sys.argv
     if not timing_only:
         for src, name, regs, st, ld in kernel_resources(
-                so.with_suffix(".log").read_text(), ("encoder_ffn.cu", "encoder_ffn_train.cu")):
+                so.with_suffix(".log").read_text(), ("encoder_ffn.cu", "encoder_ffn_train.cu",
+                                                   "encoder_ffn_train_wide.cu")):
             print(f"  {src:22s} {name:64s} {regs:4d} registers, spills {st}/{ld} B", flush=True)
         for name, n in hmma_counts(so, KERNEL_NAMES).items():
             print(f"  SASS {name[:100]}: {n} HMMA", flush=True)

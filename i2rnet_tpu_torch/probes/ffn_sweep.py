@@ -37,6 +37,10 @@ WIDTHS = """    case 16: return fn(std::integral_constant<int, 16>{});
 WIDE = """    case 112: return fn(std::integral_constant<int, 112>{});
     case 128: return fn(std::integral_constant<int, 128>{});
 """
+WIDER = """    case 176: return fn(std::integral_constant<int, 176>{});
+    case 192: return fn(std::integral_constant<int, 192>{});
+    case 256: return fn(std::integral_constant<int, 256>{});
+"""
 COPY = """  copy_rounded(s.w1, CP + 8, fp, CP, p.w1, f, c);
   copy_rounded(s.w2, fp + 8, CP, fp, p.w2, c, f);
 """
@@ -49,11 +53,11 @@ TILES = "for (long u = (long)blockIdx.x * kTileWarps + warp; u < units;"
 #: the files the variants edit
 FILES = ("csrc/ffn_tile.cuh", "csrc/encoder_ffn_train.cu", "ops/cuda/encoder_ffn.py")
 #: every variant builds only the widths of the main path (a shorter build)
-TRIM = [(WIDTHS, ""), (WIDE, "")]
+TRIM = [(WIDTHS, ""), (WIDE, ""), (WIDER, "")]
 #: name: [(text of a file below, its replacement)]
 VARIANTS = {
     "shipped": TRIM,
-    "64-row tiles": TRIM + [(UNITS, TILES), (UNITS, TILES),
+    "64-row tiles": TRIM + [(UNITS, TILES),  # the forward's and pass 1's walks
                             ("min(units, (2 if fwd", "min(-(-units // 4), (2 if fwd"),
                             ("min(units, (2 if bwd", "min(-(-units // 4), (2 if bwd")],
     "one block per SM": TRIM + [("TWO_PER_SM = 113 * 1024", "TWO_PER_SM = 0")],
@@ -79,7 +83,8 @@ def time_variant(name: str) -> None:
     from i2rnet_tpu_torch.ops.cuda.encoder_ffn import encoder_ffn_fused, encoder_ffn_torch
     from i2rnet_tpu_torch.ops.cuda.encoder_ffn_train import encoder_ffn_train_fused
 
-    build.sources = lambda: [build.CSRC / "encoder_ffn.cu", build.CSRC / "encoder_ffn_train.cu"]
+    build.sources = lambda: [build.CSRC / n for n in ("encoder_ffn.cu", "encoder_ffn_train.cu",
+                                                      "encoder_ffn_train_wide.cu")]
     build.SIGNATURES = {k: build.SIGNATURES[k] for k in
                         ("i2r_encoder_ffn_fwd", "i2r_ffn_train_fwd", "i2r_ffn_train_bwd")}
     build.library()

@@ -18,6 +18,7 @@ import sys
 from pathlib import Path
 from typing import List, Optional
 
+from i2rnet_tpu_torch.config.config import apply_cudnn
 from i2rnet_tpu_torch.core.pretrained import load_model_file
 from i2rnet_tpu_torch.core.validate import validate
 from i2rnet_tpu_torch.registry import get_dataset_class, get_model_builder
@@ -44,6 +45,7 @@ def main(argv: Optional[List[str]] = None):
     device = start(args)
     cfg = load_cfg(args)
     logger, output_dir, _ = create_logger(cfg, args.cfg, "valid", rank=dist.rank())
+    logger.info("cudnn: %s", apply_cudnn(cfg))
 
     model = get_model_builder(cfg["MODEL"]["NAME"])(cfg, device=device)
     model_file = cfg["TEST"]["MODEL_FILE"] or str(Path(output_dir) / "final_state.pth")

@@ -5,7 +5,10 @@ Port of ``tools/train.py`` of the JAX package: the recipe's YAML through
 trailing ``KEY value`` overrides as there), ``--seed`` in place of ``SEED``,
 the logger and output layout of ``create_logger``, then
 ``core.trainer.train_loop`` (``--max-epochs``, ``--max-steps-per-epoch``).
-It trains on the card unless ``--device cpu`` is given.
+It trains on the card unless ``--device cpu`` is given. The recipe's ``CUDNN``
+block sets ``torch.backends.cudnn`` (``benchmark``, ``deterministic``,
+``enabled``) before the model is built, as the reference's entry points do
+(``config.apply_cudnn``; ``tools/test.py`` likewise).
 
 Data parallelism: under ``torchrun`` (its ``RANK``/``WORLD_SIZE`` environment)
 or with the JAX CLI's ``--coordinator host:port --num-processes N
@@ -26,7 +29,7 @@ import argparse
 import sys
 from typing import Callable, List, Optional
 
-from i2rnet_tpu_torch.config.config import load_config, to_port
+from i2rnet_tpu_torch.config.config import apply_cudnn, load_config, to_port
 from i2rnet_tpu_torch.core.trainer import train_loop
 from i2rnet_tpu_torch.parallel import dist
 from i2rnet_tpu_torch.utils.logging import create_logger
@@ -81,6 +84,7 @@ def main(argv: Optional[List[str]] = None, on_step: Optional[Callable] = None):
         cfg["SEED"] = args.seed
     logger, output_dir, _ = create_logger(cfg, args.cfg, "train", rank=dist.rank())
     logger.info("config: %s", cfg)
+    logger.info("cudnn: %s", apply_cudnn(cfg))
     state = train_loop(cfg, output_dir, max_epochs=args.max_epochs,
                        max_steps_per_epoch=args.max_steps_per_epoch, device=device,
                        on_step=on_step)

@@ -19,11 +19,14 @@ the dK and dV rows of such keys are exactly 0 (the last test), which is what
 lets the backward's dK/dV block write zeros for a skipped tile.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from i2rnet_tpu.ops.pallas.mhsa import masked_mhsa_pallas
+from i2rnet_tpu_torch.ops.cuda import build, mhsa, mhsa_train
 from i2rnet_tpu_torch.ops.cuda.mhsa import masked_mhsa_torch
 from i2rnet_tpu_torch.ops.cuda.mhsa_train import masked_mhsa_train_torch
 
@@ -97,7 +100,9 @@ def _inputs(rng, b, s, c):
             for _ in range(3)]
 
 
-@pytest.mark.parametrize("c,h", [(96, 1), (78, 1), (24, 8)])  # head dims 96, 78, 3
+# head dims 96, 78, 3; then the wide instances' cat_vec widths, 192 and 174
+# (padded to 192: the same walk over a wider head dim)
+@pytest.mark.parametrize("c,h", [(96, 1), (78, 1), (24, 8), (192, 1), (174, 1)])
 @pytest.mark.parametrize("kind,s", [("suffix", 192), ("scattered", 256), ("all", 192),
                                     ("random", 130), ("none", 130)])
 def test_tile_walk_matches_plain_and_pallas(kind, s, c, h):
@@ -166,3 +171,37 @@ def test_padded_keys_get_exactly_zero_dk_dv(dropout):
         assert (g[real].abs().sum(-1) > 0).all()
     assert (dv[0].abs().sum(-1) > 0).all()
     assert torch.isfinite(dq).all()
+
+
+def _constexpr(name, text):
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def test_wide_instances_fit_and_are_the_wrappers_limits():
+    """The head-dim limits of ``csrc/mhsa.cu`` and ``csrc/mhsa_train.cu`` are
+    the wrappers' (``check_heads``); every wide instance's shared memory fits
+    a block (bf16: A's five tiles, C's six, at padded 192 and 256; f32: C's
+    dK/dV block at 192, which is why its f32 limit is 192, and A's tiles at
+    256); the dK/dV kernel keeps half the columns a block at 192 and 256."""
+    a_src = (build.CSRC / "mhsa.cu").read_text()
+    c_src = (build.CSRC / "mhsa_train.cu").read_text()
+    assert _constexpr("kMaxHeadDim", a_src) == mhsa.MAX_HEAD_DIM == 256
+    assert _constexpr("kMaxHeadDim", c_src) == mhsa_train.MAX_HEAD_DIM == 256
+    assert _constexpr("kMaxHeadDimF32", c_src) == mhsa_train.MAX_HEAD_DIM_F32 == 192
+    assert "return DP <= 128 ? DP : DP / 2;" in c_src  # dkdv_cols
+    max_smem, s = 232448, 768  # the cat_vec inter encoder's tokens at 256x192, N = 4
+    scan = -(-s // 16) * 16 + 16
+    for dp in (192, 256):
+        tile = 2 * 64 * (dp + 8)
+        assert 5 * tile + scan <= max_smem  # Kernel A
+        assert 6 * tile + 2 * 2 * 64 * 4 + 4 * 64 * 4 + scan <= max_smem  # C forward, dQ
+        assert 6 * tile + 6 * 64 * 4 + 4 * 64 * 4 <= max_smem  # C dK/dV
+    f32_dkdv = lambda dt: 4 * (4 * 64 * (dt + 1) + 2 * 64 * 65 + 3 * 64)  # noqa: E731
+    assert f32_dkdv(192) == 231680 <= max_smem < f32_dkdv(256)
+    assert 4 * (3 * 64 * 257 + 64 * 65 + 64) <= max_smem  # A's f32 tiles at 256
+    assert mhsa.check_heads(192, 1, 64) == 192 and mhsa.check_heads(174, 1, 64) == 174
+    assert mhsa.check_heads(256, 1, 64) == 256
+    with pytest.raises(ValueError, match="dim <= 256"):
+        mhsa.check_heads(257, 1, 64)
+    with pytest.raises(ValueError, match="dim <= 192"):
+        mhsa.check_heads(193, 1, 64, mhsa_train.MAX_HEAD_DIM_F32)

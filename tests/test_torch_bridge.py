@@ -119,6 +119,8 @@ def test_port_imports_without_jax_yaml_cv2():
             f"import importlib\nfor m in {mods!r}:\n    importlib.import_module(m)\n"
             "assert not any(k == 'jax' or k.startswith(('jax.', 'i2rnet_tpu.'))\n"
             "               for k, v in sys.modules.items() if v is not None)\n"
+            "from i2rnet_tpu_torch import native\n"
+            "assert native.box_nms([[0, 0, 9, 9, 0.9], [1, 1, 9, 9, 0.8]], 0.5) == [0]\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
@@ -149,7 +151,11 @@ def test_port_imports_without_jax_yaml_cv2():
             "i2rnet_tpu_torch.tools.confirm_eval", "i2rnet_tpu_torch.tools.trans_json",
             "i2rnet_tpu_torch.tools.vis_demo", "i2rnet_tpu_torch.tools.reproduce",
             "i2rnet_tpu_torch.parallel.dist", "i2rnet_tpu_torch.models.interformer_e2e",
-            "i2rnet_tpu_torch.probes.ddp_rank"} <= set(mods)
+            "i2rnet_tpu_torch.probes.ddp_rank", "i2rnet_tpu_torch.native",
+            "i2rnet_tpu_torch.models.position", "i2rnet_tpu_torch.models.encoder",
+            "i2rnet_tpu_torch.models.layers", "i2rnet_tpu_torch.models.transpose_h",
+            "i2rnet_tpu_torch.models.pure_multi", "i2rnet_tpu_torch.convert.jax_import",
+            "i2rnet_tpu_torch.ops.cuda.mhsa", "i2rnet_tpu_torch.ops.cuda.encoder_ffn"} <= set(mods)
 
 
 def with_recipe_data(jax_cfg):

@@ -1,7 +1,7 @@
 """The algorithm of the FFN tail's bf16 tensor-core body, and its launch plan, on the CPU.
 
-``csrc/ffn_tile.cuh`` (Kernel B, and Kernel D's forward) and the backward in
-``csrc/encoder_ffn_train.cu`` walk the token rows in units of 16 (a warp's
+``csrc/ffn_tile.cuh`` (Kernel B, Kernel D's forward and its backward's pass
+1; passes 2 and 3 in ``csrc/encoder_ffn_train.cu``) walk the token rows in units of 16 (a warp's
 rows; unit u to block u % grid), C zero-padded to 16 and F to 64 in chunks of
 64 hidden columns: per chunk h = T(n) . T(W1_c)^T + b1, ReLU, drop1 and the
 rounding, then y += T(a_c) . T(W2_c)^T in f32; then the residual on the f32
@@ -51,8 +51,10 @@ torch.set_num_threads(2)
 
 EPS = 1e-5
 RATE = 0.1
-#: (C, F): W48's encoder, HRT's, and a small one (F a single, partial chunk)
-WIDTHS = [(96, 192), (78, 192), (16, 32)]
+#: (C, F): W48's encoder, HRT's, and a small one (F a single, partial chunk);
+#: then the widened instances' cat_vec widths, TPH's C = 96 + 96 and HRT's
+#: 78 + 96 (padded to 176)
+WIDTHS = [(96, 192), (78, 192), (16, 32), (192, 192), (174, 192)]
 #: R ragged (the last unit part real) and a whole number of 64-row tiles
 ROWS = [1003, 256]
 
@@ -294,7 +296,7 @@ def test_plan_fills_the_card_on_the_main_path(rows, c):
 def test_plan_refuses_what_the_body_does_not_take():
     """C above MAX_CP, and weights whose shared memory exceeds MAX_SMEM (the
     forward's, or with ``backward`` pass 1's), raise: no quiet fall-back."""
-    with pytest.raises(ValueError, match="C up to 128"):
+    with pytest.raises(ValueError, match=f"C up to {MAX_CP}"):
         ffn_plan(100, MAX_CP + 1, 64)
     with pytest.raises(ValueError, match="shared memory"):
         ffn_plan(100, 128, 4096)
@@ -303,7 +305,41 @@ def test_plan_refuses_what_the_body_does_not_take():
     assert ffn_plan(100, 128, f).grid == 7
     with pytest.raises(ValueError, match="shared memory"):
         ffn_plan(100, 128, f, backward=True)
-    assert ffn_plan(100, 128, 192, backward=True).cp == MAX_CP
+    assert ffn_plan(100, 128, 192, backward=True).cp == 128
+
+
+@pytest.mark.parametrize("c,cp,fwd,bwd", [(192, 192, 183808, 203776), (174, 176, 168896, 187584)])
+def test_plan_of_the_wide_instances(c, cp, fwd, bwd):
+    """The cat_vec widths (F = 192): one block an SM, the whole bf16 W1 and W2
+    in shared memory in the forward and in the backward's pass 1 (no W2
+    streaming), 12288 rows (TPH's eval B=16 x N=4 x 192 tokens) spread over
+    every SM; C = 256 at F = 192 does not fit and raises, and so do the f32
+    templates at C = F = 192, whose f32 weights alone are 294912 B."""
+    from i2rnet_tpu_torch.ops.cuda.encoder_ffn import check_f32_fits, f32_smem
+    from i2rnet_tpu_torch.ops.cuda.encoder_ffn_train import f32_smem as d_f32_smem
+
+    plan = ffn_plan(12288, c, 192, backward=True)
+    assert (plan.cp, plan.fp, plan.fwd_smem, plan.bwd_smem) == (cp, 192, fwd, bwd)
+    assert max(fwd, bwd) <= MAX_SMEM and min(fwd, bwd) > TWO_PER_SM
+    assert plan.grid == plan.bwd_grid == 132 and plan.cp64 == 192
+    assert 2 * 2 * cp * 192 <= 147456  # the bf16 weights
+    with pytest.raises(ValueError, match="shared memory"):
+        ffn_plan(12288, 256, 192)
+    assert ffn_plan(12288, 256, 64).cp == MAX_CP
+    from i2rnet_tpu_torch.ops.cuda.encoder_ffn import WIDE_CP, inst_cp
+
+    # the instances' widths: C padded to 16 to 128, then rounded up to a wide one
+    src = (build.CSRC / "ffn_tile.cuh").read_text()
+    assert "c <= 176 ? 176 : c <= 192 ? 192 : 256;" in src and WIDE_CP == (176, 192, 256)
+    assert all(f"case {w}: return fn(std::integral_constant<int, {w}>{{}});" in src
+               for w in WIDE_CP)
+    assert [inst_cp(x) for x in (78, 96, 128, 129, 136, 174, 176, 177, 192, 193, 256)] == [
+        80, 96, 128, 176, 176, 176, 176, 192, 192, 256, 256]
+    for need, what in ((f32_smem(c, 192), "encoder_ffn"),
+                       (d_f32_smem(c, 192, backward=True), "encoder_ffn_train")):
+        with pytest.raises(ValueError, match="float32"):
+            check_f32_fits(c, 192, need, what)
+    check_f32_fits(96, 192, d_f32_smem(96, 192, backward=True), "encoder_ffn_train")
 
 
 def _constants():
@@ -330,10 +366,10 @@ def test_plan_limits_are_the_kernel_sources():
     assert ffn_smem(96, 192, False) == 2 * (192 * 104 + 96 * 200 + 64 * 104) + 4 * (192 + 480)
     assert ffn_smem(96, 192, True) == ffn_smem(96, 192, False) + 4 * 4 * 3 * 32 + 4 * 4 * 672
     # the warps' walk over the units, as the plan describes it, in both kernels
+    # (the forward and the backward's pass 1, both in ffn_tile.cuh)
     walk = ("for (long u = blockIdx.x + (long)gridDim.x * warp; u < units; "
             "u += (long)gridDim.x * kTileWarps) {")
-    assert src.count(walk) == 1
-    assert (build.CSRC / "encoder_ffn_train.cu").read_text().count(walk) == 1
+    assert src.count(walk) == 2
 
 
 def test_the_bf16_kernels_launch_once_forward_three_times_backward():
@@ -346,9 +382,15 @@ def test_the_bf16_kernels_launch_once_forward_three_times_backward():
         b = src[src.index(head):]
         return b[:b.index("\n}\n")]
 
-    assert body(tile, "inline cudaError_t launch_fwd(").count("<<<") == 1
-    assert body(train, "inline cudaError_t launch_bwd(").count("<<<") == 3
-    for name in ("ffn_tile.cuh", "encoder_ffn.cu", "encoder_ffn_train.cu"):
+    assert body(tile, "cudaError_t launch_fwd(").count("<<<") == 1
+    # pass 1 (launch_bwd_rows, for C above 128 through encoder_ffn_train_wide.cu),
+    # then passes 2 and 3
+    assert body(tile, "cudaError_t launch_bwd_rows(").count("<<<") == 1
+    bwd = body(train, "inline cudaError_t launch_bwd(")
+    assert bwd.count("<<<") == 2 and "launch_bwd_rows<" in bwd and "i2r_ffn_bwd_rows_wide(" in bwd
+    assert "ffn::launch_bwd_rows<" in (build.CSRC / "encoder_ffn_train_wide.cu").read_text()
+    for name in ("ffn_tile.cuh", "encoder_ffn.cu", "encoder_ffn_train.cu",
+                 "encoder_ffn_train_wide.cu"):
         assert not re.search(r"\batomic\w*\(", (build.CSRC / name).read_text()), name
 
 

@@ -31,6 +31,7 @@ from i2rnet_tpu_torch import presets
 from i2rnet_tpu_torch.convert.jax_import import params_from_jax
 from i2rnet_tpu_torch.models.hrformer import (HRFormer, HRFormerBlock, HRTModule, MlpDWBN,
                                               WindowRPEAttention, _rpe_index)
+from i2rnet_tpu_torch.models.encoder import WindowInterEncoder
 from i2rnet_tpu_torch.models.interformer import InterFormer, build_model
 from i2rnet_tpu_torch.models.layers import upsample_bilinear
 from i2rnet_tpu_torch.models.pure_multi import PureMultiInterFormer
@@ -147,13 +148,31 @@ def test_hrformer_block_matches_jax(rng, route, h, w, c, heads):
     np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
 
 
-def test_hrformer_block_is_eval_only(rng):
-    """What of the block stays unported raises in both modes: ``use_rpe``
-    (adding the relative-position bias) in training and in eval."""
+def test_hrformer_block_is_eval_only(rng, monkeypatch):
+    """Every block option runs in both modes: ``use_rpe`` (adding the
+    relative-position bias, ``tests/test_torch_options.py`` holds it against
+    JAX) in training and in eval, where with every kernel route on it takes
+    the modules by rule (the kernel routes, patched to raise, are not
+    reached), and changes the output."""
+    import i2rnet_tpu_torch.models.hrformer as hrformer
+
+    def no_kernel(*_, **__):
+        raise AssertionError("a kernel route was taken under use_rpe")
+
+    monkeypatch.setattr(hrformer, "route", lambda name: no_kernel)
+    monkeypatch.setattr(hrformer, "window_attn_block_train_fused", no_kernel)
+    x = T((rng.rand(2, 7, 7, 16) * 2 - 1).astype(np.float32))
     for train in (True, False):
+        torch.manual_seed(0)
         blk = HRFormerBlock(16, 2, 7, 2.0, use_rpe=True).train(train)
-        with pytest.raises(NotImplementedError, match="use_rpe"):
-            blk(torch.zeros(1, 7, 7, 16))
+        blk.use_kernels = blk.fused_block = blk.fused_train = True
+        torch.nn.init.normal_(blk.attn.attn.relative_position_bias_table)
+        with torch.no_grad():
+            got = blk(x)
+            blk.use_rpe = False
+            blk.use_kernels = False
+            plain = blk(x)
+        assert got.shape == (2, 7, 7, 16) and not torch.allclose(got, plain)
     assert HRFormerBlock(16, 2, 7, 2.0).train()(torch.zeros(1, 7, 7, 16)).shape == (1, 7, 7, 16)
 
 
@@ -303,10 +322,14 @@ def test_build_model_dispatches_on_the_name():
         cfg = presets.tiny_hrt_config(5)
         cfg["MODEL"][key] = value
         assert isinstance(build_model(cfg, device="cpu").singleformer, HRFormer)
-    for key, value in (("ATTENTION_TYPE", "window"), ("SINGLEFORMER", "hrnet")):
+    cfg = presets.tiny_hrt_config(5)
+    cfg["MODEL"]["ATTENTION_TYPE"] = "window"  # tests/test_torch_options.py holds it
+    assert isinstance(build_model(cfg, device="cpu").multi_global_encoder, WindowInterEncoder)
+    for key, value, err in (("ATTENTION_TYPE", "swin", ValueError),
+                            ("SINGLEFORMER", "hrnet", NotImplementedError)):
         cfg = presets.tiny_hrt_config(5)
         cfg["MODEL"][key] = value
-        with pytest.raises(NotImplementedError, match=key):
+        with pytest.raises(err, match=key):
             build_model(cfg, device="cpu")
     cfg = presets.tiny_hrt_config(5)
     cfg["MODEL"]["NAME"] = "hrformer"  # the standalone HRFormer is not ported

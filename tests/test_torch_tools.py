@@ -201,3 +201,33 @@ def test_model_builders_by_name():
         jax_builder("interformer_e2e_typo")
     assert str(got.value).split(";")[0] == str(want.value).split(";")[0]
 
+
+
+def test_the_cudnn_block_sets_the_backends(recipe, tmp_path, monkeypatch):
+    """``tools.train`` and ``tools.test`` set ``torch.backends.cudnn``'s
+    ``benchmark``, ``deterministic`` and ``enabled`` from the recipe's
+    ``CUDNN`` block and its overrides, as the reference's entry points do
+    (the training and the evaluation themselves stubbed out here)."""
+    from i2rnet_tpu_torch.config.config import CUDNN_KEYS, apply_cudnn
+
+    cudnn = torch.backends.cudnn
+    for flag in ("benchmark", "deterministic", "enabled"):
+        monkeypatch.setattr(cudnn, flag, getattr(cudnn, flag))  # restored afterwards
+    tree = yaml.safe_load(recipe.read_text())
+    tree["CUDNN"] = {"BENCHMARK": False, "DETERMINISTIC": True, "ENABLED": True}
+    recipe.write_text(yaml.safe_dump(tree))
+    seen = []
+    monkeypatch.setattr(train_tool, "train_loop", lambda *a, **k: seen.append(
+        (cudnn.benchmark, cudnn.deterministic, cudnn.enabled)))
+    train_tool.main(["--cfg", str(recipe), *_dirs(tmp_path), "--device", "cpu"])
+    assert seen == [(False, True, True)]
+    assert to_port(load_config(str(recipe)))["CUDNN"] == dict(zip(CUDNN_KEYS, (False, True, True)))
+    monkeypatch.setattr(test_tool, "load_model_file", lambda *a: None)
+    monkeypatch.setattr(test_tool, "validate", lambda *a, **k: seen.append(
+        (cudnn.benchmark, cudnn.deterministic, cudnn.enabled)) or ({}, 0.0))
+    test_tool.main(["--cfg", str(recipe), *_dirs(tmp_path), "--device", "cpu",
+                    "CUDNN.BENCHMARK", "True", "CUDNN.ENABLED", "False"])
+    assert seen[1] == (True, True, False)
+    # a config without the block takes the default tree's (the reference's defaults)
+    assert apply_cudnn({}) == {"BENCHMARK": True, "DETERMINISTIC": False, "ENABLED": True}
+    assert (cudnn.benchmark, cudnn.deterministic, cudnn.enabled) == (True, False, True)

@@ -228,20 +228,24 @@ def test_build_model_dispatches_on_the_name_and_first_stage():
     assert isinstance(build_model(presets.tiny_test_config(5), device="cpu"),
                       PureMultiInterFormer)
     for key, value, err in (("SINGLEFORMER", "hrnet", NotImplementedError),
-                            ("ATTENTION_TYPE", "window", NotImplementedError),
+                            ("ATTENTION_TYPE", "swin", ValueError),
                             ("UPSAMPLE_TYPE", "bilinear", ValueError),
-                            ("POS_EMBEDDING", "bogus", ValueError),
-                            ("POS_EMBEDDING", "none", NotImplementedError),
-                            ("PE_ONLY_AT_BEGIN", True, NotImplementedError)):
+                            ("POS_EMBEDDING", "bogus", ValueError)):
         cfg = presets.tiny_tph_config(5)
         cfg["MODEL"][key] = value
         with pytest.raises(err, match=key if key != "SINGLEFORMER" else "SINGLEFORMER"):
             build_model(cfg, device="cpu")
-    for mode in ("sine", "cat_vec"):
+    # the options held against JAX in tests/test_torch_options.py build
+    for key, value in (("ATTENTION_TYPE", "window"), ("POS_EMBEDDING", "none"),
+                       ("PE_ONLY_AT_BEGIN", True), ("MULTI_POS_EMBEDDING", "sine"),
+                       ("MULTI_POS_EMBEDDING", "cat_vec")):
         cfg = presets.tiny_tph_config(5)
-        cfg["MODEL"]["MULTI_POS_EMBEDDING"] = mode
-        with pytest.raises(NotImplementedError, match=mode):
-            build_model(cfg, device="cpu")
+        cfg["MODEL"][key] = value
+        assert isinstance(build_model(cfg, device="cpu"), InterFormer), (key, value)
+    with pytest.raises(ValueError, match="bogus"):
+        cfg = presets.tiny_tph_config(5)
+        cfg["MODEL"]["MULTI_POS_EMBEDDING"] = "bogus"
+        build_model(cfg, device="cpu")
 
 
 def test_training_forward_raises():

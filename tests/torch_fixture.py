@@ -344,7 +344,7 @@ JAX_PORT_KEYS = {
               "MULTI_POS_EMBEDDING", "SIGMA", "LOSS_WEIGHTS", "SINGLEFORMER", "SINGLEFORMER_FIX",
               "INTER_SUPERVISION", "ENCODER_MULTI_LAYERS", "UPSAMPLE_TYPE", "ATTENTION_TYPE",
               "DOMAIN_TRANS", "POS_EMBEDDING", "PE_ONLY_AT_BEGIN", "HRNET_RES_LAYER",
-              "MULTI_POS_EMBEDDING_DIM", "SINGLE_MODEL", "PRETRAINED", "INIT_WEIGHTS",
+              "MULTI_POS_EMBEDDING_DIM", "WINDOW_SIZE", "SINGLE_MODEL", "PRETRAINED", "INIT_WEIGHTS",
               "BACKBONE_FIX", "END2END", "ENCODER_SINGLE_LAYERS", "ENCODER_MUTI_LAYERS",
               "SINGLE_POS_EMBEDDING"),
     "DATASET": ("DATASET", "ROOT", "TRAIN_SET", "TEST_SET", "PATCH_MODE", "COLOR_RGB",
@@ -400,6 +400,7 @@ def jax_port_config(cfg) -> dict:
         "DEBUG": {k: bool(getattr(cfg.DEBUG, k)) for k in
                   ("DEBUG", "SAVE_BATCH_IMAGES_GT", "SAVE_BATCH_IMAGES_PRED", "SAVE_HEATMAPS_GT",
                    "SAVE_HEATMAPS_PRED")},
+        "CUDNN": {k: bool(_plain(cfg.CUDNN)[k]) for k in ("BENCHMARK", "DETERMINISTIC", "ENABLED")},
         **{k: _plain(getattr(cfg, k)) for k in JAX_TOP_KEYS},
     }
 
