@@ -270,7 +270,10 @@ Phases, one line each (any failure exits non-zero):
     group: the global loss, every summed gradient within phase 10's f32
     bounds, the parameters after Adam within 2.2 lr, the BatchNorm
     statistics (a masked sync-BN), C and D launched 6 + 6 a rank, the two
-    ranks bit-equal;
+    ranks bit-equal; then the same step with ``MODEL.BACKBONE_FIX`` (its
+    ranks run beside the first step's): the trunk without gradients and
+    unmoved, each trained gradient and the parameters after Adam at the
+    resolved entries within phase 10's ``TRAIN_GRAD_REL``;
 49. one bf16 W48 step with dropout on in an ``nccl`` group of world size
     1, bit-equal to the step without a group (deterministic algorithms);
 50. ``validate`` over two ``gloo`` ranks on ``coco_synth`` at phase 23's
@@ -323,7 +326,22 @@ Phases, one line each (any failure exits non-zero):
 56. the device NMS of ``ops/nms.py`` on the card (greedy OKS, soft OKS, box
     NMS over ``box_iou_matrix``) against the native library
     (``i2rnet_tpu_torch/native.py``) and the numpy versions on the same
-    detections of 8 images: the same kept sets and pick orders.
+    detections of 8 images: the same kept sets and pick orders;
+57. the port's dataset makers (``data/synthetic.py``) on this host: the
+    images/s of the 480x640 COCO tree; the three trees of
+    ``data/fixtures/synthetic_digests.json`` (COCO at the W48 recipe's
+    shapes with its detections, CrowdPose, OCHuman) with every JSON file and
+    raster equal to the JAX makers' and the JPEGs reported equal or not;
+    ``validate`` with the GT-heatmap oracle on each against the JAX
+    oracle's stats (the CrowdPose and OCHuman trees through
+    ``registry.get_dataset_class``); ``tools.test.main`` on the W48 COCO
+    recipe at full width over the detections (``TEST.USE_GT_BBOX`` false,
+    the recipe's batch of 64, ``IMAGE_THRE`` 0.0 and ``OKS_THRE`` 0.9, a
+    seeded W48 as ``TEST.MODEL_FILE``), bf16, kernels on then off: A and B
+    12 launches a batch on, none off, the rows handed to ``evaluate``
+    within phase 6's bound; the detections read, boxes kept and rows
+    evaluated equal to the oracle run's on the same route, whose results
+    equal the JAX oracle's.
 
 Every ``torch.profiler`` breakdown counts all device events but user
 annotations and step markers, and logs how many of them carry a ``#`` in
@@ -353,7 +371,9 @@ the fields at the e2e shapes, A and B at P=32 x 3072 from phase 52, C and D
 at the training step's intra shape P=16 x 3072 from phase 27, which times
 that shape; for every kernel ``options``: its launches in each option's
 forward (phase 53) and training step (phase 55), and for A-D ``cat_vec
-C=192`` and ``cat_vec C=174``: the fields at phase 54's shapes), and last
+C=192`` and ``cat_vec C=174``: the fields at phase 54's shapes; for A and
+B ``synthetic_detector_route``: their launches in phase 57's ``tools.test``
+with the kernels on), and last
 ``{"ok": true, "device": {...}}``.
 TF32 is off throughout, so the float32 parts (crops, decode) stay float32.
 Training writes its checkpoints, and validation its results JSONs, under
@@ -377,6 +397,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -385,13 +406,14 @@ import torch
 from i2rnet_tpu_torch import hub, presets
 from i2rnet_tpu_torch.config.config import load_config, to_port
 from i2rnet_tpu_torch.core import trainer as trainer_module
-from i2rnet_tpu_torch.core.pretrained import NOT_LOADED
+from i2rnet_tpu_torch.core.pretrained import NOT_LOADED, frozen_names
 from i2rnet_tpu_torch.core.train import compute_losses, make_train_step
 from i2rnet_tpu_torch.core.train_state import TrainState, make_optimizer
 from i2rnet_tpu_torch.core.trainer import epoch_batches, raw_to_device, train_loop
 from i2rnet_tpu_torch.core.validate import validate
 from i2rnet_tpu_torch.data.coco import COCODataset
 from i2rnet_tpu_torch.data.jpeg import imread
+from i2rnet_tpu_torch.data import synthetic
 from i2rnet_tpu_torch.data.synthetic import synthetic_raw_batch
 from i2rnet_tpu_torch.data.train_record import compare_records, train_records
 from i2rnet_tpu_torch import native
@@ -2188,10 +2210,11 @@ def per_image(results):
     return counts
 
 
-def phase_validate_oracle(cfg, ds, fixture=FIXTURE, name="validate_oracle"):
+def phase_validate_oracle(cfg, ds, fixture=FIXTURE, name="validate_oracle", expected=None):
     """``validate`` with the GT-heatmap oracle (targets rendered and decoded on
-    the card) against the JAX validate's result on the fixture."""
-    expected = json.loads((fixture / "expected.json").read_text())
+    the card) against the JAX validate's result on the fixture (its
+    ``expected.json``, or ``expected``). Returns the results."""
+    expected = expected or json.loads((fixture / "expected.json").read_text())
     name_value, results, _, _ = validate_run(cfg, ds, None, name,
                                              eval_step_fn=lambda _model, batch: batch["target"])
     diff = {k: abs(name_value[k] - v) for k, v in expected["stats"].items()}
@@ -2205,6 +2228,7 @@ def phase_validate_oracle(cfg, ds, fixture=FIXTURE, name="validate_oracle"):
             or per_image(results) != expected["results_per_image"]):
         raise AssertionError(f"oracle validate {dict(name_value)} vs {expected['stats']}; "
                              f"results per image {per_image(results)}")
+    return results
 
 
 def phase_validate_model(cfg, ds, g, card, name="validate"):
@@ -3995,6 +4019,16 @@ DDP_GRAD_BOUND = {"max": 0.232, "l2": 0.029, "all_l2": 0.0176}
 ADAM_RESOLVED_G = 1e-5
 #: the parameters after Adam at resolved entries, two ranks vs one process
 DDP_PARAM_LR = 1e-2
+#: phase 48's step with the trunk frozen (MODEL.BACKBONE_FIX) is held to
+#: phase 10's TRAIN_GRAD_REL: each trained gradient's max |dg| over its max
+#: |g|, two ranks vs one process, read 8.22e-4 to 8.55e-4 at
+#: position_embedding.conv1.weight in five calls on the H100 (NVIDIA H100
+#: 80GB HBM3, 700 W); the parameters after Adam at resolved entries read
+#: 9.31e-7 lr in each. The one-process step with its images reordered read
+#: 1.08e-3 to 1.13e-3 against itself (position_embedding.bn2.bias): the
+#: trained part still holds BatchNorms over the batch (the position
+#: embedding's, the deconv block's) with ReLUs behind them; it is printed,
+#: not held, and only picks the resolved entries (ADAM_RESOLVED_G)
 #: the end-to-end models' eval batch (B x N, ragged) and training batch
 E2E_COUNTS = [4, 3, 1, 2, 4, 0, 2, 3]
 E2E_TRAIN_COUNTS = [4, 2, 3, 1]
@@ -4034,6 +4068,49 @@ def rank_launches(ranks, kernels, want):
     return per_rank[0]
 
 
+def ddp_job(cfg):
+    """A phase-48 step job: the seeded model of ``cfg`` on phase 10's global batch, dropout 0."""
+    return state_job(cfg, seeded_model(cfg), global_batch(cfg, TRAIN_COUNTS), 0.0)
+
+
+def ddp_sides(jobs):
+    """Each job of ``jobs`` ({label: job}) as one f32 step over two ``gloo``
+    ranks on this card (each label's two rank processes started together in
+    a thread of their own), in this process, and in this process with rank
+    1's images first (its sums in another order): {label: (ranks, one,
+    reordered)}, and the host seconds until every rank run ended."""
+    half = len(TRAIN_COUNTS) // 2
+    order = torch.cat([torch.arange(half, 2 * half), torch.arange(half)])
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {label: pool.submit(run_ranks, "step", job, 2,
+                                      OUT_DIR / f"ddp_step_{label}", device=DEV,
+                                      backend="gloo", timeout=DDP_RANK_TIMEOUT)
+                   for label, job in jobs.items()}
+        local = {label: (case_step(job, DEV), case_step(
+                     {**job, "batch": {k: v[order] for k, v in job["batch"].items()}}, DEV))
+                 for label, job in jobs.items()}
+        ranks = {label: f.result() for label, f in futures.items()}
+    return ({label: (ranks[label], *local[label]) for label in jobs},
+            time.perf_counter() - t0)
+
+
+def adam_resolved(one, reordered, got, lr):
+    """Over the gradient entries that the one-process step resolves against
+    itself reordered (ADAM_RESOLVED_G): (the largest |parameter after Adam,
+    ``got`` - ``one``| in lr, entries resolved, entries)."""
+    g_ref = one["grads"]
+    param_d, resolved, entries = 0.0, 0, 0
+    for n, g in g_ref.items():
+        noise = (reordered["grads"][n] - g).abs().max()
+        sure = g.abs() > torch.clamp(2 * noise, min=ADAM_RESOLVED_G)
+        resolved, entries = resolved + int(sure.sum()), entries + g.numel()
+        if sure.any():
+            param_d = max(param_d, (got["state_dict"][n] - one["state_dict"][n])[sure]
+                          .abs().max().item() / lr)
+    return param_d, resolved, entries
+
+
 def phase_ddp_step(card):
     """Phase 48: one f32 W48 step (dropout 0, kernels on) over two ``gloo``
     ranks on this card, each B=4 x N=7 of phase 10's global batch, against
@@ -4046,18 +4123,18 @@ def phase_ddp_step(card):
     (ADAM_RESOLVED_G; Adam's first step moves each parameter by lr times the
     sign of its gradient there, so a flipped or lost gradient shows as 2 lr
     or 1 lr); C and D launched DDP_STEP_LAUNCHES times a rank forward and
-    backward; both ranks holding the same bits."""
+    backward; both ranks holding the same bits. Then the same step with
+    ``MODEL.BACKBONE_FIX`` (run beside the first, ``ddp_sides``), whose
+    trainable part holds no ReLU of the trunk: the trunk has no gradient and
+    keeps its weights on both sides, and each trainable parameter's
+    gradient is within TRAIN_GRAD_REL of its largest value and its value
+    after Adam within TRAIN_GRAD_REL lr at every resolved entry."""
     cfg = train_cfg("float32", True)
-    batch = global_batch(cfg, TRAIN_COUNTS)
-    job = state_job(cfg, seeded_model(cfg), batch, 0.0)
-    t0 = time.perf_counter()
-    ranks = run_ranks("step", job, 2, OUT_DIR / "ddp_step", device=DEV, backend="gloo",
-                      timeout=DDP_RANK_TIMEOUT)
-    t_ranks = time.perf_counter() - t0
-    one = case_step(job, DEV)
-    half = len(TRAIN_COUNTS) // 2  # rank 1's images first: the sums in another order
-    order = torch.cat([torch.arange(half, 2 * half), torch.arange(half)])
-    reordered = case_step({**job, "batch": {k: v[order] for k, v in job["batch"].items()}}, DEV)
+    frozen_cfg = copy.deepcopy(cfg)
+    frozen_cfg["MODEL"]["BACKBONE_FIX"] = True
+    jobs = {"whole": ddp_job(cfg), "trunk_frozen": ddp_job(frozen_cfg)}
+    sides, t_ranks = ddp_sides(jobs)
+    ranks, one, reordered = sides["whole"]
     launches = rank_launches(ranks, TRAIN_KERNELS, DDP_STEP_LAUNCHES)
     loss_rel = abs(ranks[0]["metrics"]["loss"] - one["metrics"]["loss"]) / abs(
         one["metrics"]["loss"])
@@ -4067,13 +4144,7 @@ def phase_ddp_step(card):
     diff, spread = grad_diff(g_got, g_ref), grad_diff(reordered["grads"], g_ref)
     lr = cfg["TRAIN"]["LR"]
     sd_ref, sd_got = one["state_dict"], ranks[0]["state_dict"]
-    param_d, resolved, entries = 0.0, 0, 0
-    for n, g in g_ref.items():
-        noise = (reordered["grads"][n] - g).abs().max()
-        sure = g.abs() > torch.clamp(2 * noise, min=ADAM_RESOLVED_G)
-        resolved, entries = resolved + int(sure.sum()), entries + g.numel()
-        if sure.any():
-            param_d = max(param_d, (sd_got[n] - sd_ref[n])[sure].abs().max().item() / lr)
+    param_d, resolved, entries = adam_resolved(one, reordered, ranks[0], lr)
     stat_rel = max(((sd_got[k] - sd_ref[k]).abs().max() / sd_ref[k].abs().max()).item()
                    for k in sd_ref if "running" in k)
     same = ranks[0]["same"] and ranks[1]["same"] and all(
@@ -4084,15 +4155,59 @@ def phase_ddp_step(card):
         f"{one['metrics']['acc']:.4f}; BN statistics max rel {stat_rel:.3g} (bound 1e-4); "
         f"parameters after Adam at {resolved} of {entries} gradient entries resolved: "
         f"max|dp| {param_d:.3g} lr (bound {DDP_PARAM_LR:g} lr); ranks "
-        f"bit-equal {same}; launches per rank {launches}; host clock of the two ranks "
-        f"{t_ranks:.1f} s (process start, kernel load, step)")
+        f"bit-equal {same}; launches per rank {launches}; host clock of both two-rank runs "
+        f"(this and the frozen trunk's, together) {t_ranks:.1f} s (process start, kernel "
+        f"load, step)")
     log(f"  {len(g_ref)} gradients, two ranks vs one process: {describe_diff(diff)}; one process "
         f"with its images reordered vs as they were: {describe_diff(spread)}; bounds "
         + ", ".join(f"{k} {v:.3g}" for k, v in DDP_GRAD_BOUND.items()))
     if (loss_rel > TRAIN_LOSS_REL or any(diff[k][0] > DDP_GRAD_BOUND[k] for k in diff)
             or not resolved or param_d > DDP_PARAM_LR or stat_rel > 1e-4 or not same):
         raise AssertionError("the two-rank step strays from the one-process step")
+    check_frozen_step(frozen_cfg, jobs["trunk_frozen"], *sides["trunk_frozen"])
     return launches
+
+
+def check_frozen_step(cfg, job, ranks, one, reordered):
+    """Phase 48's step with ``MODEL.BACKBONE_FIX`` (``phase_ddp_step``)."""
+    model = build_model(cfg, device="cpu")
+    frozen = set(frozen_names(cfg, model))
+    trainable = {n for n, _ in model.named_parameters()} - frozen
+    launches = rank_launches(ranks, TRAIN_KERNELS, DDP_STEP_LAUNCHES)
+    for side, run in (("one process", one), ("rank 0", ranks[0]), ("rank 1", ranks[1])):
+        if not run["grads"] or not set(run["grads"]) <= trainable:
+            raise AssertionError(f"{side}: gradients of the frozen trunk "
+                                 f"{sorted(set(run['grads']) & frozen)[:3]}")
+        moved = [n for n in frozen if not torch.equal(run["state_dict"][n], job["state_dict"][n])]
+        if moved:
+            raise AssertionError(f"{side}: the frozen trunk moved: {moved[:3]}")
+    g_ref, g_got = one["grads"], ranks[0]["grads"]
+    if set(g_ref) != set(g_got):
+        raise AssertionError(f"gradients of {set(g_ref) ^ set(g_got)} on one side only")
+    loss_rel = abs(ranks[0]["metrics"]["loss"] - one["metrics"]["loss"]) / abs(
+        one["metrics"]["loss"])
+    rel = {n: ((g_got[n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+           for n, g in g_ref.items()}
+    spread = {n: ((reordered["grads"][n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+              for n, g in g_ref.items()}
+    worst, worst_spread = max(rel, key=rel.get), max(spread, key=spread.get)
+    lr = cfg["TRAIN"]["LR"]
+    param_d, resolved, entries = adam_resolved(one, reordered, ranks[0], lr)
+    same = ranks[0]["same"] and ranks[1]["same"] and all(
+        torch.equal(v, ranks[1]["state_dict"][k]) for k, v in ranks[0]["state_dict"].items())
+    log(f"  the same step with MODEL.BACKBONE_FIX ({len(frozen)} trunk tensors frozen, "
+        f"{len(g_ref)} trained: {', '.join(sorted({n.split('.')[0] for n in g_ref}))}): loss rel "
+        f"{loss_rel:.3g} (bound {TRAIN_LOSS_REL:g}); worst max|dg|/max|g|, two ranks vs one "
+        f"process {rel[worst]:.3g} at {worst} (bound {TRAIN_GRAD_REL:g}), one process "
+        f"reordered vs as it was {spread[worst_spread]:.3g} at {worst_spread} (not held); "
+        f"parameters after Adam at {resolved} of {entries} trainable entries resolved "
+        f"({resolved / entries:.2%}): max|dp| {param_d:.3g} lr (bound {TRAIN_GRAD_REL:g} lr); "
+        f"the trunk unmoved and without gradients on both sides; ranks bit-equal {same}; "
+        f"launches per rank {launches}")
+    if (loss_rel > TRAIN_LOSS_REL or rel[worst] > TRAIN_GRAD_REL or not resolved
+            or param_d > TRAIN_GRAD_REL or not same):
+        raise AssertionError("the two-rank step with the trunk frozen strays from the "
+                             "one-process step")
 
 
 def phase_ddp_nccl(card):
@@ -4678,6 +4793,265 @@ def phase_nms(card):
         f"steps), native oks_nms {lib_us:.1f} us on the host [{card}]")
 
 
+#: phase 57: the trees made with the port's makers, and the digests and JAX
+#: oracle stats of the same trees made by the JAX makers
+#: (``tests/torch_fixture.py::synthetic_digests``)
+SYNTH_DIGESTS = FIXTURES / "synthetic_digests.json"
+SYNTH_DIR = OUT_DIR / "synthetic"
+#: each tree's dataset (its W48 recipe's test split)
+SYNTH_DATASETS = {"coco_w48": "coco", "crowdpose": "crowdpose", "ochuman": "OCHuman"}
+#: the recipe that phase 57 evaluates on the detector-box route, and the
+#: values of its TEST keys that the route takes as they are
+DETECTOR_RECIPE = "coco/interformer_coco_w48_pure_en6.yaml"
+DETECTOR_TEST = {"BATCH_SIZE_PER_GPU": 64, "IMAGE_THRE": 0.0, "OKS_THRE": 0.9}
+
+
+def sha256(data: bytes) -> str:
+    return hashlib.sha256(data).hexdigest()
+
+
+def make_digested_tree(spec, want, root):
+    """The tree of ``spec`` (a ``synthetic_digests.json`` entry) made at
+    ``root`` by the port's maker, with its detections where it names them,
+    each raster captured at ``synthetic._imwrite``: every JSON file and
+    raster must hash as ``want`` says. Returns (JPEG files, those of cv2's
+    bytes, the largest |difference| of a differing file's decoded pixels
+    from a second encode's and from its raster)."""
+    shutil.rmtree(root, ignore_errors=True)
+    rasters = {}
+    imwrite = synthetic._imwrite
+
+    def capture(path, bgr):
+        rasters[str(Path(path).relative_to(root))] = bgr.copy()
+        imwrite(path, bgr)
+
+    synthetic._imwrite = capture
+    try:
+        getattr(synthetic, spec["maker"])(str(root), **spec["args"])
+        if "detections" in spec:
+            synthetic.make_synthetic_detections(str(root), **spec["detections"])
+    finally:
+        synthetic._imwrite = imwrite
+    files = {str(p.relative_to(root)): p for p in sorted(root.rglob("*")) if p.is_file()}
+    got_json = {k: sha256(p.read_bytes()) for k, p in files.items() if p.suffix == ".json"}
+    got_rasters = {k: sha256(v.tobytes()) for k, v in rasters.items()}
+    jpegs = {k: p for k, p in files.items() if p.suffix == ".jpg"}
+    if got_json != want["json"] or got_rasters != want["rasters"] or set(jpegs) != set(rasters):
+        bad = [k for k in sorted(set(got_json) | set(want["json"]))
+               if got_json.get(k) != want["json"].get(k)]
+        bad += [k for k in sorted(set(got_rasters) | set(want["rasters"]))
+                if got_rasters.get(k) != want["rasters"].get(k)]
+        raise AssertionError(f"{spec['maker']}: files other than the JAX maker's: {bad[:5]} "
+                             f"({len(bad)} in all)")
+    differ = [k for k, p in jpegs.items() if sha256(p.read_bytes()) != want["jpegs"][k]]
+    second, raster = 0, 0
+    for k in differ:
+        again = root / "second_encode.jpg"
+        imwrite(str(again), rasters[k])
+        first = imread(str(jpegs[k])).astype(np.int16)
+        second = max(second, int(np.abs(first - imread(str(again))).max()))
+        raster = max(raster, int(np.abs(first - rasters[k]).max()))
+        again.unlink()
+    return len(jpegs), len(jpegs) - len(differ), second, raster
+
+
+@contextlib.contextmanager
+def evaluate_seen(seen):
+    """Within the block, each ``COCODataset.evaluate`` appends to ``seen``
+    what it was handed and wrote: {"db", "rows", "batches", "preds",
+    "boxes", "image_ids", "results"}."""
+    original = COCODataset.evaluate
+
+    def spy(self, cfg, preds, output_dir, all_boxes, image_ids):
+        out = original(self, cfg, preds, output_dir, all_boxes, image_ids)
+        res = Path(output_dir) / "results" / f"keypoints_{self.image_set}_results.json"
+        seen.append({"db": len(self.db), "rows": len(preds),
+                     "batches": len(list(self.eval_batches(cfg["TEST"]["BATCH_SIZE_PER_GPU"]))),
+                     "preds": np.array(preds), "boxes": np.array(all_boxes),
+                     "image_ids": np.array(image_ids), "results": json.loads(res.read_text())})
+        return out
+
+    COCODataset.evaluate = spy
+    try:
+        yield
+    finally:
+        COCODataset.evaluate = original
+
+
+def rows_as_results(run):
+    """The rows handed to ``evaluate`` as results entries (``results_diff``'s form)."""
+    return [{"image_id": int(i), "center": [float(x) for x in b[:2]],
+             "scale": [float(x) for x in b[2:4]], "keypoints": p.reshape(-1).tolist()}
+            for i, b, p in zip(run["image_ids"], run["boxes"], run["preds"])]
+
+
+def give_detections_gt_joints(ds, ann):
+    """Each detector record's joints: those of the GT person of its image
+    whose box overlaps its box most (the oracle's targets on this route)."""
+    def iou(a, b):
+        ix = max(0.0, min(a[0] + a[2], b[0] + b[2]) - max(a[0], b[0]))
+        iy = max(0.0, min(a[1] + a[3], b[1] + b[3]) - max(a[1], b[1]))
+        return ix * iy / (a[2] * a[3] + b[2] * b[3] - ix * iy)
+
+    by_image = {}
+    for a in ann["annotations"]:
+        by_image.setdefault(a["image_id"], []).append(a)
+    for rec in ds.db:
+        a = rec["annos"][0]
+        gt = max(by_image[rec["image_id"]], key=lambda g: iou(g["bbox"], a["box"]))
+        kp = np.asarray(gt["keypoints"], np.float32).reshape(-1, 3)
+        a["joints_3d"] = np.concatenate([kp[:, :2], np.zeros((len(kp), 1), np.float32)], 1)
+        a["joints_3d_vis"] = np.repeat(np.minimum(kp[:, 2:], 1.0), 3, axis=1)
+
+
+def phase_detector_route(root, expected, g, card):
+    """Phase 57 (c): ``tools.test.main`` on the W48 COCO recipe at full
+    width over the tree at ``root`` with ``TEST.USE_GT_BBOX`` false and
+    ``TEST.COCO_BBOX_FILE`` its detections, ``TEST.MODEL_FILE`` a seeded
+    W48 (calibrated as phase 5) saved here, bf16, kernels on then off (A and
+    B 12 launches a batch on, none off; the rows handed to ``evaluate``
+    within phase 6's bound); and ``validate`` with the GT-heatmap oracle on
+    the same route, each record given the joints of its GT person, against
+    the JAX oracle's stats and results per image (``expected``): the
+    boxes kept at ``IMAGE_THRE`` and the rows evaluated equal in all three
+    runs, to the file's own count and to the JAX run's records. Returns the
+    launches with the kernels on."""
+    ann = json.loads((root / "annotations" / "person_keypoints_val2017.json").read_text())
+    det_file = root / "annotations" / "person_detections_val2017.json"
+    dets = json.loads(det_file.read_text())
+    out = OUT_DIR / "detector_route"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    path = EXPERIMENTS / DETECTOR_RECIPE
+    model_file = out / "w48_seeded.pth"
+    opts = ["DATASET.ROOT", str(root), "TEST.USE_GT_BBOX", "False",
+            "TEST.COCO_BBOX_FILE", str(det_file), "TEST.MODEL_FILE", str(model_file)]
+    cfg = to_port(load_config(str(path), opts))
+    test = cfg["TEST"]
+    if ({k: test[k] for k in DETECTOR_TEST} != DETECTOR_TEST or test["USE_GT_BBOX"] is not False
+            or cfg["MODEL"]["NUM_JOINTS"] != 17):
+        raise AssertionError(f"{DETECTOR_RECIPE}: TEST {test}")
+    model = random_model(cfg, g)
+    torch.save({"state_dict": model.state_dict()}, model_file)
+    del model
+    kept = sum(1 for d in dets if d["category_id"] == 1 and d["score"] >= test["IMAGE_THRE"])
+    dirs = ["--modelDir", str(out / "output"), "--logDir", str(out / "log"), "--device", DEV]
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.benchmark, cudnn.deterministic, cudnn.enabled)  # tools.test sets the recipe's
+    runs, counts, walls = {}, {}, {}
+    for on in (True, False):
+        seen = []
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with evaluate_seen(seen):
+            name_value, _ = test_main(["--cfg", str(path), *dirs, *opts,
+                                       "TPU.USE_PALLAS_ATTENTION", str(on)])
+        torch.cuda.synchronize()
+        walls[on] = time.perf_counter() - t0
+        counts[on] = {k: launch_counts()[k] for k in EVAL_KERNELS}
+        runs[on] = {**seen[0], "name_value": name_value}
+    cudnn.benchmark, cudnn.deterministic, cudnn.enabled = flags
+    ds = COCODataset(cfg, str(root), "val2017", is_train=False)
+    give_detections_gt_joints(ds, ann)
+    seen = []
+    log("  the GT-heatmap oracle on the same route, each record given its GT person's joints:")
+    with evaluate_seen(seen):
+        oracle_results = phase_validate_oracle(cfg, ds, name="detector_oracle", expected=expected)
+    runs["oracle"] = seen[0]
+    n_batches = runs[True]["batches"]
+    want = {True: dict.fromkeys(EVAL_KERNELS, 12 * n_batches), False: dict.fromkeys(EVAL_KERNELS, 0)}
+    for label, run in (("kernels on", runs[True]), ("kernels off", runs[False]),
+                       ("oracle", runs["oracle"])):
+        log(f"  {label}: {len(dets)} detections read, {run['db']} boxes kept at IMAGE_THRE "
+            f"{test['IMAGE_THRE']}, {run['rows']} rows evaluated in {run['batches']} batches of "
+            f"{test['BATCH_SIZE_PER_GPU']}, {len(run['results'])} results kept by OKS-NMS at "
+            f"{test['OKS_THRE']}"
+            + (f", AP {run['name_value']['AP']:.6f}; launches {counts[label == 'kernels on']}; "
+               f"host clock {walls[label == 'kernels on']:.2f} s (build, load, evaluate) [{card}]"
+               if label != "oracle" else ""))
+    text = results_diff(rows_as_results(runs[True]), rows_as_results(runs[False]),
+                        "tools.test with the kernels strays from the plain path")
+    log(f"  the {runs[True]['rows']} rows handed to evaluate, kernels on vs off: {text}; OKS-NMS "
+        f"keeps {len(oracle_results)} of the oracle's rows (the JAX oracle's count) and "
+        f"{len(runs[True]['results'])} / {len(runs[False]['results'])} of the seeded model's, "
+        f"whose random keypoints are not compared")
+    if (any(run["db"] != kept or run["rows"] != kept or run["batches"] != n_batches
+            for run in runs.values())
+            or kept != expected["records"] or counts != want
+            or not all(math.isfinite(runs[on]["name_value"]["AP"]) for on in (True, False))):
+        raise AssertionError(f"the detector-box route: {kept} boxes to keep (JAX "
+                             f"{expected['records']}), launches {counts} (want {want})")
+    return counts[True]
+
+
+def phase_synthetic(g, card):
+    """Phase 57: the port's makers (``data/synthetic.py``) on this host, the
+    trees held to the JAX makers' digests, and evaluated: (e) the host's
+    images/s for the 480x640 COCO tree; (a, b) each tree of
+    ``synthetic_digests.json`` made here, its JSON files and rasters equal
+    to the JAX makers', its JPEGs compared; the COCO tree with the GT-heatmap
+    oracle at the W48 config against the JAX stats, then (c) on the
+    detector-box route (``phase_detector_route``); (d) the CrowdPose and
+    OCHuman trees read through ``registry.get_dataset_class`` and validated
+    with the oracle against the JAX stats (CrowdPose's AP easy, medium and
+    hard among them). Returns the launches of (c) with the kernels on."""
+    want = json.loads(SYNTH_DIGESTS.read_text())
+    spec = want["coco_w48"]
+    timed = SYNTH_DIR / "coco_w48_timed"
+    shutil.rmtree(timed, ignore_errors=True)
+    t0 = time.perf_counter()
+    synthetic.make_synthetic_coco(str(timed), **spec["args"])
+    rate = spec["args"]["num_images"] / (time.perf_counter() - t0)
+    shutil.rmtree(timed)
+    h, w = spec["args"]["image_hw"]
+    log(f"  make_synthetic_coco: {spec['args']['num_images']} images of {w}x{h} at "
+        f"{rate:.1f} images/s on this host (one thread, JPEG encode included; host clock) "
+        f"[{card}]")
+    import PIL
+    import PIL.features
+
+    encoder = (f"Pillow {PIL.__version__}, libjpeg-turbo "
+               f"{PIL.features.version_feature('libjpeg_turbo')}")
+    trees = {}
+    for name, dataset in SYNTH_DATASETS.items():
+        spec = want[name]
+        trees[name] = SYNTH_DIR / name
+        n, equal, second, raster = make_digested_tree(spec, want[name], trees[name])
+        jpeg = (f"every JPEG ({encoder}) the same bytes as the JAX maker's cv2.imwrite"
+                if equal == n else
+                f"{n - equal} of {n} JPEGs ({encoder}) NOT the bytes of the JAX maker's "
+                f"cv2.imwrite: largest |decoded difference| from a second encode {second}, "
+                f"from the raster {raster}")
+        log(f"  {spec['maker']}({', '.join(f'{k}={v}' for k, v in spec['args'].items())})"
+            + (" + make_synthetic_detections" if "detections" in spec else "")
+            + f": {len(spec['json'])} JSON files and {n} rasters equal to the JAX maker's "
+            f"(SHA-256); {jpeg}")
+    cfg = fixture_cfg()
+    cfg["DATASET"]["ROOT"] = str(trees["coco_w48"])
+    ds = COCODataset(cfg, str(trees["coco_w48"]), "val2017", is_train=False)
+    log(f"  the COCO tree ({len(ds.db)} images), GT boxes, W48 config, B={VAL_BATCH}:")
+    phase_validate_oracle(cfg, ds, name="synthetic_oracle_coco",
+                          expected=want["coco_w48"]["oracle"])
+    log(f"  (c) tools.test on {DETECTOR_RECIPE} over the detections (bf16, kernels on, then "
+        f"off):")
+    launches = phase_detector_route(trees["coco_w48"], want["coco_w48"]["oracle_detections"], g,
+                                    card)
+    for name in ("crowdpose", "ochuman"):
+        cfg = presets.w48_pure_en6(SYNTH_DATASETS[name])
+        cfg["DATASET"]["ROOT"] = str(trees[name])
+        cfg["TEST"]["BATCH_SIZE_PER_GPU"] = VAL_BATCH
+        ds = fixture_dataset(cfg, "TEST_SET")
+        log(f"  (d) the {name} tree through {type(ds).__name__} ({len(ds.db)} images, "
+            f"{cfg['DATASET']['TEST_SET']}):")
+        bands = {"AP (easy)", "AP (medium)", "AP (hard)"}
+        if name == "crowdpose" and not bands <= set(want[name]["oracle"]["stats"]):
+            raise AssertionError(f"the CrowdPose oracle lacks {bands}")
+        phase_validate_oracle(cfg, ds, name=f"synthetic_oracle_{name}",
+                              expected=want[name]["oracle"])
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -4919,6 +5293,14 @@ def main() -> int:
     log(f"  phases 53-56: {time.perf_counter() - t_new:.1f} s; phases 2-56: "
         f"{time.perf_counter() - t0:.1f} s")
 
+    t_new = time.perf_counter()
+    log(f"phase 57 the synthetic COCO, CrowdPose and OCHuman makers, and the detector-box route "
+        f"through tools.test [{card}]:")
+    detector_launches = phase_synthetic(g, card)
+    torch.cuda.empty_cache()
+    log(f"  phase 57: {time.perf_counter() - t_new:.1f} s; phases 2-57: "
+        f"{time.perf_counter() - t0:.1f} s; the script so far {time.perf_counter() - T_START:.1f} s")
+
     counts.update(train_counts)
     counts.update({k: hrt_train_counts[k] for k in ("window_attn_block_train_fwd",
                                                     "window_attn_block_train_bwd")})
@@ -4984,6 +5366,9 @@ def main() -> int:
                     **wide_times[name, c], "max_abs_err": wide_errs[name, c],
                     "shape": (f"B={WIDE_EVAL[0]} S={WIDE_EVAL[1]}" if name in EVAL_KERNELS
                               else f"B={WIDE_TRAIN[0]} S={WIDE_TRAIN[1]}")}
+    # phase 57: A's and B's launches in tools.test on the detector-box route, kernels on
+    for name in EVAL_KERNELS:
+        new_shapes[name]["synthetic_detector_route"] = {"launches": detector_launches[name]}
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "launches": counts[name],
                 "max_abs_err": errs[name], **times[name],

@@ -12,8 +12,9 @@ it and writes what it saw to ``FOLDER/rank{RANK}.pt``. The cases:
   backward over the rank's contiguous block of a global ``[B, C, H, W]``
   input (with ``remat``, recomputed in the backward); the output, the input
   gradient, the summed weight and bias gradients, the running statistics;
-* ``step``: one ``make_train_step`` step of the job's model and global
-  device batch (``rows`` ``split``: the rank's block of images; ``all``:
+* ``step``: one ``make_train_step`` step of the job's model (the parameters
+  that ``MODEL.SINGLEFORMER_FIX`` and ``BACKBONE_FIX`` name frozen, as
+  ``train_loop`` freezes them) and global device batch (``rows`` ``split``: the rank's block of images; ``all``:
   every rank the whole batch, so that only the per-rank dropout seed makes
   the ranks differ): the global metrics, the state dict and the summed gradients after the
   step, the training forward's ``multi`` heatmaps, the kernels' launches,
@@ -90,12 +91,14 @@ def _model(job: Dict, device):
 
 
 def case_step(job: Dict, device) -> Dict:
+    from i2rnet_tpu_torch.core.pretrained import freeze
     from i2rnet_tpu_torch.core.train import make_train_step
     from i2rnet_tpu_torch.core.train_state import TrainState, make_optimizer
     from i2rnet_tpu_torch.ops.cuda import launch_counts, reset_launches
 
     cfg = job["cfg"]
     model = _model(job, device)
+    freeze(cfg, model)
     for encoder in model.encoders():
         encoder.dropout_rate = job["dropout"]
     state = TrainState(model, *make_optimizer(cfg, [p for p in model.parameters()

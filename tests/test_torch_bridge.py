@@ -121,6 +121,12 @@ def test_port_imports_without_jax_yaml_cv2():
             "               for k, v in sys.modules.items() if v is not None)\n"
             "from i2rnet_tpu_torch import native\n"
             "assert native.box_nms([[0, 0, 9, 9, 0.9], [1, 1, 9, 9, 0.8]], 0.5) == [0]\n"
+            "import tempfile\n"
+            "from i2rnet_tpu_torch.data import synthetic as s\n"
+            "with tempfile.TemporaryDirectory() as d:\n"
+            "    s.make_synthetic_detections(s.make_synthetic_coco(d, num_images=1))\n"
+            "    s.make_synthetic_crowdpose(d + '/c', num_images=1)\n"
+            "    s.make_synthetic_ochuman(d + '/o', num_images=1)\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)

@@ -44,6 +44,7 @@ from i2rnet_tpu_torch.data.synthetic import synthetic_raw_batch
 from i2rnet_tpu_torch.models.interformer import build_model
 from i2rnet_tpu_torch.utils.checkpoint import latest_checkpoint, load_checkpoint
 from test_torch_bridge import port_model, random_variables, tiny_jax_model
+from chip_smoke import give_detections_gt_joints
 
 import torch_fixture
 
@@ -142,25 +143,6 @@ def test_db_batches_and_raw_batches_match_jax(root, det_file, mode):
         assert not raw["images"][0, 180:].any() and raw["images"][0, :180, :240].any()
 
 
-def give_detections_gt_joints(ds, root):
-    """Each detector record's joints: those of the GT person (same image) whose
-    box overlaps its box most."""
-    ann = json.loads((Path(root) / "annotations" / "person_keypoints_val2017.json").read_text())
-
-    def iou(a, b):
-        ix = max(0.0, min(a[0] + a[2], b[0] + b[2]) - max(a[0], b[0]))
-        iy = max(0.0, min(a[1] + a[3], b[1] + b[3]) - max(a[1], b[1]))
-        return ix * iy / (a[2] * a[3] + b[2] * b[3] - ix * iy)
-
-    for rec in ds.db:
-        a = rec["annos"][0]
-        gt = max((g for g in ann["annotations"] if g["image_id"] == rec["image_id"]),
-                 key=lambda g: iou(g["bbox"], a["box"]))
-        kp = np.asarray(gt["keypoints"], np.float32).reshape(-1, 3)
-        a["joints_3d"] = np.concatenate([kp[:, :2], np.zeros((len(kp), 1), np.float32)], 1)
-        a["joints_3d_vis"] = np.repeat(np.minimum(kp[:, 2:], 1.0), 3, axis=1)
-
-
 def compare_results(got_dir, want_dir, got_preds, want_preds):
     """The same entries in the same order; the predictions handed to
     ``evaluate`` within 1e-3 px and confidences within 1e-5; the entries'
@@ -189,8 +171,9 @@ def test_validate_with_the_gt_oracle_matches_jax(root, det_file, tmp_path, mode)
                "default": {}}[mode]
     jcfg, jds, tcfg, tds = datasets(root, **changes)
     if mode == "detector":
-        give_detections_gt_joints(jds, root)
-        give_detections_gt_joints(tds, root)
+        ann = json.loads((Path(root) / "annotations" / "person_keypoints_val2017.json").read_text())
+        give_detections_gt_joints(jds, ann)
+        give_detections_gt_joints(tds, ann)
     jseen, tseen = spy_preds(jds), spy_preds(tds)
     want, _ = jax_validate(jcfg, jds, None, None, str(tmp_path / "jax"),
                            eval_step_fn=lambda _v, batch: batch["target"])

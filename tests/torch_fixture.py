@@ -36,6 +36,13 @@ ten recipes under ``experiments/`` as the JAX reader gives it
 (``i2rnet_tpu_torch/config/expected_recipes.json``), which ``chip_smoke.py``
 holds the port's YAML reader to on a machine without JAX or PyYAML.
 
+``synthetic_digests`` makes the trees of ``SYNTH_TREES`` with the JAX makers
+and returns ``data/fixtures/synthetic_digests.json``: the trees' makers and
+arguments, and the SHA-256 of each JSON file, of each image's raster as the
+maker hands it to ``cv2.imwrite`` and of each JPEG file. ``chip_smoke.py``
+makes the same trees with the port's makers on the card's host and holds
+them to it.
+
     python tests/torch_fixture.py      # rewrite the committed fixtures
 
 ``tests/test_torch_validate.py`` and ``tests/test_torch_datasets.py``
@@ -82,6 +89,24 @@ ID_OFFSET = 1000
 #: the MPII fixture (``write_mpii``) and its images a batch
 MPII = FIXTURES / "mpii_synth"
 MPII_BATCH = 4
+#: the trees of ``synthetic_digests``: each maker's keyword arguments, and for
+#: COCO ``make_synthetic_detections``'s over the tree. ``coco_w48`` is a val
+#: split at the W48 COCO recipe's shapes (480x640 images, ``MAX_PATCH`` 7
+#: persons at most)
+SYNTH_TREES = {
+    "coco_w48": {"maker": "make_synthetic_coco",
+                 "args": {"num_images": 128, "image_hw": [480, 640], "num_joints": 17,
+                          "max_persons": 7, "image_set": "val2017", "seed": 0},
+                 "detections": {"image_set": "val2017", "dup_every": 2, "low_score_every": 4}},
+    "crowdpose": {"maker": "make_synthetic_crowdpose",
+                  "args": {"num_images": 12, "max_persons": 6, "image_set": "test", "seed": 0}},
+    "ochuman": {"maker": "make_synthetic_ochuman",
+                "args": {"num_images": 12, "max_persons": 3, "seed": 0,
+                         "ann_name": TRAIN_SPLITS["OCHuman"]["test"]}},
+}
+#: each tree's dataset, whose W48 recipe's test split it is
+SYNTH_DATASETS = {"coco_w48": "coco", "crowdpose": "crowdpose", "ochuman": "OCHuman"}
+SYNTH_DIGESTS = FIXTURES / "synthetic_digests.json"
 #: the port configs of the recipes (``expected_recipes``)
 RECIPES_JSON = REPO / "i2rnet_tpu_torch" / "config" / "expected_recipes.json"
 
@@ -296,6 +321,87 @@ def write_train_fixtures(fixtures) -> None:
         _write_expected(tree, dataset, test=True)
 
 
+def _sha256(data: bytes) -> str:
+    return hashlib.sha256(data).hexdigest()
+
+
+def jax_expected_detections(root, cfg) -> dict:
+    """The JAX ``validate`` with the GT-heatmap oracle on the detector-box
+    route of the W48 COCO recipe (``USE_GT_BBOX`` false, the tree's
+    ``person_detections_val2017.json``, the recipe's ``IMAGE_THRE``,
+    ``OKS_THRE`` and batch of 64), each record given the joints of its GT
+    person: the AP stats, the results per image and the records kept."""
+    from chip_smoke import give_detections_gt_joints
+    from i2rnet_tpu.core.validate import validate
+    from i2rnet_tpu.data.coco import COCODataset
+
+    cfg = cfg.clone()
+    cfg.TEST.USE_GT_BBOX = False
+    cfg.TEST.COCO_BBOX_FILE = str(Path(root) / "annotations" / "person_detections_val2017.json")
+    cfg.TEST.BATCH_SIZE_PER_GPU = 64
+    ds = COCODataset(cfg, str(root), "val2017", is_train=False)
+    give_detections_gt_joints(ds, json.loads((Path(root) / ANN).read_text()))
+    with tempfile.TemporaryDirectory() as out:
+        name_value, _ = validate(cfg, ds, model=None, variables=None, output_dir=out,
+                                 eval_step_fn=oracle)
+        results = json.loads((Path(out) / "results" / "keypoints_val2017_results.json")
+                             .read_text())
+    per_image = {}
+    for r in results:
+        per_image[str(r["image_id"])] = per_image.get(str(r["image_id"]), 0) + 1
+    return {"stats": dict(name_value), "results_per_image": per_image, "records": len(ds.db),
+            "image_thre": cfg.TEST.IMAGE_THRE, "oks_thre": cfg.TEST.OKS_THRE}
+
+
+def synthetic_digests() -> str:
+    """``synthetic_digests.json``: each tree of ``SYNTH_TREES`` made by the
+    JAX makers in a temporary directory, with the SHA-256 of its JSON files,
+    of each raster handed to ``cv2.imwrite`` (``cv2.imwrite`` wrapped for the
+    call) and of each JPEG file, by path under the tree's root; and, as
+    ``oracle``, what the JAX ``validate`` gives with the GT-heatmap oracle on
+    the tree at its dataset's W48 recipe (``jax_expected``, B=16), and for
+    the tree with detections as ``oracle_detections`` the same on the
+    detector-box route (``jax_expected_detections``)."""
+    import cv2
+    import numpy as np
+
+    from i2rnet_tpu.data import synthetic
+
+    rasters = {}
+    imwrite = cv2.imwrite
+
+    def capture(path, img, *args):
+        rasters[path] = _sha256(np.ascontiguousarray(img).tobytes())
+        return imwrite(path, img, *args)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cv2.imwrite = capture
+        try:
+            for name, spec in SYNTH_TREES.items():
+                root = Path(tmp) / name
+                getattr(synthetic, spec["maker"])(str(root), **spec["args"])
+                if "detections" in spec:
+                    synthetic.make_synthetic_detections(str(root), **spec["detections"])
+                files = sorted(p for p in root.rglob("*") if p.is_file())
+                rel = {p: str(p.relative_to(root)) for p in files}
+                out[name] = {
+                    **spec,
+                    "json": {rel[p]: _sha256(p.read_bytes()) for p in files
+                             if p.suffix == ".json"},
+                    "rasters": {rel[p]: rasters[str(p)] for p in files if p.suffix == ".jpg"},
+                    "jpegs": {rel[p]: _sha256(p.read_bytes()) for p in files
+                              if p.suffix == ".jpg"},
+                    "oracle": jax_expected(root, recipe_cfg(SYNTH_DATASETS[name], str(root))),
+                }
+                if "detections" in spec:
+                    out[name]["oracle_detections"] = jax_expected_detections(
+                        root, recipe_cfg(SYNTH_DATASETS[name], str(root)))
+        finally:
+            cv2.imwrite = imwrite
+    return json.dumps(out, indent=1, sort_keys=True) + "\n"
+
+
 def mpii_cfg(root: str):
     """The JAX W48 preset on MPII (16 joints) reading ``root``'s ``valid``
     split, ``MPII_BATCH`` images a batch."""
@@ -430,4 +536,5 @@ if __name__ == "__main__":
     RECIPES_JSON.write_text(expected_recipes())
     for tree in DETAIL_TREES:
         (FIXTURES / tree / "expected_detail.json").write_text(jax_expected_detail(tree))
+    SYNTH_DIGESTS.write_text(synthetic_digests())
     print(f"wrote {FIXTURES} and {RECIPES_JSON}")
