@@ -64,6 +64,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from i2rnet_tpu_torch import tracing
 from i2rnet_tpu_torch.models.hrnet import Transition
 from i2rnet_tpu_torch.models.layers import (Bottleneck, Conv2d, ConvBN, LayerNorm, Linear,
                                             MaskedBatchNorm, remat, set_compute_dtype,
@@ -511,7 +512,8 @@ class HRFormer(nn.Module):
             for blk, pair in zip(blocks, scales):
                 blk.dp_scales = pair
         try:
-            feat = self.backbone(x)
+            with tracing.span("model.trunk", device=x):
+                feat = self.backbone(x)
         finally:
             for blk in blocks:
                 blk.dp_scales = None

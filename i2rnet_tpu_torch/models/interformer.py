@@ -66,6 +66,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from i2rnet_tpu_torch import tracing
 from i2rnet_tpu_torch.models.encoder import (TransformerEncoder, WindowInterEncoder,
                                              flatten_person_tokens)
 from i2rnet_tpu_torch.models.hrformer import HRFORMER_B_ARCH, HRFormer
@@ -232,36 +233,39 @@ class InterFormer(nn.Module):
     def _forward(self, images, pos_masks, person_valid, dropout_seed, drop_path_scales):
         b, n, h, w, _ = images.shape
         x = images.reshape(b * n, h, w, 3).permute(0, 3, 1, 2).to(self.compute_dtype)
+        # the first stage opens its own spans: model.trunk (and TransPose-H's model.intra)
         feat, single_heat = self._first_stage(x, dropout_seed, drop_path_scales)
         single_res = feat
-        for _ in range(int(math.log2(feat.shape[3] // self.trans_size[1]))):
-            feat = max_pool_3x3_s2(feat)
-        th, tw = feat.shape[2], feat.shape[3]
-        tokens = feat.permute(0, 2, 3, 1).reshape(b, n * th * tw, self.d_model)
-        key_pad = (~person_valid).repeat_interleave(th * tw, dim=1)
-        pos = None
-        if self.multi_position_embedding is not None:
-            pos = flatten_person_tokens(self.multi_position_embedding(
-                pos_masks.to(self.compute_dtype))).to(tokens.dtype)
-        if self.cat_vec:
-            tokens, pos = torch.cat([tokens, pos], dim=-1), None
-        out = self.multi_global_encoder(tokens, key_pad, pos, dropout_seed)
-        out = out.reshape(b * n, th, tw, out.shape[-1]).permute(0, 3, 1, 2)
-        if self.cat_vec:
-            out = self.fc(out)
-        if self.upsample_type == "multiplex":
-            for _ in range(self.up_steps):
-                out = self.deconv_layers(out)
-        else:
-            out = self.upsample_layer(out)
-        if self.domain_trans:
-            out = self.domain_trans_1(single_res) + self.domain_trans_2(out)
-        else:
-            out = single_res + out
-        heat = self.final_layer(out)
-        vmask = person_valid[:, :, None, None, None]
-        heat = heat.reshape(b, n, *heat.shape[1:])
-        multi = (heat * vmask.to(heat.dtype)).float()
+        with tracing.span("model.inter", device=images):
+            for _ in range(int(math.log2(feat.shape[3] // self.trans_size[1]))):
+                feat = max_pool_3x3_s2(feat)
+            th, tw = feat.shape[2], feat.shape[3]
+            tokens = feat.permute(0, 2, 3, 1).reshape(b, n * th * tw, self.d_model)
+            key_pad = (~person_valid).repeat_interleave(th * tw, dim=1)
+            pos = None
+            if self.multi_position_embedding is not None:
+                pos = flatten_person_tokens(self.multi_position_embedding(
+                    pos_masks.to(self.compute_dtype))).to(tokens.dtype)
+            if self.cat_vec:
+                tokens, pos = torch.cat([tokens, pos], dim=-1), None
+            out = self.multi_global_encoder(tokens, key_pad, pos, dropout_seed)
+            out = out.reshape(b * n, th, tw, out.shape[-1]).permute(0, 3, 1, 2)
+            if self.cat_vec:
+                out = self.fc(out)
+        with tracing.span("model.head", device=images):
+            if self.upsample_type == "multiplex":
+                for _ in range(self.up_steps):
+                    out = self.deconv_layers(out)
+            else:
+                out = self.upsample_layer(out)
+            if self.domain_trans:
+                out = self.domain_trans_1(single_res) + self.domain_trans_2(out)
+            else:
+                out = single_res + out
+            heat = self.final_layer(out)
+            vmask = person_valid[:, :, None, None, None]
+            heat = heat.reshape(b, n, *heat.shape[1:])
+            multi = (heat * vmask.to(heat.dtype)).float()
         single = None
         if self.return_single:
             single = (single_heat.reshape(b, n, *single_heat.shape[1:]) * vmask.float()).float()

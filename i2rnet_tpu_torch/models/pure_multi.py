@@ -19,6 +19,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from i2rnet_tpu_torch import tracing
 from i2rnet_tpu_torch.models.encoder import (SelfAttention, TransformerEncoder, WindowAttention,
                                              flatten_person_tokens)
 from i2rnet_tpu_torch.models.hrformer import WindowRPEAttention
@@ -87,20 +88,23 @@ class PureMultiInterFormer(HRNetTrunk):
         b, n, h, w, _ = images.shape
         th, tw = self.trans_size
         dt = self.compute_dtype
-        x = images.reshape(b * n, h, w, 3).permute(0, 3, 1, 2).to(dt)
-        feat = self.reduce(self.forward_trunk(x)[-1])            # [B*N, C, th, tw]
-        tokens = feat.permute(0, 2, 3, 1).reshape(b, n * th * tw, self.d_model)
-        pos = None
-        if self.position_embedding is not None:
-            pos = flatten_person_tokens(self.position_embedding(pos_masks.to(dt))).to(dt)
-        key_pad = (~person_valid).repeat_interleave(th * tw, dim=1)
-        out = self.global_encoder(tokens, key_pad, pos, dropout_seed)
-        out = out.reshape(b * n, th, tw, self.d_model).permute(0, 3, 1, 2)
-        out = self.deconv_layers(self.deconv_layers(out))
-        heat = self.final_layer(out)
-        heat = heat.reshape(b, n, *heat.shape[1:])
-        heat = heat * person_valid[:, :, None, None, None].to(heat.dtype)
-        return heat.float()
+        with tracing.span("model.trunk", device=images):
+            x = images.reshape(b * n, h, w, 3).permute(0, 3, 1, 2).to(dt)
+            feat = self.reduce(self.forward_trunk(x)[-1])            # [B*N, C, th, tw]
+        with tracing.span("model.inter", device=images):
+            tokens = feat.permute(0, 2, 3, 1).reshape(b, n * th * tw, self.d_model)
+            pos = None
+            if self.position_embedding is not None:
+                pos = flatten_person_tokens(self.position_embedding(pos_masks.to(dt))).to(dt)
+            key_pad = (~person_valid).repeat_interleave(th * tw, dim=1)
+            out = self.global_encoder(tokens, key_pad, pos, dropout_seed)
+            out = out.reshape(b * n, th, tw, self.d_model).permute(0, 3, 1, 2)
+        with tracing.span("model.head", device=images):
+            out = self.deconv_layers(self.deconv_layers(out))
+            heat = self.final_layer(out)
+            heat = heat.reshape(b, n, *heat.shape[1:])
+            heat = heat * person_valid[:, :, None, None, None].to(heat.dtype)
+            return heat.float()
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

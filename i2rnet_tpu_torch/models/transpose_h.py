@@ -32,6 +32,7 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from i2rnet_tpu_torch import tracing
 from i2rnet_tpu_torch.models.encoder import INTRA_OFFSET_BASE, TransformerEncoder
 from i2rnet_tpu_torch.models.hrnet import HRNetTrunk
 from i2rnet_tpu_torch.models.layers import Conv2d
@@ -93,12 +94,15 @@ class TransPoseH(HRNetTrunk):
         DropPath here to take it."""
         p = x.shape[0]
         fh, fw = self.feat_hw
-        feat = self.reduce(self.forward_trunk(x)[self.res_layer])
+        with tracing.span("model.trunk", device=x):
+            feat = self.reduce(self.forward_trunk(x)[self.res_layer])
         if tuple(feat.shape[2:]) != (fh, fw):
             raise ValueError(f"features {tuple(feat.shape[2:])}, expected {(fh, fw)} for the "
                              "configured IMAGE_SIZE")
-        pos = None if self.pos_embedding is None else self.pos_embedding[None].to(feat.dtype)
-        tokens = feat.permute(0, 2, 3, 1).reshape(p, fh * fw, self.d_model)
-        out = self.global_encoder(tokens, None, pos, dropout_seed)
-        out = out.reshape(p, fh, fw, self.d_model).permute(0, 3, 1, 2)
-        return out, self.final_layer(out).float()
+        # the intra encoder, and the first stage's own heatmaps
+        with tracing.span("model.intra", device=x):
+            pos = None if self.pos_embedding is None else self.pos_embedding[None].to(feat.dtype)
+            tokens = feat.permute(0, 2, 3, 1).reshape(p, fh * fw, self.d_model)
+            out = self.global_encoder(tokens, None, pos, dropout_seed)
+            out = out.reshape(p, fh, fw, self.d_model).permute(0, 3, 1, 2)
+            return out, self.final_layer(out).float()

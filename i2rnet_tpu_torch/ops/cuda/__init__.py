@@ -1,12 +1,15 @@
 """Hand-written CUDA kernels (``csrc/``), their ctypes wrappers and launch counts.
 
-Each wrapper keeps a plain integer ``launches`` that it raises by one where it
-launches its kernel, so a run can show that its path went through the kernel.
-The training kernels count their forward and backward launches apart.
+Each wrapper counts ``kernel.<name>`` in :mod:`i2rnet_tpu_torch.tracing` where it
+launches its kernel (``<name>`` its key in :data:`KERNELS`), so a run can show
+that its path went through the kernel; :func:`launch_counts` reads the counts,
+recording or not. The training kernels count their forward and backward
+launches apart.
 Importing this package registers the eval kernels as ``i2r::`` ops
 (:mod:`~i2rnet_tpu_torch.ops.cuda.library`), which exported programs call.
 """
 
+from i2rnet_tpu_torch import tracing
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn import encoder_ffn_fused
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn_train import ffn_train_bwd, ffn_train_fwd
 from i2rnet_tpu_torch.ops.cuda.hrformer_block import (full_block_fused, mlp_block_fused,
@@ -27,9 +30,8 @@ KERNELS = {"masked_mhsa": masked_mhsa_fused, "encoder_ffn": encoder_ffn_fused,
 
 
 def reset_launches() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    tracing.clear("kernel.")
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: tracing.total(f"kernel.{name}") for name in KERNELS}

@@ -23,6 +23,7 @@ from dataclasses import dataclass
 
 import torch
 
+from i2rnet_tpu_torch import tracing
 from i2rnet_tpu_torch.ops.cuda import build
 from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import MAX_SMEM, sm_count
 
@@ -205,8 +206,5 @@ def encoder_ffn_fused(x, n1_weight, n1_bias, w1, b1, w2, b2, n2_weight, n2_bias,
         rows, c, f, float(eps), _DTYPE_CODES[x.dtype], grid,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "encoder_ffn kernel")
-    encoder_ffn_fused.launches += 1
+    tracing.count("kernel.encoder_ffn")
     return out.reshape(x.shape)
-
-
-encoder_ffn_fused.launches = 0

@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from i2rnet_tpu_torch import tracing
 from i2rnet_tpu_torch.ops.cuda import build
 from i2rnet_tpu_torch.ops.cuda.dropout import (as_words, check_mode, kernel_args, keep_mask,
                                                philox_bits)
@@ -116,7 +117,7 @@ def ffn_train_fwd(x2, params, eps: float, mode: str, rate: float, words, seed, o
         _DTYPE_CODES[x2.dtype], grid, *_dropout_args(mode, rate, words, seed, offset),
         torch.cuda.current_stream(x2.device).cuda_stream)
     build.check(err, "encoder_ffn_train forward kernel")
-    ffn_train_fwd.launches += 1
+    tracing.count("kernel.encoder_ffn_train_fwd")
     return out
 
 
@@ -150,13 +151,9 @@ def ffn_train_bwd(x2, gout, params, eps: float, mode: str, rate: float, words, s
         *_dropout_args(mode, rate, words, seed, offset),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "encoder_ffn_train backward kernels")
-    ffn_train_bwd.launches += 1
+    tracing.count("kernel.encoder_ffn_train_bwd")
     dln1_w, dln1_b, db1, db2, dln2_w, dln2_b = torch.split(d_vec, [c, c, f, c, c, c])
     return dx, dln1_w, dln1_b, dw1, db1, dw2, db2, dln2_w, dln2_b
-
-
-ffn_train_fwd.launches = 0
-ffn_train_bwd.launches = 0
 
 
 class _FfnTrain(torch.autograd.Function):

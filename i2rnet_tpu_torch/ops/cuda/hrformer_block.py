@@ -49,6 +49,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from i2rnet_tpu_torch import tracing
 from i2rnet_tpu_torch.ops.cuda import build
 from i2rnet_tpu_torch.ops.cuda.mlp_dwbn import (DTYPE_CODES, MAX_SMEM, check_cuda_mlp,
                                                 depthwise3x3, gelu_tanh_erf, launch_plan,
@@ -325,7 +326,7 @@ def window_attn_block_fused(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads
         out.data_ptr(), *x.shape, heads, *plan, float(eps), DTYPE_CODES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "window_attn_block kernel")
-    window_attn_block_fused.launches += 1
+    tracing.count("kernel.window_attn_block")
     return out
 
 
@@ -380,7 +381,7 @@ def mlp_block_fused(x, ln_w, ln_b, w1, b1, dw, bdw, w2, b2, eps: float = LN_EPS,
         out.data_ptr(), part.data_ptr(), *x.shape, dh, *plan, float(eps), DTYPE_CODES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "mlp_block kernel")
-    mlp_block_fused.launches += 1
+    tracing.count("kernel.mlp_block")
     return out
 
 
@@ -434,10 +435,5 @@ def full_block_fused(x, ln1_w, ln1_b, wq, bq, wk, bk, wv, bv, wo, bo, ln2_w, ln2
         *(t.data_ptr() for t in ptrs), *x.shape, heads, b1f.shape[0], *attn, *plan, float(eps),
         DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "full_block kernel")
-    full_block_fused.launches += 1
+    tracing.count("kernel.full_block")
     return out
-
-
-window_attn_block_fused.launches = 0
-mlp_block_fused.launches = 0
-full_block_fused.launches = 0

@@ -48,6 +48,7 @@ from dataclasses import dataclass
 
 import torch
 
+from i2rnet_tpu_torch import tracing
 from i2rnet_tpu_torch.ops.cuda import build
 from i2rnet_tpu_torch.ops.cuda.hrformer_block import (LN_EPS, MAX_COLS, MAX_DP, ROWS, WINDOW,
                                                       attn_launch_plan, check_cuda_attn, ln_f32,
@@ -267,7 +268,7 @@ def window_attn_train_fwd(x, s, ln, packed, heads: int, eps: float):
         o.data_ptr(), out.data_ptr(), t2.data_ptr(), p, h, w, c, heads, *plan, float(eps),
         DTYPE_CODES[x.dtype], _stream(x))
     build.check(err, "window_attn_block_train forward kernel")
-    window_attn_train_fwd.launches += 1
+    tracing.count("kernel.window_attn_block_train_fwd")
     return out, t2
 
 
@@ -304,13 +305,9 @@ def window_attn_train_bwd(x, dy, s, t2, ln, packed, heads: int, eps: float):
         *(t.data_ptr() for t in ptrs), p, h, w, c, heads, *launch, float(eps),
         1.0 / math.sqrt(c // heads), DTYPE_CODES[dt], _stream(x))
     build.check(err, "window_attn_block_train backward kernels")
-    window_attn_train_bwd.launches += 1
+    tracing.count("kernel.window_attn_block_train_bwd")
     dbq, dbk, dbv, dbo, dln_w, dln_b = torch.split(d_vec, c)
     return dx, dln_w, dln_b, dw[0], dbq, dw[1], dbk, dw[2], dbv, dw[3], dbo
-
-
-window_attn_train_fwd.launches = 0
-window_attn_train_bwd.launches = 0
 
 
 class _WindowAttnTrain(torch.autograd.Function):

@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from i2rnet_tpu_torch import tracing
 from i2rnet_tpu_torch.ops.cuda import build
 
 NEG_INF = -1e30
@@ -113,8 +114,5 @@ def masked_mhsa_fused(q, k, v, num_heads: int,
         b * h, s, d, h, 1.0 / (d ** 0.5), _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "masked_mhsa kernel")
-    masked_mhsa_fused.launches += 1
+    tracing.count("kernel.masked_mhsa")
     return unfold_heads(out, h)
-
-
-masked_mhsa_fused.launches = 0

@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from i2rnet_tpu_torch import tracing
 from i2rnet_tpu_torch.ops.cuda import build
 from i2rnet_tpu_torch.ops.cuda.dropout import (as_words, check_mode, kernel_args, keep_mask,
                                                philox_bits)
@@ -94,7 +95,7 @@ def mhsa_train_fwd(qf, kf, vf, heads: int, mask, mode: str, rate: float, words, 
         *_dropout_args(mode, rate, words, seed, offset), None if keep is None else keep.data_ptr(),
         torch.cuda.current_stream(qf.device).cuda_stream)
     build.check(err, "mhsa_train forward kernel")
-    mhsa_train_fwd.launches += 1
+    tracing.count("kernel.mhsa_train_fwd")
     return out, out32, row_m, row_l, keep
 
 
@@ -111,12 +112,8 @@ def mhsa_train_bwd(qf, kf, vf, heads: int, mask, gout, out32, row_m, row_l, keep
         _DTYPE_CODES[qf.dtype], *_dropout_args(mode, rate, words, seed, offset),
         None if keep is None else keep.data_ptr(), torch.cuda.current_stream(qf.device).cuda_stream)
     build.check(err, "mhsa_train backward kernels")
-    mhsa_train_bwd.launches += 1
+    tracing.count("kernel.mhsa_train_bwd")
     return dq, dk, dv
-
-
-mhsa_train_fwd.launches = 0
-mhsa_train_bwd.launches = 0
 
 
 class _MhsaTrain(torch.autograd.Function):

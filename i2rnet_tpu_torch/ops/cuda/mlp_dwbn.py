@@ -30,6 +30,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from i2rnet_tpu_torch import tracing
 from i2rnet_tpu_torch.ops.cuda import build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -397,8 +398,5 @@ def mlp_dwbn_fused(x, w1, b1, dw, bdw, w2, b2, packed=None):
         c, d, plan.th, plan.tw, plan.slices, DTYPE_CODES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "mlp_dwbn kernel")
-    mlp_dwbn_fused.launches += 1
+    tracing.count("kernel.mlp_dwbn")
     return out
-
-
-mlp_dwbn_fused.launches = 0

@@ -48,6 +48,7 @@ import torch
 from torch import nn
 
 import i2rnet_tpu_torch.ops.cuda  # noqa: F401  (registers the i2r:: ops the artifacts call)
+from i2rnet_tpu_torch import tracing
 from i2rnet_tpu_torch.ops.decode import get_final_preds
 from i2rnet_tpu_torch.ops.flip import flip_back
 from i2rnet_tpu_torch.ops.preprocess import np_rotate_bound_resize_affine, preprocess_inputs
@@ -98,7 +99,8 @@ def heatmap_program(cfg: Dict, model, flip_pairs):
         heat = forward(crops, pos_masks, person_valid)
         if test["FLIP_TEST"]:
             heat_f = forward(crops.flip(-2), pos_masks.flip(-2), person_valid)
-            heat = (heat + flip_back(heat_f, flip_pairs or [])) * 0.5
+            with tracing.span("serve.post", device=heat):
+                heat = (heat + flip_back(heat_f, flip_pairs or [])) * 0.5
         return heat
 
     return heatmaps
@@ -117,12 +119,13 @@ def _eval_program(cfg: Dict, model, flip_pairs):
     def evaluate(crops, pos_masks, person_valid, centers, scales):
         heat = heatmaps(crops, pos_masks, person_valid)
         b, n = heat.shape[:2]
-        coords, maxvals = get_final_preds(
-            heat.reshape(b * n, *heat.shape[2:]), centers, scales,
-            blur_kernel=int(test["BLUR_KERNEL"]), heatmap_size=heatmap_size,
-            post_process=bool(test["POST_PROCESS"]))
-        vmask = person_valid.reshape(b * n, 1, 1).float()
-        return coords * vmask, maxvals * vmask
+        with tracing.span("serve.post", device=heat):
+            coords, maxvals = get_final_preds(
+                heat.reshape(b * n, *heat.shape[2:]), centers, scales,
+                blur_kernel=int(test["BLUR_KERNEL"]), heatmap_size=heatmap_size,
+                post_process=bool(test["POST_PROCESS"]))
+            vmask = person_valid.reshape(b * n, 1, 1).float()
+            return coords * vmask, maxvals * vmask
 
     return evaluate
 
@@ -141,8 +144,9 @@ def _serve_program(cfg: Dict, model, flip_pairs):
 
     def serve(images_u8, crop_affines, boxes, mask_affines, person_valid, centers, scales):
         # serving affines come from boxes and never rotate: the axis-aligned warp
-        crops, pos_masks = preprocess_inputs(images_u8, crop_affines, boxes, mask_affines,
-                                             image_size, axis_aligned=True)
+        with tracing.span("serve.preprocess", device=images_u8):
+            crops, pos_masks = preprocess_inputs(images_u8, crop_affines, boxes, mask_affines,
+                                                 image_size, axis_aligned=True)
         return evaluate(crops, pos_masks, person_valid, centers, scales)
 
     return serve
@@ -314,6 +318,14 @@ class Predictor:
     The constructor serves ``model`` in this process (:func:`make_serve_fn`);
     :meth:`from_programs` (what :func:`load_predictor` returns) serves an
     artifact's programs, one per bucket. ``header`` holds the geometry.
+
+    Tracing (:mod:`~i2rnet_tpu_torch.tracing`): ``predictor.predict`` (a new
+    ``call`` id, the device's anchor) over ``predictor.route``,
+    ``predictor.bucket_call`` (its ``bucket`` index) for each static call
+    (``predictor.pack`` with its child ``predictor.h2d``, the program's
+    spans, ``predictor.readback``) and ``predictor.assemble``; counters
+    ``predictor.slots`` (B x n a bucket call), ``predictor.persons`` (valid
+    boxes) and ``predictor.h2d_bytes``.
     """
 
     def __init__(self, model, cfg: Dict, flip_pairs, batch_images: int = 8,
@@ -401,6 +413,14 @@ class Predictor:
         """The seven inputs on the device of one static (B, n) call over
         ``chunk``: rows ``(image index, first box, image, boxes)`` of at most
         ``n`` boxes each, B rows at most, the rest padding."""
+        with tracing.span("predictor.pack"):
+            arrays = self._host_arrays(n, chunk)
+            tracing.count("predictor.h2d_bytes", sum(a.nbytes for a in arrays))
+            with tracing.span("predictor.h2d", device=self.device):
+                return [torch.from_numpy(a).to(self.device, non_blocking=True) for a in arrays]
+
+    def _host_arrays(self, n: int, chunk) -> Tuple[np.ndarray, ...]:
+        """:meth:`pack`'s seven arrays on the host."""
         b, (rh, rw) = self.batch_images, self.raw_hw
         imgs = np.zeros((b, rh, rw, 3), np.uint8)
         # padded slots get IDENTITY affines: a zero affine's inverse is nan
@@ -428,20 +448,43 @@ class Predictor:
             valid[r, :m] = True
             cent[r * n:r * n + m] = c
             scal[r * n:r * n + m] = s
-        return [torch.from_numpy(a).to(self.device, non_blocking=True)
-                for a in (imgs, affs, rects, mask_affs, valid, cent, scal)]
+        return imgs, affs, rects, mask_affs, valid, cent, scal
 
     def _run(self, n: int, chunk) -> np.ndarray:
         """One static (B, n) call over ``chunk`` rows -> [B, n, K, 3] keypoints."""
         b = self.batch_images
+        tracing.count("predictor.slots", b * n)
+        tracing.count("predictor.persons", sum(len(row[3]) for row in chunk))
         coords, maxvals = self._call(self.pack(n, chunk))
-        kp = torch.cat([coords, maxvals], dim=-1).cpu().numpy()
+        with tracing.span("predictor.readback", device=coords):
+            kp = torch.cat([coords, maxvals], dim=-1).cpu().numpy()
         return kp.reshape(b, n, self.num_joints, 3)
 
     def predict(self, images: Sequence[np.ndarray],
                 boxes_per_image: Sequence[Sequence[Sequence[float]]]) -> List[np.ndarray]:
-        if len(images) != len(boxes_per_image):
-            raise ValueError("images and boxes_per_image length mismatch")
+        call = tracing.begin_call(self.device)
+        with tracing.span("predictor.predict", call=call):
+            if len(images) != len(boxes_per_image):
+                raise ValueError("images and boxes_per_image length mismatch")
+            with tracing.span("predictor.route"):
+                rows_by_n = self._route(images, boxes_per_image)
+            done = []
+            for n, rows in rows_by_n.items():
+                for j0 in range(0, len(rows), self.batch_images):
+                    chunk = rows[j0:j0 + self.batch_images]
+                    with tracing.span("predictor.bucket_call", bucket=len(done), n=n):
+                        done.append((chunk, self._run(n, chunk)))
+            with tracing.span("predictor.assemble"):
+                parts: Dict[int, list] = {}
+                for chunk, kp in done:
+                    for r, (i, start, _, bxs) in enumerate(chunk):
+                        parts.setdefault(i, []).append((start, kp[r, :len(bxs)]))
+                return [np.concatenate([k for _, k in sorted(parts[i], key=lambda t: t[0])],
+                                       axis=0) for i in range(len(images))]
+
+    def _route(self, images, boxes_per_image) -> Dict[int, list]:
+        """Each image's boxes in rows of at most the largest bucket, each row
+        under the smallest bucket that holds it; raises on a bad image."""
         rh, rw = self.raw_hw
         n_max = self.n_buckets[-1]
         rows_by_n: Dict[int, list] = {n: [] for n in self.n_buckets}
@@ -455,16 +498,7 @@ class Predictor:
             for j in range(0, len(bxs), n_max):
                 part = bxs[j:j + n_max]
                 rows_by_n[self._bucket(len(part))].append((i, j, img, part))
-
-        parts: Dict[int, list] = {}
-        for n, rows in rows_by_n.items():
-            for j0 in range(0, len(rows), self.batch_images):
-                chunk = rows[j0:j0 + self.batch_images]
-                kp = self._run(n, chunk)
-                for r, (i, start, _, bxs) in enumerate(chunk):
-                    parts.setdefault(i, []).append((start, kp[r, :len(bxs)]))
-        return [np.concatenate([k for _, k in sorted(parts[i], key=lambda t: t[0])], axis=0)
-                for i in range(len(images))]
+        return rows_by_n
 
 
 class MicroBatcher:
@@ -476,6 +510,16 @@ class MicroBatcher:
     before it dispatches one ``predict`` call. A failed call sets its
     exception on every waiter of that call. ``close()`` dispatches what is
     pending, then stops the thread; ``submit`` raises after it.
+
+    Tracing (:mod:`~i2rnet_tpu_torch.tracing`): each request gets a ``request``
+    id and its submit time; each call records ``batcher.gather`` (from its
+    first request to the last pulled off the queue), ``batcher.handover``
+    (from handing the call to ``predict`` to the program's ``predict``
+    beginning: nothing in itself, the time of whatever wraps ``predict``),
+    ``batcher.resolve`` (results set, callbacks included) and, per request,
+    ``batcher.queue_wait`` (submit to the start of its call's ``predict``,
+    with that call's ``call`` id); counter ``batcher.cut_short`` (calls
+    sent under ``batch_images`` because the deadline ran out).
     """
 
     def __init__(self, predictor: Predictor, max_delay_ms: float = 5.0):
@@ -490,7 +534,7 @@ class MicroBatcher:
         if self._closed:
             raise RuntimeError("MicroBatcher is closed")
         fut: Future = Future()
-        self._q.put((image, boxes, fut))
+        self._q.put((image, boxes, fut, tracing.request()))
         return fut
 
     def close(self) -> None:
@@ -499,36 +543,53 @@ class MicroBatcher:
         self._thread.join()
 
     def _run(self) -> None:
-        b = self._pred.batch_images
         while True:
             item = self._q.get()
             if item is None:
                 return
-            group = [item]
-            deadline = time.monotonic() + self._delay
-            while len(group) < b:
-                timeout = deadline - time.monotonic()
-                if timeout <= 0:
-                    break
-                try:
-                    nxt = self._q.get(timeout=timeout)
-                except queue.Empty:
-                    break
-                if nxt is None:
-                    self._dispatch(group)
-                    return
-                group.append(nxt)
-            self._dispatch(group)
+            with tracing.span("batcher.gather"):
+                group, closing = self._gather(item)
+            self._dispatch(group, cut_short=not closing and len(group) < self._pred.batch_images)
+            if closing:
+                return
 
-    def _dispatch(self, group) -> None:
+    def _gather(self, first):
+        """Requests after ``first`` until ``batch_images`` or the deadline;
+        returns ``(group, closing)``, ``closing`` where ``close()`` came."""
+        group = [first]
+        deadline = time.monotonic() + self._delay
+        while len(group) < self._pred.batch_images:
+            timeout = deadline - time.monotonic()
+            if timeout <= 0:
+                break
+            try:
+                nxt = self._q.get(timeout=timeout)
+            except queue.Empty:
+                break
+            if nxt is None:
+                return group, True
+            group.append(nxt)
+        return group, False
+
+    def _dispatch(self, group, cut_short: bool = False) -> None:
+        handed = time.time_ns()
         try:
             results = self._pred.predict([g[0] for g in group], [g[1] for g in group])
         except Exception as e:  # every waiter of this call gets the error
-            for _, _, fut in group:
+            for _, _, fut, _ in group:
                 fut.set_exception(e)
             return
-        for (_, _, fut), res in zip(group, results):
-            fut.set_result(res)
+        call, started = tracing.last_call()
+        if started is not None and started >= handed and tracing.recording():
+            tracing.record("batcher.handover", handed, started, call=call)
+            for _, _, _, (request, submitted) in group:
+                tracing.record("batcher.queue_wait", submitted, started, request=request,
+                               call=call)
+        with tracing.span("batcher.resolve", call=call):
+            for (_, _, fut, _), res in zip(group, results):
+                fut.set_result(res)
+        if cut_short:
+            tracing.count("batcher.cut_short")
 
 
 def load_predictor(path: str, device=None) -> Predictor:
