@@ -342,6 +342,22 @@ Phases, one line each (any failure exits non-zero):
     within phase 6's bound; the detections read, boxes kept and rows
     evaluated equal to the oracle run's on the same route, whose results
     equal the JAX oracle's.
+58. (run right after phase 7, while the profiler keeps every device event)
+    the eval conv units' epilogue (``csrc/conv_epilogue.cu``) against its
+    plain version, bit-equal and channels-last: at the trunk's maps
+    (HRNet-W48 at 256x192, and HRFormer-B's C=78 and 156), f32 and bf16,
+    with and without residual and ReLU, and on a view one element into its
+    storage; on each timed launch of 1024 crops, whose device time is
+    logged beside the plain version's and the byte bound; and at the served
+    forward's 5120 crops (the most frequent map in every variant, f32 and
+    bf16, and layer1's 4.0e9-element map). Then a bf16 W48 eval forward of
+    the served bucket (1024 x 5 crops) in the serving path's memory order,
+    kernels on, cuDNN's benchmark mode on, profiled: inside
+    ``i2rnet/model.trunk`` no cuDNN layout transpose, no BatchNorm
+    multiply, no more adds than the HR fusion's sums, one epilogue launch a
+    conv unit (160) both counted and in the profile, and the BatchNorm fold
+    under 1% of a serve call's device time, with the trunk's device time a
+    crop by part.
 
 Every ``torch.profiler`` breakdown counts all device events but user
 annotations and step markers, and logs how many of them carry a ``#`` in
@@ -384,6 +400,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import bisect
 import ctypes
 import hashlib
 import io
@@ -397,6 +414,7 @@ import subprocess
 import sys
 import time
 import warnings
+from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -420,9 +438,11 @@ from i2rnet_tpu_torch import native
 from i2rnet_tpu_torch.models.encoder import (INTRA_OFFSET_BASE, TransformerEncoder,
                                              WindowInterEncoder)
 from i2rnet_tpu_torch.models.interformer import build_model
-from i2rnet_tpu_torch.models.layers import MaskedBatchNorm, max_pool_3x3_s2
+from i2rnet_tpu_torch.models.layers import (BasicBlock, Bottleneck, ConvBN, ConvUnits,
+                                            MaskedBatchNorm, max_pool_3x3_s2)
 from i2rnet_tpu_torch.models.pure_multi import init_weights
 from i2rnet_tpu_torch.ops.cuda import KERNELS, build, launch_counts, reset_launches
+from i2rnet_tpu_torch.ops.cuda.conv_epilogue import conv_epilogue_fused, conv_epilogue_torch
 from i2rnet_tpu_torch.ops.cuda.dropout import threshold
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn import _layer_norm, encoder_ffn_fused, encoder_ffn_torch
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn_train import (encoder_ffn_train_fused,
@@ -479,6 +499,8 @@ SOURCES = {
                                     "i2rnet_tpu/ops/pallas/hrformer_block_train.py:411"),
     "full_block": ("i2rnet_tpu_torch/csrc/full_block.cu",
                    "i2rnet_tpu/ops/pallas/hrformer_block.py:317"),
+    "conv_epilogue": ("i2rnet_tpu_torch/csrc/conv_epilogue.cu",
+                      "none: XLA fused BN, residual and ReLU into each convolution"),
 }
 EVAL_KERNELS = ("masked_mhsa", "encoder_ffn")
 HRT_KERNELS = ("window_attn_block", "mlp_block", "masked_mhsa", "encoder_ffn")
@@ -507,8 +529,10 @@ PEAK_TF32 = 495e12
 QUEUE_CYCLES = 40_000_000
 #: profiles taken again where ``torch.profiler`` came back without device work
 PROFILE_TRIES = 3
-#: train steps under the profiler in ``step_timing``
-PROFILED_STEPS = 2
+#: steps (calls) under the profiler in each ``profile_steps`` breakdown,
+#: after one warm-up call
+PROFILED_STEPS = 1
+PROFILED_CALLS = PROFILED_STEPS + 1
 TRAIN_KERNELS = ("mhsa_train_fwd", "mhsa_train_bwd", "encoder_ffn_train_fwd",
                  "encoder_ffn_train_bwd")
 OUT_DIR = Path(__file__).resolve().parent / "output" / "chip_smoke"
@@ -996,6 +1020,14 @@ def person_inputs(cfg, b, n, counts, g):
     return images, pos.to(DEV), valid.to(DEV)
 
 
+def epilogue_launches(model) -> int:
+    """The conv epilogue's launches in an eval forward of ``model`` without
+    gradients: one a folded conv unit (a ConvBN one, a BasicBlock two, a
+    Bottleneck three, an HRNet stem its two stride-2 convs)."""
+    units = {ConvBN: 1, BasicBlock: 2, Bottleneck: 3}
+    return sum(units.get(type(m), 2) for m in model.modules() if isinstance(m, ConvUnits))
+
+
 def random_model(cfg, g, option=None):
     """The recipe's model at full width with seeded random weights (and the
     module ``option`` applied, where given); each BatchNorm's running
@@ -1015,14 +1047,16 @@ def random_model(cfg, g, option=None):
                 p.copy_(0.5 + torch.rand(p.shape, generator=g))
 
     def calibrate(bn, args):
-        x = args[0].float()
-        bn.running_mean.copy_(x.mean((0, 2, 3)))
-        bn.running_var.copy_(x.var((0, 2, 3), unbiased=False))
+        x = args[0].detach().float()
+        with torch.no_grad():
+            bn.running_mean.copy_(x.mean((0, 2, 3)))
+            bn.running_var.copy_(x.var((0, 2, 3), unbiased=False))
 
     hooks = [m.register_forward_pre_hook(calibrate)
              for m in model.modules() if isinstance(m, MaskedBatchNorm)]
     try:
-        with torch.no_grad():
+        # with gradients wanted, so the conv units run unfused and call their BNs
+        with torch.enable_grad():
             model(*person_inputs(cfg, 2, 3, [3, 3], g))
     finally:
         for hk in hooks:
@@ -1380,6 +1414,121 @@ def profile_steps(fn, steps, keep=None):
                                                                for n, (t, c) in ranked]
 
 
+#: kernel-name fragments of cuDNN's layout transposes
+TRANSPOSES = ("nchwToNhwc", "nhwcToNchw")
+
+
+def span_kernels(events, span: str):
+    """The device events launched while the host range ``i2rnet/<span>`` was
+    open on the launching thread: dicts of ``name``, ``ns`` and the innermost
+    host op open at the launch (``op`` and its input ``shapes``)."""
+    from torch.autograd import DeviceType
+
+    ranges, launches, ops = defaultdict(list), {}, defaultdict(list)
+    device = []
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            if not e.is_user_annotation():
+                device.append(e)
+        elif e.name() == f"i2rnet/{span}":
+            ranges[e.start_thread_id()].append((e.start_ns(), e.start_ns() + e.duration_ns()))
+        elif e.name().startswith("cu") and e.correlation_id():
+            launches[e.correlation_id()] = (e.start_thread_id(), e.start_ns())
+        elif e.name().startswith("aten::") or e.name().startswith("i2r::"):
+            ops[e.start_thread_id()].append(e)
+    for v in ranges.values():
+        v.sort()
+    rows = []
+    for e in device:
+        hit = launches.get(e.correlation_id())
+        if hit is None:
+            continue
+        tid, t = hit
+        v = ranges.get(tid, [])
+        j = bisect.bisect_right([a for a, _ in v], t) - 1
+        if j < 0 or v[j][1] < t:
+            continue
+        inner = [o for o in ops[tid] if o.start_ns() <= t <= o.start_ns() + o.duration_ns()]
+        op = min(inner, key=lambda o: o.duration_ns(), default=None)
+        rows.append({"name": e.name(), "ns": e.duration_ns(),
+                     "op": op.name() if op else "", "shapes": op.shapes() if op else []})
+    return rows
+
+
+def serving_layout(images):
+    """``images`` ``[B, N, H, W, 3]`` copied into the memory order in which
+    the served crops leave ``ops/preprocess.py``'s axis-aligned crop (an
+    einsum that puts x last): B, N, H, C, W. The trunk's first convolution
+    reads that as neither NCHW nor NHWC."""
+    return images.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def model_profile(model, images, pos, valid, before=None):
+    """One eval forward of ``model`` without gradients after a warm-up one
+    (cuDNN's choice), under ``torch.profiler`` with shapes, with
+    ``torch.backends.cudnn.benchmark`` on as the recipes and the benchmark's
+    configurations set it (restored after); calls ``before`` between the
+    two. Returns the profile's events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    was = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        with torch.inference_mode():
+            model(images, pos, valid)
+            torch.cuda.synchronize()
+            if before is not None:
+                before()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         record_shapes=True) as prof:
+                model(images, pos, valid)
+                torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.benchmark = was
+    return prof.profiler.kineto_results.events()
+
+
+def trunk_part(row, crops: int) -> str:
+    """A trunk kernel's part: the epilogue, a convolution, a cuDNN layout
+    transpose, the BatchNorm fold (launched by an op whose first input is not
+    an activation of ``crops`` crops: the BN's vectors and the conv weights),
+    other."""
+    name = row["name"]
+    if "conv_epilogue" in name:
+        return "epilogue"
+    if any(t in name for t in TRANSPOSES):
+        return "transpose"
+    low = name.lower()
+    if any(k in low for k in ("conv", "xmma", "cutlass", "sm90_", "gemm", "implicit")):
+        return "convolution"
+    first = row["shapes"][0] if row["shapes"] else None
+    if first is not None and (len(first) < 4 or first[0] != crops):
+        return "fold"
+    return "other"
+
+
+def report_trunk(rows, crops: int, top: int = 14):
+    """Log the trunk's device time per crop by part, its top kernels, and
+    the launching ops of any transpose."""
+    parts, names = defaultdict(float), defaultdict(lambda: [0, 0.0])
+    for r in rows:
+        parts[trunk_part(r, crops)] += r["ns"] / 1e3 / crops
+        names[r["name"]][0] += 1
+        names[r["name"]][1] += r["ns"] / 1e3 / crops
+    total = sum(parts.values())
+    log(f"  trunk: {len(rows)} device kernels, {total:.2f} us a crop (one pass): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(parts.items(), key=lambda kv: -kv[1])))
+    for name, (n, us) in sorted(names.items(), key=lambda kv: -kv[1][1])[:top]:
+        log(f"    {us:8.3f} us/crop {n:5d}x  {name[:120]}")
+    by_op = defaultdict(lambda: [0, 0.0])
+    for r in rows:
+        if trunk_part(r, crops) == "transpose":
+            by_op[(r["op"], str(r["shapes"][:2]))][0] += 1
+            by_op[(r["op"], str(r["shapes"][:2]))][1] += r["ns"] / 1e3 / crops
+    for (op, shapes), (n, us) in sorted(by_op.items(), key=lambda kv: -kv[1][1])[:top]:
+        log(f"    transpose {us:8.3f} us/crop {n:4d}x from {op} shapes {shapes}")
+
+
 def step_timing(cfg, raw, persons, set_kernels, card, breakdown=(), keep=None):
     """The train step at full width (the config's dtype, dropout and drop
     path) kernels on and off, in ms and persons/s, their peak memory, and a
@@ -1411,7 +1560,7 @@ def step_timing(cfg, raw, persons, set_kernels, card, breakdown=(), keep=None):
         f"persons/s; kernels off {t_off:.2f} ms = {n / t_off * 1e3:.1f} persons/s [{card}]")
     reset_launches()
     wall, busy, launches, top = profile_steps(run(True), PROFILED_STEPS, keep)
-    per_step = {k: v // (PROFILED_STEPS + 1) for k, v in launch_counts().items()
+    per_step = {k: v // PROFILED_CALLS for k, v in launch_counts().items()
                 if v}  # warm-up + the profiled steps
     log(f"  profile, kernels on: wall {wall:.2f} ms/step under the profiler, device busy "
         f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
@@ -1564,14 +1713,14 @@ def phase_timing(model, cfg, g, card):
     step = eval_steps(model, cfg, model.set_kernels, b, n, g)
     eval_timing(step, b, n, 3, card)
     reset_launches()
-    wall, busy, launches, top = profile_steps(step(True), 2)
+    wall, busy, launches, top = profile_steps(step(True), PROFILED_STEPS)
     a_ms = sum(t for name, t, _ in top if "mhsa_fwd" in name)
     b_ms = sum(t for name, t, _ in top if any(k in name for k in KERNEL_B))
     calls = launch_counts()
     log(f"  profile, kernels on: wall {wall:.2f} ms/step under the profiler, device busy "
         f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
-        f"launches/step; Kernel A {a_ms:.3f} ms/step in {calls['masked_mhsa'] // 3} "
-        f"launches/step; Kernel B {b_ms:.3f} ms/step in {calls['encoder_ffn'] // 3} "
+        f"launches/step; Kernel A {a_ms:.3f} ms/step in {calls['masked_mhsa'] // PROFILED_CALLS} "
+        f"launches/step; Kernel B {b_ms:.3f} ms/step in {calls['encoder_ffn'] // PROFILED_CALLS} "
         f"launches/step; top kernels (ms/step, launches/step):")
     for name, t, c in top[:12]:
         log(f"    {t:8.3f} {c:6.0f}  {name[:110]}")
@@ -1774,13 +1923,13 @@ def phase_g_route_timing(model, cfg, g, card):
     log("  Kernel G's route:")
     eval_timing(step, 8, 4, 3, card)
     reset_launches()
-    wall, busy, launches, top = profile_steps(step(True), 2)
+    wall, busy, launches, top = profile_steps(step(True), PROFILED_STEPS)
     g_ms = sum(t for name, t, _ in top if "mlp32_kernel" in name or "mlp32_finish" in name)
     calls = launch_counts()
     log(f"  profile, G's route, kernels on: wall {wall:.2f} ms/step under the profiler, device "
         f"busy {busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
-        f"launches/step; Kernel G {g_ms:.3f} ms/step in {calls['mlp_dwbn'] // 3} calls/step "
-        f"(E {calls['window_attn_block']}, F {calls['mlp_block']} calls in all); top kernels "
+        f"launches/step; Kernel G {g_ms:.3f} ms/step in "
+        f"{calls['mlp_dwbn'] // PROFILED_CALLS} calls/step (E {calls['window_attn_block']}, F {calls['mlp_block']} calls in all); top kernels "
         f"(ms/step, launches/step):")
     for name, t, c in top[:12]:
         log(f"    {t:8.3f} {c:6.0f}  {name[:110]}")
@@ -2108,7 +2257,7 @@ def phase_onepass_timing(model, cfg, g, card):
     log("  eval protocol B=8 N=4 bf16 (2 forwards + DARK decode), order one-pass, E + F, off, "
         "off, E + F, one-pass: " + ", ".join(f"{r} {v:.2f} ms = {32 / v * 1e3:.1f} persons/s"
                                              for r, v in t.items()) + f" [{card}]")
-    wall, busy, launches, top = profile_steps(step("one-pass"), 2)
+    wall, busy, launches, top = profile_steps(step("one-pass"), PROFILED_STEPS)
     log(f"  profile, one-pass: wall {wall:.2f} ms/step under the profiler, device busy "
         f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
         f"launches/step; top kernels (ms/step, launches/step):")
@@ -2440,9 +2589,9 @@ def phase_tph_model(cfg, g):
         torch.cuda.synchronize()
     counts = {k: v for k, v in launch_counts().items() if v}
     check_heatmaps(on, off, valid, "A + B", counts)
-    if counts != dict.fromkeys(EVAL_KERNELS, TPH_LAUNCHES):
-        raise AssertionError(f"the TPH forward launched {counts}, want {TPH_LAUNCHES} of each "
-                             f"of {EVAL_KERNELS}")
+    want = {**dict.fromkeys(EVAL_KERNELS, TPH_LAUNCHES), "conv_epilogue": epilogue_launches(model)}
+    if counts != want:
+        raise AssertionError(f"the TPH forward launched {counts}, want {want}")
     return model
 
 
@@ -2457,7 +2606,7 @@ def phase_tph_timing(model, cfg, g, card):
     with encoder_launches(EVAL_KERNELS) as order:
         step(True)()
         torch.cuda.synchronize()
-    events, steps = [], 2
+    events, steps = [], PROFILED_STEPS
     wall, busy, launches, top = profile_steps(step(True), steps, events)
     log(f"  profile, kernels on: wall {wall:.2f} ms/step under the profiler, device busy "
         f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
@@ -3485,11 +3634,12 @@ def wait_for(path, child, timeout):
         time.sleep(0.1)
 
 
-def check_fresh(rec, served, ref):
-    """Phase 41's checks of the fresh process's record and results."""
+def check_fresh(rec, served, ref, epilogues):
+    """Phase 41's checks of the fresh process's record and results
+    (``epilogues``: the conv epilogue's launches a serve call)."""
     calls = {int(n): c for n, c in rec["calls"].items()}
-    want = {k: (W48_SERVE_LAUNCHES * sum(calls.values()) if k in EVAL_KERNELS else 0)
-            for k in KERNELS}
+    per_call = {**dict.fromkeys(EVAL_KERNELS, W48_SERVE_LAUNCHES), "conv_epilogue": epilogues}
+    want = {k: per_call.get(k, 0) * sum(calls.values()) for k in KERNELS}
     log(f"  fresh process: load {rec['load_s']:.1f} s, warmup {rec['warmup_s']:.1f} s, "
         f"{len(served)} images / {sum(len(r) for r in served)} persons served in "
         f"{rec['serve_s'] * 1e3:.1f} ms; calls per bucket {calls}; launches "
@@ -3583,7 +3733,7 @@ def phase_serving_rate(art, model, cfg, card):
     rates = {}
     for k, fn in fns.items():
         ms = float(np.median(walls[k]))
-        wall, busy, launches, _ = profile_steps(fn, 2)
+        wall, busy, launches, _ = profile_steps(fn, PROFILED_STEPS)
         rates[k] = RATE_BATCH / ms * 1e3
         log(f"    {k:10s} {ms:8.2f} ms/call (host clock, median), {rates[k]:8.1f} images/s, "
             f"{persons / ms * 1e3:8.1f} persons/s; under the profiler {wall:.2f} ms/call, "
@@ -3639,7 +3789,7 @@ def check_model_artifact(label, pred, model, cfg, images, boxes, op_extra_us, ca
     serve call's wall that ``op_extra_us`` a kernel call would add. Returns
     the launches."""
     recipe, _, b, (n,), hw, _ = EXPORTS[label]
-    per_call = SERVED_LAUNCHES[label]
+    per_call = {**SERVED_LAUNCHES[label], "conv_epilogue": 2 * epilogue_launches(model)}
     local = Predictor(model, cfg, flip_pairs(cfg), batch_images=b, n_buckets=(n,), raw_hw=hw)
     local.warmup()
     calls = counting(pred)
@@ -3706,7 +3856,8 @@ def phase_serving(g, card):
         wait_for(out, child, CHILD_TIMEOUT)
         res = np.load(out)
         rec = json.loads(str(res["record"]))
-        check_fresh(rec, [res[f"result_{i}"] for i in range(len(images))], ref)
+        check_fresh(rec, [res[f"result_{i}"] for i in range(len(images))], ref,
+                    2 * epilogue_launches(models["w48"]))
         check_no_kernels(preds.pop("w48_plain"), models["w48"], cfgs["w48"], images, boxes, ref)
 
         log(f"phase 42 serving rate, artifact vs in-process [{card}]:")
@@ -4059,12 +4210,14 @@ def global_batch(cfg, counts):
                              tuple(m["HEATMAP_SIZE"]), m["SIGMA"])
 
 
-def rank_launches(ranks, kernels, want):
+def rank_launches(ranks, kernels, want, epilogues=0):
     """Each rank's launches of ``kernels``; raises unless every rank launched
-    each ``want`` times and no other kernel."""
+    each ``want`` times, the conv epilogue ``epilogues`` times and no other
+    kernel."""
     per_rank = [{k: v for k, v in r["launches"].items() if v} for r in ranks]
-    if any(lc != dict.fromkeys(kernels, want) for lc in per_rank):
-        raise AssertionError(f"launches per rank {per_rank}, want {want} of each of {kernels}")
+    expect = {**dict.fromkeys(kernels, want), **({"conv_epilogue": epilogues} if epilogues else {})}
+    if any(lc != expect for lc in per_rank):
+        raise AssertionError(f"launches per rank {per_rank}, want {expect}")
     return per_rank[0]
 
 
@@ -4287,7 +4440,8 @@ def phase_ddp_validate(g, card):
         raise AssertionError(f"two-rank oracle {oracle[0]['name_value']} vs {dict(oracle_nv)}")
     if oracle[0]["results"] != oracle[1]["results"] or runs[0]["results"] != runs[1]["results"]:
         raise AssertionError("the ranks wrote different results files")
-    launches = rank_launches(runs, EVAL_KERNELS, 2 * 6 * n_batches)
+    units = epilogue_launches(build_model(cfg, device="meta"))
+    launches = rank_launches(runs, EVAL_KERNELS, 2 * 6 * n_batches, 2 * units * n_batches)
     diff = results_diff(json.loads(runs[0]["results"]), model_res,
                         "the two-rank validate strays from the one-process one")
     log(f"  GT oracle over 2 ranks: AP {oracle[0]['name_value']['AP']:.6f}, every stat equal to "
@@ -4330,8 +4484,11 @@ def phase_call_sharded(g, card):
     got = pred.call_sharded([DEV, DEV], *args)
     torch.cuda.synchronize()
     counts = {k: v for k, v in launch_counts().items() if v}
-    if counts != dict.fromkeys(EVAL_KERNELS, 2 * 12):
-        raise AssertionError(f"call_sharded launched {counts}, want 12 of A and B a replica")
+    expect = {**dict.fromkeys(EVAL_KERNELS, 2 * 12),
+              "conv_epilogue": 4 * epilogue_launches(model)}
+    if counts != expect:
+        raise AssertionError(f"call_sharded launched {counts}, want {expect}: 12 of A and B "
+                             "and one epilogue a conv unit and forward (two, flip) a replica")
     valid = args[4].reshape(-1).cpu().numpy()
     kp = [torch.cat(o, -1).cpu().numpy()[valid] for o in (got, want)]
     check_served([kp[0]], [kp[1]], "call_sharded over 2 replicas vs the whole call, f32",
@@ -4369,9 +4526,9 @@ def phase_e2e(name, g, card):
         torch.cuda.synchronize()
     eval_counts = {k: v for k, v in launch_counts().items() if v}
     check_heatmaps(on, off, valid, f"{name} A + B", eval_counts)
-    if eval_counts != dict.fromkeys(EVAL_KERNELS, E2E_LAYERS):
-        raise AssertionError(f"the {name} forward launched {eval_counts}, want {E2E_LAYERS} "
-                             f"of each of {EVAL_KERNELS}")
+    want = {**dict.fromkeys(EVAL_KERNELS, E2E_LAYERS), "conv_epilogue": epilogue_launches(model)}
+    if eval_counts != want:
+        raise AssertionError(f"the {name} forward launched {eval_counts}, want {want}")
     del on, off
     log(f"  {name}: one f32 training step at dropout 0, kernels on vs off (B=4 x N=4, "
         f"persons {E2E_TRAIN_COUNTS}):")
@@ -4407,7 +4564,7 @@ def phase_e2e_timing(model, cfg, g, card):
     kernels-on step."""
     step = eval_steps(model, cfg, model.set_kernels, 8, 4, g)
     eval_timing(step, 8, 4, 3, card)
-    wall, busy, launches, top = profile_steps(step(True), 2)
+    wall, busy, launches, top = profile_steps(step(True), PROFILED_STEPS)
     log(f"  eval profile, kernels on: wall {wall:.2f} ms/step under the profiler, device busy "
         f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
         f"launches/step; top kernels (ms/step, launches/step):")
@@ -4529,6 +4686,7 @@ def phase_options(g, card):
             torch.cuda.synchronize()
         counts = {k: v for k, v in launch_counts().items() if v}
         want = {k: v for k, v in encoder_kernel_counts(model).items() if v}
+        want["conv_epilogue"] = epilogue_launches(model)
         if hrt and post is None:
             want.update(dict.fromkeys(("window_attn_block", "mlp_block"),
                                       len(model.singleformer.blocks())))
@@ -5052,6 +5210,174 @@ def phase_synthetic(g, card):
     return launches
 
 
+#: the folded conv units' output maps (C, H, W) at 256x192 crops: the stem's
+#: two convs, layer1's widths, HRNet-W48's three branches, and HRFormer-B's
+#: branches 0-1 (C not a multiple of 8)
+EPILOGUE_MAPS = [(64, 128, 96), (64, 64, 48), (256, 64, 48), (48, 64, 48), (96, 32, 24),
+                 (192, 16, 12), (78, 64, 48), (156, 32, 24)]
+#: the epilogue's variants: (residual, ReLU)
+EPILOGUE_VARIANTS = [(False, False), (False, True), (True, False), (True, True)]
+#: crops of the checks at every map; of the timed launches (each checked on
+#: its own tensors too); and of the served W48 forward (a bucket of
+#: [1024, 5]), at which the plain version is run on chunks of the timed crops
+EPILOGUE_CROPS, EPILOGUE_TIMED_CROPS, EPILOGUE_SERVED_CROPS = 16, 1024, 5120
+#: the timed launches: (label, map, residual, ReLU), the most frequent unit
+#: first (a W48 branch-0 BasicBlock's second conv)
+EPILOGUE_TIMED = [("branch 0 block", (48, 64, 48), True, True),
+                  ("layer1 block", (256, 64, 48), True, True),
+                  ("stem conv1", (64, 128, 96), False, True)]
+#: the checks at the served crops: (map, dtypes, variants): the most frequent
+#: unit's map in every variant, and layer1's, the widest launch (4.0e9
+#: elements, above 2**31), as layer1's blocks end
+EPILOGUE_SERVED = [((48, 64, 48), (torch.float32, torch.bfloat16), EPILOGUE_VARIANTS),
+                   ((256, 64, 48), (torch.bfloat16,), [(True, True)])]
+#: the W48 eval forward profiled in phase 58: the served bucket, B images x N
+#: slots, all persons; a serve call runs it and the [1024, 2] bucket's, each
+#: twice (the flip)
+EPILOGUE_PROFILE_BN, EPILOGUE_CALL_CROPS = (1024, 5), 2 * (5120 + 2048)
+#: the BatchNorm fold's largest share of a serve call's device time (it runs
+#: anew in each forward)
+FOLD_SHARE = 0.01
+
+
+def epilogue_error(y, b, r, relu, got):
+    """max|got - plain| of the epilogue, the plain version run on
+    ``EPILOGUE_TIMED_CROPS`` crops at a time; raises unless bit-equal and
+    channels-last."""
+    err = 0.0
+    for i in range(0, y.shape[0], EPILOGUE_TIMED_CROPS):
+        j = slice(i, i + EPILOGUE_TIMED_CROPS)
+        want = conv_epilogue_torch(y[j], b, None if r is None else r[j], relu)
+        err = max(err, (got[j].float() - want.float()).abs().max().item())
+        if not torch.equal(got[j], want) or not got.is_contiguous(memory_format=torch.channels_last):
+            raise AssertionError(f"conv epilogue {y.dtype} {tuple(y.shape)} residual "
+                                 f"{r is not None} relu {relu}: crops {i}+ max|err| {err:.3g}")
+    return err
+
+
+def phase_conv_epilogue(g, card):
+    """Phase 58: the conv epilogue against its plain version, bit-equal and
+    channels-last: at every map of ``EPILOGUE_MAPS``, f32 and bf16, in all
+    four residual and ReLU variants, and on a view one element into its
+    storage (the one-element vector path); on each ``EPILOGUE_TIMED``
+    launch's tensors, beside its device time, the plain version's and the
+    byte bound; and at the served forward's crops (``EPILOGUE_SERVED``).
+    Then a bf16 W48 eval forward of the served bucket (``EPILOGUE_PROFILE_BN``),
+    kernels on, its crops in the serving path's memory order, profiled:
+    inside ``i2rnet/model.trunk`` no cuDNN layout transpose, no BatchNorm
+    multiply, no more adds than the HR fusion's sums, one epilogue launch a
+    conv unit both counted and in the profile, and the fold under
+    ``FOLD_SHARE`` of a serve call's device time. Runs early in the script:
+    late in a long run the profiler has dropped device events. Returns
+    (launches a forward, max error, the first timed map's timing)."""
+    cl = torch.channels_last
+    cases = 0
+    maps = [(m, d) for m in EPILOGUE_MAPS for d in (torch.float32, torch.bfloat16)]
+    for (c, h, w), dtype in maps:
+        y = randn(EPILOGUE_CROPS, c, h, w, g=g, dtype=dtype).contiguous(memory_format=cl)
+        r = randn(EPILOGUE_CROPS, c, h, w, g=g, dtype=dtype).contiguous(memory_format=cl)
+        b = randn(c, g=g)
+        for res, relu in EPILOGUE_VARIANTS:
+            res = r if res else None
+            epilogue_error(y, b, res, relu, conv_epilogue_fused(y, b, res, relu))
+            cases += 1
+    flat = randn(EPILOGUE_CROPS * 48 * 64 * 48 + 1, g=g, dtype=torch.bfloat16)
+    y = flat[1:].view(EPILOGUE_CROPS, 64, 48, 48).permute(0, 3, 1, 2)
+    b = randn(48, g=g)
+    epilogue_error(y, b, y, True, conv_epilogue_fused(y, b, y, True))
+    log(f"  kernel vs plain: {cases + 1} cases (f32 and bf16, {len(EPILOGUE_MAPS)} maps x 4 "
+        f"variants at {EPILOGUE_CROPS} crops, and a view one element in), bit-equal")
+
+    times, err = {}, 0.0
+    cuda_g = torch.Generator(device=DEV).manual_seed(SEED)
+    for label, (c, h, w), res, relu in EPILOGUE_TIMED:
+        n = EPILOGUE_TIMED_CROPS
+        y = torch.randn(n, c, h, w, generator=cuda_g, device=DEV,
+                        dtype=torch.bfloat16).contiguous(memory_format=cl)
+        r = torch.randn_like(y) if res else None
+        b = torch.randn(c, generator=cuda_g, device=DEV)
+        err = max(err, epilogue_error(y, b, r, relu, conv_epilogue_fused(y, b, r, relu)))
+        ms = device_ms(lambda: conv_epilogue_fused(y, b, r, relu), 20)
+        plain_ms = device_ms(lambda: conv_epilogue_torch(y, b, r, relu), 4)
+        moved = nbytes(y, y, b) + (nbytes(r) if res else 0)
+        times[label] = timing(plain_ms, ms, bound(moved, y.numel() * (1 + res + relu),
+                                                  torch.bfloat16))
+        log(f"  {label} [{n}, {c}, {h}, {w}] bf16, residual {res}, ReLU {relu}: bit-equal to "
+            f"plain; {ms * 1e3:.1f} us a call ({moved / ms / 1e6:.0f} GB/s, "
+            f"{100 * times[label]['bound_ms'] / ms:.1f}% of the "
+            f"{times[label]['bound_ms'] * 1e3:.1f} us byte bound), plain "
+            f"{plain_ms * 1e3:.1f} us [{card}]")
+        del y, r
+    torch.cuda.empty_cache()
+    for (c, h, w), dtypes, variants in EPILOGUE_SERVED:
+        for dtype in dtypes:
+            n = EPILOGUE_SERVED_CROPS
+            y = torch.randn(n, c, h, w, generator=cuda_g, device=DEV,
+                            dtype=dtype).contiguous(memory_format=cl)
+            r = torch.randn_like(y) if any(res for res, _ in variants) else None
+            b = torch.randn(c, generator=cuda_g, device=DEV)
+            for res, relu in variants:
+                got = conv_epilogue_fused(y, b, r if res else None, relu)
+                err = max(err, epilogue_error(y, b, r if res else None, relu, got))
+                del got
+            log(f"  [{n}, {c}, {h}, {w}] {dtype} ({y.numel() / 1e9:.2f}e9 elements), "
+                f"{len(variants)} variants: bit-equal to plain")
+            del y, r
+            torch.cuda.empty_cache()
+
+    cfg = presets.w48_pure_en6()
+    model = random_model(cfg, g)
+    model.compute_dtype = torch.bfloat16
+    model.set_kernels(True)
+    b, n = EPILOGUE_PROFILE_BN
+    crops = b * n
+    images, pos, valid = person_inputs(cfg, b, n, [n] * b, g)
+    images = serving_layout(images)
+    units = epilogue_launches(model)
+    events = model_profile(model, images, pos, valid, before=reset_launches)
+    launches = launch_counts()["conv_epilogue"]
+    del images, pos, valid
+    rows = span_kernels(events, "model.trunk")
+    from torch.autograd import DeviceType
+    forward_ns = sum(e.duration_ns() for e in events
+                     if e.device_type() == DeviceType.CUDA and not e.is_user_annotation())
+    del events
+    if not rows or not forward_ns:
+        raise AssertionError(f"the profile holds {len(rows)} device events in the trunk")
+    log(f"  W48 bf16 eval forward, {crops} crops of 256x192 (the served bucket {b} x {n}), "
+        f"kernels on, profiled [{card}]:")
+    report_trunk(rows, crops)
+    part = [trunk_part(r, crops) for r in rows]
+    ran = part.count("epilogue")
+    fold_ns = sum(r["ns"] for r, p in zip(rows, part) if p == "fold")
+    # a call: two forwards at this bucket and two at [1024, 2], the rest of
+    # each forward scaling with its crops
+    call_ns = 4 * fold_ns + (forward_ns - fold_ns) * EPILOGUE_CALL_CROPS / crops
+    fold_share = 4 * fold_ns / call_ns
+    fusion_sums = sum(len(row) - 1 for m in model.modules() if hasattr(m, "fuse_layers")
+                      and m.fuse_layers is not None for row in m.fuse_layers)
+    stray = [r["name"] for r, p in zip(rows, part) if p == "transpose"
+             or (p != "fold" and "MulFunctor" in r["name"])]
+    adds = sum(p != "fold" and ("CUDAFunctor_add" in r["name"] or "AddFunctor" in r["name"])
+               for r, p in zip(rows, part))
+    log(f"  inside the trunk: {ran} epilogue kernels in the profile and {launches} counted "
+        f"launches for {units} conv units; {adds} adds for the HR fusion's {fusion_sums} sums; "
+        f"transposes and activation multiplies {len(stray)}; the fold "
+        f"{part.count('fold')} kernels, {fold_ns / 1e3:.1f} us a forward, "
+        f"{100 * fold_ns / forward_ns:.3f}% of this forward's {forward_ns / 1e6:.1f} ms on the "
+        f"device, {100 * fold_share:.3f}% of a serve call's (four forwards, "
+        f"{EPILOGUE_CALL_CROPS} crop passes; estimated {call_ns / 1e6:.0f} ms)")
+    if stray or launches != units or ran != launches or adds > fusion_sums \
+            or fold_share >= FOLD_SHARE:
+        raise AssertionError(f"the trunk ran {stray[:4]} ({len(stray)} transposes or "
+                             f"multiplies), {ran} epilogues in the profile and {launches} "
+                             f"launches for {units} units, {adds} adds for {fusion_sums} sums, "
+                             f"the fold {100 * fold_share:.3f}% of a call")
+    del model
+    torch.cuda.empty_cache()
+    return units, err, times[EPILOGUE_TIMED[0][0]]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU",
@@ -5085,6 +5411,12 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    t_new = time.perf_counter()
+    log(f"phase 58 the folded conv units' epilogue, run here while the profiler keeps every "
+        f"device event [{card}]:")
+    epilogue = phase_conv_epilogue(g, card)
+    log(f"  phase 58: {time.perf_counter() - t_new:.1f} s")
+
     log("phase 8 mhsa_train (Kernel C) forward and backward vs plain:")
     c_err = phase_mhsa_train(g)
     log("phase 9 encoder_ffn_train (Kernel D) forward and backward vs plain:")
@@ -5112,18 +5444,18 @@ def main() -> int:
     step = eval_steps(model, cfg, hrt_kernels(model), 8, 4, g)
     eval_timing(step, 8, 4, 3, card)
     reset_launches()
-    wall, busy, launches, top = profile_steps(step(True), 2)
+    wall, busy, launches, top = profile_steps(step(True), PROFILED_STEPS)
     f_ms = sum(t for name, t, _ in top if "mlp_mma_kernel" in name or "mlp_finish_kernel" in name)
     e_ms = sum(t for name, t, _ in top if "attn_mma_kernel" in name or "attn_out_kernel" in name)
     calls = launch_counts()
     log(f"  profile, kernels on: wall {wall:.2f} ms/step under the profiler, device busy "
         f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
-        f"launches/step; Kernel E {e_ms:.3f} ms/step in {calls['window_attn_block'] // 3} "
-        f"calls/step; Kernel F {f_ms:.3f} ms/step in {calls['mlp_block'] // 3} "
+        f"launches/step; Kernel E {e_ms:.3f} ms/step in {calls['window_attn_block'] // PROFILED_CALLS} "
+        f"calls/step; Kernel F {f_ms:.3f} ms/step in {calls['mlp_block'] // PROFILED_CALLS} "
         f"calls/step; top kernels (ms/step, launches/step):")
     for name, t, c in top[:12]:
         log(f"    {t:8.3f} {c:6.0f}  {name[:110]}")
-    wall, busy, launches, _ = profile_steps(step(False), 2)
+    wall, busy, launches, _ = profile_steps(step(False), PROFILED_STEPS)
     log(f"  profile, kernels off: wall {wall:.2f} ms/step under the profiler, device busy "
         f"{busy:.2f} ms/step, idle share {1 - busy / wall:.3f}, {launches:.0f} device "
         f"launches/step")
@@ -5301,11 +5633,13 @@ def main() -> int:
     log(f"  phase 57: {time.perf_counter() - t_new:.1f} s; phases 2-57: "
         f"{time.perf_counter() - t0:.1f} s; the script so far {time.perf_counter() - T_START:.1f} s")
 
+
     counts.update(train_counts)
     counts.update({k: hrt_train_counts[k] for k in ("window_attn_block_train_fwd",
                                                     "window_attn_block_train_bwd")})
     counts.update({k: hrt_counts[k] for k in ("window_attn_block", "mlp_block")}, **g_counts)
     counts["full_block"] = onepass_counts["full_block"]
+    counts["conv_epilogue"], errs["conv_epilogue"], times["conv_epilogue"] = epilogue
     errs.update({"masked_mhsa": mhsa_err, "encoder_ffn": ffn_err,
                  "mhsa_train_fwd": c_err["fwd"], "mhsa_train_bwd": c_err["bwd"],
                  "encoder_ffn_train_fwd": d_err["fwd"], "encoder_ffn_train_bwd": d_err["bwd"]})

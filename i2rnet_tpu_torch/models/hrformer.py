@@ -66,9 +66,9 @@ from torch import nn
 
 from i2rnet_tpu_torch import tracing
 from i2rnet_tpu_torch.models.hrnet import Transition
-from i2rnet_tpu_torch.models.layers import (Bottleneck, Conv2d, ConvBN, LayerNorm, Linear,
-                                            MaskedBatchNorm, remat, set_compute_dtype,
-                                            upsample_bilinear)
+from i2rnet_tpu_torch.models.layers import (Bottleneck, Conv2d, ConvBN, ConvUnits, LayerNorm,
+                                            Linear, MaskedBatchNorm, remat, set_compute_dtype,
+                                            set_conv_kernels, stem_convs, upsample_bilinear)
 from i2rnet_tpu_torch.ops.cuda.hrformer_block import (pack_attn, window_partition,
                                                       window_unpartition)
 from i2rnet_tpu_torch.ops.cuda.hrformer_block_train import window_attn_block_train_fused
@@ -423,7 +423,7 @@ class HRTModule(nn.Module):
         return fused
 
 
-class HRFormerBackbone(nn.Module):
+class HRFormerBackbone(ConvUnits, nn.Module):
     """The HighResolutionTransformer: stem, ``transition{1,2,3}`` and
     ``stage{2,3,4}``; returns branch 0's map ``[P, 78, H/4, W/4]``."""
 
@@ -450,9 +450,7 @@ class HRFormerBackbone(nn.Module):
             pre, o = ch, o + depths[si]
 
     def forward(self, x):
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
-        xs = [self.layer1(x)]
+        xs = [self.layer1(stem_convs(self, x))]
         for si, s in enumerate(STAGES):
             xs = getattr(self, s)(getattr(self, f"transition{si + 1}")(xs))
         return xs[0]
@@ -490,6 +488,7 @@ class HRFormer(nn.Module):
             blk.use_kernels, blk.fused_block = use_kernels, fused_block
             blk.fused_mlp, blk.fused_train = fused_mlp, fused_train
             blk.fused_onepass = fused_onepass
+        set_conv_kernels(self, use_kernels)
 
     def set_remat(self, layers: bool) -> None:
         """``DEVICE.REMAT`` ``layers``: each block recomputed in training."""

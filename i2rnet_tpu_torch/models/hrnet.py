@@ -16,10 +16,11 @@ from typing import Dict, List, Sequence
 import torch.nn.functional as F
 from torch import nn
 
-from i2rnet_tpu_torch.models.layers import BLOCKS, Bottleneck, Conv2d, ConvBN, MaskedBatchNorm, upsample_nearest
+from i2rnet_tpu_torch.models.layers import (BLOCKS, Bottleneck, Conv2d, ConvBN, ConvUnits,
+                                            MaskedBatchNorm, stem_convs, upsample_nearest)
 
 
-class HRStem(nn.Module):
+class HRStem(ConvUnits, nn.Module):
     """conv/2 + conv/2 + 4x Bottleneck(64) -> [B, 256, H/4, W/4]."""
 
     def __init__(self):
@@ -32,9 +33,7 @@ class HRStem(nn.Module):
             Bottleneck(64 if i == 0 else 256, 64, downsample=(i == 0)) for i in range(4)])
 
     def forward_stem(self, x):
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
-        return self.layer1(x)
+        return self.layer1(stem_convs(self, x))
 
     forward = forward_stem
 

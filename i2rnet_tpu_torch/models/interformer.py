@@ -71,8 +71,8 @@ from i2rnet_tpu_torch.models.encoder import (TransformerEncoder, WindowInterEnco
                                              flatten_person_tokens)
 from i2rnet_tpu_torch.models.hrformer import HRFORMER_B_ARCH, HRFormer
 from i2rnet_tpu_torch.models.layers import (Conv2d, ConvBN, DeconvBlock, MaskedBatchNorm,
-                                            max_pool_3x3_s2, remat_layers, training_call,
-                                            upsample_nearest)
+                                            max_pool_3x3_s2, remat_layers, set_conv_kernels,
+                                            training_call, upsample_nearest)
 from i2rnet_tpu_torch.models.position import PositionEmbeddingImage
 from i2rnet_tpu_torch.models.pure_multi import DTYPES, build_pure_multi, set_train_routes
 from i2rnet_tpu_torch.models.transpose_h import TransPoseH
@@ -188,13 +188,14 @@ class InterFormer(nn.Module):
                     fused_mlp: bool = False, fused_train: bool = False,
                     fused_onepass: bool = False) -> None:
         """``DEVICE.USE_KERNELS`` (all routes: the encoders' Kernels A and B,
-        C and D in training), and for the HRFormer first stage
-        ``FUSED_BLOCK_EVAL`` (Kernels E + F), ``FUSED_MLP_EVAL`` (Kernel G,
+        C and D in training, the folded eval conv units' epilogue), and for
+        the HRFormer first stage ``FUSED_BLOCK_EVAL`` (Kernels E + F), ``FUSED_MLP_EVAL`` (Kernel G,
         where E + F are off), ``FUSED_BLOCK_TRAIN`` (kernel 9 in training) and
         ``FUSED_BLOCK_EVAL_ONEPASS`` (kernel 7 in place of E + F)."""
         self.multi_global_encoder.use_kernels = use_kernels
         self.singleformer.set_routes(use_kernels, fused_block, fused_mlp, fused_train,
                                      fused_onepass)
+        set_conv_kernels(self, use_kernels)
 
     def encoders(self):
         """The transformer encoders whose layers run Kernels A and B (C and D

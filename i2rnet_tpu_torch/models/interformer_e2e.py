@@ -30,7 +30,8 @@ cross-person inter encoder, trained jointly:
 
 The two encoders share the step's dropout seed on disjoint offsets (the
 intra encoder from ``INTRA_OFFSET_BASE``, as TransPose-H's). With
-``use_kernels`` both run Kernels A and B in eval and C and D in training.
+``use_kernels`` both run Kernels A and B in eval and C and D in training, and
+the trunk's folded eval conv units the epilogue kernel.
 ``train=True`` is the JAX ``train=True`` as
 :class:`~.pure_multi.PureMultiInterFormer` has it; ``DEVICE.REMAT``
 ``layers`` recomputes each layer of both encoders. The state-dict names are
@@ -51,7 +52,7 @@ from i2rnet_tpu_torch.models.encoder import (INTRA_OFFSET_BASE, TransformerEncod
                                              flatten_person_tokens)
 from i2rnet_tpu_torch.models.hrnet import HRNetTrunk
 from i2rnet_tpu_torch.models.layers import (Conv2d, DeconvBlock, max_pool_3x3_s2, remat_layers,
-                                            training_call)
+                                            set_conv_kernels, training_call)
 from i2rnet_tpu_torch.models.position import PositionEmbeddingImage, sine_position_embedding_2d
 from i2rnet_tpu_torch.models.pure_multi import DTYPES, set_train_routes
 
@@ -113,12 +114,14 @@ class InterFormerE2E(HRNetTrunk):
             self.final_layer_multi = Conv2d(d_model, num_joints, k, 1, k // 2)
         else:
             self.final_layer = Conv2d(d_model, num_joints, k, 1, k // 2)
+        set_conv_kernels(self, use_kernels)
 
     def set_kernels(self, use_kernels: bool) -> None:
         """``DEVICE.USE_KERNELS``: both encoders on Kernels A and B (C and D
-        in training)."""
+        in training), the trunk's folded eval conv units on the epilogue kernel."""
         for encoder in self.encoders():
             encoder.use_kernels = use_kernels
+        set_conv_kernels(self, use_kernels)
 
     def encoders(self):
         """The intra encoder, then the inter encoder."""

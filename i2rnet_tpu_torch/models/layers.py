@@ -8,6 +8,13 @@ activation dtype at use, as flax's ``dtype=`` does: the input's dtype, or
 ``compute_dtype`` where the owning model sets one (the HRFormer, whose stream
 may be f32 where its projections compute in bf16). :func:`conv_init_` is the
 JAX package's ``conv_init`` (N(0, 0.001), reference ``init_weights``).
+
+In eval, where no gradient is wanted, each conv unit (conv -> BatchNorm
+[-> + residual] [-> ReLU] of :class:`ConvBN`, :class:`BasicBlock`,
+:class:`Bottleneck` and the HRNet stems) runs folded (:func:`conv_unit`): one
+channels-last convolution whose weights carry the BatchNorm's scale, then one
+epilogue pass (``ops/cuda/conv_epilogue.py``), as XLA fused the unit on the
+TPU. Training and any forward that needs gradients run the units unfused.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint as torch_checkpoint
 from torch import nn
 
+from i2rnet_tpu_torch.ops.cuda.conv_epilogue import conv_epilogue_torch
+from i2rnet_tpu_torch.ops.cuda.library import route
 from i2rnet_tpu_torch.parallel import dist
 
 
@@ -281,7 +290,75 @@ def remat(module: nn.Module, fn, *args, policy=None):
     return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False, context_fn=contexts)
 
 
-class ConvBN(nn.Sequential):
+def folds(x, *modules) -> bool:
+    """Whether the conv units of ``modules`` run folded (:func:`conv_unit`):
+    each module in eval mode and no gradient wanted (grad mode off, or neither
+    ``x`` nor any of their parameters requires one)."""
+    if any(m.training for m in modules):
+        return False
+    return not torch.is_grad_enabled() or not (
+        x.requires_grad or any(p.requires_grad for m in modules for p in m.parameters()))
+
+
+def fold_bn(conv: nn.Conv2d, bn: MaskedBatchNorm, dtype):
+    """``bn``'s running statistics folded into ``conv``: (weights, bias) with
+    ``k = weight * rsqrt(running_var + eps)`` in f32, the weights ``conv.weight
+    * k`` per output channel cast to ``dtype`` in channels-last, the bias
+    ``bn.bias - running_mean * k`` in f32.
+
+    Folded anew at every call, as ``Conv2d`` casts its weights at every call:
+    about 7 launches of a few channels' work a unit, the same in a forward
+    that ``torch.export`` traces. Gradients are turned off only where they are
+    on: a grad-mode switch inside an exported forward splits its graph, and
+    ``torch.export`` takes minutes to inline 160 of them back."""
+    with torch.no_grad() if torch.is_grad_enabled() else contextlib.nullcontext():
+        k = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+        w = (conv.weight * k[:, None, None, None]).to(dtype, memory_format=torch.channels_last)
+        return w, bn.bias - bn.running_mean * k
+
+
+def conv_unit(conv: "Conv2d", bn: MaskedBatchNorm, x, relu: bool = False, residual=None,
+              kernel: bool = False):
+    """One eval conv unit, folded: ``conv`` with ``bn`` in its weights
+    (:func:`fold_bn`) and no bias, its output channels-last, then
+    ``act(y + bias (+ residual))`` in one pass: the epilogue kernel's route
+    with ``kernel``, else its plain version."""
+    dtype = conv.compute_dtype or x.dtype
+    w, b = fold_bn(conv, bn, dtype)
+    y = F.conv2d(x.to(dtype), w, None, conv.stride, conv.padding, conv.dilation, conv.groups)
+    y = y.contiguous(memory_format=torch.channels_last)
+    if residual is not None:
+        residual = residual.contiguous(memory_format=torch.channels_last)
+    epilogue = route("conv_epilogue") if kernel else conv_epilogue_torch
+    return epilogue(y, b, residual, relu)
+
+
+class ConvUnits:
+    """A module made of conv units. ``use_kernels`` (the model's kernel
+    switch, :func:`set_conv_kernels`) finishes its folded units with the
+    epilogue kernel, else with its plain version."""
+
+    use_kernels = False
+
+
+def set_conv_kernels(module: nn.Module, use_kernels: bool) -> None:
+    """``use_kernels`` on every :class:`ConvUnits` under ``module``."""
+    for m in module.modules():
+        if isinstance(m, ConvUnits):
+            m.use_kernels = bool(use_kernels)
+
+
+def stem_convs(stem: nn.Module, x):
+    """An HRNet stem's two stride-2 conv units with ReLU (``conv1``/``bn1``,
+    ``conv2``/``bn2`` of ``stem``, a :class:`ConvUnits`)."""
+    if folds(x, stem.conv1, stem.bn1, stem.conv2, stem.bn2):
+        x = conv_unit(stem.conv1, stem.bn1, x, True, kernel=stem.use_kernels)
+        return conv_unit(stem.conv2, stem.bn2, x, True, kernel=stem.use_kernels)
+    x = F.relu(stem.bn1(stem.conv1(x)))
+    return F.relu(stem.bn2(stem.conv2(x)))
+
+
+class ConvBN(ConvUnits, nn.Sequential):
     """Conv (no bias, padding k//2) + BN, optional ReLU; children ``0``/``1``
     as the reference's ``nn.Sequential(conv, bn[, relu])``."""
 
@@ -293,8 +370,13 @@ class ConvBN(nn.Sequential):
             mods.append(nn.ReLU())
         super().__init__(*mods)
 
+    def forward(self, x):
+        if folds(x, self):
+            return conv_unit(self[0], self[1], x, len(self) > 2, kernel=self.use_kernels)
+        return super().forward(x)
 
-class BasicBlock(nn.Module):
+
+class BasicBlock(ConvUnits, nn.Module):
     """3x3-3x3 residual block, expansion 1 (reference pureMulti :37-66)."""
 
     expansion = 1
@@ -309,13 +391,17 @@ class BasicBlock(nn.Module):
                            if downsample else None)
 
     def forward(self, x):
+        if folds(x, self):
+            residual = x if self.downsample is None else self.downsample(x)
+            out = conv_unit(self.conv1, self.bn1, x, True, kernel=self.use_kernels)
+            return conv_unit(self.conv2, self.bn2, out, True, residual, self.use_kernels)
         out = F.relu(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(out + residual)
 
 
-class Bottleneck(nn.Module):
+class Bottleneck(ConvUnits, nn.Module):
     """1x1-3x3-1x1 residual block, expansion 4 (reference pureMulti :69-107)."""
 
     expansion = 4
@@ -332,6 +418,11 @@ class Bottleneck(nn.Module):
                            if downsample else None)
 
     def forward(self, x):
+        if folds(x, self):
+            residual = x if self.downsample is None else self.downsample(x)
+            out = conv_unit(self.conv1, self.bn1, x, True, kernel=self.use_kernels)
+            out = conv_unit(self.conv2, self.bn2, out, True, kernel=self.use_kernels)
+            return conv_unit(self.conv3, self.bn3, out, True, residual, self.use_kernels)
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))

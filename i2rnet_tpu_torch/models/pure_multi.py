@@ -25,7 +25,7 @@ from i2rnet_tpu_torch.models.encoder import (SelfAttention, TransformerEncoder, 
 from i2rnet_tpu_torch.models.hrformer import WindowRPEAttention
 from i2rnet_tpu_torch.models.hrnet import HRNetTrunk
 from i2rnet_tpu_torch.models.layers import (Conv2d, DeconvBlock, conv_init_, remat_layers,
-                                            training_call)
+                                            set_conv_kernels, training_call)
 from i2rnet_tpu_torch.models.position import PositionEmbeddingImage
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -36,8 +36,9 @@ class PureMultiInterFormer(HRNetTrunk):
     """``forward(images [B,N,H,W,3], pos_masks [B,N,H,W,1], person_valid [B,N])
     -> heatmaps [B, N, K, hh, hw]`` (float32), as the JAX model's ``"multi"``.
 
-    ``global_encoder.use_kernels`` routes the encoder through the kernels
-    (eval A and B, training C and D) or their plain versions;
+    ``use_kernels`` (:meth:`set_kernels`) routes the encoder through the
+    kernels (eval A and B, training C and D) and the trunk's folded eval conv
+    units through the epilogue kernel, or both through their plain versions;
     ``compute_dtype`` is the activation dtype (``TPU.COMPUTE_DTYPE``).
 
     ``train=True`` is the JAX ``train=True``: the modules run in training
@@ -70,10 +71,13 @@ class PureMultiInterFormer(HRNetTrunk):
                                          bias=extra.get("DECONV_WITH_BIAS", False))
         self.final_layer = Conv2d(filters, num_joints, final_conv_kernel, 1,
                                   final_conv_kernel // 2)
+        set_conv_kernels(self, use_kernels)
 
     def set_kernels(self, use_kernels: bool) -> None:
-        """``DEVICE.USE_KERNELS``: Kernels A and B (C and D in training)."""
+        """``DEVICE.USE_KERNELS``: Kernels A and B (C and D in training) and
+        the conv epilogue."""
         self.global_encoder.use_kernels = use_kernels
+        set_conv_kernels(self, use_kernels)
 
     def encoders(self):
         """The transformer encoders whose layers run Kernels A and B."""

@@ -35,7 +35,7 @@ from torch import nn
 from i2rnet_tpu_torch import tracing
 from i2rnet_tpu_torch.models.encoder import INTRA_OFFSET_BASE, TransformerEncoder
 from i2rnet_tpu_torch.models.hrnet import HRNetTrunk
-from i2rnet_tpu_torch.models.layers import Conv2d
+from i2rnet_tpu_torch.models.layers import Conv2d, set_conv_kernels
 from i2rnet_tpu_torch.models.position import sine_position_embedding_2d
 
 
@@ -78,8 +78,10 @@ class TransPoseH(HRNetTrunk):
         """``DEVICE.USE_KERNELS`` for the encoder; the HRFormer block routes
         in ``fused`` have nothing to switch here, and the encoder's training
         routes (``flash_train``, ``fused_ffn_train``) stay as ``build_interformer`` set
-        them."""
+        them. The trunk's folded eval conv units take the epilogue kernel
+        with ``use_kernels``."""
         self.global_encoder.use_kernels = use_kernels
+        set_conv_kernels(self, use_kernels)
 
     def set_remat(self, layers: bool) -> None:
         """``DEVICE.REMAT`` ``layers``: each encoder layer recomputed in training."""

@@ -10,6 +10,7 @@ Importing this package registers the eval kernels as ``i2r::`` ops
 """
 
 from i2rnet_tpu_torch import tracing
+from i2rnet_tpu_torch.ops.cuda.conv_epilogue import conv_epilogue_fused
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn import encoder_ffn_fused
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn_train import ffn_train_bwd, ffn_train_fwd
 from i2rnet_tpu_torch.ops.cuda.hrformer_block import (full_block_fused, mlp_block_fused,
@@ -26,7 +27,8 @@ KERNELS = {"masked_mhsa": masked_mhsa_fused, "encoder_ffn": encoder_ffn_fused,
            "encoder_ffn_train_fwd": ffn_train_fwd, "encoder_ffn_train_bwd": ffn_train_bwd,
            "window_attn_block": window_attn_block_fused, "mlp_block": mlp_block_fused,
            "mlp_dwbn": mlp_dwbn_fused, "window_attn_block_train_fwd": window_attn_train_fwd,
-           "window_attn_block_train_bwd": window_attn_train_bwd, "full_block": full_block_fused}
+           "window_attn_block_train_bwd": window_attn_train_bwd, "full_block": full_block_fused,
+           "conv_epilogue": conv_epilogue_fused}
 
 
 def reset_launches() -> None:

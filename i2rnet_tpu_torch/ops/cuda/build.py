@@ -49,6 +49,7 @@ SIGNATURES = {
     "i2r_mlp_dwbn_fwd": (_P,) * 9 + (_I,) * 9 + (_P,),
     "i2r_full_block_fwd": (_P,) * 21 + (_I,) * 11 + (_F, _I, _P),
     "i2r_full_block_plan": (_I,) * 12 + (_P,),
+    "i2r_conv_epilogue": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -21,7 +21,7 @@ Each op carries a FLOP formula (``torch.utils.flop_counter``), so
 multiply-add of the op's plain version, its products and, for the MlpDWBN
 ops, its depthwise 3x3 (nine multiply-adds per hidden element). Softmax,
 LayerNorm, GELU and the residuals are not counted, as ``FlopCounterMode``
-counts no elementwise op.
+counts no elementwise op; nor is the conv epilogue, which is nothing else.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import torch
 from torch import Tensor
 from torch.utils.flop_counter import register_flop_formula
 
+from i2rnet_tpu_torch.ops.cuda.conv_epilogue import conv_epilogue_fused
 from i2rnet_tpu_torch.ops.cuda.encoder_ffn import encoder_ffn_fused
 from i2rnet_tpu_torch.ops.cuda.hrformer_block import (full_block_fused, mlp_block_fused,
                                                       window_attn_block_fused)
@@ -105,6 +106,19 @@ def mlp_dwbn(x: Tensor, w1: Tensor, b1: Tensor, dw: Tensor, bdw: Tensor, w2: Ten
     return mlp_dwbn_fused(x, w1, b1, dw, bdw, w2, b2, packed or None)
 
 
+@torch.library.custom_op("i2r::conv_epilogue", mutates_args=())
+def conv_epilogue(y: Tensor, bias: Tensor, residual: Optional[Tensor] = None,
+                  relu: bool = False) -> Tensor:
+    """The conv unit's epilogue
+    (:func:`~i2rnet_tpu_torch.ops.cuda.conv_epilogue.conv_epilogue_fused`)."""
+    return conv_epilogue_fused(y, bias, residual, relu)
+
+
+@conv_epilogue.register_fake
+def _conv_epilogue_fake(y, bias, residual=None, relu=False):
+    return torch.empty_like(y)  # y's layout: channels-last in the trunk
+
+
 def _full_block_op(*args, packed=None, **kwargs):
     """:func:`full_block` with the wrapper's ``packed`` pair."""
     return full_block(*args, packed=[] if packed is None else [*packed[0], *packed[1]],
@@ -122,6 +136,7 @@ ROUTES: Dict[str, tuple] = {
     "mlp_block": (mlp_block_fused, mlp_block),
     "full_block": (full_block_fused, _full_block_op),
     "mlp_dwbn": (mlp_dwbn_fused, mlp_dwbn),
+    "conv_epilogue": (conv_epilogue_fused, conv_epilogue),
 }
 
 class _Routing(threading.local):

@@ -63,7 +63,7 @@ def test_export_tool_round_trip(checkpoint, tmp_path, capsys, kernels):
          "--persons", "2", "--raw-hw", "240", "320", "--device", "cpu",
          *(["--selftest"] if kernels else ["--no-kernels"])])
     assert ("selftest ok: keypoints (1, 17, 3)" in capsys.readouterr().out) == kernels
-    ops = ["i2r::encoder_ffn", "i2r::masked_mhsa"] if kernels else []
+    ops = ["i2r::conv_epilogue", "i2r::encoder_ffn", "i2r::masked_mhsa"] if kernels else []
     pred = load_predictor(str(out), device="cpu")
     assert header["kernels"] == pred.header["kernels"] == ops
     assert graph_ops(pred.programs[2].graph) == ops

@@ -37,7 +37,7 @@ torch.set_num_threads(2)
 
 B, BUCKETS, RAW_HW = 2, (2, 3), (96, 128)
 FLIP_PAIRS = [[1, 2], [3, 4]]  # COCO's pairs within K=5
-KERNEL_OPS = ["i2r::encoder_ffn", "i2r::masked_mhsa"]
+KERNEL_OPS = ["i2r::conv_epilogue", "i2r::encoder_ffn", "i2r::masked_mhsa"]
 
 
 def _jax_cfg():
@@ -104,8 +104,9 @@ def test_artifact_requests_match_jax_and_in_process(served, rng):
 
 def test_graph_holds_the_kernel_ops(served):
     """Every bucket's program calls Kernels A and B as ``i2r::`` ops, once per
-    layer and forward (2 layers, flip test). The ``--no-kernels`` artifact,
-    with none, is ``tests/test_torch_hub_demo.py``'s."""
+    layer and forward (2 layers, flip test), and the conv epilogue once per
+    conv unit of the trunk and forward (37 units). The ``--no-kernels``
+    artifact, with none, is ``tests/test_torch_hub_demo.py``'s."""
     _, _, _, pred, _, _ = served
     assert pred.header["kernels"] == KERNEL_OPS
     for n in BUCKETS:
@@ -114,6 +115,7 @@ def test_graph_holds_the_kernel_ops(served):
         calls = [str(node.target) for node in graph.nodes if node.op == "call_function"]
         assert calls.count("i2r.masked_mhsa.default") == 4
         assert calls.count("i2r.encoder_ffn.default") == 4
+        assert calls.count("i2r.conv_epilogue.default") == 2 * 37
 
 
 def test_loaded_predictor_routes_and_chunks(served):

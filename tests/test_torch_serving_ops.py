@@ -1,4 +1,4 @@
-"""The six eval kernels as registered ``i2r::`` ops, and the artifact of the
+"""The seven eval kernels as registered ``i2r::`` ops, and the artifact of the
 tiny HRFormer two-stage model on the E + F route.
 
 * ``torch.library.opcheck`` on each op at small CPU shapes: the schema, the
@@ -34,7 +34,8 @@ torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
 B, N, RAW_HW = 2, 2, (96, 128)
-HRT_OPS = ["i2r::encoder_ffn", "i2r::masked_mhsa", "i2r::mlp_block", "i2r::window_attn_block"]
+HRT_OPS = ["i2r::conv_epilogue", "i2r::encoder_ffn", "i2r::masked_mhsa", "i2r::mlp_block",
+           "i2r::window_attn_block"]
 
 
 def _t(rng, *shape, scale=1.0):
@@ -63,6 +64,8 @@ def _op_cases():
     pm = list(mb.pack_mlp(*mlp, torch.float32, "cpu"))
     ffn = [_t(rng, c), _t(rng, c, scale=0.1), _t(rng, d, c, scale=0.3), _t(rng, d, scale=0.1),
            _t(rng, c, d, scale=0.3), _t(rng, c, scale=0.1), _t(rng, c), _t(rng, c, scale=0.1)]
+    cl = torch.channels_last
+    y, res = (_t(rng, 2, c, 5, 6).contiguous(memory_format=cl) for _ in range(2))
     return {
         "masked_mhsa": (q, k, v, heads, mask),
         "encoder_ffn": (q, *ffn, 1e-5),
@@ -70,6 +73,7 @@ def _op_cases():
         "mlp_block": (x, *ln_m, *mlp, 1e-6, pm),
         "full_block": (x, *ln_a, *attn, *ln_m, *mlp, heads, 7, 1e-6, pa + pm),
         "mlp_dwbn": (x, *mlp, list(mb.pack_mlp32(*mlp, "cpu"))),
+        "conv_epilogue": (y, _t(rng, c), res, True),
     }
 
 
@@ -84,7 +88,8 @@ def test_opcheck(name):
     wrapper = library.ROUTES[name][0]
     # the wrappers take the packed weights apart from the op's list; on the
     # CPU they compute the plain version from the weights themselves
-    want = wrapper(*args) if name in ("masked_mhsa", "encoder_ffn") else wrapper(*args[:-1])
+    whole = name in ("masked_mhsa", "encoder_ffn", "conv_epilogue")
+    want = wrapper(*args) if whole else wrapper(*args[:-1])
     torch.testing.assert_close(op(*args), want, rtol=0, atol=0)
 
 

@@ -460,7 +460,7 @@ def test_export_with_recording_on_traces_the_spans_away(served):
     tracing.enable()
     payload, header = export_predictor(cfg, model, B, BUCKETS[:1], RAW_HW, device="cpu",
                                        use_kernels=True)
-    assert header["kernels"] == ["i2r::encoder_ffn", "i2r::masked_mhsa"]
+    assert header["kernels"] == ["i2r::conv_epilogue", "i2r::encoder_ffn", "i2r::masked_mhsa"]
     ep = torch.export.load(io.BytesIO(payload))
     assert graph_ops(ep.graph) == header["kernels"]
     assert not [n for n in ep.graph.nodes if "profiler" in str(n.target)]
